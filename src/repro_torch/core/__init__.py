@@ -1,0 +1,27 @@
+"""Core compiler, copied from ``repro.core`` (pure Python).
+
+Pipeline:  ModelGraph (ir) -> tiles (tiling) -> loop order (dataflow)
+        -> balance (balance) -> ModelSchedule (schedule)
+        -> regions (regions) -> Program (program) -> runtime/executor.
+
+The hardware models are the reference's (``TPU_V5E``, ``SNOWFLAKE``),
+so a Program compiled here lists byte for byte like ``repro``'s.
+``quant``, ``roofline``, ``cost``, ``autotune`` and ``hlo_analysis``
+are not carried yet (ROADMAP A.2).
+"""
+from .hw import (HardwareModel, MeshDescriptor, MULTI_POD, SINGLE_POD,
+                 SNOWFLAKE, TPU_V5E)
+from .ir import (DepLabel, LayerKind, LayerNode, ModelGraph, conv_node,
+                 matmul_node)
+from .tiling import (ConvTiling, MatmulTiling, select_conv_row_strips,
+                     select_matmul_tiles)
+from .dataflow import (Dataflow, DataflowDecision, DistDecision,
+                       DistStrategy, choose_dist_strategy,
+                       choose_matmul_dataflow, matmul_traffic)
+from .balance import (assign_lpt, balance_transfers, moe_capacity,
+                      percent_imbalance, split_transfer)
+from .schedule import LayerSchedule, ModelSchedule, compile_model
+from .regions import Region, RegionPlan, allocate_regions
+from .program import Program, ProgramOp, lower_to_program
+
+__all__ = [n for n in dir() if not n.startswith("_")]

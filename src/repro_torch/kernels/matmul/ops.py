@@ -1,0 +1,57 @@
+"""Public wrapper for the scheduled matmul (counterpart of
+``repro/kernels/matmul/ops.py``): schedule lookup, leading-batch-dim
+folding, and the kernel / plain-version dispatch."""
+from __future__ import annotations
+
+import torch
+
+from ...core.dataflow import Dataflow, choose_matmul_dataflow
+from ...core.hw import TPU_V5E
+from ..common import use_kernel
+from .kernel import matmul_cuda
+from .ref import matmul_ref
+
+__all__ = ["matmul"]
+
+
+def _ceil_mult(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           bias: torch.Tensor | None = None,
+           activation: str | None = None,
+           bypass: torch.Tensor | None = None,
+           impl: str = "auto",
+           dataflow: Dataflow | None = None,
+           block: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """``epilogue(a @ b)`` with schedule-driven tiling.
+
+    a: (..., K); b: (K, N); bias: (N,); bypass: broadcastable to out.
+    impl: "auto" (kernel on a CUDA tensor, plain version on a CPU one) |
+    "cuda" | "reference".  Without the schedule's ``dataflow`` and
+    ``block`` they are chosen for ``TPU_V5E``, the hardware the port's
+    Programs are compiled for.  The kernel is f32 only.
+    """
+    if not use_kernel(impl, a):
+        return matmul_ref(a, b, bias=bias, activation=activation,
+                          bypass=bypass)
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1])
+    M, K = a2.shape
+    N = b.shape[-1]
+    if dataflow is None or block is None:
+        dec = choose_matmul_dataflow(M, K, N, a.element_size(), TPU_V5E)
+        dataflow = dataflow or dec.dataflow
+        block = block or (dec.tiling.bm, dec.tiling.bk, dec.tiling.bn)
+    bm, bk, bn = block
+    block = (min(bm, _ceil_mult(M, 128)), min(bk, _ceil_mult(K, 128)),
+             min(bn, _ceil_mult(N, 128)))
+    byp = None
+    if bypass is not None:
+        byp = bypass.reshape(-1, N).expand(M, N).contiguous()
+    out = matmul_cuda(a2.contiguous(), b.contiguous(), dataflow=dataflow,
+                      block=block, bias=bias, activation=activation,
+                      bypass=byp)
+    return out.reshape(*lead, N)
+

@@ -1,0 +1,94 @@
+"""Model substrate: parameter definition trees, init, and the weight
+bridge from ``repro`` (counterpart of ``repro/models/common.py``).
+
+Parameters are declared as ``ParamDef`` trees (shape + dtype + logical
+axes + init kind) and initialised from a ``torch.Generator``.  The same
+seed gives other numbers than ``repro``'s ``jax.random`` init, so
+parity checks hand both packages the same arrays: ``params_from_numpy``
+turns ``repro``'s parameter tree, taken as numpy arrays, into this
+package's tree with the same keys, shapes, layouts and dtypes, and
+never re-initialises anything.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = ["ParamDef", "init_params", "tree_paths", "params_from_numpy"]
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[Any, ...]                 # logical axis names (or None)
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"                  # normal | zeros | ones | embed
+    init_scale: float | None = None       # overrides fan-in scaling
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_paths(defs: dict, prefix: str = "") -> list[str]:
+    out = []
+    for k, v in defs.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.extend(tree_paths(v, p))
+        else:
+            out.append(p)
+    return out
+
+
+def _init_leaf(d: ParamDef, generator: torch.Generator,
+               device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    if d.init == "embed":
+        scale = d.init_scale if d.init_scale is not None else 0.02
+    else:
+        # fan-in scaled normal; stacked layer axes excluded from fan-in.
+        fan_shape = (d.shape[1:] if (d.axes and d.axes[0] == "layers")
+                     else d.shape)
+        fan = math.prod(fan_shape[:-1]) if len(fan_shape) > 1 else fan_shape[0]
+        scale = d.init_scale if d.init_scale is not None else fan ** -0.5
+    x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (x * scale).to(d.dtype)
+
+
+def init_params(defs: dict, generator: torch.Generator,
+                device=None) -> dict:
+    """Initialise a ParamDef tree to tensors on ``device`` (the
+    generator's device by default), drawing leaves in ``tree_paths``
+    order from ``generator``."""
+    device = generator.device if device is None else device
+
+    def go(sub: dict) -> dict:
+        return {k: go(v) if isinstance(v, dict)
+                else _init_leaf(v, generator, device)
+                for k, v in sub.items()}
+    return go(defs)
+
+
+def params_from_numpy(tree: dict, device="cpu") -> dict:
+    """The weight bridge: a nested dict of arrays (``repro``'s params
+    after ``np.asarray``) as the same tree of tensors on ``device``.
+    Keys, shapes and layouts are kept; float32/bfloat16 keep their
+    dtype (bfloat16 arrays arrive as ml_dtypes and are widened through
+    float32 on the way)."""
+    def leaf(a) -> torch.Tensor:
+        arr = np.asarray(a)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    return {k: params_from_numpy(v, device) if isinstance(v, dict)
+            else leaf(v) for k, v in tree.items()}
