@@ -1,8 +1,32 @@
-"""Config registry: --arch <id> -> CNNConfig (CNN archs only so far)."""
-from .base import CNNConfig, CNNLayer
+"""Config registry: --arch <id> -> ArchConfig (dense LMs) / CNNConfig."""
+from .archs import (ALL_ARCHS, DEEPSEEK_7B, LLAMA3_8B, OLMO_1B, SMOLLM_360M,
+                    UNPORTED_ARCHS)
+from .base import ArchConfig, CNNConfig, CNNLayer
 from .cnns import ALEXNET_OWT, ALL_CNNS, RESNET18, RESNET50
 
+REGISTRY = {c.name: c for c in ALL_ARCHS}
 CNN_REGISTRY = {c.name: c for c in ALL_CNNS}
 
-__all__ = ["CNNConfig", "CNNLayer", "CNN_REGISTRY", "ALL_CNNS",
-           "ALEXNET_OWT", "RESNET18", "RESNET50"]
+
+def get_config(name: str):
+    """The config named ``name`` (an ``-smoke`` suffix gives its reduced
+    form).  Raises ``NotImplementedError`` naming ROADMAP A.9 for an
+    architecture of a family the port does not carry yet."""
+    base = name.removesuffix("-smoke")
+    if base in UNPORTED_ARCHS:
+        raise NotImplementedError(
+            f"{name}: the {UNPORTED_ARCHS[base]} family is not ported to "
+            f"repro_torch yet (ROADMAP A.9)")
+    if name in CNN_REGISTRY:
+        return CNN_REGISTRY[name]
+    if name in REGISTRY:
+        return REGISTRY[name]
+    if base in REGISTRY:
+        return REGISTRY[base].smoke()
+    raise KeyError(f"unknown arch {name!r}; known: "
+                   f"{sorted(REGISTRY) + sorted(CNN_REGISTRY)}")
+
+
+__all__ = ["ArchConfig", "CNNConfig", "CNNLayer", "REGISTRY", "CNN_REGISTRY",
+           "get_config", "ALL_ARCHS", "ALL_CNNS", "ALEXNET_OWT", "RESNET18",
+           "RESNET50", "DEEPSEEK_7B", "LLAMA3_8B", "OLMO_1B", "SMOLLM_360M"]

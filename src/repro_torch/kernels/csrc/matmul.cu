@@ -1,19 +1,25 @@
-// Scheduled f32 matmul with fused epilogue for Hopper (sm_90a).
+// Scheduled matmul with fused epilogue for Hopper (sm_90a), f32 or bf16.
 //
 // Replaces repro/kernels/matmul/kernel.py::matmul_pallas: out =
 // epilogue(A @ B) for A (M,K), B (K,N) row-major, with bias -> activation
 // -> bypass on writeback (no bypass_first here: the matmul epilogue has
 // none).  The ragged edges of M, N and K are masked in the kernel, so the
-// operands are never padded to the schedule's block.
+// operands are never padded to the schedule's block.  The element type T
+// is float or __nv_bfloat16 for A, B, bias, bypass and out alike, as the
+// reference writes out_dtype = a.dtype; the sum and the whole epilogue
+// are f32, and the result is rounded to T once, on the store.
 //
-// Bound on an H100: every FC layer the CNN Programs run has M = batch
-// (a few rows) and a K x N weight of 2-151 MB, so the product does ~M/2
-// FLOP per weight byte: HBM (3.35 TB/s) bounds it, not arithmetic.  The
-// tile is shaped for that: 16 rows x 32 columns per CTA (N/32 CTAs
-// stream disjoint weight columns), a deep K slice of 128 so each CTA keeps
-// 16 KB of weight loads in flight, and a register prefetch of the next
-// slice while the current one is reduced from shared memory.  Split-K,
-// wider loads and a tensor-core path for large M are later work.
+// Bound on an H100: the CNN FC layers and the LM decode projections have
+// M = batch or slots (a few rows) and a K x N weight of 0.6-151 MB, so
+// the product does ~M/2 FLOP per weight byte (M per byte in bf16): HBM
+// (3.35 TB/s) bounds it, not arithmetic.  The tile is shaped for that:
+// 16 rows x 32 columns per CTA (N/32 CTAs stream disjoint weight
+// columns), a deep K slice of 128 so each CTA keeps 16 KB (8 KB in bf16)
+// of weight loads in flight, and a register prefetch of the next slice
+// while the current one is reduced from shared memory.  The LM prefill
+// projections (M = 512) are bounded by the tensor cores instead; this
+// SIMT loop runs them far below that bound.  Split-K, wider loads and a
+// wgmma path for large M are later work.
 //
 // Each CTA owns its output tile over all of K (the TPU's OUTPUT_STATIONARY
 // k-grid accumulator becomes a loop inside the CTA).  The dataflow sets
@@ -21,6 +27,7 @@
 // one M tile back to back, WEIGHTS_RESIDENT the M tiles of one N tile,
 // and OUTPUT_STATIONARY walks the schedule's (bm, bn) blocks one at a time.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -33,18 +40,34 @@ constexpr int AST = BM + 1;    // padded A tile row: conflict-free stores
 constexpr int THREADS = 128;   // 32 columns x 4 row groups of 4
 static_assert(BK == THREADS, "one A column per thread");
 
+template <typename T>
 struct MatmulArgs {
-  const float* a;
-  const float* b;
-  const float* bias;
-  const float* bypass;
-  float* out;
+  const T* a;
+  const T* b;
+  const T* bias;
+  const T* bypass;
+  T* out;
   int M, K, N;
   int n_mt, n_nt;
   int dataflow;  // 0 maps resident, 1 weights resident, 2 output stationary
   int gm, gn, n_bn;  // output-stationary block in tiles; blocks along N
   int act;
 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch casts
+}
 
 __device__ __forceinline__ float activate(float v, int act) {
   switch (act) {
@@ -63,7 +86,8 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS) matmul_kernel(MatmulArgs p) {
+template <typename T>
+__global__ void __launch_bounds__(THREADS) matmul_kernel(MatmulArgs<T> p) {
   __shared__ float As[BK * AST];   // [BK][AST], k-major
   __shared__ float Bs[BK * BN];    // [BK][BN]
 
@@ -97,12 +121,12 @@ __global__ void __launch_bounds__(THREADS) matmul_kernel(MatmulArgs p) {
     const int k = k0 + ak;
     for (int q = 0; q < BM; ++q) {
       const int m = m0 + q;
-      ra[q] = (k < p.K && m < p.M) ? p.a[(size_t)m * p.K + k] : 0.f;
+      ra[q] = (k < p.K && m < p.M) ? to_f32(p.a[(size_t)m * p.K + k]) : 0.f;
     }
     const int n = n0 + bn;
     for (int q = 0; q < BK / 4; ++q) {
       const int kk = k0 + bk + 4 * q;
-      rb[q] = (kk < p.K && n < p.N) ? p.b[(size_t)kk * p.N + n] : 0.f;
+      rb[q] = (kk < p.K && n < p.N) ? to_f32(p.b[(size_t)kk * p.N + n]) : 0.f;
     }
   };
 
@@ -128,22 +152,19 @@ __global__ void __launch_bounds__(THREADS) matmul_kernel(MatmulArgs p) {
     const int m = m0 + ty * 4 + i;
     if (m >= p.M) continue;
     float v = acc[i];
-    if (p.bias) v += p.bias[n];
+    if (p.bias) v += to_f32(p.bias[n]);
     v = activate(v, p.act);
     const size_t o = (size_t)m * p.N + n;
-    if (p.bypass) v += p.bypass[o];
-    p.out[o] = v;
+    if (p.bypass) v += to_f32(p.bypass[o]);
+    p.out[o] = from_f32<T>(v);
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-int matmul_f32(const float* a, const float* b, const float* bias,
-               const float* bypass, float* out, int M, int K, int N,
-               int dataflow, int bm, int bn, int act, void* stream) {
-  MatmulArgs p;
+template <typename T>
+int launch(const T* a, const T* b, const T* bias, const T* bypass, T* out,
+           int M, int K, int N, int dataflow, int bm, int bn, int act,
+           void* stream) {
+  MatmulArgs<T> p;
   p.a = a;
   p.b = b;
   p.bias = bias;
@@ -166,8 +187,27 @@ int matmul_f32(const float* a, const float* b, const float* bias,
     const long long n_bm = (p.n_mt + p.gm - 1) / p.gm;
     n_cta = n_bm * p.n_bn * p.gm * p.gn;
   }
-  matmul_kernel<<<(unsigned)n_cta, THREADS, 0, (cudaStream_t)stream>>>(p);
+  matmul_kernel<T><<<(unsigned)n_cta, THREADS, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int matmul_f32(const float* a, const float* b, const float* bias,
+               const float* bypass, float* out, int M, int K, int N,
+               int dataflow, int bm, int bn, int act, void* stream) {
+  return launch(a, b, bias, bypass, out, M, K, N, dataflow, bm, bn, act,
+                stream);
+}
+
+int matmul_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                const __nv_bfloat16* bias, const __nv_bfloat16* bypass,
+                __nv_bfloat16* out, int M, int K, int N, int dataflow, int bm,
+                int bn, int act, void* stream) {
+  return launch(a, b, bias, bypass, out, M, K, N, dataflow, bm, bn, act,
+                stream);
 }
 
 const char* matmul_error_string(int err) {

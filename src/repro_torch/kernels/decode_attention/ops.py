@@ -1,0 +1,68 @@
+"""Public decode-attention wrapper and the shared ring rules
+(counterpart of ``repro/kernels/decode_attention/ops.py``).
+
+The cache operand is a **ring buffer**: callers that decode past the
+cache length (a rolling full-length cache, or a sliding-window cache
+sized ``W = min(max_len, attn_window)``) write the new token's K/V at
+``pos % S`` and pass ``kv_len = ring_kv_len(pos, S)`` -- the last
+``min(pos + 1, S)`` rows are then valid and everything at ring slots
+``>= kv_len`` is masked out (the CUDA kernel does not read it).  Row
+order inside the ring does not matter: RoPE bakes each row's absolute
+position into its key, and softmax attention is permutation-invariant
+over KV rows.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..common import use_kernel
+from .kernel import decode_attention_cuda
+from .ref import decode_attention_ref
+
+__all__ = ["decode_attention", "ring_kv_len", "ring_positions"]
+
+
+def ring_positions(length, cache_len: int, seq_len: int, device=None):
+    """Source position for every ring slot of a rolling cache holding
+    the last ``min(length, cache_len)`` of ``seq_len`` computed rows:
+    slot ``j`` holds the latest position ``p < length`` with ``p %
+    cache_len == j``.  Returns (cache_len,) int64 gather indices into
+    the full (seq_len, ...) row stack.
+
+    Slots with no valid position (j >= length) fall out of range and
+    are clipped -- they *duplicate* an early row, not hold zeros.  That
+    is safe because such slots sit at ring indices ``>=
+    ring_kv_len(length - 1, cache_len)`` and decode overwrites slot
+    ``pos % cache_len`` at the exact tick ``ring_kv_len`` first admits
+    it, so a duplicate is never attended.  THE ring-layout rule of the
+    prefill cache write (runtime/executor.py::_write_prefill_cache)."""
+    j = torch.arange(cache_len, device=device)
+    last = torch.as_tensor(length, device=device) - 1
+    p = j + torch.div(last - j, cache_len, rounding_mode="floor") * cache_len
+    return p.clamp(0, seq_len - 1)
+
+
+def ring_kv_len(pos: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Valid-row count of a rolling (ring) KV cache after the write at
+    ``pos % cache_len`` has landed: the last ``min(pos + 1, cache_len)``
+    tokens are attendable, older rows have been evicted by overwrite."""
+    return (pos + 1).clamp(max=cache_len)
+
+
+def decode_attention(q, k, v, *, kv_len=None, scale: float | None = None,
+                     impl: str = "auto") -> torch.Tensor:
+    """Single-token decode: q (B,Hq,D) vs cache (B,Hkv,S,D); kv_len (B,)
+    int32 or None for the full cache.
+
+    The schedule's ``block_kv`` is a TPU VMEM block (the reference pads
+    the cache to it); the CUDA kernel walks the live rows themselves and
+    reads nothing past ``kv_len``, so it takes no block and the cache is
+    never padded or copied."""
+    B, Hq, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    if kv_len is None:
+        kv_len = torch.full((B,), k.shape[2], dtype=torch.int32,
+                            device=q.device)
+    if not use_kernel(impl, q):
+        return decode_attention_ref(q, k, v, kv_len=kv_len, scale=scale)
+    return decode_attention_cuda(q, k, v, kv_len.to(torch.int32), scale=scale)

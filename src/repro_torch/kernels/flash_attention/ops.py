@@ -1,0 +1,67 @@
+"""Public flash-attention wrapper (counterpart of
+``repro/kernels/flash_attention/ops.py``): the schedule's blocks, the
+reference's padding rule, and the kernel / plain-version dispatch.
+
+The (block_q, block_kv) pair is the TPU schedule's VMEM block (about
+512 x 512 at the smollm-360m prefill).  It is taken verbatim for the
+reference's padding rule -- ``block_q`` falls back to 128 when it does
+not divide ``Sq``, q and kv are zero-padded to block multiples, and
+padded keys are masked through ``kv_len`` -- while the CUDA kernel cuts
+the work into its own 64 x 64 CTA tiles (``csrc/flash_attention.cu``).
+"""
+from __future__ import annotations
+
+import torch.nn.functional as F
+
+from ...core.hw import TPU_V5E, HardwareModel
+from ..common import use_kernel
+from .kernel import flash_attention_cuda
+from .ref import flash_ref
+
+__all__ = ["flash_attention", "attention_block_sizes"]
+
+
+def attention_block_sizes(Sq: int, Skv: int, D: int, dtype_bytes: int,
+                          hw: HardwareModel = TPU_V5E, *,
+                          window: int | None = None) -> tuple[int, int]:
+    """(block_q, block_kv) from the compiler's chooser
+    (core/tiling.py::select_attention_blocks), as the reference picks
+    them for a direct (non-Program) call."""
+    from ...core.tiling import select_attention_blocks
+    return select_attention_blocks(Sq, Skv, D, dtype_bytes, hw,
+                                   window=window)
+
+
+def flash_attention(q, k, v, *, scale: float | None = None,
+                    causal: bool = False, window: int | None = None,
+                    kv_len: int | None = None, impl: str = "auto",
+                    block_q: int | None = None, block_kv: int | None = None,
+                    hw: HardwareModel = TPU_V5E):
+    """Softmax attention, q (B,Hq,Sq,D), kv (B,Hkv,Skv,D) -> (B,Hq,Sq,D).
+
+    impl: "auto" (kernel on a CUDA tensor, plain version on a CPU one) |
+    "cuda" | "reference".  The default scale is ``D ** -0.5``."""
+    D = q.shape[-1]
+    scale = scale if scale is not None else D ** -0.5
+    if not use_kernel(impl, q):
+        return flash_ref(q, k, v, scale=scale, causal=causal, window=window,
+                         kv_len=kv_len)
+    Sq, Skv = q.shape[2], k.shape[2]
+    if block_q is None or block_kv is None:
+        bq, bkv = attention_block_sizes(Sq, Skv, D, q.element_size(), hw,
+                                        window=window)
+        block_q = block_q or bq
+        block_kv = block_kv or bkv
+    block_q = min(block_q, Sq) if Sq % min(block_q, Sq) == 0 else 128
+    pad_q = (-Sq) % block_q
+    pad_kv = (-Skv) % block_kv
+    if pad_kv and kv_len is None:
+        kv_len = Skv
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, pad_q))
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, pad_kv))
+    out, _ = flash_attention_cuda(q, k, v, scale=scale, causal=causal,
+                                  window=window, kv_len=kv_len)
+    return out[:, :, :Sq] if pad_q else out

@@ -31,7 +31,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     impl: "auto" (kernel on a CUDA tensor, plain version on a CPU one) |
     "cuda" | "reference".  Without the schedule's ``dataflow`` and
     ``block`` they are chosen for ``TPU_V5E``, the hardware the port's
-    Programs are compiled for.  The kernel is f32 only.
+    Programs are compiled for.  The kernel takes float32 or bfloat16,
+    with b, bias and bypass in ``a``'s type, the output's.
     """
     if not use_kernel(impl, a):
         return matmul_ref(a, b, bias=bias, activation=activation,

@@ -1,27 +1,43 @@
-"""Serving entry point: image classification off the compiled Program.
+"""Serving entry point: requests served off the compiled Programs.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch alexnet-owt \
         --slots 8 --requests 16 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --slots 8 --max-len 512 --requests 16 --prompt-len 32-448 \
+        --max-new 32 [--window 128] [--smoke --device cpu]
 
 CNN archs (alexnet-owt / resnet18 / resnet50) serve image-classify
-requests through the compiled-Program path on the card (or, with
-``--device cpu``, through the plain PyTorch versions on the CPU).
-Weights are random, drawn from ``--seed``.  Prints the Program listing,
-then ``served N images in T s (X img/s)``, then a few class ids.  An LM
-arch exits 2: LM serving is not ported yet.
+requests through the compiled Program; it prints the Program listing,
+then ``served N images in T s (X img/s)`` and a few class ids.
+
+Dense LM archs (smollm-360m, llama3-8b, olmo-1b, deepseek-7b) serve
+token requests statefully through the compiled (prefill, decode) Program
+pair: each request is prefilled once into the persistent KV regions,
+then every tick runs the decode Program.  ``--smoke`` takes the reduced
+config, ``--window`` sets a sliding attention window (the KV regions
+then hold ``min(max_len, window)`` rows), prompt lengths are drawn from
+``--prompt-len LO-HI``.  It prints the pair's first listing line,
+``served N requests, T tokens in S s (X tok/s)``, the prefill / recompute
+/ decode-tick counters and a few streams.
+
+Everything runs on the card unless ``--device cpu`` is given (the plain
+PyTorch versions).  Weights and prompts are random, drawn from
+``--seed``.  An architecture of a family not ported yet exits 2, naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
 import numpy as np
 import torch
 
-from ..configs import CNN_REGISTRY
+from ..configs import CNN_REGISTRY, get_config
 from ..kernels.common import resolve_device
-from ..models import cnn, init_params
+from ..models import cnn, init_params, transformer
 from ..serving import Request, ServingEngine
 
 
@@ -32,11 +48,20 @@ def make_images(cfg, n: int, seed: int) -> list[np.ndarray]:
             .astype(np.float32) for _ in range(n)]
 
 
+def make_prompts(vocab: int, n: int, lo: int, hi: int,
+                 seed: int) -> list[np.ndarray]:
+    """``n`` int32 prompts with lengths drawn from [lo, hi], from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=rng.integers(lo, hi + 1))
+            .astype(np.int32) for _ in range(n)]
+
+
 def serve_cnn(arch: str, *, slots: int, requests: int, device=None,
               seed: int = 0) -> dict:
     """Serve ``requests`` random images of ``arch`` with random weights
     drawn from ``seed``; returns the engine, the finished requests (by
-    uid) and the wall seconds of the serving loop."""
+    uid), the images and the wall seconds of the serving loop."""
     cfg = CNN_REGISTRY[arch]
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -52,29 +77,91 @@ def serve_cnn(arch: str, *, slots: int, requests: int, device=None,
             "images": images, "seconds": seconds}
 
 
+def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
+             prompt_len: tuple[int, int], device=None, seed: int = 0) -> dict:
+    """Serve ``requests`` random prompts of the dense LM ``cfg`` with
+    random weights drawn from ``seed``; returns the engine, the finished
+    requests (by uid) and the wall seconds of the serving loop (the
+    kernels' first-use build and the weight init stay outside it)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(transformer.param_defs(cfg), gen, dev)
+    eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
+                        device=dev)
+    prompts = make_prompts(cfg.vocab, requests, *prompt_len, seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i, prompt in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
+    done = eng.run_until_drained()
+    seconds = time.perf_counter() - t0
+    return {"engine": eng, "done": sorted(done, key=lambda r: r.uid),
+            "seconds": seconds}
+
+
+def _span(text: str) -> tuple[int, int]:
+    lo, _, hi = text.partition("-")
+    lo, hi = int(lo), int(hi or lo)
+    if not 1 <= lo <= hi:
+        raise argparse.ArgumentTypeError(f"want LO-HI with 1 <= LO <= HI, "
+                                         f"got {text!r}")
+    return lo, hi
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="alexnet-owt")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the LM arch's reduced same-family config")
     ap.add_argument("--slots", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--window", type=int, default=None,
+                    help="sliding attention window (LM archs); the KV "
+                         "regions then hold min(max_len, window) rows")
+    ap.add_argument("--prompt-len", type=_span, default=(1, 7),
+                    metavar="LO-HI", help="prompt lengths, drawn uniformly")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs "
                          "the plain PyTorch versions)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.arch not in CNN_REGISTRY:
-        print(f"error: --arch {args.arch} is not yet ported to repro_torch "
-              f"(ported: {', '.join(sorted(CNN_REGISTRY))})",
-              file=sys.stderr)
+    if args.arch in CNN_REGISTRY:
+        res = serve_cnn(args.arch, slots=args.slots, requests=args.requests,
+                        device=args.device, seed=args.seed)
+        done, dt = res["done"], res["seconds"]
+        print(res["engine"].program.listing())
+        print(f"served {len(done)} images in {dt:.2f}s "
+              f"({len(done) / dt:.1f} img/s)")
+        for r in done[:4]:
+            print(f"  req {r.uid}: class {r.out_tokens[0]}")
+        return res
+    try:
+        cfg = get_config(args.arch)
+    except (KeyError, NotImplementedError) as e:
+        print(f"error: --arch {args.arch}: {e}", file=sys.stderr)
         raise SystemExit(2)
-    res = serve_cnn(args.arch, slots=args.slots, requests=args.requests,
-                    device=args.device, seed=args.seed)
-    done, dt = res["done"], res["seconds"]
-    print(res["engine"].program.listing())
-    print(f"served {len(done)} images in {dt:.2f}s "
-          f"({len(done) / dt:.1f} img/s)")
+    if args.smoke:
+        cfg = cfg.smoke()
+    if args.window:
+        cfg = dataclasses.replace(cfg, attn_window=args.window)
+    res = serve_lm(cfg, slots=args.slots, max_len=args.max_len,
+                   requests=args.requests, max_new=args.max_new,
+                   prompt_len=args.prompt_len, device=args.device,
+                   seed=args.seed)
+    eng, done, dt = res["engine"], res["done"], res["seconds"]
+    n_tok = sum(len(r.out_tokens) for r in done)
+    print(eng.program.listing().splitlines()[0])
+    print(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / dt:.1f} tok/s)")
+    print(f"prefills={eng.n_prefills} "
+          f"prefill_recomputes={eng.n_prefill_recomputes} "
+          f"decode_ticks={eng.n_decode_ticks}")
     for r in done[:4]:
-        print(f"  req {r.uid}: class {r.out_tokens[0]}")
+        print(f"  req {r.uid}: {len(r.prompt)} prompt tokens -> "
+              f"{r.out_tokens}")
     return res
 
 

@@ -1,6 +1,6 @@
-"""Model families on the Program path (CNNs so far)."""
-from . import cnn
+"""Model families on the Program path: the CNNs and the dense LMs."""
+from . import cnn, transformer
 from .common import ParamDef, init_params, params_from_numpy, tree_paths
 
-__all__ = ["cnn", "ParamDef", "init_params", "params_from_numpy",
-           "tree_paths"]
+__all__ = ["cnn", "transformer", "ParamDef", "init_params",
+           "params_from_numpy", "tree_paths"]

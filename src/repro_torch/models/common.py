@@ -1,5 +1,6 @@
-"""Model substrate: parameter definition trees, init, and the weight
-bridge from ``repro`` (counterpart of ``repro/models/common.py``).
+"""Model substrate: parameter definition trees, init, the weight bridge
+from ``repro``, and the norms and rotary embedding the LM ops use
+(counterpart of ``repro/models/common.py``).
 
 Parameters are declared as ``ParamDef`` trees (shape + dtype + logical
 axes + init kind) and initialised from a ``torch.Generator``.  The same
@@ -18,7 +19,8 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["ParamDef", "init_params", "tree_paths", "params_from_numpy"]
+__all__ = ["ParamDef", "init_params", "tree_paths", "params_from_numpy",
+           "rms_norm", "layer_norm", "Rotary", "apply_rope"]
 
 
 @dataclass(frozen=True)
@@ -92,3 +94,55 @@ def params_from_numpy(tree: dict, device="cpu") -> dict:
 
     return {k: params_from_numpy(v, device) if isinstance(v, dict)
             else leaf(v) for k, v in tree.items()}
+
+
+# --- norms and rotary: f32 math, cast back, in the reference's order ----------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor | None,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight=None, bias=None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm; with weight=bias=None this is OLMo's non-parametric LN."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+@dataclass(frozen=True)
+class Rotary:
+    head_dim: int
+    theta: float = 10000.0
+
+    def freqs(self, positions: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """positions: (...,) int -> (cos, sin) of shape (..., head_dim/2),
+        on the positions' device."""
+        half = self.head_dim // 2
+        exps = -torch.arange(0, half, dtype=torch.float32,
+                             device=positions.device) / half
+        inv = torch.pow(self.theta, exps)
+        ang = positions.float()[..., None] * inv
+        return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, D); cos/sin: (S, D/2) or broadcastable."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    while cos.ndim < x1.ndim:
+        cos, sin = cos[None], sin[None]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)

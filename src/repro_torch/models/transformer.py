@@ -1,0 +1,337 @@
+"""Decoder-only transformer LM, dense family, on the Program path
+(counterpart of the dense half of ``repro/models/transformer.py``).
+
+``to_graph`` emits the layer graph (embed -> N x {norm, qkv matmuls,
+flash attention, o-proj, MLP matmul chain} -> final norm -> lm head)
+with the residual adds fused into the o-/down-projection writebacks;
+``compile_program`` runs it through graph -> schedule -> regions ->
+Program, and ``program_forward`` executes the instruction stream through
+runtime/executor.py.  ``compile_program_pair`` compiles the stateful
+serving pair (batch-1 prefill writing the KV cache, per-token decode)
+sharing one persistent region table.
+
+Not carried yet: the reference's scan ``forward`` / ``decode_step`` (the
+JAX package is the oracle; they come with training, ROADMAP A.10), the
+MoE and cross-attention variants (A.9), the paged region plan (A.7) and
+the autotune hook of the compile entry points.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+from ..configs.base import ArchConfig
+from ..core.hw import TPU_V5E, HardwareModel
+from ..core.ir import (ModelGraph, attention_node, decode_attention_node,
+                       elementwise_node, embed_node, matmul_node, norm_node)
+from ..core.program import Program, ProgramPair, lower_to_program
+from ..core.regions import (PersistentSpec, StateCaps, allocate_regions,
+                            extend_with_persistent, register_state_family,
+                            state_specs)
+from ..core.schedule import compile_model
+from ..runtime.executor import cached_runner
+from .common import ParamDef
+
+__all__ = ["param_defs", "to_graph", "to_decode_graph", "compile_program",
+           "compile_program_pair", "program_forward", "kv_cache_len"]
+
+
+# --- parameter declaration -------------------------------------------------------
+def _norm_defs(cfg: ArchConfig, L: int | None, name: str) -> dict:
+    """Norm params; nonparametric LN (OLMo) contributes none."""
+    if cfg.norm == "nonparametric":
+        return {}
+    dt = cfg.tdtype
+    shape = (L, cfg.d_model) if L else (cfg.d_model,)
+    axes = ("layers", "embed") if L else ("embed",)
+    d = {name: ParamDef(shape, axes, dt, "ones")}
+    if cfg.norm == "layernorm":
+        d[name + "_b"] = ParamDef(shape, axes, dt, "zeros")
+    return d
+
+
+def _stacked(cfg: ArchConfig, L: int | None):
+    def p(shape, axes):
+        if L:
+            return ParamDef((L,) + shape, ("layers",) + axes, cfg.tdtype)
+        return ParamDef(shape, axes, cfg.tdtype)
+    return p
+
+
+def _attn_defs(cfg: ArchConfig, L: int | None) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    p = _stacked(cfg, L)
+    return {
+        "wq": p((D, H * hd), ("embed", "heads")),
+        "wk": p((D, KV * hd), ("embed", "kv_heads")),
+        "wv": p((D, KV * hd), ("embed", "kv_heads")),
+        "wo": p((H * hd, D), ("heads", "embed")),
+    }
+
+
+def _mlp_defs(cfg: ArchConfig, L: int | None) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    p = _stacked(cfg, L)
+    d = {"w_gate": p((D, F), ("embed", "ff")),
+         "w_down": p((F, D), ("ff", "embed"))}
+    if cfg.gated_mlp:
+        d["w_up"] = p((D, F), ("embed", "ff"))
+    return d
+
+
+def _block_defs(cfg: ArchConfig, L: int) -> dict:
+    blocks = {}
+    blocks.update(_norm_defs(cfg, L, "attn_norm"))
+    blocks.update(_attn_defs(cfg, L))
+    blocks.update(_norm_defs(cfg, L, "mlp_norm"))
+    blocks.update(_mlp_defs(cfg, L))
+    return blocks
+
+
+def param_defs(cfg: ArchConfig) -> dict:
+    _require_dense(cfg)
+    defs = {
+        "embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                          cfg.tdtype, "embed"),
+        "blocks": _block_defs(cfg, cfg.n_layers),
+    }
+    defs.update(_norm_defs(cfg, None, "final_norm"))
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab),
+                                   ("embed", "vocab"), cfg.tdtype)
+    return defs
+
+
+# --- compile-to-Program lowering --------------------------------------------------
+def _require_dense(cfg: ArchConfig) -> None:
+    """The port lowers the dense decoder-only family only; every other
+    family or feature names the ROADMAP item that ports it."""
+    blockers = []
+    if cfg.family != "dense":
+        blockers.append(f"family={cfg.family}")
+    if cfg.n_experts:
+        blockers.append("MoE layers")
+    if cfg.cross_attn_every or cfg.n_vision_tokens:
+        blockers.append("cross-attention (vision bridge)")
+    if cfg.n_encoder_layers:
+        blockers.append("encoder-decoder")
+    if cfg.shared_attn_every:
+        blockers.append("shared attention blocks")
+    if blockers:
+        raise NotImplementedError(
+            f"{cfg.name}: repro_torch lowers the dense decoder-only "
+            f"family only; blocked by {', '.join(blockers)} (ROADMAP A.9)")
+
+
+def kv_cache_len(cfg: ArchConfig, max_len: int) -> int:
+    """Per-slot KV rows the §5.1 region plan reserves: ``min(max_len,
+    attn_window)`` for a sliding window (eviction is the rolling
+    overwrite at ``pos % cache_len``), else ``max_len``."""
+    if cfg.attn_window:
+        return min(max_len, cfg.attn_window)
+    return max_len
+
+
+def _build_lm_graph(cfg: ArchConfig, name: str, M: int, by: int,
+                    add_attention) -> ModelGraph:
+    """One block emitter for every dense-LM graph flavor (stateless,
+    cache-writing prefill, per-token decode); they differ only in the
+    token count M and the attention node ``add_attention(g, i, qkv)``
+    adds, so the prefill and decode graphs of a pair cannot drift."""
+    D, H, KV, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+
+    def norm_meta(param: str | None) -> dict:
+        meta = {"norm": cfg.norm}
+        if cfg.norm != "nonparametric" and param is not None:
+            meta["param"] = param
+            if cfg.norm == "layernorm":
+                meta["param_b"] = (param + "_b" if ":" not in param else
+                                   param.replace(":", "_b:", 1))
+        return meta
+
+    g = ModelGraph(name)
+    g.add(embed_node("embed", M, cfg.vocab, D, dtype_bytes=by,
+                     param="embed"))
+    resid = "embed"
+    for i in range(cfg.n_layers):
+        def bp(k: str, i=i) -> str:         # stacked params: layer i
+            return f"blocks/{k}:{i}"
+        an = f"l{i}.attn_norm"
+        g.add(norm_node(an, M * D, dtype_bytes=by, inputs=[resid],
+                        **norm_meta(bp("attn_norm"))))
+        g.add(matmul_node(f"l{i}.wq", M, D, H * hd, dtype_bytes=by,
+                          inputs=[an], param=bp("wq")))
+        g.add(matmul_node(f"l{i}.wk", M, D, KV * hd, dtype_bytes=by,
+                          inputs=[an], param=bp("wk")))
+        g.add(matmul_node(f"l{i}.wv", M, D, KV * hd, dtype_bytes=by,
+                          inputs=[an], param=bp("wv")))
+        add_attention(g, i, [f"l{i}.wq", f"l{i}.wk", f"l{i}.wv"])
+        wo = f"l{i}.wo"
+        g.add(matmul_node(wo, M, H * hd, D, dtype_bytes=by,
+                          inputs=[f"l{i}.attn"], bypass_of=resid,
+                          param=bp("wo")))
+        mn = f"l{i}.mlp_norm"
+        g.add(norm_node(mn, M * D, dtype_bytes=by, inputs=[wo],
+                        **norm_meta(bp("mlp_norm"))))
+        g.add(matmul_node(f"l{i}.w_gate", M, D, F, dtype_bytes=by,
+                          inputs=[mn], fused_activation=cfg.activation,
+                          param=bp("w_gate")))
+        if cfg.gated_mlp:
+            g.add(matmul_node(f"l{i}.w_up", M, D, F, dtype_bytes=by,
+                              inputs=[mn], param=bp("w_up")))
+            g.add(elementwise_node(f"l{i}.glu_mul", "mul", M * F,
+                                   dtype_bytes=by,
+                                   inputs=[f"l{i}.w_gate", f"l{i}.w_up"]))
+            down_in = f"l{i}.glu_mul"
+        else:
+            down_in = f"l{i}.w_gate"
+        g.add(matmul_node(f"l{i}.w_down", M, F, D, dtype_bytes=by,
+                          inputs=[down_in], bypass_of=wo,
+                          param=bp("w_down")))
+        resid = f"l{i}.w_down"
+    g.add(norm_node("final_norm", M * D, dtype_bytes=by, inputs=[resid],
+                    **norm_meta("final_norm")))
+    g.add(matmul_node("lm_head", M, D, cfg.vocab, dtype_bytes=by,
+                      inputs=["final_norm"],
+                      param="embed" if cfg.tie_embeddings else "lm_head",
+                      transpose_w=cfg.tie_embeddings))
+    return g
+
+
+def to_graph(cfg: ArchConfig, batch: int = 1, seq: int = 64,
+             dtype_bytes: int | None = None,
+             write_cache: bool = False) -> ModelGraph:
+    """Lower a dense config to the compiler IR (§5.1 steps 1-2):
+
+        embed -> N x [attn_norm, wq|wk|wv, flash_attention, wo(+resid),
+                      mlp_norm, w_gate|w_up, mul, w_down(+resid)]
+              -> final_norm -> lm_head
+
+    ``write_cache=True`` emits the *prefill* flavor: each attention node
+    also names the persistent ``l{i}.k_cache`` / ``l{i}.v_cache``
+    regions it writes the post-RoPE K and raw V into at the admitted
+    slot."""
+    _require_dense(cfg)
+    by = dtype_bytes if dtype_bytes is not None else cfg.tdtype.itemsize
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def add_attention(g, i, qkv):
+        cache_meta = ({"k_cache": f"l{i}.k_cache", "v_cache": f"l{i}.v_cache"}
+                      if write_cache else {})
+        g.add(attention_node(
+            f"l{i}.attn", seq_q=seq, seq_kv=seq, heads=H, kv_heads=KV,
+            head_dim=hd, batch=batch, causal=True, dtype_bytes=by,
+            inputs=qkv, window=cfg.attn_window, rope_theta=cfg.rope_theta,
+            **cache_meta))
+
+    return _build_lm_graph(cfg, cfg.name, batch * seq, by, add_attention)
+
+
+def compile_program(cfg: ArchConfig, batch: int = 1, seq: int = 64,
+                    hw: HardwareModel = TPU_V5E) -> Program:
+    """graph -> schedule -> regions -> Program, memoized per (config,
+    batch, seq, hw).  Every tiling / attention-block / fusion decision
+    in the Program comes from ``compile_model``."""
+    return _compile_program(cfg, batch, seq, hw)
+
+
+@functools.lru_cache(maxsize=64)
+def _compile_program(cfg: ArchConfig, batch: int, seq: int,
+                     hw: HardwareModel) -> Program:
+    graph = to_graph(cfg, batch=batch, seq=seq)
+    return lower_to_program(graph, compile_model(graph, hw))
+
+
+def to_decode_graph(cfg: ArchConfig, slots: int = 8, max_len: int = 256,
+                    dtype_bytes: int | None = None) -> ModelGraph:
+    """Lower the per-token decode step: the same block structure as
+    ``to_graph`` with one token per slot (M = slots) and the attention
+    replaced by ``decode_attention`` against the persistent per-block
+    KV-cache regions of ``kv_cache_len`` rows."""
+    _require_dense(cfg)
+    by = dtype_bytes if dtype_bytes is not None else cfg.tdtype.itemsize
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    cache_len = kv_cache_len(cfg, max_len)
+
+    def add_attention(g, i, qkv):
+        g.add(decode_attention_node(
+            f"l{i}.attn", cache_len=cache_len, heads=H, kv_heads=KV,
+            head_dim=hd, slots=slots, dtype_bytes=by, inputs=qkv,
+            window=cfg.attn_window, rope_theta=cfg.rope_theta,
+            k_cache=f"l{i}.k_cache", v_cache=f"l{i}.v_cache"))
+
+    return _build_lm_graph(cfg, cfg.name + ".decode", slots, by,
+                           add_attention)
+
+
+def _kv_cache_specs(cfg: ArchConfig, slots: int,
+                    max_len: int) -> tuple[PersistentSpec, ...]:
+    """One persistent (slots, kv_cache_len, kv_heads, head_dim) region
+    per block and cache side, in the KV dtype."""
+    dt = cfg.kv_tdtype
+    shape = (slots, kv_cache_len(cfg, max_len), cfg.n_kv_heads, cfg.hd)
+    name = str(dt).removeprefix("torch.")
+    size = math.prod(shape) * dt.itemsize
+    specs = []
+    for i in range(cfg.n_layers):
+        specs.append(PersistentSpec(f"l{i}.k_cache", shape, name, size))
+        specs.append(PersistentSpec(f"l{i}.v_cache", shape, name, size))
+    return tuple(specs)
+
+
+register_state_family(
+    "dense", lambda cfg, slots, max_len: (
+        _kv_cache_specs(cfg, slots, max_len),
+        StateCaps(paged=True, windowed=True, chunkable=True,
+                  speculatable=True)))
+
+
+def compile_program_pair(cfg: ArchConfig, slots: int = 8,
+                         max_len: int = 256, hw: HardwareModel = TPU_V5E, *,
+                         paged: bool = False) -> ProgramPair:
+    """Compile the stateful serving pair: a batch-1 prefill Program
+    (full causal forward + cache writes at the admitted slot) and a
+    decode Program (one token per slot against the cache), sharing one
+    persistent region table so one runtime ``ProgramState`` addresses
+    both.  Memoized per (config, slots, max_len, hw).  A windowed config
+    gets regions of ``min(max_len, attn_window)`` rows; the plans differ
+    only in region shape, never in instruction structure.  The paged
+    plan is not ported (ROADMAP A.7)."""
+    if paged:
+        raise NotImplementedError(
+            "the paged KV region plan is not ported to repro_torch yet "
+            "(ROADMAP A.7)")
+    return _compile_program_pair(cfg, slots, max_len, hw)
+
+
+@functools.lru_cache(maxsize=32)
+def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
+                          hw: HardwareModel) -> ProgramPair:
+    _require_dense(cfg)
+    specs, caps = state_specs(cfg, slots, max_len)
+    pre_graph = to_graph(cfg, batch=1, seq=max_len, write_cache=True)
+    dec_graph = to_decode_graph(cfg, slots=slots, max_len=max_len)
+    pre_graph.name = cfg.name + ".prefill"
+    pre_sched = compile_model(pre_graph, hw)
+    dec_sched = compile_model(dec_graph, hw)
+    pre_plan = allocate_regions(pre_graph, pre_sched)
+    dec_plan = allocate_regions(dec_graph, dec_sched)
+    # One persistent table, one base: the state region ids coincide
+    # across the pair, so prefill-written buffers are read by decode ops
+    # under the same ids.
+    base = max(len(pre_plan.regions), len(dec_plan.regions))
+    pre_plan = extend_with_persistent(pre_plan, specs, base)
+    dec_plan = extend_with_persistent(dec_plan, specs, base)
+    return ProgramPair(
+        prefill=lower_to_program(pre_graph, pre_sched, pre_plan),
+        decode=lower_to_program(dec_graph, dec_sched, dec_plan),
+        slots=slots, max_len=max_len, paged=None, caps=caps)
+
+
+def program_forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
+                    hw: HardwareModel = TPU_V5E):
+    """tokens (B, S) -> logits (B, S, V) through the compiled Program;
+    the kernels run where ``tokens`` lie."""
+    program = compile_program(cfg, batch=tokens.shape[0],
+                              seq=tokens.shape[1], hw=hw)
+    return cached_runner(program, impl=impl)(params, tokens)

@@ -52,7 +52,8 @@ def test_build_kernels_compiles_each_source_once(fake_toolkit):
     assert common.load_library("conv2d") is common._LIBS["conv2d"]
     common._LIBS.clear()
     assert common.build_kernels() == {n: 0.0 for n in common.KERNEL_SOURCES}
-    assert len((fake_toolkit / "calls.log").read_text().splitlines()) == 2
+    assert len((fake_toolkit / "calls.log").read_text().splitlines()) == len(
+        common.KERNEL_SOURCES)
     assert not [p for p in os.listdir(common.BUILD_DIR) if p.endswith(".tmp")]
 
 

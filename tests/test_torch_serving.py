@@ -67,9 +67,16 @@ def test_serve_cli_runs_on_cpu():
     assert proc.stdout.count("class ") == 3
     lm = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "smollm-360m", "--device", "cpu"], capture_output=True, text=True,
+         "smollm-360m", "--smoke", "--device", "cpu"], capture_output=True,
+        text=True, env=env, timeout=300)
+    assert lm.returncode == 0, lm.stderr
+    assert "served 16 requests, 256 tokens in" in lm.stdout
+    assert "prefill_recomputes=0" in lm.stdout
+    other = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "rwkv6-7b", "--device", "cpu"], capture_output=True, text=True,
         env=env, timeout=300)
-    assert lm.returncode == 2 and "not yet ported" in lm.stderr
+    assert other.returncode == 2 and "ROADMAP A.9" in other.stderr
 
 
 def test_engine_defaults_to_the_card_and_raises_without_one():
