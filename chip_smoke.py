@@ -32,7 +32,13 @@ exits non-zero before the last line is printed.  Phases:
    operand type's peak, bytes / HBM rate) from the data sheet of the
    card named, counting each input read once, each output written once
    and only the unmasked work (causal and window pairs, live cache
-   rows);
+   rows).  The paged decode op runs at the same width and lengths over
+   (257, 16, 5, 64) pools through a table of shuffled page ids, two
+   pairs of sequences sharing pages: f32 (1e-4), bf16 (2^-7) and int8
+   pools with bf16 q (2^-7); its bound counts each distinct live page
+   row once, and beside it are timed the contiguous kernel at the same
+   lengths and, as the library yardstick, SDPA over the already-gathered
+   view;
 5. the main paths, each with the launch counters set to 0 just before
    it and read just after:
    a. ``repro_torch.launch.serve`` serves 20 alexnet-owt images at full
@@ -53,11 +59,29 @@ exits non-zero before the last line is printed.  Phases:
       served token must equal the plain path's wherever the plain top-2
       gap exceeds twice the row's largest logit difference (no two
       logits can swap order there);
+   c. the paged plan (``--paged --shared-prefix 256``, bf16, page 16):
+      16 prompts of the shared 256-token prefix and a 32-256-token tail
+      from the seed; admission shares the prefix pages, and the rings
+      that pass 512 rows wrap onto shared pages, which fork.  Requires
+      ``n_shared_pages > 0`` and ``n_cow_forks > 0``;
+   d. int8 pages (``kv_quant="int8"``) under a 122-page pool, with tails
+      of 224-256 tokens, so admission finds the pool exhausted and
+      requeues at the head (``n_requeued > 0``) while every request is
+      served;
+   e. chunked prefill over the paged plan (``--chunk-size 128`` and a
+      448-token prompt injected two ticks in): no tick starves a live
+      slot and every prefill completes within ceil(length / 128) ticks of
+      its slot assignment.
+   In 5c-5e the counters must be exactly paged decode = ticks x 32,
+   contiguous decode = 0, flash = (prefill + chunk calls) x 32, matmul =
+   (prefill + chunk calls + ticks) x 225, and the teacher-forced plain
+   replay (page-table syncs and COW copies replayed in order) holds the
+   same logit and token rules as 5b;
 6. a ``kernels`` JSON line: per kernel, its launches on the main paths,
    the max error over every checked op, and the times and bound summed
    over one alexnet-owt batch-8 tick (conv2d_virtual), one smollm-360m
    admission (flash_attention) or one smollm-360m decode tick
-   (decode_attention, matmul);
+   (decode_attention, paged_decode_attention, matmul);
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN and cuBLAS, so the plain versions and
@@ -99,13 +123,32 @@ REPLACES = {"conv2d_virtual": "src/repro/kernels/conv2d/kernel.py:241",
             "matmul": "src/repro/kernels/matmul/kernel.py:79",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
             "decode_attention":
-                "src/repro/kernels/decode_attention/kernel.py:76"}
+                "src/repro/kernels/decode_attention/kernel.py:76",
+            "paged_decode_attention":
+                "src/repro/kernels/decode_attention/kernel.py:175"}
 SOURCES = {"conv2d_virtual": "src/repro_torch/kernels/csrc/conv2d.cu",
            "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "decode_attention":
-               "src/repro_torch/kernels/csrc/decode_attention.cu"}
+               "src/repro_torch/kernels/csrc/decode_attention.cu",
+           "paged_decode_attention":
+               "src/repro_torch/kernels/csrc/paged_decode_attention.cu"}
+# The paged serving phases (5c, 5e): the serve CLI's flags after LM_ARGS
+# (a later --prompt-len wins).  5d has no CLI flag for the pool size, so
+# it calls serve_lm with these arguments; its tails and pool are the
+# seed's draw checked to exhaust the pool at admission without running
+# it dry mid-decode (admission reserves no decode pages, as in the
+# reference).
+PAGE_SIZE, N_PAGES, PREFIX = 16, 257, 256
+PAGED_RUNS = {
+    "5c paged": ["--paged", "--shared-prefix", str(PREFIX),
+                 "--prompt-len", "32-256"],
+    "5e chunked": ["--paged", "--chunk-size", "128", "--shared-prefix",
+                   str(PREFIX), "--long-prompt", "448", "--prompt-len",
+                   "32-256"]}
+PAGED_5D = dict(paged=True, shared_prefix=PREFIX, prompt_len=(224, 256),
+                kv_quant="int8", page_pool=122)
 
 
 def fail(msg: str):
@@ -524,6 +567,115 @@ def check_lm_kernels(device, peaks):
     return rows, uses
 
 
+def paged_operands(pool_dtype, q_dtype, device, gen):
+    """Phase 4's paged decode operands at the served geometry: (257, 16,
+    5, 64) pools, q for 8 sequences of ``_kv_lens(512)`` rows through a
+    table of shuffled page ids -- the two full (wrapped) rings share
+    their first 16 pages, sequences 3 and 4 their first 8 -- and the
+    null page 0 past each sequence's pages, as the PagePool leaves it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import int8_quantize_pages
+    cfg = get_config(LM_ARCH)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lens = _kv_lens(LM_MAX_LEN)
+    q = torch.randn((SLOTS, Hq, D), generator=gen, device=device).to(q_dtype)
+    kp, vp = (torch.randn((N_PAGES, PAGE_SIZE, Hkv, D), generator=gen,
+                          device=device) for _ in range(2))
+    ids = (torch.randperm(N_PAGES - 1, generator=gen, device=device)
+           + 1).tolist()
+    table = torch.zeros((SLOTS, LM_MAX_LEN // PAGE_SIZE), dtype=torch.int32)
+    for b, n in enumerate(lens):
+        for i in range(-(-n // PAGE_SIZE)):
+            table[b, i] = ids.pop()
+    table[6, :16] = table[5, :16]
+    table[4, :8] = table[3, :8]
+    scales = {}
+    if pool_dtype == torch.int8:
+        (kp, scales["k_scale"]), (vp, scales["v_scale"]) = map(
+            int8_quantize_pages, (kp, vp))
+    else:
+        kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, kp, vp, table.to(device), kv_len, scales
+
+
+def paged_case(pool_dtype, q_dtype, device, gen, peaks):
+    """One paged decode check: the kernel against its plain version
+    (gather_pages + decode_attention_ref), and the callables timed beside
+    it -- the contiguous kernel and SDPA (the library yardstick), both
+    over the already-gathered (B, Hkv, S, D) view, so neither pays the
+    gather.  The bound counts each distinct live page row once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import gather_pages
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, paged_decode_attention_cuda,
+        paged_decode_attention_plain)
+    q, kp, vp, table, kv_len, scales = paged_operands(pool_dtype, q_dtype,
+                                                      device, gen)
+    B, Hq, D = q.shape
+    Hkv, scale = kp.shape[2], D ** -0.5
+    kern = lambda: paged_decode_attention_cuda(q, kp, vp, table, kv_len,
+                                               scale=scale, **scales)
+    plain = lambda: paged_decode_attention_plain(q, kp, vp, table, kv_len,
+                                                 scale=scale, **scales)
+    k = gather_pages(kp, table, scales.get("k_scale")).to(q_dtype)
+    v = gather_pages(vp, table, scales.get("v_scale")).to(q_dtype)
+    contiguous = lambda: decode_attention_cuda(q, k, v, kv_len, scale=scale)
+    mask = (torch.arange(k.shape[2], device=device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    library = lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, scale=scale,
+        enable_gqa=True)[:, :, 0]
+    lens = kv_len.tolist()
+    tab = table.tolist()
+    rows = {(tab[b][r // PAGE_SIZE], r % PAGE_SIZE)
+            for b, n in enumerate(lens) for r in range(n)}
+    pages = {p for p, _ in rows}
+    nbytes = (2 * len(rows) * Hkv * D * kp.element_size()
+              + 2 * q.numel() * q.element_size()
+              + 4 * (B + sum(-(-n // PAGE_SIZE) for n in lens))
+              + (8 * len(pages) if scales else 0))
+    flops = 4 * D * Hq * sum(lens)
+    tol = TOL if q_dtype == torch.float32 else BF16_TOL
+    err = max_err(kern(), plain(), tol)
+    peak = peaks["float32" if q_dtype == torch.float32 else "bfloat16"]
+    row = {"pools": str(pool_dtype).removeprefix("torch."),
+           "q": str(q_dtype).removeprefix("torch."), "max_abs_err": err,
+           "ms": time_ms(kern), "plain_ms": time_ms(plain),
+           "contiguous_ms": time_ms(contiguous),
+           "library_ms": time_ms(library),
+           "flop_ms": flops / peak * 1e3,
+           "byte_ms": nbytes / peaks["hbm"] * 1e3,
+           "live_rows": len(rows), "bytes": nbytes}
+    row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
+    return row
+
+
+def check_paged_kernel(device, peaks):
+    """Phase 4, the paged decode op: f32 pools (1e-4), bf16 pools and
+    int8 pools with bf16 q (2^-7); returns the rows by pool type."""
+    import torch
+    rows = {}
+    for i, (pool_dtype, q_dtype) in enumerate((
+            (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+            (torch.int8, torch.bfloat16))):
+        gen = torch.Generator(device=device).manual_seed(SEED + 100 + i)
+        row = paged_case(pool_dtype, q_dtype, device, gen, peaks)
+        rows[row["pools"]] = row
+        print(f"  paged_decode_attention {row['pools']} pools, {row['q']} q: "
+              f"err={row['max_abs_err']:.2e} ms={row['ms']:.4f} "
+              f"plain={row['plain_ms']:.4f} contiguous kernel="
+              f"{row['contiguous_ms']:.4f} library (SDPA over the "
+              f"already-gathered view)={row['library_ms']:.4f} "
+              f"bound={row['bound_ms']:.4f} ({row['live_rows']} distinct "
+              f"live rows, {row['bytes']} B) | lens "
+              f"{_kv_lens(LM_MAX_LEN)} pools ({N_PAGES}, {PAGE_SIZE}, 5, 64)",
+              flush=True)
+    return rows
+
+
 def lm_sums(rows, uses, pname, kind, kernel):
     """Times and bounds of ``kernel`` summed over one run of the
     (``pname``, ``kind``) Program, each op counted once."""
@@ -541,68 +693,130 @@ def lm_sums(rows, uses, pname, kind, kernel):
 
 
 class Recorder:
-    """Wraps the executor's run_prefill / run_decode while the LM main
-    path runs: keeps each call's inputs and the logits rows the engine
-    reads, and its wall time up to a device synchronise."""
+    """Wraps the executor's runners and page-table hand-offs while an LM
+    main path runs: keeps each call's inputs, in order, with the logits
+    rows the engine reads and the call's wall time up to a device
+    synchronise (page-table syncs and COW copies are kept to be replayed,
+    untimed)."""
+
+    NAMES = ("run_prefill", "run_prefill_chunk", "run_decode",
+             "sync_page_table", "apply_page_copies")
 
     def __init__(self):
         from repro_torch.runtime import executor
         self.ex = executor
-        self.prefill, self.decode = executor.run_prefill, executor.run_decode
+        self.orig = {n: getattr(executor, n) for n in self.NAMES}
         self.calls = []
 
     def __enter__(self):
+        import numpy as np
         import torch
+        orig = self.orig
 
-        def run_prefill(program, params, tokens, state, slot, length, *,
-                        impl="auto"):
+        def timed(fn, *args, **kw):
             t0 = time.perf_counter()
-            out = self.prefill(program, params, tokens, state, slot, length,
-                               impl=impl)
+            out = fn(*args, **kw)
             torch.cuda.synchronize()
-            self.calls.append(("prefill", time.perf_counter() - t0,
-                               (tokens.clone(), slot, length),
-                               out[0, length - 1].clone()))
+            return out, time.perf_counter() - t0
+
+        def run_prefill(program, params, tokens, state, slot, length,
+                        write_from=0, *, impl="auto"):
+            out, dt = timed(orig["run_prefill"], program, params, tokens,
+                            state, slot, length, write_from, impl=impl)
+            self.calls.append(("prefill", dt,
+                               (tokens.clone(), slot, length, write_from),
+                               {0: out[0, length - 1].clone()}))
+            return out
+
+        def run_prefill_chunk(program, params, tokens, state, slot, start,
+                              stop, length, write_from=None, *,
+                              impl="auto"):
+            out, dt = timed(orig["run_prefill_chunk"], program, params,
+                            tokens, state, slot, start, stop, length,
+                            write_from, impl=impl)
+            args = tuple(np.array(x) for x in (slot, start, stop, length,
+                                               write_from))
+            self.calls.append(("chunk", dt, (tokens.clone(),) + args, {
+                i: out[i, n - 1].clone() for i, (s, n) in
+                enumerate(zip(args[2], args[3])) if s == n}))
             return out
 
         def run_decode(program, params, tokens, state, mask=None, *,
                        impl="auto"):
-            t0 = time.perf_counter()
-            out = self.decode(program, params, tokens, state, mask,
-                              impl=impl)
-            torch.cuda.synchronize()
-            self.calls.append(("decode", time.perf_counter() - t0,
-                               (tokens.clone(), mask.clone()), out.clone()))
+            out, dt = timed(orig["run_decode"], program, params, tokens,
+                            state, mask, impl=impl)
+            self.calls.append(("decode", dt, (tokens.clone(), mask.clone()),
+                               {i: out[i].clone() for i in
+                                mask.nonzero().flatten().tolist()}))
             return out
-        self.ex.run_prefill, self.ex.run_decode = run_prefill, run_decode
+
+        def sync_page_table(state, pair, pool):
+            if pool.dirty:
+                self.calls.append(("table", 0.0, pool.table.copy(), {}))
+            return orig["sync_page_table"](state, pair, pool)
+
+        def apply_page_copies(state, pair, copies):
+            if copies:
+                self.calls.append(("copies", 0.0, list(copies), {}))
+            return orig["apply_page_copies"](state, pair, copies)
+        wrappers = {"run_prefill": run_prefill,
+                    "run_prefill_chunk": run_prefill_chunk,
+                    "run_decode": run_decode,
+                    "sync_page_table": sync_page_table,
+                    "apply_page_copies": apply_page_copies}
+        for n, fn in wrappers.items():
+            setattr(self.ex, n, fn)
         return self
 
     def __exit__(self, *exc):
-        self.ex.run_prefill, self.ex.run_decode = self.prefill, self.decode
+        for n, fn in self.orig.items():
+            setattr(self.ex, n, fn)
+
+    def count(self, kind: str) -> int:
+        return sum(c[0] == kind for c in self.calls)
+
+    def ms(self, kind: str) -> float | None:
+        times = [c[1] for c in self.calls if c[0] == kind]
+        return 1e3 * statistics.mean(times) if times else None
 
     def replay_plain(self, eng):
-        """The recorded calls again through the plain path on a fresh
-        state, teacher-forced with the kernel path's inputs; returns
-        (max |logit diff|, rows compared, token ids compared)."""
+        """The recorded calls again, in order, through the plain path on
+        a fresh state, teacher-forced with the kernel path's inputs and
+        page-table decisions; returns (max |logit diff|, rows compared,
+        token ids compared)."""
         import numpy as np
-        state = self.ex.init_program_state(eng.program, eng.device)
+        import torch
+        orig, pair = self.orig, eng.program
+        state = self.ex.init_program_state(pair, eng.device)
         worst, n_rows, n_ids = 0.0, 0, 0
         for kind, _, args, got in self.calls:
+            if kind == "table":
+                state.caches[pair.page_table_region].copy_(
+                    torch.from_numpy(args))
+                continue
+            if kind == "copies":
+                orig["apply_page_copies"](state, pair, args)
+                continue
             if kind == "prefill":
-                tokens, slot, length = args
-                want = self.prefill(eng.program.prefill, eng.params, tokens,
-                                    state, slot, length,
-                                    impl="reference")[0, length - 1]
-                pairs = [(got, want)]
+                tokens, slot, length, write_from = args
+                out = orig["run_prefill"](pair.prefill, eng.params, tokens,
+                                          state, slot, length, write_from,
+                                          impl="reference")
+                want = {0: out[0, length - 1]}
+            elif kind == "chunk":
+                tokens, slot, start, stop, length, write_from = args
+                out = orig["run_prefill_chunk"](
+                    pair.prefill, eng.params, tokens, state, slot, start,
+                    stop, length, write_from, impl="reference")
+                want = {i: out[i, length[i] - 1] for i in got}
             else:
                 tokens, mask = args
-                want = self.decode(eng.program.decode, eng.params, tokens,
-                                   state, mask, impl="reference")
-                pairs = [(got[i], want[i])
-                         for i in mask.nonzero().flatten().tolist()]
-            for g, w in pairs:
+                out = orig["run_decode"](pair.decode, eng.params, tokens,
+                                         state, mask, impl="reference")
+                want = {i: out[i] for i in got}
+            for i, g in got.items():
                 g = g.float().cpu().numpy()
-                w = w.float().cpu().numpy()
+                w = want[i].float().cpu().numpy()
                 diff = float(np.abs(g - w).max())
                 worst = max(worst, diff)
                 n_rows += 1
@@ -618,60 +832,127 @@ class Recorder:
                              f"of {top2[1] - top2[0]:.3f}")
         return worst, n_rows, n_ids
 
+    def prefill_tenures(self) -> list[tuple[int, int, int]]:
+        """(slot, prompt length, chunk calls from its first chunk to its
+        last) of every chunked prefill.  While any prefill is in flight
+        the engine makes one chunk call per tick, so the count is the
+        ticks from slot assignment to the first token."""
+        first, out = {}, []
+        chunks = [c[2] for c in self.calls if c[0] == "chunk"]
+        for k, (_, slot, _, stop, length, _) in enumerate(chunks):
+            for s, e, n in zip(slot.tolist(), stop.tolist(),
+                               length.tolist()):
+                first.setdefault(s, k)
+                if e == n:
+                    out.append((s, n, k - first.pop(s) + 1))
+        return out
 
-def serve_lm(extra_args: list[str]):
-    """Phase 5b: the LM serving entry point on the kernels, counters
-    read around it, then the teacher-forced plain replay."""
+
+def lm_counters():
     from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda)
+        decode_attention_cuda, paged_decode_attention_cuda)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
     from repro_torch.kernels.matmul.kernel import matmul_cuda
-    from repro_torch.launch import serve
-    counters = {"flash_attention": flash_attention_cuda,
-                "decode_attention": decode_attention_cuda,
-                "matmul": matmul_cuda}
+    return {"flash_attention": flash_attention_cuda,
+            "decode_attention": decode_attention_cuda,
+            "paged_decode_attention": paged_decode_attention_cuda,
+            "matmul": matmul_cuda}
+
+
+def serve_lm(label: str, run, n_requests: int, max_new: int = 32):
+    """Phase 5b-5e: one LM main path (``run()`` calls the serving entry
+    point and returns its result), counters set to 0 just before it and
+    read just after, under the Recorder; then the exact launch counts,
+    every request served in full with no prefill recomputed, and the
+    teacher-forced plain replay.  Returns (launches, stats, engine,
+    recorder)."""
+    counters = lm_counters()
     for fn in counters.values():
         fn.launches = 0
     with Recorder() as rec:
-        res = serve.main(LM_ARGS + extra_args)
+        res = run()
     launches = {k: fn.launches for k, fn in counters.items()}
     eng, done = res["engine"], res["done"]
-    want_n = int(LM_ARGS[LM_ARGS.index("--requests") + 1])
-    max_new = int(LM_ARGS[LM_ARGS.index("--max-new") + 1])
-    if len(done) != want_n or not all(
+    if len(done) != n_requests or not all(
             r.done and len(r.out_tokens) == max_new for r in done):
-        fail(f"served {len(done)} of {want_n} requests in full")
-    if eng.n_prefill_recomputes or eng.n_prefills != want_n:
-        fail(f"prefills {eng.n_prefills}, recomputes "
+        fail(f"{label}: served {len(done)} of {n_requests} requests in full")
+    if eng.n_prefill_recomputes or eng.n_prefills != n_requests:
+        fail(f"{label}: prefills {eng.n_prefills}, recomputes "
              f"{eng.n_prefill_recomputes}")
     mm = {kind: sum(op.kernel == "matmul" for op in prog.ops)
           for kind, prog in (("prefill", eng.program.prefill),
                              ("decode", eng.program.decode))}
-    L = eng.cfg.n_layers
-    want = {"flash_attention": eng.n_prefills * L,
-            "decode_attention": eng.n_decode_ticks * L,
-            "matmul": eng.n_prefills * mm["prefill"]
-            + eng.n_decode_ticks * mm["decode"]}
-    print(f"main path: {eng.n_prefills} prefills, {eng.n_decode_ticks} "
-          f"decode ticks, {mm} matmul ops per Program; launches "
-          f"{launches}, want {want}")
+    L, ticks = eng.cfg.n_layers, eng.n_decode_ticks
+    passes = rec.count("prefill") + rec.count("chunk")
+    paged = eng.program.paged is not None
+    if rec.count("decode") != ticks:
+        fail(f"{label}: {rec.count('decode')} decode calls, {ticks} ticks")
+    want = {"flash_attention": passes * L,
+            "decode_attention": 0 if paged else ticks * L,
+            "paged_decode_attention": ticks * L if paged else 0,
+            "matmul": passes * mm["prefill"] + ticks * mm["decode"]}
+    print(f"{label}: {rec.count('prefill')} prefill calls, "
+          f"{rec.count('chunk')} chunk calls, {ticks} decode ticks, {mm} "
+          f"matmul ops per Program; launches {launches}, want {want}")
     if launches != want or mm != {"prefill": 225, "decode": 225}:
-        fail(f"launch counts {launches} != {want}")
+        fail(f"{label}: launch counts {launches} != {want}")
     worst, n_rows, n_ids = rec.replay_plain(eng)
     n_tok = sum(len(r.out_tokens) for r in done)
-    pre = [c[1] for c in rec.calls if c[0] == "prefill"]
-    dec = [c[1] for c in rec.calls if c[0] == "decode"]
     stats = {"tok_s": n_tok / res["seconds"], "seconds": res["seconds"],
-             "tokens": n_tok, "prefill_ms": 1e3 * statistics.mean(pre),
-             "tick_ms": 1e3 * statistics.mean(dec),
-             "prefills": eng.n_prefills, "ticks": eng.n_decode_ticks}
-    print(f"main path: {n_rows} logits rows within {worst:.3e} of the "
-          f"plain path (tolerance {LOGIT_TOL}); {n_ids} token ids "
-          f"compared, all equal; {stats['tok_s']:.1f} tok/s ({n_tok} "
-          f"tokens in {res['seconds']:.3f} s); prefill "
-          f"{stats['prefill_ms']:.2f} ms per admission, decode tick "
-          f"{stats['tick_ms']:.2f} ms mean")
+             "tokens": n_tok, "prefill_ms": rec.ms("prefill"),
+             "chunk_ms": rec.ms("chunk"), "tick_ms": rec.ms("decode"),
+             "prefills": rec.count("prefill"), "chunks": rec.count("chunk"),
+             "ticks": ticks}
+    pre = " ".join(f"{k} {stats[k + '_ms']:.2f} ms per call,"
+                   for k in ("prefill", "chunk") if stats[k + "_ms"])
+    print(f"{label}: {n_rows} logits rows within {worst:.3e} of the plain "
+          f"path (tolerance {LOGIT_TOL}); {n_ids} token ids compared, all "
+          f"equal; {stats['tok_s']:.1f} tok/s ({n_tok} tokens in "
+          f"{res['seconds']:.3f} s); {pre} decode tick "
+          f"{stats['tick_ms']:.2f} ms mean", flush=True)
+    return launches, stats, eng, rec
+
+
+def serve_paged(label: str):
+    """Phases 5c-5e on the paged plan, each with its own requirement on
+    the engine's page, admission and chunk counters."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    n = int(LM_ARGS[LM_ARGS.index("--requests") + 1])
+    if label == "5d int8":
+        run = lambda: serve.serve_lm(
+            get_config(LM_ARCH), slots=SLOTS, max_len=LM_MAX_LEN,
+            requests=n, max_new=32, seed=SEED, **PAGED_5D)
+    else:
+        run = lambda: serve.main(LM_ARGS + PAGED_RUNS[label])
+    if label == "5e chunked":
+        n += 1                                  # the long prompt
+    launches, stats, eng, rec = serve_lm(label, run, n)
+    adm = eng.admission
+    stats.update(shared_pages=eng.n_shared_pages, cow_forks=eng.n_cow_forks,
+                 requeued=adm.n_requeued,
+                 pages_exhausted=adm.blocked["pages_exhausted"],
+                 starved_ticks=eng.n_starved_ticks,
+                 prefill_chunks=eng.n_prefill_chunks)
+    print(f"{label}: shared_pages={eng.n_shared_pages} "
+          f"cow_forks={eng.n_cow_forks} requeued={adm.n_requeued} "
+          f"blocked={dict(adm.blocked)} prefill_chunks="
+          f"{eng.n_prefill_chunks} starved_ticks={eng.n_starved_ticks}")
+    if not (eng.n_shared_pages > 0 and eng.n_cow_forks > 0):
+        fail(f"{label}: no shared pages or no COW fork")
+    if label == "5d int8" and not (adm.n_requeued > 0 and
+                                   adm.blocked["pages_exhausted"] > 0):
+        fail(f"{label}: the pool never ran out at admission")
+    if label == "5e chunked":
+        tenures = rec.prefill_tenures()
+        late = [t for t in tenures if t[2] > -(-t[1] // eng.chunk_size)]
+        print(f"{label}: {len(tenures)} chunked prefills, ticks from slot "
+              f"assignment to first token (slot, length, ticks): "
+              f"{tenures}")
+        if eng.n_starved_ticks or late or len(tenures) != n:
+            fail(f"{label}: starved ticks {eng.n_starved_ticks}, prefills "
+                 f"past ceil(length / {eng.chunk_size}) ticks: {late}")
     return launches, stats
 
 
@@ -710,10 +991,18 @@ def main() -> int:
 
     rows = check_kernels(device, peaks)
     lm_rows, uses = check_lm_kernels(device, peaks)
+    paged_rows = check_paged_kernel(device, peaks)
     cnn_launches, img_s = serve_alexnet(device)
     resnet18_forward(device)
-    lm_launches, lm_stats = serve_lm([])
-    win_launches, win_stats = serve_lm(["--window", str(LM_WINDOW)])
+    from repro_torch.launch import serve
+    n_lm = int(LM_ARGS[LM_ARGS.index("--requests") + 1])
+    lm_launches, lm_stats, _, _ = serve_lm(
+        "5b", lambda: serve.main(LM_ARGS), n_lm)
+    win_launches, win_stats, _, _ = serve_lm(
+        "5b window", lambda: serve.main(LM_ARGS + ["--window",
+                                                   str(LM_WINDOW)]), n_lm)
+    paged = {label: serve_paged(label)
+             for label in ("5c paged", "5d int8", "5e chunked")}
 
     tick = {}
     for kname in ("conv2d_virtual", "matmul"):
@@ -736,25 +1025,46 @@ def main() -> int:
                   + ", ".join(f"{k} {x['launches']} x = {x['ms']:.3f} ms"
                               for k, x in zip(("flash", "decode", "matmul"),
                                               ks)) + ")")
+    # The paged kernel per smollm-360m decode tick: one launch per layer
+    # at phase 4's lengths, bf16 pools (the served type).
+    n_layers = lm[("full", "decode", "decode_attention")]["launches"]
+    paged_tick = {k: n_layers * paged_rows["bfloat16"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "flop_ms", "byte_ms")}
+    paged_tick["launches"] = n_layers
+    for label, (_, stats) in paged.items():
+        print(f"smollm-360m {label}: {stats['tok_s']:.1f} tok/s, decode tick "
+              f"{stats['tick_ms']:.3f} ms mean, prefill "
+              f"{stats['prefill_ms'] or 0:.3f} ms, chunk "
+              f"{stats['chunk_ms'] or 0:.3f} ms per call; paged kernel "
+              f"{n_layers} x {paged_rows['bfloat16']['ms']:.4f} ms per tick "
+              f"at phase 4's lengths (int8 pools "
+              f"{paged_rows['int8']['ms']:.4f} ms)")
     print(f"alexnet-owt tick: matmul {tick['matmul']['ms']:.4f} ms "
           f"(3 launches)")
 
-    launches = {k: cnn_launches.get(k, 0) + lm_launches.get(k, 0)
-                + win_launches.get(k, 0) for k in SOURCES}
+    per_path = [cnn_launches, lm_launches, win_launches] + [
+        launch for launch, _ in paged.values()]
+    launches = {k: sum(p.get(k, 0) for p in per_path) for k in SOURCES}
     errs = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k]
                    + [r["max_abs_err"] for r in lm_rows.values()
-                      if r["kernel"] == k]) for k in SOURCES}
+                      if r["kernel"] == k]
+                   + ([r["max_abs_err"] for r in paged_rows.values()]
+                      if k == "paged_decode_attention" else []))
+            for k in SOURCES}
     per = {"conv2d_virtual": ("alexnet-owt batch-8 tick",
                               tick["conv2d_virtual"]),
            "flash_attention": ("smollm-360m admission (prefill)",
                                lm[("full", "prefill", "flash_attention")]),
            "decode_attention": ("smollm-360m decode tick",
                                 lm[("full", "decode", "decode_attention")]),
+           "paged_decode_attention": (
+               "smollm-360m paged decode tick, bf16 pools; library_ms is "
+               "SDPA over the already-gathered view", paged_tick),
            "matmul": ("smollm-360m decode tick",
                       lm[("full", "decode", "matmul")])}
     kernels = []
     for kname in ("conv2d_virtual", "matmul", "flash_attention",
-                  "decode_attention"):
+                  "decode_attention", "paged_decode_attention"):
         what, t = per[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
@@ -769,7 +1079,9 @@ def main() -> int:
             fail(f"{kname} was never launched on the main paths")
     print(f"alexnet-owt serving: {img_s:.1f} img/s at {SLOTS} slots; "
           f"smollm-360m serving: {lm_stats['tok_s']:.1f} tok/s, window "
-          f"{LM_WINDOW}: {win_stats['tok_s']:.1f} tok/s")
+          f"{LM_WINDOW}: {win_stats['tok_s']:.1f} tok/s; "
+          + ", ".join(f"{label}: {stats['tok_s']:.1f} tok/s"
+                      for label, (_, stats) in paged.items()))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,16 +10,22 @@ sized ``W = min(max_len, attn_window)``) write the new token's K/V at
 order inside the ring does not matter: RoPE bakes each row's absolute
 position into its key, and softmax attention is permutation-invariant
 over KV rows.
+
+``paged_decode_attention`` is the same decode against the §5.1 paged
+plan: the ring rules apply through a page table (``gather_pages`` is
+the indirection rule).
 """
 from __future__ import annotations
 
 import torch
 
 from ..common import use_kernel
-from .kernel import decode_attention_cuda
-from .ref import decode_attention_ref
+from .kernel import decode_attention_cuda, paged_decode_attention_cuda
+from .ref import (decode_attention_ref, gather_pages,
+                  paged_decode_attention_ref)
 
-__all__ = ["decode_attention", "ring_kv_len", "ring_positions"]
+__all__ = ["decode_attention", "paged_decode_attention", "gather_pages",
+           "ring_kv_len", "ring_positions"]
 
 
 def ring_positions(length, cache_len: int, seq_len: int, device=None):
@@ -66,3 +72,32 @@ def decode_attention(q, k, v, *, kv_len=None, scale: float | None = None,
     if not use_kernel(impl, q):
         return decode_attention_ref(q, k, v, kv_len=kv_len, scale=scale)
     return decode_attention_cuda(q, k, v, kv_len.to(torch.int32), scale=scale)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, *, kv_len,
+                           scale: float | None = None, k_scale=None,
+                           v_scale=None, impl: str = "auto") -> torch.Tensor:
+    """Single-token decode against a **paged** KV cache: q (B, Hq, D) vs
+    pools (n_pages, page_size, Hkv, D) addressed through ``page_table``
+    (B, pages_per_slot) int32.
+
+    Slot ``b``'s virtual rows are its table row flattened (``cache_len =
+    pages_per_slot * page_size``), and the ring rules apply through the
+    table: callers pass ``kv_len = ring_kv_len(pos, cache_len)`` and
+    write the new row at virtual row ``pos % cache_len``.  int8 pools
+    carry one float32 scale per page (``k_scale`` / ``v_scale``).  There
+    is no ``block_kv``: the block is the page (core/tiling.py pins
+    ``block_kv == page_size`` for paged decode ops)."""
+    B, Hq, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    if kv_len is None:
+        kv_len = torch.full((B,), page_table.shape[1] * k_pages.shape[1],
+                            dtype=torch.int32, device=q.device)
+    if not use_kernel(impl, q):
+        return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                          kv_len=kv_len, scale=scale,
+                                          k_scale=k_scale, v_scale=v_scale)
+    return paged_decode_attention_cuda(
+        q, k_pages, v_pages, page_table.to(torch.int32),
+        kv_len.to(torch.int32), scale=scale, k_scale=k_scale,
+        v_scale=v_scale)

@@ -5,6 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --slots 8 --max-len 512 --requests 16 --prompt-len 32-448 \
         --max-new 32 [--window 128] [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --slots 8 --max-len 512 --requests 16 --prompt-len 32-256 \
+        --max-new 32 --paged --shared-prefix 256 [--kv-quant int8] \
+        [--chunk-size 128 --long-prompt 448]
 
 CNN archs (alexnet-owt / resnet18 / resnet50) serve image-classify
 requests through the compiled Program; it prints the Program listing,
@@ -16,9 +20,15 @@ pair: each request is prefilled once into the persistent KV regions,
 then every tick runs the decode Program.  ``--smoke`` takes the reduced
 config, ``--window`` sets a sliding attention window (the KV regions
 then hold ``min(max_len, window)`` rows), prompt lengths are drawn from
-``--prompt-len LO-HI``.  It prints the pair's first listing line,
-``served N requests, T tokens in S s (X tok/s)``, the prefill / recompute
-/ decode-tick counters and a few streams.
+``--prompt-len LO-HI``.  ``--paged`` serves off the paged KV plan
+(``--page-size`` rows per page, ``--kv-quant int8`` pages) with
+copy-on-write prefix sharing; ``--shared-prefix N`` opens every prompt
+with the same N tokens, so admission shares pages.  ``--chunk-size N``
+prefills N prompt rows per tick; ``--long-prompt N`` injects one prompt
+of N tokens two ticks into the run.  It prints the pair's first listing
+line, ``served N requests, T tokens in S s (X tok/s)``, the prefill /
+recompute / decode-tick counters, the chunk, admission and page
+counters where they apply, and a few streams.
 
 Everything runs on the card unless ``--device cpu`` is given (the plain
 PyTorch versions).  Weights and prompts are random, drawn from
@@ -78,26 +88,47 @@ def serve_cnn(arch: str, *, slots: int, requests: int, device=None,
 
 
 def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
-             prompt_len: tuple[int, int], device=None, seed: int = 0) -> dict:
+             prompt_len: tuple[int, int], device=None, seed: int = 0,
+             shared_prefix: int = 0, long_prompt: int = 0,
+             **engine_kw) -> dict:
     """Serve ``requests`` random prompts of the dense LM ``cfg`` with
-    random weights drawn from ``seed``; returns the engine, the finished
-    requests (by uid) and the wall seconds of the serving loop (the
-    kernels' first-use build and the weight init stay outside it)."""
+    random weights drawn from ``seed``; ``engine_kw`` (``paged``,
+    ``page_size``, ``page_pool``, ``kv_quant``, ``chunk_size``) goes to
+    the engine.  With ``shared_prefix`` every prompt opens with the same
+    tokens; ``long_prompt`` injects one prompt of that length after two
+    ticks.  Returns the engine, the finished requests (by uid), the
+    prompts and the wall seconds of the serving loop (the kernels'
+    first-use build and the weight init stay outside it)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(transformer.param_defs(cfg), gen, dev)
     eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
-                        device=dev)
+                        device=dev, **engine_kw)
     prompts = make_prompts(cfg.vocab, requests, *prompt_len, seed)
+    rng = np.random.default_rng([seed, 1])
+    prefix = rng.integers(0, cfg.vocab, size=shared_prefix).astype(np.int32)
+    prompts = [np.concatenate([prefix, p]) for p in prompts]
+    if long_prompt:
+        prompts.append(rng.integers(0, cfg.vocab, size=long_prompt)
+                       .astype(np.int32))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    for i, prompt in enumerate(prompts):
+    for i, prompt in enumerate(prompts[:requests]):
         eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
-    done = eng.run_until_drained()
+    done = []
+    if long_prompt:
+        # Two ticks of steady decode, then the long prompt lands
+        # mid-stream; with chunk_size its prefill interleaves with the
+        # in-flight streams instead of stalling them.
+        for _ in range(2):
+            done += eng.step()
+        eng.submit(Request(uid=requests, prompt=prompts[requests],
+                           max_new_tokens=max_new))
+    done += eng.run_until_drained()
     seconds = time.perf_counter() - t0
     return {"engine": eng, "done": sorted(done, key=lambda r: r.uid),
-            "seconds": seconds}
+            "prompts": prompts, "seconds": seconds}
 
 
 def _span(text: str) -> tuple[int, int]:
@@ -123,6 +154,22 @@ def main(argv=None) -> dict:
                          "regions then hold min(max_len, window) rows")
     ap.add_argument("--prompt-len", type=_span, default=(1, 7),
                     metavar="LO-HI", help="prompt lengths, drawn uniformly")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve off the paged KV plan: page pools + a "
+                         "per-slot page table, copy-on-write prefix "
+                         "sharing (LM archs)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="rows per KV page (must divide --max-len)")
+    ap.add_argument("--kv-quant", choices=["int8"], default=None,
+                    help="int8 KV pages with per-page scales (--paged)")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="open every prompt with the same N tokens "
+                         "(paged prefix sharing)")
+    ap.add_argument("--chunk-size", type=int, default=None, metavar="N",
+                    help="chunked prefill: N prompt rows per tick")
+    ap.add_argument("--long-prompt", type=int, default=0, metavar="N",
+                    help="inject one prompt of N tokens two ticks into "
+                         "the run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs "
                          "the plain PyTorch versions)")
@@ -150,7 +197,10 @@ def main(argv=None) -> dict:
     res = serve_lm(cfg, slots=args.slots, max_len=args.max_len,
                    requests=args.requests, max_new=args.max_new,
                    prompt_len=args.prompt_len, device=args.device,
-                   seed=args.seed)
+                   seed=args.seed, shared_prefix=args.shared_prefix,
+                   long_prompt=args.long_prompt, paged=args.paged,
+                   page_size=args.page_size,
+                   kv_quant=args.kv_quant, chunk_size=args.chunk_size)
     eng, done, dt = res["engine"], res["done"], res["seconds"]
     n_tok = sum(len(r.out_tokens) for r in done)
     print(eng.program.listing().splitlines()[0])
@@ -159,6 +209,18 @@ def main(argv=None) -> dict:
     print(f"prefills={eng.n_prefills} "
           f"prefill_recomputes={eng.n_prefill_recomputes} "
           f"decode_ticks={eng.n_decode_ticks}")
+    if eng.chunk_size is not None:
+        print(f"prefill_chunks={eng.n_prefill_chunks} "
+              f"starved_ticks={eng.n_starved_ticks}")
+    adm = eng.admission
+    if adm.n_rejected or adm.n_requeued:
+        print(f"rejected={adm.n_rejected} requeued={adm.n_requeued} "
+              f"last_blocked={adm.last_blocked}")
+    if args.paged:
+        print(f"shared_pages={eng.n_shared_pages} "
+              f"cow_forks={eng.n_cow_forks} "
+              f"pool_used={eng._pool.used_pages} "
+              f"pool_free={eng._pool.free_pages}")
     for r in done[:4]:
         print(f"  req {r.uid}: {len(r.prompt)} prompt tokens -> "
               f"{r.out_tokens}")

@@ -8,12 +8,14 @@ with the residual adds fused into the o-/down-projection writebacks;
 Program, and ``program_forward`` executes the instruction stream through
 runtime/executor.py.  ``compile_program_pair`` compiles the stateful
 serving pair (batch-1 prefill writing the KV cache, per-token decode)
-sharing one persistent region table.
+sharing one persistent region table -- contiguous, rolling-window or
+(``paged=True``) the §5.1 paged plan of page pools and a page table,
+optionally in int8 pages.
 
 Not carried yet: the reference's scan ``forward`` / ``decode_step`` (the
 JAX package is the oracle; they come with training, ROADMAP A.10), the
-MoE and cross-attention variants (A.9), the paged region plan (A.7) and
-the autotune hook of the compile entry points.
+MoE and cross-attention variants (A.9) and the autotune hook of the
+compile entry points.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from ..core.hw import TPU_V5E, HardwareModel
 from ..core.ir import (ModelGraph, attention_node, decode_attention_node,
                        elementwise_node, embed_node, matmul_node, norm_node)
 from ..core.program import Program, ProgramPair, lower_to_program
-from ..core.regions import (PersistentSpec, StateCaps, allocate_regions,
-                            extend_with_persistent, register_state_family,
+from ..core.regions import (PAGE_TABLE_REGION, PersistentSpec, StateCaps,
+                            allocate_regions, extend_with_persistent,
+                            paged_kv_specs, register_state_family,
                             state_specs)
 from ..core.schedule import compile_model
 from ..runtime.executor import cached_runner
@@ -198,9 +201,24 @@ def _build_lm_graph(cfg: ArchConfig, name: str, M: int, by: int,
     return g
 
 
+def _paged_cache_meta(i: int, page_size: int, kv_quant: str | None) -> dict:
+    """Attention-node meta for the paged region plan: the cache names
+    resolve to the §5.1 page *pools*, the shared table and (for int8
+    pools) the per-page scale regions ride along, and ``page_size``
+    reaches the schedule so the decode kv block is pinned to the page."""
+    meta = {"k_cache": f"l{i}.k_pages", "v_cache": f"l{i}.v_pages",
+            "page_table": PAGE_TABLE_REGION, "page_size": page_size}
+    if kv_quant == "int8":
+        meta["k_scale"] = f"l{i}.k_scale"
+        meta["v_scale"] = f"l{i}.v_scale"
+    return meta
+
+
 def to_graph(cfg: ArchConfig, batch: int = 1, seq: int = 64,
              dtype_bytes: int | None = None,
-             write_cache: bool = False) -> ModelGraph:
+             write_cache: bool = False,
+             page_size: int | None = None,
+             kv_quant: str | None = None) -> ModelGraph:
     """Lower a dense config to the compiler IR (§5.1 steps 1-2):
 
         embed -> N x [attn_norm, wq|wk|wv, flash_attention, wo(+resid),
@@ -210,14 +228,19 @@ def to_graph(cfg: ArchConfig, batch: int = 1, seq: int = 64,
     ``write_cache=True`` emits the *prefill* flavor: each attention node
     also names the persistent ``l{i}.k_cache`` / ``l{i}.v_cache``
     regions it writes the post-RoPE K and raw V into at the admitted
-    slot."""
+    slot.  ``page_size`` switches those names to the paged plan's page
+    pools (plus the page table, and per-page scales when ``kv_quant=
+    "int8"``)."""
     _require_dense(cfg)
     by = dtype_bytes if dtype_bytes is not None else cfg.tdtype.itemsize
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
     def add_attention(g, i, qkv):
-        cache_meta = ({"k_cache": f"l{i}.k_cache", "v_cache": f"l{i}.v_cache"}
-                      if write_cache else {})
+        cache_meta = {}
+        if write_cache:
+            cache_meta = ({"k_cache": f"l{i}.k_cache",
+                           "v_cache": f"l{i}.v_cache"} if page_size is None
+                          else _paged_cache_meta(i, page_size, kv_quant))
         g.add(attention_node(
             f"l{i}.attn", seq_q=seq, seq_kv=seq, heads=H, kv_heads=KV,
             head_dim=hd, batch=batch, causal=True, dtype_bytes=by,
@@ -243,22 +266,30 @@ def _compile_program(cfg: ArchConfig, batch: int, seq: int,
 
 
 def to_decode_graph(cfg: ArchConfig, slots: int = 8, max_len: int = 256,
-                    dtype_bytes: int | None = None) -> ModelGraph:
+                    dtype_bytes: int | None = None,
+                    page_size: int | None = None,
+                    kv_quant: str | None = None) -> ModelGraph:
     """Lower the per-token decode step: the same block structure as
     ``to_graph`` with one token per slot (M = slots) and the attention
     replaced by ``decode_attention`` against the persistent per-block
-    KV-cache regions of ``kv_cache_len`` rows."""
+    KV-cache regions of ``kv_cache_len`` rows, or against the paged
+    plan's pools when ``page_size`` is given."""
     _require_dense(cfg)
     by = dtype_bytes if dtype_bytes is not None else cfg.tdtype.itemsize
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     cache_len = kv_cache_len(cfg, max_len)
 
     def add_attention(g, i, qkv):
+        if page_size is None:
+            cache_meta = {"k_cache": f"l{i}.k_cache",
+                          "v_cache": f"l{i}.v_cache"}
+        else:
+            cache_meta = _paged_cache_meta(i, page_size, kv_quant)
         g.add(decode_attention_node(
             f"l{i}.attn", cache_len=cache_len, heads=H, kv_heads=KV,
             head_dim=hd, slots=slots, dtype_bytes=by, inputs=qkv,
             window=cfg.attn_window, rope_theta=cfg.rope_theta,
-            k_cache=f"l{i}.k_cache", v_cache=f"l{i}.v_cache"))
+            **cache_meta))
 
     return _build_lm_graph(cfg, cfg.name + ".decode", slots, by,
                            add_attention)
@@ -288,29 +319,46 @@ register_state_family(
 
 def compile_program_pair(cfg: ArchConfig, slots: int = 8,
                          max_len: int = 256, hw: HardwareModel = TPU_V5E, *,
-                         paged: bool = False) -> ProgramPair:
+                         paged: bool = False, page_size: int = 16,
+                         page_pool: int | None = None,
+                         kv_quant: str | None = None) -> ProgramPair:
     """Compile the stateful serving pair: a batch-1 prefill Program
     (full causal forward + cache writes at the admitted slot) and a
     decode Program (one token per slot against the cache), sharing one
     persistent region table so one runtime ``ProgramState`` addresses
-    both.  Memoized per (config, slots, max_len, hw).  A windowed config
-    gets regions of ``min(max_len, attn_window)`` rows; the plans differ
-    only in region shape, never in instruction structure.  The paged
-    plan is not ported (ROADMAP A.7)."""
-    if paged:
+    both.  Memoized per (config, slots, max_len, hw, paged plan).  A
+    windowed config gets regions of ``min(max_len, attn_window)`` rows;
+    the plans differ only in region shape, never in instruction
+    structure.
+
+    ``paged=True`` selects the §5.1 paged plan: page pools and a page
+    table (``regions.paged_kv_specs``) instead of contiguous rows --
+    ``page_pool`` caps the pool (default: the worst case) and
+    ``kv_quant="int8"`` stores quantized pages with per-page scales.
+    Paged and a sliding window are mutually exclusive (the window plan
+    already bounds the resident rows)."""
+    if paged and cfg.attn_window:
         raise NotImplementedError(
-            "the paged KV region plan is not ported to repro_torch yet "
-            "(ROADMAP A.7)")
-    return _compile_program_pair(cfg, slots, max_len, hw)
+            f"paged KV and attn_window are mutually exclusive "
+            f"({cfg.name} has window={cfg.attn_window}); the window "
+            f"plan already bounds resident rows")
+    return _compile_program_pair(cfg, slots, max_len, hw, paged, page_size,
+                                 page_pool, kv_quant)
 
 
 @functools.lru_cache(maxsize=32)
 def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
-                          hw: HardwareModel) -> ProgramPair:
+                          hw: HardwareModel, paged: bool = False,
+                          page_size: int = 16, page_pool: int | None = None,
+                          kv_quant: str | None = None) -> ProgramPair:
     _require_dense(cfg)
     specs, caps = state_specs(cfg, slots, max_len)
-    pre_graph = to_graph(cfg, batch=1, seq=max_len, write_cache=True)
-    dec_graph = to_decode_graph(cfg, slots=slots, max_len=max_len)
+    pg = page_size if paged else None
+    quant = kv_quant if paged else None
+    pre_graph = to_graph(cfg, batch=1, seq=max_len, write_cache=True,
+                         page_size=pg, kv_quant=quant)
+    dec_graph = to_decode_graph(cfg, slots=slots, max_len=max_len,
+                                page_size=pg, kv_quant=quant)
     pre_graph.name = cfg.name + ".prefill"
     pre_sched = compile_model(pre_graph, hw)
     dec_sched = compile_model(dec_graph, hw)
@@ -320,12 +368,20 @@ def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
     # across the pair, so prefill-written buffers are read by decode ops
     # under the same ids.
     base = max(len(pre_plan.regions), len(dec_plan.regions))
+    paged_plan = None
+    if paged:
+        specs, paged_plan = paged_kv_specs(
+            n_layers=cfg.n_layers, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+            slots=slots, max_len=max_len, page_size=page_size,
+            n_pages=page_pool,
+            kv_dtype=("int8" if kv_quant == "int8"
+                      else str(cfg.kv_tdtype).removeprefix("torch.")))
     pre_plan = extend_with_persistent(pre_plan, specs, base)
     dec_plan = extend_with_persistent(dec_plan, specs, base)
     return ProgramPair(
         prefill=lower_to_program(pre_graph, pre_sched, pre_plan),
         decode=lower_to_program(dec_graph, dec_sched, dec_plan),
-        slots=slots, max_len=max_len, paged=None, caps=caps)
+        slots=slots, max_len=max_len, paged=paged_plan, caps=caps)
 
 
 def program_forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",

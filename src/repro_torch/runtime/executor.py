@@ -17,6 +17,17 @@ by one token through the ``decode_attention`` ops.  The reference
 threads the state functionally and donates it to XLA; here both update
 the state's tensors **in place**, on the device they live on.
 
+The §5.1 paged plan keeps the KV rows in page pools addressed through
+a per-slot page table: ``run_prefill`` scatters whole pages (the rows of
+a shared prefix redirected to the null page 0) and ``run_decode`` writes
+each new row into its table-mapped page -- an int8 pool requantizes the
+page -- and attends through ``paged_decode_attention``.  The host-side
+``PagePool`` decides admission, on-demand pages and copy-on-write forks
+between calls; ``sync_page_table`` and ``apply_page_copies`` hand its
+decisions to the state's device tensors in place.  ``run_prefill_chunk``
+prefills rows ``[start, stop)`` of several admissions at once against
+the cache rows earlier chunks wrote, bitwise-equal to a whole prefill.
+
 PyTorch runs eagerly, so the reference's ``jitted_runner`` becomes
 ``cached_runner``: one closure per (Program, impl).  The kernels run on
 the device the input lies on (``impl="auto"``).  Op kinds of the other
@@ -27,18 +38,24 @@ from __future__ import annotations
 import collections
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..core.program import Program, ProgramOp, ProgramPair
+from ..core.quant import int8_quantize_pages, int8_requantize_page
+from ..core.regions import PAGE_TABLE_REGION, PagedPlan, pages_for_len
 from ..kernels.common import resolve_device
 from ..kernels.conv2d import avgpool2d_ref, conv2d, maxpool2d_ref
-from ..kernels.decode_attention import (decode_attention, ring_kv_len,
+from ..kernels.decode_attention import (decode_attention,
+                                        paged_decode_attention, ring_kv_len,
                                         ring_positions)
 from ..kernels.flash_attention import flash_attention
 from ..kernels.matmul import matmul
 
 __all__ = ["run", "walk", "cached_runner", "ProgramState",
-           "init_program_state", "run_prefill", "run_decode"]
+           "init_program_state", "run_prefill", "run_prefill_chunk",
+           "run_decode", "PagePool", "paged_pool_regions",
+           "sync_page_table", "apply_page_copies"]
 
 # op kind -> the ROADMAP item that ports it
 _NOT_PORTED = {"wkv": "A.9", "ssm_scan": "A.9", "moe_dispatch": "A.9",
@@ -212,10 +229,12 @@ class ProgramState:
 
     ``caches`` maps the allocator's persistent region ids to their
     buffers — (slots, cache_len, kv_heads, head_dim) per block and cache
-    side, cache_len being max_len or the attention window; ``lengths``
-    is the per-slot sequence length (int32), counting absolute tokens
-    even once the ring has wrapped.  ``run_prefill`` and ``run_decode``
-    update both in place."""
+    side, cache_len being max_len or the attention window; for a paged
+    plan the (n_pages, page_size, kv_heads, head_dim) pools, their
+    (n_pages,) scales when int8, and the (slots, pages_per_slot) page
+    table.  ``lengths`` is the per-slot sequence length (int32),
+    counting absolute tokens even once the ring has wrapped.  The
+    runners update both in place."""
 
     caches: dict[int, torch.Tensor]
     lengths: torch.Tensor               # (slots,) int32
@@ -238,7 +257,10 @@ def init_program_state(pair: ProgramPair | Program,
             f"transformer.compile_program_pair)")
     caches = {r.rid: torch.zeros(r.shape, dtype=getattr(torch, r.dtype),
                                  device=dev) for r in persistent}
-    slots = persistent[0].shape[0]
+    # Paged plans take the slot count off the page table (pools are
+    # slot-agnostic); contiguous plans off any cache region's axis 0.
+    pt = next((r for r in persistent if r.name == PAGE_TABLE_REGION), None)
+    slots = (pt if pt is not None else persistent[0]).shape[0]
     return ProgramState(caches, torch.zeros((slots,), dtype=torch.int32,
                                             device=dev))
 
@@ -259,28 +281,222 @@ def _write_prefill_cache(caches: dict, op: ProgramOp, k, v, slot: int,
         buf[slot, :row.shape[0]] = row
 
 
+def _write_prefill_cache_paged(caches: dict, op: ProgramOp, k, v, slot: int,
+                               length: int, write_from: int) -> None:
+    """Paged prefill write: scatter the prompt's K/V into the slot's
+    table-mapped pool pages, one whole page per row of the scatter, in
+    place.  Pages covering rows ``< write_from`` (a page multiple: the
+    COW-shared prefix) and the unallocated tail entries land on the null
+    page 0, so the write stays dense.  Rows at ``>= length`` are zeroed
+    first, so an int8 tail page's scale is set by real rows only."""
+    pg = op.attn.page_size
+    pt_row = caches[op.page_table_region][slot]
+    quant = op.k_scale_region is not None
+    for rid, srid, val in ((op.k_cache_region, op.k_scale_region, k),
+                          (op.v_cache_region, op.v_scale_region, v)):
+        buf = caches[rid]
+        row = val[0].transpose(0, 1)                          # (S, KV, hd)
+        S = row.shape[0]
+        keep = torch.arange(S, device=row.device)[:, None, None] < length
+        row = torch.where(keep, row, torch.zeros_like(row))
+        pages = row.reshape(S // pg, pg, row.shape[1], row.shape[2])
+        first = torch.arange(S // pg, device=row.device) * pg
+        dest = torch.where(first >= write_from, pt_row,
+                           torch.zeros_like(pt_row)).long()
+        if quant:
+            q, sc = int8_quantize_pages(pages)
+            buf[dest] = q
+            caches[srid][dest] = sc
+        else:
+            buf[dest] = pages.to(buf.dtype)
+
+
 @torch.no_grad()
 def run_prefill(program: Program, params, tokens: torch.Tensor,
-                state: ProgramState, slot: int, length: int, *,
-                impl: str = "auto") -> torch.Tensor:
+                state: ProgramState, slot: int, length: int,
+                write_from: int = 0, *, impl: str = "auto") -> torch.Tensor:
     """Execute the prefill Program for one admitted request.
 
     tokens: (1, max_len) int, the prompt right-padded (rows past
     ``length`` are masked downstream by the slot's length).  Writes each
-    block's K/V into the persistent cache regions at ``slot`` and sets
-    ``lengths[slot] = length``, in place.  Returns the logits (1,
-    max_len, vocab)."""
+    block's K/V into the persistent cache regions at ``slot`` -- for a
+    paged plan into the slot's pages, from row ``write_from`` (the
+    shared-prefix redirect) on -- and sets ``lengths[slot] = length``,
+    in place.  Returns the logits (1, max_len, vocab)."""
     regions: dict[int, torch.Tensor] = {program.input_region: tokens}
     for op in program.ops:
         if op.kernel == "flash_attention" and op.k_cache_region is not None:
             out, k, v = _run_attention(op, regions, impl=impl,
                                        return_kv=True)
-            _write_prefill_cache(state.caches, op, k, v, slot, length)
+            if op.page_table_region is not None:
+                _write_prefill_cache_paged(state.caches, op, k, v, slot,
+                                           length, write_from)
+            else:
+                _write_prefill_cache(state.caches, op, k, v, slot, length)
             regions[op.out_region] = out
             continue
         regions[op.out_region] = _run_op(op, regions[op.in_region], regions,
                                          params, impl=impl)
     state.lengths[slot] = length
+    return regions[program.output_region]
+
+
+# --- chunked prefill -----------------------------------------------------------------
+def _run_attention_chunk(op: ProgramOp, regions: dict, caches: dict,
+                         slot: torch.Tensor, start: torch.Tensor, *,
+                         impl: str):
+    """One flash op of a chunk pass: the whole-prefill front half, with
+    the K/V columns at positions ``< start`` substituted from the slot's
+    persistent cache rows before the kernel call.
+
+    The pass runs over the full (B, max_len) padded token buffer, so the
+    fresh rows are bitwise what a whole prefill computes there, and the
+    substituted rows were written by earlier chunks of the same
+    computation; the flash kernel gets the same shapes and blocks, so a
+    chunked prefill reproduces the whole prefill bit for bit.  History
+    per plan: contiguous rows are position-indexed; a ring holds
+    position ``p`` at row ``p % cache_len``, valid for ``start -
+    cache_len <= p < start``; a paged plan gathers through the slot's
+    table row."""
+    a = op.attn
+    q, k, v = _attention_heads(op, regions)
+    B, S = q.shape[0], q.shape[2]
+    pos = torch.arange(S, device=q.device)
+    if op.page_table_region is not None:
+        pg = a.page_size
+        pt_rows = caches[op.page_table_region][slot]     # (B, pages_per_slot)
+        page = pt_rows[:, pos // pg].long()              # (B, S)
+        hk = caches[op.k_cache_region][page, pos % pg]   # (B, S, KV, hd)
+        hv = caches[op.v_cache_region][page, pos % pg]
+        valid = pos[None] < start[:, None]
+    else:
+        buf_k, buf_v = caches[op.k_cache_region], caches[op.v_cache_region]
+        cache_len = buf_k.shape[1]
+        ring = pos % cache_len
+        hk = buf_k[slot][:, ring]                        # (B, S, KV, hd)
+        hv = buf_v[slot][:, ring]
+        valid = ((pos[None] < start[:, None])
+                 & (pos[None] >= start[:, None] - cache_len))
+    m = valid[:, None, :, None]                          # (B, 1, S, 1)
+    k = torch.where(m, hk.transpose(1, 2).to(k.dtype), k)
+    v = torch.where(m, hv.transpose(1, 2).to(v.dtype), v)
+    out = flash_attention(q, k, v, causal=a.causal, window=a.window,
+                          block_q=a.block_q, block_kv=a.block_kv, impl=impl)
+    out = out.transpose(1, 2).reshape(B, S, a.heads * a.head_dim)
+    return out, k, v
+
+
+def _write_chunk_cache(caches: dict, op: ProgramOp, k, v,
+                       slot: torch.Tensor, start: torch.Tensor,
+                       stop: torch.Tensor, length: torch.Tensor) -> None:
+    """Store a chunk's fresh K/V rows -- (B, KV, S, hd), rows ``[start,
+    stop)`` per entry -- into the (slots, cache_len, KV, hd) regions, in
+    place.  Contiguous regions take the chunk rows; the final chunk
+    (``stop == length``) extends the write through the padded tail, so
+    the region ends bitwise-equal to a whole prefill's full-row write.
+    Window-sized regions take the ring layout: ring row ``j`` receives
+    the latest chunk position ``p < min(stop, length)`` with ``p %
+    cache_len == j``, and the first chunk seeds every ring row with
+    fresh row 0 -- ``ring_positions``' duplicate-early-row rule."""
+    for rid, val in ((op.k_cache_region, k), (op.v_cache_region, v)):
+        buf = caches[rid]
+        row = val.transpose(1, 2).to(buf.dtype)             # (B, S, KV, hd)
+        B, S, cache_len = row.shape[0], row.shape[1], buf.shape[1]
+        old = buf[slot]                                     # (B, cl, KV, hd)
+        if cache_len == S:
+            wstop = torch.where(stop >= length, S, stop)
+            pos = torch.arange(S, device=row.device)
+            m = (pos[None] >= start[:, None]) & (pos[None] < wstop[:, None])
+            new = torch.where(m[..., None, None], row, old)
+        else:
+            wstop = torch.minimum(stop, length)
+            j = torch.arange(cache_len, device=row.device)
+            last = (wstop - 1)[:, None]
+            p = j[None] + torch.div(last - j[None], cache_len,
+                                    rounding_mode="floor") * cache_len
+            written = (p >= start[:, None]) & (p < wstop[:, None])
+            batch = torch.arange(B, device=row.device)[:, None]
+            gathered = row[batch, p.clamp(0, S - 1).long()]
+            seed = row[:, :1].expand(old.shape)
+            base = torch.where((start == 0)[:, None, None, None], seed, old)
+            new = torch.where(written[..., None, None], gathered, base)
+        buf[slot] = new
+
+
+def _write_chunk_cache_paged(caches: dict, op: ProgramOp, k, v,
+                             slot: torch.Tensor, start: torch.Tensor,
+                             stop: torch.Tensor, length: torch.Tensor,
+                             write_from: torch.Tensor) -> None:
+    """Paged chunk write: scatter the chunk rows through the slots'
+    page-table rows, one row per scatter entry, in place.  Rows outside
+    ``[max(start, write_from), stop)`` -- and on the final chunk every
+    row past ``length``, zeroed as in the whole-prefill write -- land
+    on the null page 0, so COW-shared prefix pages are never touched.
+    int8 pools are refused upstream (``ProgramPair.chunk_blocker``)."""
+    if op.k_scale_region is not None:
+        raise NotImplementedError(
+            "chunked prefill over int8 paged KV: page scales are "
+            "whole-page decisions (see ProgramPair.chunk_blocker)")
+    pg = op.attn.page_size
+    pt_rows = caches[op.page_table_region][slot]         # (B, pages_per_slot)
+    for rid, val in ((op.k_cache_region, k), (op.v_cache_region, v)):
+        buf = caches[rid]                                # (n_pages, pg, KV, hd)
+        row = val.transpose(1, 2)                        # (B, S, KV, hd)
+        S = row.shape[1]
+        pos = torch.arange(S, device=row.device)
+        wstop = torch.where(stop >= length, S, stop)
+        write = ((pos[None] >= torch.maximum(start, write_from)[:, None])
+                 & (pos[None] < wstop[:, None]))
+        keep = pos[None, :, None, None] < length[:, None, None, None]
+        rowv = torch.where(keep, row, torch.zeros_like(row))
+        page = torch.where(write, pt_rows[:, pos // pg],
+                           torch.zeros_like(write, dtype=pt_rows.dtype))
+        buf[page.long(), pos[None] % pg] = rowv.to(buf.dtype)
+
+
+@torch.no_grad()
+def run_prefill_chunk(program: Program, params, tokens: torch.Tensor,
+                      state: ProgramState, slot, start, stop, length,
+                      write_from=None, *, impl: str = "auto") -> torch.Tensor:
+    """Execute the prefill Program for one *chunk* of each of B in-flight
+    admissions -- rows ``[start[i], stop[i])`` of slot ``slot[i]`` --
+    against the full (B, max_len) padded token buffers.
+
+    ``slot`` / ``start`` / ``stop`` / ``length`` / ``write_from`` are
+    (B,) int sequences or tensors: ``length`` is each prompt's row count
+    (``stop == length`` marks the final chunk) and ``write_from`` the
+    paged shared-prefix redirect.  Each flash op substitutes the slot's
+    cache rows below ``start`` (``_run_attention_chunk``), then writes
+    the chunk rows back; ``lengths[slot]`` advances to ``stop``, in
+    place.  Returns the logits (B, max_len, vocab); rows ``[start,
+    stop)`` are the chunk's.  A full-prompt chunk is ``run_prefill``, bit
+    for bit."""
+    dev = state.lengths.device
+
+    def vec(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.int32)
+        return torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+    slot, start, stop, length = vec(slot), vec(start), vec(stop), vec(length)
+    write_from = (torch.zeros_like(start) if write_from is None
+                  else vec(write_from))
+    slot_idx = slot.long()
+    regions: dict[int, torch.Tensor] = {program.input_region: tokens}
+    for op in program.ops:
+        if op.kernel == "flash_attention" and op.k_cache_region is not None:
+            out, k, v = _run_attention_chunk(op, regions, state.caches,
+                                             slot_idx, start, impl=impl)
+            if op.page_table_region is not None:
+                _write_chunk_cache_paged(state.caches, op, k, v, slot_idx,
+                                         start, stop, length, write_from)
+            else:
+                _write_chunk_cache(state.caches, op, k, v, slot_idx, start,
+                                   stop, length)
+            regions[op.out_region] = out
+            continue
+        regions[op.out_region] = _run_op(op, regions[op.in_region], regions,
+                                         params, impl=impl)
+    state.lengths[slot_idx] = stop
     return regions[program.output_region]
 
 
@@ -312,6 +528,62 @@ def _run_decode_attention(op: ProgramOp, src, k_src, v_src, ck, cv, pos,
     return out.reshape(B, a.heads * a.head_dim)
 
 
+def _run_decode_attention_paged(op: ProgramOp, src, k_src, v_src,
+                                caches: dict, pos, live, *,
+                                impl: str) -> torch.Tensor:
+    """Paged decode step: the new K/V row goes into the pool page the
+    slot's table names for virtual row ``pos % cache_len`` (the ring
+    rule through the table), in place, and attention reads every live
+    page through ``paged_decode_attention``.  The host ``PagePool`` has
+    made that page allocated and private (COW-forked if shared) before
+    this runs; dead slots write to the null page 0, which nothing live
+    reads.  An int8 pool rewrites the whole target page: its scale grows
+    to admit the new row (``max(old, |row| / 127)``) and the page is
+    requantized under it -- exact when the scale is unchanged."""
+    from ..models.common import Rotary, apply_rope
+    a = op.attn
+    B = src.shape[0]
+    pg = a.page_size
+    pt = caches[op.page_table_region]
+    ck, cv = caches[op.k_cache_region], caches[op.v_cache_region]
+    quant = op.k_scale_region is not None
+    ks = caches[op.k_scale_region] if quant else None
+    vs = caches[op.v_scale_region] if quant else None
+    cache_len = pt.shape[1] * pg
+    q = src.reshape(B, a.heads, a.head_dim)
+    k_new = k_src.reshape(B, a.kv_heads, a.head_dim)
+    v_new = v_src.reshape(B, a.kv_heads, a.head_dim)
+    if a.rope_theta:
+        cos, sin = Rotary(a.head_dim, a.rope_theta).freqs(pos)
+        q = apply_rope(q, cos[:, None], sin[:, None])
+        k_new = apply_rope(k_new, cos[:, None], sin[:, None])
+    row = (pos % cache_len).long()
+    offs = row % pg
+    page = pt.gather(1, (row // pg)[:, None])[:, 0].long()
+    page = torch.where(live, page, torch.zeros_like(page))
+    if not quant:
+        ck[page, offs] = k_new.to(ck.dtype)
+        cv[page, offs] = v_new.to(cv.dtype)
+    else:
+        batch = torch.arange(B, device=src.device)
+        for pool, scales, new_row in ((ck, ks, k_new), (cv, vs, v_new)):
+            old_scale = scales[page]
+            amax = new_row.float().abs().amax(dim=(1, 2))
+            new_scale = torch.maximum(old_scale, amax / 127.0)
+            new_scale = torch.where(new_scale > 0, new_scale,
+                                    torch.ones_like(new_scale))
+            qp = int8_requantize_page(pool[page], old_scale, new_scale)
+            qp[batch, offs] = torch.round(
+                new_row.float() / new_scale[:, None, None]).clamp(
+                    -127, 127).to(torch.int8)
+            pool[page] = qp
+            scales[page] = new_scale
+    out = paged_decode_attention(q, ck, cv, pt,
+                                 kv_len=ring_kv_len(pos, cache_len),
+                                 k_scale=ks, v_scale=vs, impl=impl)
+    return out.reshape(B, a.heads * a.head_dim)
+
+
 @torch.no_grad()
 def run_decode(program: Program, params, tokens: torch.Tensor,
                state: ProgramState, mask: torch.Tensor | None = None, *,
@@ -332,11 +604,16 @@ def run_decode(program: Program, params, tokens: torch.Tensor,
             if mask is None else mask.to(device=pos.device, dtype=torch.bool))
     for op in program.ops:
         src = regions[op.in_region]
-        if op.kernel == "decode_attention":
+        if op.kernel == "decode_attention" and op.page_table_region is None:
             regions[op.out_region] = _run_decode_attention(
                 op, src, regions[op.k_region], regions[op.v_region],
                 state.caches[op.k_cache_region],
                 state.caches[op.v_cache_region], pos, live, impl=impl)
+            continue
+        if op.kernel == "decode_attention":
+            regions[op.out_region] = _run_decode_attention_paged(
+                op, src, regions[op.k_region], regions[op.v_region],
+                state.caches, pos, live, impl=impl)
             continue
         regions[op.out_region] = _run_op(op, src, regions, params, impl=impl)
     state.lengths += live.to(torch.int32)
@@ -364,3 +641,170 @@ def cached_runner(program: Program, impl: str = "auto"):
     else:
         _RUNNERS.move_to_end(key)
     return fn
+
+
+# --- paged KV runtime (host-side page allocator, §5.1 paged plan) ------------------
+class PagePool:
+    """Host-side allocator for a pair's §5.1 paged-KV plan.
+
+    The compiler minted the *capacity* (``regions.paged_kv_specs``: pool
+    shape, table shape, null page 0); this object owns the *assignment*
+    -- a free list, per-page refcounts, and a host mirror of the device
+    page table.  Admission, on-demand decode pages, COW forks and
+    retirement are decided here between executor calls; the device sees
+    only the decided table (``sync_page_table``) and whole-page copies
+    (``apply_page_copies``).
+
+    Refcounts are table-granular, shared by every block's pools: slot
+    tables are the same across blocks, so one count per page id covers
+    all of them.
+
+    Invariants:
+
+    * page 0 is never allocated -- it is the dense-scatter target for
+      masked writes (dead slots, shared-prefix prefill rows);
+    * a page a slot is about to *write* (``prepare_decode``) always has
+      refcount 1 -- shared pages are forked first (copy-on-write);
+    * a freed page returns to the free list only at refcount 0, so a
+      donor's retirement never invalidates a sharer's prefix.
+    """
+
+    def __init__(self, plan: PagedPlan, slots: int):
+        self.plan = plan
+        self.slots = slots
+        self.free: list[int] = list(range(plan.n_pages - 1, 0, -1))
+        self.refcount = np.zeros(plan.n_pages, np.int32)
+        self.table = np.zeros((slots, plan.pages_per_slot), np.int32)
+        # True while the host table has edits the device copy has not
+        # seen; ``sync_page_table`` clears it, so a steady decode tick
+        # (its write row inside an owned page) transfers nothing.
+        self.dirty = True
+
+    @property
+    def free_pages(self) -> int:
+        return len(self.free)
+
+    @property
+    def used_pages(self) -> int:
+        return int((self.refcount > 0).sum())
+
+    def _alloc(self) -> int:
+        if not self.free:
+            raise RuntimeError(
+                f"page pool exhausted ({self.plan.n_pages} pages, "
+                f"page_size={self.plan.page_size}) — retire a slot or "
+                f"compile with a larger page_pool")
+        p = self.free.pop()
+        self.refcount[p] = 1
+        return p
+
+    def _unref(self, p: int) -> None:
+        self.refcount[p] -= 1
+        if self.refcount[p] == 0:
+            self.free.append(p)
+
+    def can_admit(self, length: int, shared_pages: int = 0) -> bool:
+        need = pages_for_len(length, self.plan.page_size) - shared_pages
+        return need <= len(self.free)
+
+    def admit(self, slot: int, length: int,
+              shared: tuple[int, ...] = ()) -> int:
+        """Map ``shared`` donor pages (the full-page common prefix, in
+        order) into ``slot``'s table, allocate fresh pages for the rest
+        of the ``length``-row prompt, and return ``write_from`` -- the
+        first row the prefill must write (the shared row count)."""
+        pg = self.plan.page_size
+        need = pages_for_len(length, pg)
+        shared = tuple(shared)[:need]
+        row = np.zeros(self.plan.pages_per_slot, np.int32)
+        for i, p in enumerate(shared):
+            self.refcount[p] += 1
+            row[i] = p
+        for i in range(len(shared), need):
+            row[i] = self._alloc()
+        self.table[slot] = row
+        self.dirty = True
+        return len(shared) * pg
+
+    def release(self, slot: int) -> None:
+        """Retire a slot: unref every mapped page (freed at refcount 0)
+        and null its table row, so re-admission starts clean."""
+        for p in self.table[slot]:
+            if p:
+                self._unref(int(p))
+        self.table[slot] = 0
+        self.dirty = True
+
+    def slot_pages(self, slot: int, length: int) -> tuple[int, ...]:
+        """The slot's first ``pages_for_len(length)`` page ids -- what a
+        donor exposes for prefix sharing."""
+        n = pages_for_len(length, self.plan.page_size)
+        return tuple(int(p) for p in self.table[slot, :n])
+
+    def shared_prefix_pages(self, slot: int, donor_prompt: tuple,
+                            prompt: tuple) -> tuple[int, ...]:
+        """Donor pages covered by the common *full-page* prefix of
+        ``donor_prompt`` and ``prompt`` (a partial page cannot be
+        shared: the donor's rows past the common prefix live in it)."""
+        pg = self.plan.page_size
+        common = 0
+        for a, b in zip(donor_prompt, prompt):
+            if a != b:
+                break
+            common += 1
+        return self.slot_pages(slot, (common // pg) * pg)
+
+    def prepare_decode(self, slot: int, pos: int):
+        """Make the page receiving the write at ``pos % cache_len``
+        writable: allocate it if the table entry is still null, fork it
+        (a fresh page the caller copies into) if shared.  Returns the
+        (src, dst) copy a COW fork needs, else None."""
+        pg = self.plan.page_size
+        idx = (pos % self.plan.cache_len) // pg
+        p = int(self.table[slot, idx])
+        if p == 0:
+            self.table[slot, idx] = self._alloc()
+            self.dirty = True
+            return None
+        if self.refcount[p] > 1:
+            fresh = self._alloc()
+            self._unref(p)
+            self.table[slot, idx] = fresh
+            self.dirty = True
+            return (p, fresh)
+        return None
+
+
+def paged_pool_regions(pair: ProgramPair) -> list[tuple]:
+    """(k_pages, v_pages, k_scale, v_scale) region-id tuples of every
+    paged decode op -- the buffers a COW fork copies (the scale ids are
+    None for float pools)."""
+    return [(op.k_cache_region, op.v_cache_region, op.k_scale_region,
+             op.v_scale_region) for op in pair.decode.ops
+            if op.kernel == "decode_attention"
+            and op.page_table_region is not None]
+
+
+def sync_page_table(state: ProgramState, pair: ProgramPair,
+                    pool: PagePool) -> None:
+    """Copy the host page table into the state's device table, in place;
+    nothing moves when the table is unchanged since the last sync."""
+    if not pool.dirty:
+        return
+    state.caches[pair.page_table_region].copy_(torch.from_numpy(pool.table))
+    pool.dirty = False
+
+
+def apply_page_copies(state: ProgramState, pair: ProgramPair,
+                      copies) -> None:
+    """Apply COW forks: copy pool page ``src -> dst`` (its rows and, for
+    int8 pools, its scale) in every block's K and V pools, in place."""
+    if not copies:
+        return
+    rids = [r for quad in paged_pool_regions(pair) for r in quad
+            if r is not None]
+    src = torch.tensor([c[0] for c in copies], dtype=torch.long)
+    dst = torch.tensor([c[1] for c in copies], dtype=torch.long)
+    for rid in rids:
+        buf = state.caches[rid]
+        buf[dst.to(buf.device)] = buf[src.to(buf.device)]

@@ -4,14 +4,15 @@
 Producers call ``AdmissionQueue.submit`` (thread-safe) and get an
 ``AdmissionTicket`` back at once: accepted and queued, or rejected with
 ``queue_full`` when the queue is at capacity.  The engine drains the
-queue at tick boundaries and records the stalls it sees
-(``no_free_slot``) here.  The reference's head requeue serves the paged
-plan's ``pages_exhausted`` stall, which waits for the paged plan
-(ROADMAP A.7).
+queue at tick boundaries and records the stalls it sees here:
+``no_free_slot`` (every slot live or mid-prefill) and
+``pages_exhausted`` (the paged plan's pool cannot hold the prompt's
+private pages).  A pool-starved request goes back at the *head* of the
+queue (``requeue_front``), so no later arrival overtakes it.
 
-The accounting is plain integer counters (``n_rejected``, ``blocked``
-by reason); the reference keeps them on its ``obs`` metrics registry,
-which is not ported yet (ROADMAP A.8).
+The accounting is plain integer counters (``n_rejected``,
+``n_requeued``, ``blocked`` by reason); the reference keeps them on its
+``obs`` metrics registry, which is not ported yet (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -20,10 +21,11 @@ import threading
 from dataclasses import dataclass
 
 __all__ = ["AdmissionQueue", "AdmissionTicket", "QUEUE_FULL",
-           "NO_FREE_SLOT"]
+           "NO_FREE_SLOT", "PAGES_EXHAUSTED"]
 
 QUEUE_FULL = "queue_full"
 NO_FREE_SLOT = "no_free_slot"
+PAGES_EXHAUSTED = "pages_exhausted"
 
 
 @dataclass(frozen=True)
@@ -40,8 +42,8 @@ class AdmissionQueue:
     """Bounded FIFO between request producers and the engine tick loop.
 
     All mutation is under one lock: ``submit`` may run on any thread,
-    ``pop`` / ``note_blocked`` are engine-side.  A full queue rejects
-    rather than blocking the producer."""
+    ``pop`` / ``requeue_front`` / ``note_blocked`` are engine-side.  A
+    full queue rejects rather than blocking the producer."""
 
     def __init__(self, capacity: int | None = None):
         if capacity is not None and capacity < 1:
@@ -50,6 +52,7 @@ class AdmissionQueue:
         self._dq: collections.deque = collections.deque()
         self._lock = threading.Lock()
         self.n_rejected = 0
+        self.n_requeued = 0
         self.blocked: collections.Counter = collections.Counter()
         self.last_blocked: str | None = None
 
@@ -68,6 +71,16 @@ class AdmissionQueue:
         """Next request to admit, or None when empty (engine-side)."""
         with self._lock:
             return self._dq.popleft() if self._dq else None
+
+    def requeue_front(self, req, reason: str) -> None:
+        """Put a request the engine could not admit back at the *head*
+        of the queue, recording the typed ``reason``: it retries before
+        anything that arrived after it."""
+        with self._lock:
+            self._dq.appendleft(req)
+            self.n_requeued += 1
+            self.blocked[reason] += 1
+            self.last_blocked = reason
 
     def note_blocked(self, reason: str) -> None:
         """Record a stall that dequeued nothing (``no_free_slot``)."""

@@ -19,11 +19,21 @@ cache.  Nothing is prefilled twice (``n_prefill_recomputes`` stays 0).
 Windowed configs serve on the same path with window-sized regions and
 rolling eviction.  Requests enter through a bounded ``AdmissionQueue``.
 
+``paged=True`` serves off the §5.1 paged plan: page pools and a page
+table, with admission, copy-on-write prefix sharing and on-demand pages
+decided host-side by an ``executor.PagePool`` between executor calls
+(``n_shared_pages`` / ``n_cow_forks`` count them; ``kv_quant="int8"``
+stores int8 pages).  A request the pool cannot hold waits at the head
+of the queue (``pages_exhausted``).  ``chunk_size`` makes admission only
+assign the slot; the prompt then prefills ``chunk_size`` rows per tick
+in one batched ``run_prefill_chunk`` call shared by every in-flight
+admission, bitwise-equal to a whole prefill, while live slots keep
+decoding every tick (``n_starved_ticks`` stays 0).
+
 The engine runs on the card unless the caller passes ``device="cpu"``
 (then every op runs its plain PyTorch version); with no card and no
-device named it raises.  Chunked prefill, speculative decode and the
-paged plan (ROADMAP A.7) and the ``obs`` metrics plane (A.8) are not
-ported; asking for them raises.
+device named it raises.  Speculative decode (ROADMAP A.7) and the
+``obs`` metrics plane (A.8) are not ported; asking for them raises.
 """
 from __future__ import annotations
 
@@ -37,7 +47,8 @@ from ..kernels.common import resolve_device
 from ..models.cnn import compile_program
 from ..models.transformer import compile_program_pair
 from ..runtime import executor
-from .admission import NO_FREE_SLOT, AdmissionQueue, AdmissionTicket
+from .admission import (NO_FREE_SLOT, PAGES_EXHAUSTED, AdmissionQueue,
+                        AdmissionTicket)
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -49,6 +60,20 @@ class Request:
     max_new_tokens: int = 16
     out_tokens: list = field(default_factory=list)
     done: bool = False
+
+
+@dataclass
+class _InFlightPrefill:
+    """A chunked admission mid-prefill: the slot is reserved (neither
+    free nor live) while ``done`` walks the prompt in ``chunk_size``
+    steps; ``admitted_tick`` dates the slot assignment, so the
+    completes-within-``ceil(length / chunk)``-ticks bound is checkable."""
+    req: Request
+    tokens: np.ndarray               # (max_len,) right-padded prompt window
+    length: int                      # prompt rows to prefill
+    done: int                        # rows already in the cache
+    write_from: int                  # paged shared-prefix redirect
+    admitted_tick: int
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:
@@ -66,13 +91,11 @@ class ServingEngine:
     def __init__(self, cfg, params, *, slots: int = 8, max_len: int = 256,
                  eos_id: int | None = None, impl: str = "auto",
                  greedy: bool = True, device=None,
-                 queue_capacity: int | None = None,
-                 chunk_size: int | None = None, spec_k: int = 0,
-                 paged: bool = False, obs=None):
-        for name, asked, item in (("chunk_size", chunk_size is not None,
-                                   "A.7"),
-                                  ("spec_k", bool(spec_k), "A.7"),
-                                  ("paged", paged, "A.7"),
+                 queue_capacity: int | None = None, program=None,
+                 paged: bool = False, page_size: int = 16,
+                 page_pool: int | None = None, kv_quant: str | None = None,
+                 chunk_size: int | None = None, spec_k: int = 0, obs=None):
+        for name, asked, item in (("spec_k", bool(spec_k), "A.7"),
                                   ("obs", obs is not None, "A.8")):
             if asked:
                 raise NotImplementedError(
@@ -94,14 +117,40 @@ class ServingEngine:
         self.max_len = max_len
         self.eos = eos_id
         self.greedy = greedy
-        self.program = compile_program_pair(cfg, slots=slots,
-                                            max_len=max_len)
-        self.state = executor.init_program_state(self.program, self.device)
+        if program is None:
+            program = compile_program_pair(cfg, slots=slots, max_len=max_len,
+                                           paged=paged, page_size=page_size,
+                                           page_pool=page_pool,
+                                           kv_quant=kv_quant)
+        else:
+            _check_geometry(program, slots, max_len)
+        self.program = program
+        self.state = executor.init_program_state(program, self.device)
         self.admission = AdmissionQueue(queue_capacity)
         self.live: dict[int, Request] = {}           # slot -> request
+        # Host-side page allocator of a paged pair: admission, on-demand
+        # decode pages and COW forks are decided here between executor
+        # calls; the device sees the synced table and page copies.
+        self._pool = (executor.PagePool(program.paged, slots)
+                      if program.paged is not None else None)
+        self._slot_prompts: dict[int, tuple] = {}   # donor registry
+        self._slot_len: dict[int, int] = {}         # host length mirror
+        if chunk_size is not None:
+            if chunk_size < 1:
+                raise ValueError(f"chunk_size must be >= 1, got "
+                                 f"{chunk_size}")
+            if program.chunk_blocker is not None:
+                raise ValueError(f"pair is not chunkable: "
+                                 f"{program.chunk_blocker}")
+        self.chunk_size = chunk_size
+        self._prefilling: dict[int, _InFlightPrefill] = {}
         self.n_prefills = 0
         self.n_prefill_recomputes = 0
         self.n_decode_ticks = 0
+        self.n_prefill_chunks = 0
+        self.n_starved_ticks = 0
+        self.n_shared_pages = 0
+        self.n_cow_forks = 0
 
     @property
     def lm(self) -> bool:
@@ -125,7 +174,8 @@ class ServingEngine:
     def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:
         done = []
         for _ in range(max_ticks):
-            pending = (self.live or self.admission) if self.lm else self.queue
+            pending = ((self.live or self.admission or self._prefilling)
+                       if self.lm else self.queue)
             if not pending:
                 break
             done.extend(self.step())
@@ -154,7 +204,8 @@ class ServingEngine:
 
     # -- LM: the stateful (prefill, decode) pair ---------------------------------
     def _free_slots(self) -> list[int]:
-        return [s for s in range(self.slots) if s not in self.live]
+        return [s for s in range(self.slots)
+                if s not in self.live and s not in self._prefilling]
 
     def _next_token(self, req: Request, logits_row: np.ndarray) -> int:
         if self.greedy:
@@ -165,7 +216,7 @@ class ServingEngine:
     def _emit_tokens(self, slot: int, req: Request, toks,
                      finished: list) -> None:
         """Append generated tokens in order until EOS or the request's
-        budget retires it."""
+        budget retires it; a retired paged slot gives its pages back."""
         for nxt in toks:
             req.out_tokens.append(nxt)
             req._last_token = nxt
@@ -174,16 +225,26 @@ class ServingEngine:
                 req.done = True
                 finished.append(req)
                 self.live.pop(slot, None)
+                if self._pool is not None:
+                    # Unref the slot's pages (a donor's shared prefix
+                    # stays resident while a sharer holds it) and drop
+                    # it from the donor registry.
+                    self._pool.release(slot)
+                    self._slot_prompts.pop(slot, None)
+                    self._slot_len.pop(slot, None)
                 break
 
     def _lm_admit(self, finished: list) -> None:
         """Prefill queued prompts into free slots, once per request.
         Each admission runs the prefill Program over the right-padded
         prompt, writing the block K/V into the persistent regions at the
-        slot, and emits the first token from the prompt's last position.
-        Prompts longer than ``max_len`` keep their last ``max_len``
-        tokens.  A slot freed during the loop (a one-token budget) is
-        reused at once."""
+        slot, and emits the first token from the prompt's last position;
+        with ``chunk_size`` it only assigns the slot and registers an
+        ``_InFlightPrefill`` that ``_advance_prefills`` walks one chunk
+        per tick.  Prompts longer than ``max_len`` keep their last
+        ``max_len`` tokens.  A slot freed during the loop (a one-token
+        budget) is reused at once.  A request the page pool cannot hold
+        goes back to the head of the queue (``pages_exhausted``)."""
         while self.admission:
             free = self._free_slots()
             if not free:
@@ -196,15 +257,64 @@ class ServingEngine:
                 raise ValueError(f"request {req.uid}: empty prompt")
             slot = free[0]
             win = np.asarray(req.prompt, np.int32)[-self.max_len:]
+            write_from = 0
+            if self._pool is not None:
+                write_from = self._paged_admit(slot, win)
+                if write_from is None:
+                    self.admission.requeue_front(req, PAGES_EXHAUSTED)
+                    break
+            if self.chunk_size is not None:
+                padded = np.zeros((self.max_len,), np.int32)
+                padded[:len(win)] = win
+                # A wholly page-shared prompt still owes the chunk that
+                # computes its last row's logits (the write is
+                # redirected, the first token is not).
+                self._prefilling[slot] = _InFlightPrefill(
+                    req=req, tokens=padded, length=len(win),
+                    done=min(write_from, len(win) - 1),
+                    write_from=write_from,
+                    admitted_tick=self.n_decode_ticks)
+                continue
             padded = np.zeros((1, self.max_len), np.int32)
             padded[0, :len(win)] = win
             logits = executor.run_prefill(
                 self.program.prefill, self.params,
                 torch.from_numpy(padded).to(self.device), self.state, slot,
-                len(win), impl=self.impl)
+                len(win), write_from, impl=self.impl)
             self._finish_prefill(
                 slot, req, logits[0, len(win) - 1].float().cpu().numpy(),
                 finished)
+
+    def _paged_admit(self, slot: int, win: np.ndarray) -> int | None:
+        """Map an admitted prompt onto pool pages: refcount-share the
+        pages of the live donor with the longest full-page common prompt
+        prefix, allocate fresh pages for the rest, and sync the table.
+        Returns ``write_from`` (the first prompt row the prefill writes)
+        or None when the pool cannot hold the private pages.
+
+        Donors whose ring wrapped past ``max_len`` are skipped (the
+        rolling overwrite recycled their early pages), and so are donors
+        still mid-chunked-prefill (their prefix pages are mapped but not
+        yet written)."""
+        pool = self._pool
+        prompt = tuple(int(t) for t in win)
+        shared: tuple[int, ...] = ()
+        for s, donor in self._slot_prompts.items():
+            if s in self._prefilling:
+                continue
+            if self._slot_len.get(s, 0) > pool.plan.cache_len:
+                continue
+            cand = pool.shared_prefix_pages(s, donor, prompt)
+            if len(cand) > len(shared):
+                shared = cand
+        if not pool.can_admit(len(prompt), len(shared)):
+            return None
+        write_from = pool.admit(slot, len(prompt), shared)
+        self.n_shared_pages += len(shared)
+        self._slot_prompts[slot] = prompt
+        self._slot_len[slot] = len(prompt)
+        executor.sync_page_table(self.state, self.program, pool)
+        return write_from
 
     def _finish_prefill(self, slot: int, req: Request,
                         last_logits: np.ndarray, finished: list) -> None:
@@ -218,28 +328,99 @@ class ServingEngine:
         self._emit_tokens(slot, req, [self._next_token(req, last_logits)],
                           finished)
 
+    def _advance_prefills(self, finished: list) -> None:
+        """Advance every in-flight chunked prefill by one chunk in one
+        batched ``run_prefill_chunk`` call.  An admission that reaches
+        its prompt length emits its first token and goes live, within
+        ``ceil(length / chunk_size)`` ticks of its slot assignment."""
+        if not self._prefilling:
+            return
+        items = sorted(self._prefilling.items())
+        lengths = np.array([p.length for _, p in items], np.int32)
+        starts = np.array([p.done for _, p in items], np.int32)
+        stops = np.minimum(starts + self.chunk_size, lengths)
+        logits = executor.run_prefill_chunk(
+            self.program.prefill, self.params,
+            torch.from_numpy(np.stack([p.tokens for _, p in items]))
+            .to(self.device), self.state,
+            [s for s, _ in items], starts, stops, lengths,
+            [p.write_from for _, p in items], impl=self.impl)
+        self.n_prefill_chunks += len(items)
+        for i, (slot, p) in enumerate(items):
+            p.done = int(stops[i])
+            if p.done < p.length:
+                continue
+            del self._prefilling[slot]
+            self._finish_prefill(
+                slot, p.req, logits[i, p.length - 1].float().cpu().numpy(),
+                finished)
+
+    def _prepare_pages(self) -> None:
+        """Make each live slot's write page real and private before the
+        tick: allocate on demand past the prompt, COW-fork a shared page
+        (a device page copy), then push the decided table."""
+        copies = []
+        for slot in self.live:
+            c = self._pool.prepare_decode(slot, self._slot_len[slot])
+            if c is not None:
+                copies.append(c)
+        executor.sync_page_table(self.state, self.program, self._pool)
+        executor.apply_page_copies(self.state, self.program, copies)
+        self.n_cow_forks += len(copies)
+
     def _lm_program_step(self) -> list[Request]:
-        """Prefill-admit queued requests, then advance every live slot by
-        one token through the decode Program; the state's cache buffers
-        update in place."""
+        """Admit queued requests (whole prefill, or one chunk per tick),
+        then advance every live slot by one token through the decode
+        Program; the state's buffers update in place.  Decode-first
+        fairness: a slot live at the tick's start always advances this
+        tick (``n_starved_ticks`` counts violations)."""
         finished: list[Request] = []
         self._lm_admit(finished)
+        self._advance_prefills(finished)
         if not self.live:
             return finished
+        starved = set(self.live)
         toks = np.zeros((self.slots,), np.int32)
         occupied = np.zeros((self.slots,), bool)
         for slot, req in self.live.items():
             toks[slot] = req._last_token
             occupied[slot] = True
+        if self._pool is not None:
+            self._prepare_pages()
         # The occupancy mask keeps dead slots inert inside run_decode: no
         # length advance, no cache-row write.
         logits = executor.run_decode(
             self.program.decode, self.params,
             torch.from_numpy(toks).to(self.device), self.state,
             torch.from_numpy(occupied).to(self.device), impl=self.impl)
+        if self._pool is not None:
+            for slot in self.live:
+                self._slot_len[slot] += 1
         rows = logits.float().cpu().numpy()
+        advanced = set()
         for slot, req in list(self.live.items()):
             self._emit_tokens(slot, req, [self._next_token(req, rows[slot])],
                               finished)
+            advanced.add(slot)
         self.n_decode_ticks += 1
+        self.n_starved_ticks += len(starved - advanced)
         return finished
+
+
+def _check_geometry(pair, slots: int, max_len: int) -> None:
+    """Refuse a precompiled pair whose geometry is not the engine's, at
+    construction rather than as a shape error mid-serve.  A paged pair
+    keeps its slots in the page table and its extent in the plan."""
+    if pair.paged is not None:
+        pt = next(s for s in pair.decode.plan.persistent_regions()
+                  if s.name == "page_table")
+        checks = [(pt.shape, (slots, pair.paged.pages_per_slot)),
+                  ((pair.paged.cache_len,), (max_len,))]
+    else:
+        checks = []
+    if pair.max_len is not None:
+        checks.append(((pair.slots, pair.max_len), (slots, max_len)))
+    for got, want in checks:
+        if got != want:
+            raise ValueError(f"ProgramPair compiled for slots/max_len "
+                             f"{got}, engine configured for {want}")

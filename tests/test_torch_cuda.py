@@ -20,12 +20,16 @@ from repro_torch.kernels import (conv2d, decode_attention,  # noqa: E402
                                  flash_attention, matmul)
 from repro_torch.kernels.conv2d.kernel import (  # noqa: E402
     conv2d_virtual_cuda, conv2d_virtual_plain, virtual_geometry)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    paged_decode_attention)
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    decode_attention_cuda, decode_attention_plain)
+    decode_attention_cuda, decode_attention_plain,
+    paged_decode_attention_cuda, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.matmul.kernel import (  # noqa: E402
     matmul_cuda, matmul_plain)
+from repro_torch.core.quant import int8_quantize_pages  # noqa: E402
 from repro_torch.models import init_params, transformer  # noqa: E402
 from repro_torch.runtime import executor  # noqa: E402
 
@@ -192,6 +196,66 @@ def test_decode_kernel_matches_plain(dev, case, dt):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+# (B, Hq, Hkv, D, page_size, pages_per_slot, n_pages, kv_len per sequence)
+PAGED = [(8, 15, 5, 64, 16, 32, 257, [1, 37, 128, 256, 511, 512, 512, 384]),
+         (3, 32, 8, 128, 16, 4, 13, [64, 1, 30]),
+         (2, 4, 4, 32, 4, 4, 9, [3, 16])]
+# pool type -> q types served with it
+PAGED_TYPES = {"f32": ("f32",), "bf16": ("bf16",), "int8": ("f32", "bf16")}
+
+
+def paged_case(dev, case, pool_dt, q_dt):
+    """Pools, a table of shuffled page ids with sequence 1 sharing
+    sequence 0's first two pages, and the kernel's inputs."""
+    B, Hq, Hkv, D, pg, pps, n_pages, lens = PAGED[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(
+        DTYPES[q_dt][0])
+    kp, vp = (torch.randn((n_pages, pg, Hkv, D), generator=gen, device=dev)
+              for _ in range(2))
+    table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[:B * pps]
+             + 1).reshape(B, pps).to(torch.int32)
+    table[1, :2] = table[0, :2]
+    kw = {}
+    if pool_dt == "int8":
+        (kp, kw["k_scale"]), (vp, kw["v_scale"]) = map(int8_quantize_pages,
+                                                       (kp, vp))
+    else:
+        kp, vp = kp.to(DTYPES[pool_dt][0]), vp.to(DTYPES[pool_dt][0])
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, kv_len, kw
+
+
+@pytest.mark.parametrize("types", [(p, q) for p, qs in PAGED_TYPES.items()
+                                   for q in qs],
+                         ids=lambda t: f"{t[0]}-pools-{t[1]}-q")
+@pytest.mark.parametrize("case", range(len(PAGED)))
+def test_paged_decode_kernel_matches_plain(dev, case, types):
+    pool_dt, q_dt = types
+    q, kp, vp, table, kv_len, kw = paged_case(dev, case, pool_dt, q_dt)
+    D = q.shape[-1]
+    n0 = paged_decode_attention_cuda.launches
+    out = paged_decode_attention_cuda(q, kp, vp, table, kv_len,
+                                      scale=D ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attention_cuda.launches == n0 + 1
+    ref = paged_decode_attention_plain(q, kp, vp, table, kv_len,
+                                       scale=D ** -0.5, **kw)
+    tol = DTYPES[q_dt][1]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_paged_op_dispatches_to_the_kernel(dev):
+    q, kp, vp, table, kv_len, kw = paged_case(dev, 2, "int8", "f32")
+    n0 = paged_decode_attention_cuda.launches
+    out = paged_decode_attention(q, kp, vp, table, kv_len=kv_len, **kw)
+    assert paged_decode_attention_cuda.launches == n0 + 1
+    torch.testing.assert_close(
+        out, paged_decode_attention(q, kp, vp, table, kv_len=kv_len,
+                                    impl="reference", **kw),
+        rtol=TOL, atol=TOL)
+
+
 def test_attention_ops_dispatch_to_the_kernels(dev):
     q = torch.randn((1, 4, 40, 64), device=dev)
     k = torch.randn((1, 2, 40, 64), device=dev)
@@ -243,3 +307,64 @@ def test_lm_prefill_and_decode_kernels_match_plain(dev):
     for rid, buf in states["cuda"].caches.items():
         torch.testing.assert_close(buf, states["reference"].caches[rid],
                                    rtol=TOL, atol=TOL)
+
+
+def _clone(state):
+    return executor.ProgramState({r: b.clone()
+                                  for r, b in state.caches.items()},
+                                 state.lengths.clone())
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["f32", "int8"])
+def test_lm_paged_prefill_and_decode_kernels_match_plain(dev, kv_quant):
+    """The paged plan on the card: a small f32 smollm (head dim 64)
+    through run_prefill + run_decode, page tables synced from a host
+    PagePool; every call runs the kernels on a copy of the plain path's
+    state, so both see the same pools (an int8 pool's rounding would
+    otherwise amplify the kernels' last-bit differences).  Slot 1
+    shares slot 0's first page, and slot 0's ring wraps onto it (a COW
+    fork)."""
+    cfg = dataclasses.replace(SMOLLM_360M.smoke(), head_dim=64)
+    pair = transformer.compile_program_pair(cfg, slots=2, max_len=32,
+                                            paged=True, page_size=8,
+                                            kv_quant=kv_quant)
+    params = init_params(transformer.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    state = executor.init_program_state(pair, dev)
+    pool = executor.PagePool(pair.paged, 2)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 27)]
+    prompts.append(np.concatenate([prompts[0][:8], [1, 2, 3]]))
+    toks = torch.zeros((2,), dtype=torch.int32, device=dev)
+    lens = []
+    for slot, prompt in enumerate(prompts):
+        shared = (pool.shared_prefix_pages(0, tuple(prompts[0]),
+                                           tuple(prompt)) if slot else ())
+        wf = pool.admit(slot, len(prompt), shared)
+        executor.sync_page_table(state, pair, pool)
+        padded = torch.zeros((1, 32), dtype=torch.int32, device=dev)
+        padded[0, :len(prompt)] = torch.from_numpy(prompt)
+        kern_state = _clone(state)
+        out = executor.run_prefill(pair.prefill, params, padded, kern_state,
+                                   slot, len(prompt), wf, impl="cuda")
+        ref = executor.run_prefill(pair.prefill, params, padded, state, slot,
+                                   len(prompt), wf, impl="reference")
+        torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+        toks[slot] = ref[0, len(prompt) - 1].argmax()
+        lens.append(len(prompt))
+    forks = 0
+    for _ in range(10):
+        copies = [c for s in range(2)
+                  if (c := pool.prepare_decode(s, lens[s])) is not None]
+        forks += len(copies)
+        executor.sync_page_table(state, pair, pool)
+        executor.apply_page_copies(state, pair, copies)
+        kern_state = _clone(state)
+        out = executor.run_decode(pair.decode, params, toks, kern_state,
+                                  impl="cuda")
+        ref = executor.run_decode(pair.decode, params, toks, state,
+                                  impl="reference")
+        torch.testing.assert_close(out, ref, rtol=TOL, atol=TOL)
+        toks = ref.argmax(-1).to(torch.int32)
+        lens = [n + 1 for n in lens]
+    assert forks > 0

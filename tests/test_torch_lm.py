@@ -150,9 +150,13 @@ def test_stateless_program_listing_matches_reference(name):
 
 
 def test_unported_plans_and_families_name_their_roadmap_items():
+    """The paged plan is ported; paging a windowed config is refused as
+    in ``repro``, and the MoE family still names its ROADMAP item."""
     cfg, _ = _pair_cfgs("smollm-360m")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        transformer.compile_program_pair(cfg, paged=True)
+    assert transformer.compile_program_pair(cfg, paged=True).paged
+    with pytest.raises(NotImplementedError, match="mutually exclusive"):
+        transformer.compile_program_pair(
+            dataclasses.replace(cfg, attn_window=8), paged=True)
     moe = dataclasses.replace(cfg, family="moe", n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         transformer.compile_program_pair(moe)
@@ -362,9 +366,14 @@ def test_engine_queue_capacity_and_slot_stalls_are_typed():
     assert sorted(r.uid for r in done) == [0, 1]
 
 
-@pytest.mark.parametrize("option", [dict(chunk_size=4), dict(spec_k=2),
-                                    dict(paged=True), dict(obs=object())])
+@pytest.mark.parametrize("option", [dict(chunk_size=4, spec_k=1),
+                                    dict(spec_k=2),
+                                    dict(paged=True, spec_k=2),
+                                    dict(obs=object())])
 def test_engine_unported_options_name_their_roadmap_items(option):
+    """Speculative decode and the obs plane are not ported; the paged
+    plan and chunked prefill are (tests/test_torch_paged.py,
+    tests/test_torch_chunked.py) and do not excuse them."""
     cfg, jcfg = _pair_cfgs("smollm-360m")
     item = "A.8" if "obs" in option else "A.7"
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
