@@ -38,7 +38,16 @@ exits non-zero before the last line is printed.  Phases:
    pools with bf16 q (2^-7); its bound counts each distinct live page
    row once, and beside it are timed the contiguous kernel at the same
    lengths and, as the library yardstick, SDPA over the already-gathered
-   view;
+   view.  The flash-attention backward runs at the training shape (batch
+   8, 15 q / 5 kv heads of 64, 512 rows): causal, window 128 and a
+   kv_len = 450 mask, f32 (1e-4) and bf16 (2^-7), on the forward kernel's
+   out and lse, against its plain version; the trainable wrapper
+   (forward and backward kernels under autograd) against ``flash_ref``'s
+   autograd in f32 (1e-4); then timed in bf16, causal, beside the forward
+   kernel at the same shape and SDPA's backward (forward + backward minus
+   forward: no single PyTorch call computes the backward alone).  Its
+   bound counts 7 products of 2 D FLOP per unmasked (q, k) pair and the
+   bytes of q, k, v, out, dO, lse, delta, dq, dk and dv;
 5. the main paths, each with the launch counters set to 0 just before
    it and read just after:
    a. ``repro_torch.launch.serve`` serves 20 alexnet-owt images at full
@@ -76,12 +85,26 @@ exits non-zero before the last line is printed.  Phases:
    contiguous decode = 0, flash = (prefill + chunk calls) x 32, matmul =
    (prefill + chunk calls + ticks) x 225, and the teacher-forced plain
    replay (page-table syncs and COW copies replayed in order) holds the
-   same logit and token rules as 5b;
+   same logit and token rules as 5b; no serving path launches the
+   backward kernel;
+   f. ``repro_torch.launch.train`` trains full-width smollm-360m in bf16
+      (batch 8, seq 512, SyntheticLM seed 0, AdamW with the CLI's cosine
+      schedule) for one warm-up and five timed steps into a temporary
+      checkpoint directory: per step exactly 64 flash forward launches
+      (32 layers, each recomputed under remat) and 32 backward ones, no
+      matmul or decode launch, every loss finite; the step-0 params and
+      batch through the plain path on the card (loss within 1e-2
+      relative, global gradient norm within 2%, each leaf's largest
+      gradient difference within 10% of that leaf's largest gradient); a
+      fresh trainer resumed from the last checkpoint at the saved step
+      with params and optimizer state equal bit for bit; tokens/s, step ms, the flash kernels' share of
+      the step and the peak memory allocated are printed;
 6. a ``kernels`` JSON line: per kernel, its launches on the main paths,
    the max error over every checked op, and the times and bound summed
    over one alexnet-owt batch-8 tick (conv2d_virtual), one smollm-360m
-   admission (flash_attention) or one smollm-360m decode tick
-   (decode_attention, paged_decode_attention, matmul);
+   admission (flash_attention), one smollm-360m decode tick
+   (decode_attention, paged_decode_attention, matmul) or one smollm-360m
+   training step (flash_attention_bwd);
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN and cuBLAS, so the plain versions and
@@ -92,6 +115,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -122,6 +146,8 @@ PEAKS = {"NVIDIA H100 80GB HBM3": {"float32": 67e12, "bfloat16": 989e12,
 REPLACES = {"conv2d_virtual": "src/repro/kernels/conv2d/kernel.py:241",
             "matmul": "src/repro/kernels/matmul/kernel.py:79",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
+            "flash_attention_bwd":
+                "src/repro/kernels/flash_attention/bwd_kernel.py:134",
             "decode_attention":
                 "src/repro/kernels/decode_attention/kernel.py:76",
             "paged_decode_attention":
@@ -130,6 +156,8 @@ SOURCES = {"conv2d_virtual": "src/repro_torch/kernels/csrc/conv2d.cu",
            "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
            "decode_attention":
                "src/repro_torch/kernels/csrc/decode_attention.cu",
            "paged_decode_attention":
@@ -149,6 +177,21 @@ PAGED_RUNS = {
                    "32-256"]}
 PAGED_5D = dict(paged=True, shared_prefix=PREFIX, prompt_len=(224, 256),
                 kv_quant="int8", page_pool=122)
+# The training path (phase 5f): full-width smollm-360m in bf16, batch 8,
+# seq 512, one warm-up step and five timed ones.  The backward kernel is
+# checked at the same attention shape (B, 15 q / 5 kv heads of 64, 512),
+# causal, windowed and kv_len-masked; the autograd comparison at batch 2.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+# Step-0 agreement of the kernel path with the plain path on the card,
+# both bf16: attention outputs and gradients are each rounded once to
+# bf16 on both sides but summed in other orders, so they differ by about
+# one bf16 ulp per layer, which the loss averages and the global norm
+# sums over 360M gradients.
+LOSS_RTOL, GNORM_RTOL = 1e-2, 0.02
+# Each leaf's largest gradient difference over that leaf's largest
+# gradient: sound runs read 2.9% at most (wk; H100 80GB HBM3), while a fault
+# confined to one leaf's gradient (a mis-strided dq) moves it to ~100%.
+LEAF_RTOL = 0.10
 
 
 def fail(msg: str):
@@ -194,6 +237,28 @@ def max_err(got, want, tol: float = TOL) -> float:
     if not bool((err <= tol + tol * want.abs()).all()):
         fail(f"kernel disagrees with its plain version: max |err| "
              f"{err.max().item():.3e} (tolerance {tol:.3e})")
+    return err.max().item()
+
+
+def max_err_ulp(got, want) -> float:
+    """max |got - want| of two bf16 tensors; fails unless every element
+    of ``got`` is finite and within one bf16 ulp of ``want`` (the spacing
+    of bf16 at |want|, at least that of the smallest normal).  Both sides
+    sum in f32 and round once to bf16, so a sum that straddles a rounding
+    boundary may round to the neighbouring value, and no further."""
+    import torch
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"kernel output {tuple(got.shape)} not finite or not "
+             f"{tuple(want.shape)}")
+    tiny = torch.finfo(torch.bfloat16).tiny
+    _, e = torch.frexp(want.abs().clamp_min(tiny))
+    ulp = torch.ldexp(torch.ones_like(want), e - 8)  # |want| in [2^(e-1), 2^e)
+    err = (got - want).abs()
+    if not bool((err <= ulp).all()):
+        worst = (err / ulp).max().item()
+        fail(f"kernel disagrees with its plain version by {worst:.1f} bf16 "
+             f"ulps (max |err| {err.max().item():.3e}; tolerance one ulp)")
     return err.max().item()
 
 
@@ -676,6 +741,319 @@ def check_paged_kernel(device, peaks):
     return rows
 
 
+def _train_heads(B, S, H, dtype, device, gen, D):
+    """(B, H, S, D) operands in the model's transposed (B, S, H, D)
+    layout, as the legacy forward hands them to the kernels."""
+    import torch
+    return torch.randn((B, S, H, D), generator=gen, device=device).to(
+        dtype).transpose(1, 2)
+
+
+def check_flash_bwd(device, peaks):
+    """Phase 4, the flash-attention backward at the training shape (B = 8,
+    15 q / 5 kv heads of 64, S = 512): causal, window 128 and a
+    kv_len = 450 mask (non-causal), in f32 (atol = rtol = 1e-4) and bf16
+    (one bf16 ulp of the plain result, ``max_err_ulp``), each
+    on the forward kernel's out and lse, against the plain version; the
+    trainable wrapper's gradients against flash_ref's autograd in f32 at
+    batch 2; then the causal bf16 case timed with the forward kernel at
+    the same shape and SDPA's backward.  Returns the timed row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, flash_ref
+    from repro_torch.kernels.flash_attention.bwd_kernel import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    scale = D ** -0.5
+    errs, row = [], None
+    cases = (("causal", True, None, None), ("window 128", True, 128, None),
+             ("kv_len 450", False, None, 450))
+    for i, (label, causal, window, kv_len) in enumerate(cases):
+        kw = dict(scale=scale, causal=causal, window=window, kv_len=kv_len)
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=device).manual_seed(SEED + 200 + i)
+            q, do = (_train_heads(B, S, Hq, dtype, device, gen, D)
+                     for _ in range(2))
+            k, v = (_train_heads(B, S, Hkv, dtype, device, gen, D)
+                    for _ in range(2))
+            out, lse = flash_attention_cuda(q, k, v, **kw)
+            kern = lambda: flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                    **kw)
+            plain = lambda: flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                      **kw)
+            got, want = kern(), plain()
+            check = max_err if dtype == torch.float32 else max_err_ulp
+            err = max(check(g, w) for g, w in zip(got, want))
+            errs.append(err)
+            print(f"  flash_attention_bwd {label} "
+                  f"{str(dtype).removeprefix('torch.')}: dq/dk/dv max |err| "
+                  f"{err:.2e} (tolerance "
+                  f"{'1e-4' if check is max_err else 'one bf16 ulp'})",
+                  flush=True)
+            if label == "causal" and dtype == torch.bfloat16:
+                qi = torch.arange(S, device=device)
+                pairs = int((qi[None, :] <= qi[:, None]).sum())
+                n_q = B * Hq * S * D
+                n_kv = B * Hkv * S * D
+                # The function's own work: q, k, v, out, dO and lse read
+                # once and dq, dk, dv written once; 5 products of 2 D FLOP
+                # per unmasked pair (S, dP, dV, dK, dQ).  The kernel's
+                # delta scratch and its dQ pass's second S and dP are its
+                # own choices, not the function's, so they are not counted.
+                nbytes = (q.element_size() * (4 * n_q + 4 * n_kv)
+                          + 4 * B * Hq * S)
+                flops = 5 * 2 * D * pairs * B * Hq
+                fwd = lambda: flash_attention_cuda(q, k, v, **kw)
+                leaves = [t.detach().clone().requires_grad_()
+                          for t in (q, k, v)]
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, scale=scale, enable_gqa=True)
+                sdpa_bwd = lambda: torch.autograd.grad(sdpa(), leaves, do)
+                row = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                       "fwd_ms": time_ms(fwd),
+                       "library_ms": time_ms(sdpa_bwd) - time_ms(sdpa),
+                       "flop_ms": flops / peaks["bfloat16"] * 1e3,
+                       "byte_ms": nbytes / peaks["hbm"] * 1e3,
+                       "flops": flops, "bytes": nbytes}
+                row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
+            del got, want, kern, plain
+    # The trainable wrapper (forward kernel + backward kernel under
+    # autograd) against flash_ref's own autograd, f32, batch 2.
+    gen = torch.Generator(device=device).manual_seed(SEED + 210)
+    q, do = (_train_heads(2, S, Hq, torch.float32, device, gen, D)
+             for _ in range(2))
+    k, v = (_train_heads(2, S, Hkv, torch.float32, device, gen, D)
+            for _ in range(2))
+    grads = []
+    for fn in (lambda *t: flash_attention(*t, causal=True, impl="cuda"),
+               lambda *t: flash_ref(*t, causal=True)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, do))
+    err = max(max_err(g, w) for g, w in zip(*grads))
+    errs.append(err)
+    print(f"  flash_attention autograd (forward + backward kernels) against "
+          f"flash_ref's autograd, f32, batch 2: max |err| {err:.2e}")
+    row["max_abs_err"] = max(errs)
+    print(f"  flash_attention_bwd bf16 causal B={B} S={S} {Hq}/{Hkv}x{D}: "
+          f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} library (SDPA "
+          f"fwd+bwd minus fwd)={row['library_ms']:.4f} "
+          f"bound={row['bound_ms']:.4f} ({row['flops'] / 1e9:.2f} GFLOP, "
+          f"{row['bytes'] / 1e6:.2f} MB); forward kernel at the same shape "
+          f"{row['fwd_ms']:.4f} ms", flush=True)
+    return row
+
+
+def _tree_equal(a, b) -> bool:
+    """Every leaf bit for bit (bf16 compared as its 16-bit words)."""
+    import torch
+    from repro_torch.checkpoint import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+        for x, y in zip(la, lb))
+
+
+def train_lm(device, bwd_row):
+    """Phase 5f: ``repro_torch.launch.train`` in process on full-width
+    smollm-360m (bf16, batch 8, seq 512, SyntheticLM seed 0, AdamW with
+    the CLI's cosine schedule), counters set to 0 just before it and read
+    just after: per step exactly 64 flash forward launches (32 layers,
+    each recomputed under remat) and 32 backward, no matmul or decode
+    launch; every loss finite.  Then the same params and step-0 batch
+    through the plain path on the card (loss within LOSS_RTOL, global
+    gradient norm within GNORM_RTOL, each leaf's largest gradient
+    difference within LEAF_RTOL of its largest gradient), and a fresh
+    trainer resumed from the last checkpoint: at the saved step, with
+    params and optimizer state equal bit for bit.  Returns (launches, stats)."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.models import init_params, transformer
+    from repro_torch.optim import AdamW, global_norm
+    from repro_torch.runtime import Trainer, TrainerConfig
+    counters = lm_counters()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        res = train.main(["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS),
+                          "--batch", str(TRAIN_BATCH), "--seq",
+                          str(TRAIN_SEQ), "--ckpt-dir", ckpt_dir,
+                          "--ckpt-every", str(TRAIN_STEPS),
+                          "--seed", str(SEED)])
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        cfg, trainer = res["cfg"], res["trainer"]
+        hist = trainer.metrics_history
+        L, n = cfg.n_layers, len(hist)
+        want = {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n,
+                "decode_attention": 0, "paged_decode_attention": 0,
+                "matmul": 0}
+        print(f"5f train: {n} steps, launches {launches}, want {want}")
+        if n != TRAIN_STEPS or res["step"] != TRAIN_STEPS:
+            fail(f"5f train: {n} steps recorded, ended at {res['step']}")
+        if launches != want:
+            fail(f"5f train: launch counts {launches} != {want}")
+        losses = [r["loss"] for r in hist]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"5f train: non-finite loss in {losses}")
+
+        # Step 0 again, kernels against the plain path on the card.
+        params = init_params(transformer.param_defs(cfg),
+                             torch.Generator(device).manual_seed(SEED))
+        batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+            seed=0).batch_at(0).items()}
+        got = loss_and_grads(cfg, params, batch, impl="auto", remat=True)
+        ref = loss_and_grads(cfg, params, batch, impl="reference",
+                             remat=True)
+        (loss_k, grads_k), (loss_r, grads_r) = got, ref
+        gn_k, gn_r = float(global_norm(grads_k)), float(global_norm(grads_r))
+        d_loss = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
+        d_norm = abs(gn_k - gn_r) / gn_r
+        print(f"5f step 0: loss kernels {float(loss_k):.6f} plain "
+              f"{float(loss_r):.6f} (trainer {losses[0]:.6f}; rel diff "
+              f"{d_loss:.2e}, bound {LOSS_RTOL}); grad norm kernels "
+              f"{gn_k:.6f} plain {gn_r:.6f} (rel diff {d_norm:.2e}, bound "
+              f"{GNORM_RTOL})")
+        named_r = _named_leaves(grads_r)
+        leaf_diffs = {}
+        for name, gk in _named_leaves(grads_k).items():
+            gr = named_r[name]
+            leaf_diffs[name] = ((gk.float() - gr.float()).abs().max().item(),
+                                gr.float().abs().max().item())
+        leaf_rel = {k: d / m for k, (d, m) in leaf_diffs.items()}
+        print("5f step 0 per-leaf max |grad diff| (max |grad|; ratio, bound "
+              f"{LEAF_RTOL}): " + ", ".join(
+                  f"{k} {d:.3e} ({m:.3e}; {leaf_rel[k]:.4f})"
+                  for k, (d, m) in leaf_diffs.items()))
+        bad = [k for k, r in leaf_rel.items() if not r <= LEAF_RTOL]
+        if not (d_loss <= LOSS_RTOL and d_norm <= GNORM_RTOL) or bad:
+            fail(f"5f step 0: kernel path disagrees with the plain path "
+                 f"(leaves over {LEAF_RTOL}: {bad})")
+        del got, ref, grads_k, grads_r
+
+        # A fresh trainer resumes from the last checkpoint.
+        optimizer = AdamW()
+        fresh = init_params(transformer.param_defs(cfg),
+                            torch.Generator(device).manual_seed(SEED + 1))
+        resumed = Trainer(build_train_step(cfg, optimizer), None,
+                          TrainerConfig(total_steps=TRAIN_STEPS,
+                                        ckpt_every=TRAIN_STEPS,
+                                        ckpt_dir=ckpt_dir), device=device)
+        p2, o2, step2 = resumed.run(fresh, optimizer.init(fresh))
+        same = (_tree_equal(p2, res["params"])
+                and _tree_equal(o2, res["opt_state"]))
+        size = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(ckpt_dir) for f in fs)
+        print(f"5f resume: restored step {step2}, "
+              f"{len(resumed.metrics_history)} steps run, params and "
+              f"optimizer state bit-equal: {same} "
+              f"(checkpoint {size / 1e9:.2f} GB)")
+        if step2 != TRAIN_STEPS or resumed.metrics_history or not same:
+            fail("5f resume: the checkpoint did not restore the trained state")
+        del fresh, p2, o2
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dts = [r["dt_s"] for r in hist[1:]]
+    step_ms = 1e3 * sum(dts) / len(dts)
+    profile_step(cfg, res["params"], res["opt_state"], device, step_ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    stats = {"step_ms": step_ms, "tok_s": tokens / (step_ms / 1e3),
+             "warmup_ms": 1e3 * hist[0]["dt_s"], "losses": losses,
+             "fwd_ms": 2 * L * bwd_row["fwd_ms"], "bwd_ms": L * bwd_row["ms"],
+             "peak_gb": peak / 1e9}
+    print(f"5f train: {stats['tok_s']:.0f} tokens/s trained, step "
+          f"{step_ms:.2f} ms mean over steps 1-{n - 1} (step 0 "
+          f"{stats['warmup_ms']:.1f} ms); flash forward {2 * L} x "
+          f"{bwd_row['fwd_ms']:.4f} = {stats['fwd_ms']:.2f} ms and backward "
+          f"{L} x {bwd_row['ms']:.4f} = {stats['bwd_ms']:.2f} ms of kernel "
+          f"time per step; peak memory allocated {stats['peak_gb']:.2f} GB; "
+          f"losses {[round(x, 4) for x in losses]}", flush=True)
+    return launches, stats
+
+
+# Device-time groups of a profiled training step, by kernel name.
+KERNEL_GROUPS = (("flash forward (CUDA)", ("flash_kernel",)),
+                 ("flash backward (CUDA)", ("dq_kernel", "dkv_kernel")),
+                 ("cuBLAS GEMMs", ("gemm", "gemv", "xmma", "cutlass",
+                                   "cublas", "nvjet")),
+                 ("reductions and softmax", ("reduce", "softmax",
+                                             "logsumexp")),
+                 ("index / scatter / gather", ("index", "scatter",
+                                               "gather")))
+
+
+def profile_step(cfg, params, opt_state, device, step_ms):
+    """One more training step under ``torch.profiler``: device time by
+    kernel group, the kernel sum against the unprofiled mean step
+    (``step_ms``), and the launches.  Prints "not measured" when the
+    profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import AdamW
+    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0).batch_at(TRAIN_STEPS).items()}
+    step_fn = build_train_step(cfg, AdamW())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    del out
+    groups, kernels, launches = Counter(), Counter(), 0
+    for evt in prof.key_averages():
+        if "CUDA" not in str(evt.device_type):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        name = evt.key.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other elementwise")
+        groups[group] += us / 1e3
+        kernels[f"{evt.key[:60]} x{evt.count}"] += us / 1e3
+        launches += evt.count
+    total = sum(groups.values())
+    if total <= 0:
+        print("5f profile: the profiler saw no device time; breakdown not "
+              "measured")
+        return None
+    print(f"5f profile: one step {wall_ms:.1f} ms under the profiler; "
+          f"{launches} kernel launches, {total:.1f} ms of device time = "
+          f"{100 * total / step_ms:.0f}% of the unprofiled {step_ms:.1f} ms "
+          f"step (device idle {100 * (1 - total / step_ms):.0f}%): " +
+          ", ".join(f"{g} {ms:.2f} ms" for g, ms in groups.most_common()))
+    print("5f profile, the ten largest kernels: " + "; ".join(
+        f"{k} {ms:.2f} ms" for k, ms in kernels.most_common(10)))
+    return {"device_ms": total, "launches": launches, "groups": dict(groups),
+            "wall_ms": wall_ms}
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in sorted(tree.items())
+                for k2, v2 in _named_leaves(v, f"{prefix}/{k}"
+                                            if prefix else k).items()}
+    return {prefix: tree}
+
+
 def lm_sums(rows, uses, pname, kind, kernel):
     """Times and bounds of ``kernel`` summed over one run of the
     (``pname``, ``kind``) Program, each op counted once."""
@@ -851,10 +1229,13 @@ class Recorder:
 def lm_counters():
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda, paged_decode_attention_cuda)
+    from repro_torch.kernels.flash_attention.bwd_kernel import (
+        flash_attention_bwd_cuda)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
     from repro_torch.kernels.matmul.kernel import matmul_cuda
     return {"flash_attention": flash_attention_cuda,
+            "flash_attention_bwd": flash_attention_bwd_cuda,
             "decode_attention": decode_attention_cuda,
             "paged_decode_attention": paged_decode_attention_cuda,
             "matmul": matmul_cuda}
@@ -888,7 +1269,7 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32):
     paged = eng.program.paged is not None
     if rec.count("decode") != ticks:
         fail(f"{label}: {rec.count('decode')} decode calls, {ticks} ticks")
-    want = {"flash_attention": passes * L,
+    want = {"flash_attention": passes * L, "flash_attention_bwd": 0,
             "decode_attention": 0 if paged else ticks * L,
             "paged_decode_attention": ticks * L if paged else 0,
             "matmul": passes * mm["prefill"] + ticks * mm["decode"]}
@@ -992,6 +1373,7 @@ def main() -> int:
     rows = check_kernels(device, peaks)
     lm_rows, uses = check_lm_kernels(device, peaks)
     paged_rows = check_paged_kernel(device, peaks)
+    bwd_row = check_flash_bwd(device, peaks)
     cnn_launches, img_s = serve_alexnet(device)
     resnet18_forward(device)
     from repro_torch.launch import serve
@@ -1003,6 +1385,7 @@ def main() -> int:
                                                    str(LM_WINDOW)]), n_lm)
     paged = {label: serve_paged(label)
              for label in ("5c paged", "5d int8", "5e chunked")}
+    train_launches, train_stats = train_lm(device, bwd_row)
 
     tick = {}
     for kname in ("conv2d_virtual", "matmul"):
@@ -1042,15 +1425,22 @@ def main() -> int:
     print(f"alexnet-owt tick: matmul {tick['matmul']['ms']:.4f} ms "
           f"(3 launches)")
 
-    per_path = [cnn_launches, lm_launches, win_launches] + [
+    per_path = [cnn_launches, lm_launches, win_launches, train_launches] + [
         launch for launch, _ in paged.values()]
     launches = {k: sum(p.get(k, 0) for p in per_path) for k in SOURCES}
     errs = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k]
                    + [r["max_abs_err"] for r in lm_rows.values()
                       if r["kernel"] == k]
                    + ([r["max_abs_err"] for r in paged_rows.values()]
-                      if k == "paged_decode_attention" else []))
+                      if k == "paged_decode_attention" else [])
+                   + ([bwd_row["max_abs_err"]]
+                      if k == "flash_attention_bwd" else []))
             for k in SOURCES}
+    # The backward kernel per smollm-360m training step: one launch per
+    # layer at the training shape, bf16.
+    n_bwd = train_launches["flash_attention_bwd"] // TRAIN_STEPS
+    train_step = {k: n_bwd * bwd_row[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "flop_ms", "byte_ms")}
     per = {"conv2d_virtual": ("alexnet-owt batch-8 tick",
                               tick["conv2d_virtual"]),
            "flash_attention": ("smollm-360m admission (prefill)",
@@ -1061,10 +1451,15 @@ def main() -> int:
                "smollm-360m paged decode tick, bf16 pools; library_ms is "
                "SDPA over the already-gathered view", paged_tick),
            "matmul": ("smollm-360m decode tick",
-                      lm[("full", "decode", "matmul")])}
+                      lm[("full", "decode", "matmul")]),
+           "flash_attention_bwd": (
+               f"smollm-360m training step ({n_bwd} launches at batch "
+               f"{TRAIN_BATCH}, seq {TRAIN_SEQ}, bf16); library_ms is SDPA's "
+               f"backward (forward + backward minus forward)", train_step)}
     kernels = []
     for kname in ("conv2d_virtual", "matmul", "flash_attention",
-                  "decode_attention", "paged_decode_attention"):
+                  "decode_attention", "paged_decode_attention",
+                  "flash_attention_bwd"):
         what, t = per[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
@@ -1081,7 +1476,9 @@ def main() -> int:
           f"smollm-360m serving: {lm_stats['tok_s']:.1f} tok/s, window "
           f"{LM_WINDOW}: {win_stats['tok_s']:.1f} tok/s; "
           + ", ".join(f"{label}: {stats['tok_s']:.1f} tok/s"
-                      for label, (_, stats) in paged.items()))
+                      for label, (_, stats) in paged.items())
+          + f"; smollm-360m training: {train_stats['tok_s']:.0f} tokens/s, "
+          f"step {train_stats['step_ms']:.1f} ms")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Config registry: --arch <id> -> ArchConfig (dense LMs) / CNNConfig."""
 from .archs import (ALL_ARCHS, DEEPSEEK_7B, LLAMA3_8B, OLMO_1B, SMOLLM_360M,
                     UNPORTED_ARCHS)
-from .base import ArchConfig, CNNConfig, CNNLayer
+from .base import ArchConfig, CNNConfig, CNNLayer, ShapeSpec
 from .cnns import ALEXNET_OWT, ALL_CNNS, RESNET18, RESNET50
 
 REGISTRY = {c.name: c for c in ALL_ARCHS}
@@ -27,6 +27,7 @@ def get_config(name: str):
                    f"{sorted(REGISTRY) + sorted(CNN_REGISTRY)}")
 
 
-__all__ = ["ArchConfig", "CNNConfig", "CNNLayer", "REGISTRY", "CNN_REGISTRY",
-           "get_config", "ALL_ARCHS", "ALL_CNNS", "ALEXNET_OWT", "RESNET18",
-           "RESNET50", "DEEPSEEK_7B", "LLAMA3_8B", "OLMO_1B", "SMOLLM_360M"]
+__all__ = ["ArchConfig", "CNNConfig", "CNNLayer", "ShapeSpec", "REGISTRY",
+           "CNN_REGISTRY", "get_config", "ALL_ARCHS", "ALL_CNNS",
+           "ALEXNET_OWT", "RESNET18", "RESNET50", "DEEPSEEK_7B", "LLAMA3_8B",
+           "OLMO_1B", "SMOLLM_360M"]

@@ -2,7 +2,8 @@
 
 ``ArchConfig`` carries the LM configs (every field the reference has, so
 the registry entries read the same); ``CNNConfig`` the paper's own CNNs.
-``smoke()`` derives the reduced same-family config the CPU tests use.
+``smoke()`` derives the reduced same-family config the CPU tests use;
+``ShapeSpec`` names an input shape (a training run's batch and length).
 The reference's ``jdtype`` / ``kv_jdtype`` are ``tdtype`` /
 ``kv_tdtype`` here.
 """
@@ -13,10 +14,18 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["ArchConfig", "CNNLayer", "CNNConfig"]
+__all__ = ["ArchConfig", "ShapeSpec", "CNNLayer", "CNNConfig"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _KV_DTYPES = dict(_DTYPES, float8=torch.float8_e4m3fn)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
 
 
 @dataclass(frozen=True)

@@ -38,6 +38,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = {"conv2d": "conv2d.cu", "matmul": "matmul.cu",
                   "flash_attention": "flash_attention.cu",
+                  "flash_attention_bwd": "flash_attention_bwd.cu",
                   "decode_attention": "decode_attention.cu",
                   "paged_decode_attention": "paged_decode_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,17 +8,49 @@ reference's padding rule -- ``block_q`` falls back to 128 when it does
 not divide ``Sq``, q and kv are zero-padded to block multiples, and
 padded keys are masked through ``kv_len`` -- while the CUDA kernel cuts
 the work into its own 64 x 64 CTA tiles (``csrc/flash_attention.cu``).
+
+On a CUDA tensor the call goes through ``_FlashTrainable``, the
+counterpart of the reference's ``_flash_trainable`` custom VJP: its
+forward is the forward kernel, keeping the logsumexp, and its backward
+the backward kernel (``csrc/flash_attention_bwd.cu``).  ``F.pad`` carries
+the gradient back through the padding; padded keys stay masked through
+``kv_len`` in the backward as in the forward.  Under ``torch.no_grad()``
+(serving) only the forward kernel runs.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from ...core.hw import TPU_V5E, HardwareModel
 from ..common import use_kernel
+from .bwd_kernel import flash_attention_bwd_cuda
 from .kernel import flash_attention_cuda
 from .ref import flash_ref
 
 __all__ = ["flash_attention", "attention_block_sizes"]
+
+
+class _FlashTrainable(torch.autograd.Function):
+    """The forward kernel, differentiable through the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, kv_len):
+        out, lse = flash_attention_cuda(q, k, v, scale=scale, causal=causal,
+                                        window=window, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(scale=scale, causal=causal, window=window,
+                        kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:            # the kernel reads D contiguous
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                              **ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention_block_sizes(Sq: int, Skv: int, D: int, dtype_bytes: int,
@@ -40,7 +72,9 @@ def flash_attention(q, k, v, *, scale: float | None = None,
     """Softmax attention, q (B,Hq,Sq,D), kv (B,Hkv,Skv,D) -> (B,Hq,Sq,D).
 
     impl: "auto" (kernel on a CUDA tensor, plain version on a CPU one) |
-    "cuda" | "reference".  The default scale is ``D ** -0.5``."""
+    "cuda" | "reference".  The default scale is ``D ** -0.5``.  Both
+    paths are differentiable in q, k and v: the kernel path through the
+    backward kernel, the plain one through ``flash_ref``'s recompute."""
     D = q.shape[-1]
     scale = scale if scale is not None else D ** -0.5
     if not use_kernel(impl, q):
@@ -62,6 +96,5 @@ def flash_attention(q, k, v, *, scale: float | None = None,
     if pad_kv:
         k = F.pad(k, (0, 0, 0, pad_kv))
         v = F.pad(v, (0, 0, 0, pad_kv))
-    out, _ = flash_attention_cuda(q, k, v, scale=scale, causal=causal,
-                                  window=window, kv_len=kv_len)
+    out = _FlashTrainable.apply(q, k, v, scale, causal, window, kv_len)
     return out[:, :, :Sq] if pad_q else out

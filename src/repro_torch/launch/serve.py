@@ -32,7 +32,9 @@ counters where they apply, and a few streams.
 
 Everything runs on the card unless ``--device cpu`` is given (the plain
 PyTorch versions).  Weights and prompts are random, drawn from
-``--seed``.  An architecture of a family not ported yet exits 2, naming
+``--seed``; ``--ckpt DIR`` loads the params of the latest checkpoint in
+DIR instead (written by ``repro_torch.launch.train`` or by ``repro``'s
+trainer).  An architecture of a family not ported yet exits 2, naming
 its ROADMAP item.
 """
 from __future__ import annotations
@@ -45,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from ..checkpoint import restore_checkpoint
 from ..configs import CNN_REGISTRY, get_config
 from ..kernels.common import resolve_device
 from ..models import cnn, init_params, transformer
@@ -67,15 +70,27 @@ def make_prompts(vocab: int, n: int, lo: int, hi: int,
             .astype(np.int32) for _ in range(n)]
 
 
+def _restore_params(params, ckpt: str | None):
+    """The params of the latest checkpoint in ``ckpt`` (a (params,
+    opt_state) tree as the trainers of both packages save it), or
+    ``params`` when ``ckpt`` is None."""
+    if ckpt is None:
+        return params
+    (params, _), step = restore_checkpoint(ckpt, (params, {}))
+    print(f"restored params from step {step}")
+    return params
+
+
 def serve_cnn(arch: str, *, slots: int, requests: int, device=None,
-              seed: int = 0) -> dict:
+              seed: int = 0, ckpt: str | None = None) -> dict:
     """Serve ``requests`` random images of ``arch`` with random weights
-    drawn from ``seed``; returns the engine, the finished requests (by
-    uid), the images and the wall seconds of the serving loop."""
+    drawn from ``seed`` (or the params of the checkpoint in ``ckpt``);
+    returns the engine, the finished requests (by uid), the images and
+    the wall seconds of the serving loop."""
     cfg = CNN_REGISTRY[arch]
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cnn.param_defs(cfg), gen, dev)
+    params = _restore_params(init_params(cnn.param_defs(cfg), gen, dev), ckpt)
     eng = ServingEngine(cfg, params, slots=slots, device=dev)
     images = make_images(cfg, requests, seed)
     t0 = time.perf_counter()
@@ -90,9 +105,10 @@ def serve_cnn(arch: str, *, slots: int, requests: int, device=None,
 def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
              prompt_len: tuple[int, int], device=None, seed: int = 0,
              shared_prefix: int = 0, long_prompt: int = 0,
-             **engine_kw) -> dict:
+             ckpt: str | None = None, **engine_kw) -> dict:
     """Serve ``requests`` random prompts of the dense LM ``cfg`` with
-    random weights drawn from ``seed``; ``engine_kw`` (``paged``,
+    random weights drawn from ``seed`` (or the params of the checkpoint
+    in ``ckpt``); ``engine_kw`` (``paged``,
     ``page_size``, ``page_pool``, ``kv_quant``, ``chunk_size``) goes to
     the engine.  With ``shared_prefix`` every prompt opens with the same
     tokens; ``long_prompt`` injects one prompt of that length after two
@@ -101,7 +117,8 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
     first-use build and the weight init stay outside it)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(transformer.param_defs(cfg), gen, dev)
+    params = _restore_params(
+        init_params(transformer.param_defs(cfg), gen, dev), ckpt)
     eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
                         device=dev, **engine_kw)
     prompts = make_prompts(cfg.vocab, requests, *prompt_len, seed)
@@ -174,10 +191,12 @@ def main(argv=None) -> dict:
                     help="torch device (default: the card; 'cpu' runs "
                          "the plain PyTorch versions)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint dir to load params from")
     args = ap.parse_args(argv)
     if args.arch in CNN_REGISTRY:
         res = serve_cnn(args.arch, slots=args.slots, requests=args.requests,
-                        device=args.device, seed=args.seed)
+                        device=args.device, seed=args.seed, ckpt=args.ckpt)
         done, dt = res["done"], res["seconds"]
         print(res["engine"].program.listing())
         print(f"served {len(done)} images in {dt:.2f}s "
@@ -198,7 +217,8 @@ def main(argv=None) -> dict:
                    requests=args.requests, max_new=args.max_new,
                    prompt_len=args.prompt_len, device=args.device,
                    seed=args.seed, shared_prefix=args.shared_prefix,
-                   long_prompt=args.long_prompt, paged=args.paged,
+                   long_prompt=args.long_prompt, ckpt=args.ckpt,
+                   paged=args.paged,
                    page_size=args.page_size,
                    kv_quant=args.kv_quant, chunk_size=args.chunk_size)
     eng, done, dt = res["engine"], res["done"], res["seconds"]

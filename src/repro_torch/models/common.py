@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 __all__ = ["ParamDef", "init_params", "tree_paths", "params_from_numpy",
-           "rms_norm", "layer_norm", "Rotary", "apply_rope"]
+           "rms_norm", "layer_norm", "Rotary", "apply_rope",
+           "cross_entropy_loss"]
 
 
 @dataclass(frozen=True)
@@ -146,3 +147,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
         cos, sin = cos[None], sin[None]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+# --- loss ---------------------------------------------------------------------
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE.  logits (B, L, V) f32-upcast; labels (B, L)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -12,15 +12,24 @@ sharing one persistent region table -- contiguous, rolling-window or
 (``paged=True``) the §5.1 paged plan of page pools and a page table,
 optionally in int8 pages.
 
-Not carried yet: the reference's scan ``forward`` / ``decode_step`` (the
-JAX package is the oracle; they come with training, ROADMAP A.10), the
-MoE and cross-attention variants (A.9) and the autotune hook of the
-compile entry points.
+``forward`` is the reference's legacy forward, the training path: the
+stacked ``(L, ...)`` block parameters run as a Python loop (the
+reference's ``jax.lax.scan``), each block optionally under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``), every projection a plain ``@`` and attention the
+differentiable ``flash_attention``.
+
+Not carried yet: ``init_cache`` / ``decode_step`` and ``forward``'s
+``return_cache`` (ROADMAP A.6.4), the MoE and cross-attention variants
+(A.9) and the autotune hook of the compile entry points.
 """
 from __future__ import annotations
 
 import functools
 import math
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.hw import TPU_V5E, HardwareModel
@@ -32,11 +41,14 @@ from ..core.regions import (PAGE_TABLE_REGION, PersistentSpec, StateCaps,
                             paged_kv_specs, register_state_family,
                             state_specs)
 from ..core.schedule import compile_model
+from ..kernels.common import apply_activation
+from ..kernels.flash_attention import flash_attention
 from ..runtime.executor import cached_runner
-from .common import ParamDef
+from .common import ParamDef, Rotary, apply_rope, layer_norm, rms_norm
 
-__all__ = ["param_defs", "to_graph", "to_decode_graph", "compile_program",
-           "compile_program_pair", "program_forward", "kv_cache_len"]
+__all__ = ["param_defs", "forward", "to_graph", "to_decode_graph",
+           "compile_program", "compile_program_pair", "program_forward",
+           "kv_cache_len"]
 
 
 # --- parameter declaration -------------------------------------------------------
@@ -103,6 +115,76 @@ def param_defs(cfg: ArchConfig) -> dict:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab),
                                    ("embed", "vocab"), cfg.tdtype)
     return defs
+
+
+# --- the legacy forward (training) ----------------------------------------------
+def _norm(h, p, cfg, name):
+    if cfg.norm == "nonparametric":
+        return layer_norm(h)
+    if cfg.norm == "layernorm":
+        return layer_norm(h, p[name], p.get(name + "_b"))
+    return rms_norm(h, p[name])
+
+
+def _heads(x, n, hd):
+    B, S = x.shape[0], x.shape[1]
+    return x.reshape(B, S, n, hd).transpose(1, 2)          # (B, n, S, hd)
+
+
+def _attention(h, p, cfg, cos, sin, *, impl, window=None):
+    """Causal self-attention on (B, S, D)."""
+    B, S, _ = h.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = apply_rope(_heads(h @ p["wq"], H, hd), cos, sin)
+    k = apply_rope(_heads(h @ p["wk"], KV, hd), cos, sin)
+    v = _heads(h @ p["wv"], KV, hd)
+    out = flash_attention(q, k, v, causal=True, window=window, impl=impl)
+    return out.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+
+
+def _mlp(h, p, cfg):
+    g = apply_activation(h @ p["w_gate"], cfg.activation)
+    if cfg.gated_mlp:
+        g = g * (h @ p["w_up"])
+    return g @ p["w_down"]
+
+
+def _block(h, p, cos, sin, *, cfg, impl, window):
+    h = h + _attention(_norm(h, p, cfg, "attn_norm"), p, cfg, cos, sin,
+                       impl=impl, window=window)
+    return h + _mlp(_norm(h, p, cfg, "mlp_norm"), p, cfg)
+
+
+def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
+            remat: bool = False, return_hidden: bool = False) -> dict:
+    """tokens (B, S) -> {"logits": (B, S, V)}, or with ``return_hidden``
+    {"logits": None, "hidden": the final-norm output (B, S, D)}.
+    ``remat`` recomputes each block in the backward pass instead of
+    keeping its activations, so the flash forward runs twice per layer
+    per training step."""
+    _require_dense(cfg)
+    B, S = tokens.shape
+    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    cos, sin = Rotary(cfg.hd, cfg.rope_theta).freqs(
+        torch.arange(S, device=tokens.device))
+    block = functools.partial(_block, cfg=cfg, impl=impl,
+                              window=cfg.attn_window)
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    for i in range(cfg.n_layers):
+        p_i = {k: v[i] for k, v in layers.items()}
+        if remat:
+            h = checkpoint(block, h, p_i, cos, sin, use_reentrant=False)
+        else:
+            h = block(h, p_i, cos, sin)
+    h = _norm(h, params, cfg, "final_norm")
+    out = {"logits": None}
+    if return_hidden:
+        out["hidden"] = h
+    else:
+        head = (params["embed"].T if cfg.tie_embeddings
+                else params["lm_head"])
+        out["logits"] = h @ head
+    return out
 
 
 # --- compile-to-Program lowering --------------------------------------------------

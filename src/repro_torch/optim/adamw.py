@@ -1,0 +1,148 @@
+"""AdamW with optional 8-bit moment states and global-norm clipping
+(counterpart of ``repro/optim/adamw.py``, same update order and
+arithmetic).
+
+Params, gradients and moments are nested dicts of tensors with the same
+keys.  The 8-bit mode stores both moments as int8 with per-row f32 scales
+(``Q8State``), v in the sqrt domain.  ``update`` runs under
+``torch.no_grad()`` and returns new tensors: the step is one function of
+(grads, state, params), as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..checkpoint.store import tree_leaves
+
+__all__ = ["AdamW", "Q8State", "quantize_state", "dequantize_state",
+           "global_norm", "cosine_schedule"]
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of nested dicts with the same keys."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                          for leaf in tree_leaves(tree)))
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int
+                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Linear warm-up to ``base_lr``, then a cosine decay to 0 at
+    ``total``; takes and returns 0-d tensors (f32 arithmetic)."""
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = base_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * 0.5 * (1.0 + torch.cos(math.pi * prog))
+        return torch.where(step < warmup, warm, cos)
+    return lr
+
+
+# --- 8-bit moment storage ---------------------------------------------------------
+@dataclass(frozen=True)
+class Q8State:
+    q: torch.Tensor          # int8
+    scale: torch.Tensor      # f32, per-row (last axis reduced)
+
+
+def quantize_state(x: torch.Tensor) -> Q8State:
+    if x.ndim == 0:
+        x = x[None]
+        amax = torch.max(torch.abs(x))[None]
+    else:
+        amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0,
+                        torch.ones_like(amax)).float()
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return Q8State(q, scale)
+
+
+def dequantize_state(s: Q8State) -> torch.Tensor:
+    return s.q.float() * s.scale
+
+
+# --- AdamW ------------------------------------------------------------------------
+@dataclass(frozen=True)
+class AdamW:
+    lr: float | Callable = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float | None = 1.0
+    state_bits: int = 32          # 32 (f32 moments) or 8 (int8 + scales)
+
+    def init(self, params) -> dict:
+        def zero(p):
+            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return quantize_state(z) if self.state_bits == 8 else z
+        step_device = tree_leaves(params)[0].device
+        return {
+            "m": _map(zero, params),
+            # v is stored in the sqrt domain when quantized: int8's 1/127
+            # relative floor is far too coarse for v directly.
+            "v": _map(zero, params),
+            "step": torch.zeros((), dtype=torch.int32, device=step_device),
+        }
+
+    def _lr(self, step):
+        if callable(self.lr):
+            return self.lr(step)
+        return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        """Returns (new_params, new_state, metrics)."""
+        step = state["step"] + 1
+        gnorm = global_norm(grads)
+        clip = None
+        if self.grad_clip is not None:
+            clip = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
+        lr = self._lr(step)
+        b1, b2 = self.b1, self.b2
+        c1 = 1.0 - b1 ** step.float()
+        c2 = 1.0 - b2 ** step.float()
+
+        def upd(g, m, v, p):
+            g = g.float()
+            if clip is not None:
+                g = g * clip
+            if self.state_bits == 8:
+                mf = dequantize_state(m)
+                vf = torch.square(dequantize_state(v))   # sqrt-domain store
+                if g.ndim == 0:
+                    mf, vf = mf[0], vf[0]
+            else:
+                mf, vf = m, v
+            m_new = b1 * mf + (1 - b1) * g
+            v_new = b2 * vf + (1 - b2) * g * g
+            mhat = m_new / c1
+            vhat = v_new / c2
+            delta = mhat / (torch.sqrt(vhat) + self.eps)
+            if self.state_bits == 8:
+                # Adafactor-style update clipping, as the reference.
+                rms = torch.sqrt(torch.mean(torch.square(delta)) + 1e-30)
+                delta = delta / torch.clamp(rms, min=1.0)
+            if p.ndim >= 2:   # decoupled weight decay on matrices only
+                delta = delta + self.weight_decay * p.float()
+            p_new = (p.float() - lr * delta).to(p.dtype)
+            if self.state_bits == 8:
+                return (p_new, quantize_state(m_new),
+                        quantize_state(torch.sqrt(v_new)))
+            return p_new, m_new, v_new
+
+        out = _map(upd, grads, state["m"], state["v"], params)
+        pick = lambda i: _map(lambda o: o[i], out)  # noqa: E731
+        new_state = {"m": pick(1), "v": pick(2), "step": step}
+        return pick(0), new_state, {"grad_norm": gnorm, "lr": lr}

@@ -1,4 +1,5 @@
-"""Runtime: the Program executor."""
+"""Runtime: the Program executor and the training loop."""
 from .executor import cached_runner, run
+from .trainer import Trainer, TrainerConfig
 
-__all__ = ["run", "cached_runner"]
+__all__ = ["run", "cached_runner", "Trainer", "TrainerConfig"]

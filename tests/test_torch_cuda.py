@@ -25,12 +25,15 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain,
     paged_decode_attention_cuda, paged_decode_attention_plain)
+from repro_torch.kernels.flash_attention.bwd_kernel import (  # noqa: E402
+    flash_attention_bwd_cuda, flash_attention_bwd_plain)
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.matmul.kernel import (  # noqa: E402
     matmul_cuda, matmul_plain)
 from repro_torch.core.quant import int8_quantize_pages  # noqa: E402
 from repro_torch.models import init_params, transformer  # noqa: E402
+from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.runtime import executor  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -167,6 +170,83 @@ def test_flash_kernel_matches_plain(dev, case, dt):
     ref, ref_lse = flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", range(len(FLASH)))
+def test_flash_bwd_kernel_matches_plain(dev, case, dt):
+    """The backward kernel against its plain version on the forward
+    kernel's out and lse, q / k / v / dO in the model's transposed
+    (B, S, H, D) layout."""
+    dtype, tol = DTYPES[dt]
+    B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len = FLASH[case]
+    gen = torch.Generator(device=dev).manual_seed(100 + case)
+
+    def heads(S, H):
+        return torch.randn((B, S, H, D), generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+    q, k, v, do = heads(Sq, Hq), heads(Skv, Hkv), heads(Skv, Hkv), \
+        heads(Sq, Hq)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, kv_len=kv_len)
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    n0 = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_cuda.launches == n0 + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", [(True, None, 96, 96), (True, 40, 96, 96),
+                                  (False, None, 80, 150)])
+def test_flash_trainable_grads_match_reference_autograd(dev, case):
+    """``flash_attention`` on the card differentiates through the backward
+    kernel; its gradients equal ``flash_ref``'s autograd in f32, padded
+    q rows and kv rows included (block 64 does not divide 150)."""
+    causal, window, Sq, Skv = case
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn(s, generator=gen, device=dev) for s in (
+        (2, 6, Sq, 64), (2, 2, Skv, 64), (2, 2, Skv, 64)))
+    do = torch.randn((2, 6, Sq, 64), generator=gen, device=dev)
+    grads = {}
+    for impl in ("cuda", "reference"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=causal, window=window,
+                              block_q=64, block_kv=64, impl=impl)
+        grads[impl] = torch.autograd.grad(out, leaves, do)
+    for g, w in zip(grads["cuda"], grads["reference"]):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def test_train_step_gradients_on_the_kernels_match_plain(dev):
+    """A small f32 smollm (head dim 64) with remat: loss and every
+    gradient through the flash kernels against the plain path, and the
+    flash launches of one step (2 forward per layer under remat, 1
+    backward)."""
+    cfg = dataclasses.replace(SMOLLM_360M.smoke(), head_dim=64)
+    params = init_params(transformer.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 96), generator=gen,
+                              device=dev) for k in ("tokens", "labels")}
+    f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+    loss, grads = loss_and_grads(cfg, params, batch, impl="auto", remat=True)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches - f0,
+            flash_attention_bwd_cuda.launches - b0) == (2 * cfg.n_layers,
+                                                        cfg.n_layers)
+    ref_loss, ref_grads = loss_and_grads(cfg, params, batch,
+                                         impl="reference", remat=True)
+    torch.testing.assert_close(loss, ref_loss, rtol=TOL, atol=TOL)
+    for (g, w) in zip(_leaves(grads), _leaves(ref_grads)):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def _leaves(tree):
+    return [x for k in sorted(tree) for x in (
+        _leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
 
 
 # (B, Hq, Hkv, S, D, kv_len per sequence)

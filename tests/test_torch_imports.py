@@ -34,6 +34,24 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# The training slice's subpackages, each imported alone in a fresh
+# interpreter: none of them may pull in jax or repro.
+TRAINING_MODULES = ["repro_torch.optim", "repro_torch.data", "repro_torch.obs",
+                    "repro_torch.checkpoint", "repro_torch.runtime.trainer",
+                    "repro_torch.launch.train"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_load_no_jax_or_repro(module):
+    probe = (f"import importlib, sys; importlib.import_module({module!r}); "
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
