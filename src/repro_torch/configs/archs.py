@@ -1,12 +1,34 @@
-"""The dense LM architectures of ``repro.configs.archs``, same numbers.
+"""The LM architectures of ``repro.configs.archs``, same numbers.
 
-Only the dense family is carried: the other families (MoE, SSM, hybrid,
-audio, VLM) wait for their model modules (ROADMAP A.9); their names are
-listed so ``get_config`` can say so.
+The dense, hybrid (zamba2, mamba2) and ssm (rwkv6) families are carried;
+the others (MoE, audio, VLM) wait for their model modules (ROADMAP A.9)
+and are listed so ``get_config`` can say so.
 """
 from __future__ import annotations
 
 from .base import ArchConfig
+
+ZAMBA2_7B = ArchConfig(
+    # [arXiv:2411.15242; unverified] — Mamba2 backbone + shared attn blocks.
+    name="zamba2-7b", family="hybrid",
+    n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, d_ff=14336,
+    vocab=32000, head_dim=112,
+    ssm_state=64, ssm_head_dim=64, ssm_expand=2,
+    shared_attn_every=6,
+    attn_window=4096,        # TPU adaptation: windowed shared attention
+    sub_quadratic=True,      # Mamba2 backbone -> long_500k runs
+    source="arXiv:2411.15242")
+
+MAMBA2 = ArchConfig(
+    # [arXiv:2405.21060; unverified] — pure SSD backbone, no attention:
+    # shared_attn_every=0 drops the hybrid family's shared block, so
+    # every layer is one selective-scan mixer with O(1) decode state.
+    name="mamba2", family="hybrid",
+    n_layers=64, d_model=2560, n_heads=20, n_kv_heads=20, d_ff=10240,
+    vocab=50288, head_dim=128,
+    ssm_state=128, ssm_head_dim=64, ssm_expand=2,
+    shared_attn_every=0,
+    sub_quadratic=True, source="arXiv:2405.21060")
 
 DEEPSEEK_7B = ArchConfig(
     # [arXiv:2401.02954; hf] — llama-arch dense.
@@ -32,11 +54,18 @@ LLAMA3_8B = ArchConfig(
     n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
     vocab=128256, rope_theta=500000.0, source="arXiv:2407.21783")
 
-ALL_ARCHS = (DEEPSEEK_7B, OLMO_1B, SMOLLM_360M, LLAMA3_8B)
+RWKV6_7B = ArchConfig(
+    # [arXiv:2404.05892; hf] — Finch, attention-free, data-dependent decay.
+    name="rwkv6-7b", family="ssm",
+    n_layers=32, d_model=4096, n_heads=64, n_kv_heads=64, d_ff=14336,
+    vocab=65536, head_dim=64, norm="layernorm",
+    sub_quadratic=True, source="arXiv:2404.05892")
+
+ALL_ARCHS = (ZAMBA2_7B, MAMBA2, DEEPSEEK_7B, OLMO_1B, SMOLLM_360M,
+             LLAMA3_8B, RWKV6_7B)
 
 # The reference's other architectures and their families (not ported).
 UNPORTED_ARCHS = {
-    "zamba2-7b": "hybrid", "mamba2": "hybrid", "rwkv6-7b": "ssm",
     "whisper-base": "audio", "granite-moe-1b-a400m": "moe",
     "llama4-maverick-400b-a17b": "moe", "llama-3.2-vision-11b": "vlm",
 }

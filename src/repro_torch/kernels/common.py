@@ -40,7 +40,8 @@ KERNEL_SOURCES = {"conv2d": "conv2d.cu", "matmul": "matmul.cu",
                   "flash_attention": "flash_attention.cu",
                   "flash_attention_bwd": "flash_attention_bwd.cu",
                   "decode_attention": "decode_attention.cu",
-                  "paged_decode_attention": "paged_decode_attention.cu"}
+                  "paged_decode_attention": "paged_decode_attention.cu",
+                  "mamba2_scan": "mamba2_scan.cu", "wkv6": "wkv6.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,7 +17,9 @@
 // 8 bf16 or 4 f32 values) of a K row and of a V row; every group walks its
 // own rows with its own online-softmax state (f32), four rows in flight
 // per group, and the groups' states are merged in shared memory at the
-// end.  At 8 slots and 5 kv heads the grid is 40 CTAs on 132 SMs, so the
+// end.  A row group has a power of two of lanes: D/VEC rounded up (16
+// lanes for zamba2-7b's 112 in bf16), the lanes past D loading nothing
+// and adding zero to each score.  At 8 slots and 5 kv heads the grid is 40 CTAs on 132 SMs, so the
 // card is far from its HBM rate: splitting the rows of one (b, kv head)
 // over several CTAs (split-KV, with a second merge pass) is later work.
 //
@@ -96,9 +98,11 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs p) {
 
   const int b = blockIdx.x / p.Hkv, hk = blockIdx.x - b * p.Hkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int lpr = p.D / VEC;          // lanes per row, a power of two <= 32
+  int lpr = 1;                        // lanes per row: D/VEC rounded up
+  while (lpr * VEC < p.D) lpr *= 2;   // to a power of two <= 32
   const int rpw = 32 / lpr;           // rows per warp and step
   const int sub = lane % lpr;         // this lane's 16-byte chunk of a row
+  const bool in_row = sub * VEC < p.D;  // false on the lanes past D
   const int grp = tid / lpr;          // row group
   const int n_grp = THREADS / lpr;
   const int len = min(p.kv_len[b], p.S);
@@ -108,7 +112,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs p) {
   for (int g = 0; g < G; ++g) {
     const T* qp = (const T*)p.q + b * p.q_sb + (hk * G + g) * p.q_sh;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qv[g][e] = to_f32(qp[sub * VEC + e]);
+    for (int e = 0; e < VEC; ++e)
+      qv[g][e] = in_row ? to_f32(qp[sub * VEC + e]) : 0.f;
   }
   float m[G], l[G], acc[G][VEC];
 #pragma unroll
@@ -130,7 +135,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs p) {
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int r = base + u * rpw + lane / lpr;
-      if (r < len) {
+      if (r < len && in_row) {
         kr[u] = *(const uint4*)(kb + r * p.k_ss);
         vr[u] = *(const uint4*)(vb + r * p.v_ss);
       }
@@ -140,7 +145,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs p) {
       const int r = base + u * rpw + lane / lpr;
       const bool live = r < len;
       float kf[VEC], vf[VEC];
-      if (live) {
+      if (live && in_row) {
         unpack<T>(kr[u], kf);
         unpack<T>(vr[u], vf);
       } else {
@@ -174,9 +179,11 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(DecodeArgs p) {
       sm_m[grp * G + g] = m[g];
       sm_l[grp * G + g] = l[g];
     }
+    if (in_row) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      sm_acc[(grp * G + g) * p.D + sub * VEC + e] = acc[g][e];
+      for (int e = 0; e < VEC; ++e)
+        sm_acc[(grp * G + g) * p.D + sub * VEC + e] = acc[g][e];
+    }
   }
   __syncthreads();
   T* out = (T*)p.out + b * p.o_sb;

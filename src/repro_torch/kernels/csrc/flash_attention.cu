@@ -17,7 +17,10 @@
 // shared memory as f32 (65 KB at D = 64, 113 KB at D = 128, so the launch
 // raises the dynamic shared-memory limit).  Kv tiles wholly outside the
 // causal / window / kv_len span of the q tile are skipped, as the TPU
-// kernel skips whole blocks.
+// kernel skips whole blocks.  A head dim D <= 128 that is not a multiple
+// of 32 (zamba2-7b's 112) takes the tiles of the next multiple, 32 * DPL
+// columns, with the columns past D zero-filled in shared memory, so they
+// add nothing to a score, and never stored.
 //
 // Bound on an H100: the smollm prefill (Sq = Skv = 512, D = 64, 15 q
 // heads, causal) does 4 * D FLOP per unmasked (q, k) pair, 0.5 GFLOP, over
@@ -52,7 +55,7 @@ struct FlashArgs {
   const void* v;
   void* out;
   float* lse;  // (B, Hq, Sq), contiguous
-  int B, Hq, Hkv, Sq, Skv;
+  int B, Hq, Hkv, Sq, Skv, D;
   long long q_sb, q_sh, q_ss;  // element strides: batch, head, row
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -97,7 +100,7 @@ constexpr size_t smem_bytes(int D) {
 
 template <typename T, int DPL>
 __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs p) {
-  constexpr int D = 32 * DPL;
+  constexpr int D = 32 * DPL;  // tile width; the head dim is p.D <= D
   constexpr int KST = D + 1;  // padded K row: lanes read distinct rows
   extern __shared__ float smem[];
   float* Qs = smem;             // [BQ][D]
@@ -117,7 +120,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs p) {
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i - r * D;
     const int qi = q0 + r;
-    Qs[i] = qi < p.Sq ? to_f32(q[qi * p.q_ss + d]) : 0.f;
+    Qs[i] = qi < p.Sq && d < p.D ? to_f32(q[qi * p.q_ss + d]) : 0.f;
   }
 
   float m[RPW], l[RPW], acc[RPW][DPL];
@@ -143,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs p) {
     for (int i = tid; i < BKV * D; i += THREADS) {
       const int r = i / D, d = i - r * D;
       const int kj = k0 + r;
-      const bool in = kj < p.Skv;
+      const bool in = kj < p.Skv && d < p.D;
       Ks[r * KST + d] = in ? to_f32(k[kj * p.k_ss + d]) : 0.f;
       Vs[i] = in ? to_f32(v[kj * p.v_ss + d]) : 0.f;
     }
@@ -211,7 +214,8 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(FlashArgs p) {
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int tt = 0; tt < DPL; ++tt)
-      out[qi * p.o_ss + lane + 32 * tt] = from_f32<T>(acc[i][tt] / lc);
+      if (lane + 32 * tt < p.D)
+        out[qi * p.o_ss + lane + 32 * tt] = from_f32<T>(acc[i][tt] / lc);
     if (lane == 0) p.lse[(size_t)bh * p.Sq + qi] = m[i] + logf(lc);
   }
 }
@@ -229,14 +233,16 @@ int launch(const FlashArgs& p, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch(const FlashArgs& p, int D, void* stream) {
+int dispatch(const FlashArgs& p, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 32:
+  switch ((p.D + 31) / 32) {  // 32-column lane groups the head dim needs
+    case 1:
       return launch<T, 1>(p, s);
-    case 64:
+    case 2:
       return launch<T, 2>(p, s);
-    case 128:
+    case 3:
+      return launch<T, 3>(p, s);
+    case 4:
       return launch<T, 4>(p, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -257,6 +263,7 @@ FlashArgs make_args(const void* q, const void* k, const void* v, void* out,
   p.Hkv = dims[2];
   p.Sq = dims[3];
   p.Skv = dims[4];
+  p.D = dims[5];
   p.q_sb = strides[0];
   p.q_sh = strides[1];
   p.q_ss = strides[2];
@@ -280,7 +287,7 @@ FlashArgs make_args(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// dims: B, Hq, Hkv, Sq, Skv, D.  strides: (batch, head, row) element
+// dims: B, Hq, Hkv, Sq, Skv, D (1 <= D <= 128).  strides: (batch, head, row) element
 // strides of q, k, v and out, in that order.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* out, float* lse, const int* dims,
@@ -288,7 +295,7 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
                         int window, int kv_len, void* stream) {
   return dispatch<float>(make_args(q, k, v, out, lse, dims, strides, scale,
                                    causal, window, kv_len),
-                         dims[5], stream);
+                         stream);
 }
 
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -298,7 +305,7 @@ int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                          int window, int kv_len, void* stream) {
   return dispatch<__nv_bfloat16>(make_args(q, k, v, out, lse, dims, strides,
                                            scale, causal, window, kv_len),
-                                 dims[5], stream);
+                                 stream);
 }
 
 const char* flash_attention_error_string(int err) {

@@ -70,10 +70,9 @@ def _check(q, k, v, kv_len):
                          f"{k.shape[1]} kv heads; the group must divide "
                          f"and be <= {MAX_GROUP}")
     vec = 16 // q.element_size()
-    lanes = D // vec
-    if D % vec or lanes > 32 or lanes & (lanes - 1):
-        raise ValueError(f"decode_attention_cuda: head dim {D} must be "
-                         f"{vec} x a power of two <= 32")
+    if D % vec or D > 32 * vec:
+        raise ValueError(f"decode_attention_cuda: head dim {D} must be a "
+                         f"multiple of {vec} up to {32 * vec}")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"decode_attention_cuda: {name} must be "

@@ -32,10 +32,11 @@ import ctypes
 import torch
 
 from ..common import check_launch, load_library
-from .kernel import HEAD_DIMS
 from .ref import flash_bwd_ref
 
 __all__ = ["flash_attention_bwd_cuda", "flash_attention_bwd_plain"]
+
+HEAD_DIMS = (32, 64, 128)       # the kernel's instantiations
 
 _LAUNCHERS = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}

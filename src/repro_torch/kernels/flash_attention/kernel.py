@@ -29,7 +29,9 @@ from .ref import flash_ref
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain"]
 
-HEAD_DIMS = (32, 64, 128)       # the kernel's instantiations
+# Head dims the kernel takes: multiples of 8 up to 128, each on the
+# tiles of the next multiple of 32 (csrc/flash_attention.cu).
+HEAD_DIMS = tuple(range(8, 129, 8))
 _LAUNCHERS = {torch.float32: "flash_attention_f32",
               torch.bfloat16: "flash_attention_bf16"}
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3
@@ -57,8 +59,8 @@ def _check(q, k, v):
                          f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
                          f"form (B,Hq,Sq,D) x (B,Hkv,Skv,D), Hq % Hkv == 0")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in "
-                         f"{HEAD_DIMS}")
+        raise ValueError(f"flash_attention_cuda: head dim {D} is not a "
+                         f"multiple of 8 up to 128")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"flash_attention_cuda: {name} must be "

@@ -9,26 +9,32 @@
         --slots 8 --max-len 512 --requests 16 --prompt-len 32-256 \
         --max-new 32 --paged --shared-prefix 256 [--kv-quant int8] \
         [--chunk-size 128 --long-prompt 448]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --slots 8 --max-len 512 --requests 8 --prompt-len 32-448 \
+        --max-new 32 [--smoke --device cpu]       # also mamba2, rwkv6-7b
 
 CNN archs (alexnet-owt / resnet18 / resnet50) serve image-classify
 requests through the compiled Program; it prints the Program listing,
 then ``served N images in T s (X img/s)`` and a few class ids.
 
-Dense LM archs (smollm-360m, llama3-8b, olmo-1b, deepseek-7b) serve
-token requests statefully through the compiled (prefill, decode) Program
-pair: each request is prefilled once into the persistent KV regions,
-then every tick runs the decode Program.  ``--smoke`` takes the reduced
-config, ``--window`` sets a sliding attention window (the KV regions
-then hold ``min(max_len, window)`` rows), prompt lengths are drawn from
-``--prompt-len LO-HI``.  ``--paged`` serves off the paged KV plan
-(``--page-size`` rows per page, ``--kv-quant int8`` pages) with
-copy-on-write prefix sharing; ``--shared-prefix N`` opens every prompt
-with the same N tokens, so admission shares pages.  ``--chunk-size N``
-prefills N prompt rows per tick; ``--long-prompt N`` injects one prompt
-of N tokens two ticks into the run.  It prints the pair's first listing
-line, ``served N requests, T tokens in S s (X tok/s)``, the prefill /
-recompute / decode-tick counters, the chunk, admission and page
-counters where they apply, and a few streams.
+LM archs -- dense (smollm-360m, llama3-8b, olmo-1b, deepseek-7b), hybrid
+(zamba2-7b, mamba2) and ssm (rwkv6-7b) -- serve token requests
+statefully through the compiled (prefill, decode) Program pair: each
+request is prefilled once into the persistent regions (KV caches, or the
+recurrent family's state), then every tick runs the decode Program.
+``--smoke`` takes the reduced config, ``--window`` sets a sliding
+attention window (the KV regions then hold ``min(max_len, window)``
+rows), prompt lengths are drawn from ``--prompt-len LO-HI``.
+``--paged`` serves off the paged KV plan (``--page-size`` rows per page,
+``--kv-quant int8`` pages) with copy-on-write prefix sharing (dense
+archs only: recurrent state is not pageable, nor chunkable);
+``--shared-prefix N`` opens every prompt with the same N tokens, so
+admission shares pages.  ``--chunk-size N`` prefills N prompt rows per
+tick; ``--long-prompt N`` injects one prompt of N tokens two ticks into
+the run.  It prints the pair's first listing line, ``served N requests,
+T tokens in S s (X tok/s)``, the prefill / recompute / decode-tick
+counters, the chunk, admission and page counters where they apply, and a
+few streams.
 
 Everything runs on the card unless ``--device cpu`` is given (the plain
 PyTorch versions).  Weights and prompts are random, drawn from
@@ -50,7 +56,7 @@ import torch
 from ..checkpoint import restore_checkpoint
 from ..configs import CNN_REGISTRY, get_config
 from ..kernels.common import resolve_device
-from ..models import cnn, init_params, transformer
+from ..models import cnn, init_params, param_defs
 from ..serving import Request, ServingEngine
 
 
@@ -106,7 +112,7 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
              prompt_len: tuple[int, int], device=None, seed: int = 0,
              shared_prefix: int = 0, long_prompt: int = 0,
              ckpt: str | None = None, **engine_kw) -> dict:
-    """Serve ``requests`` random prompts of the dense LM ``cfg`` with
+    """Serve ``requests`` random prompts of the LM ``cfg`` with
     random weights drawn from ``seed`` (or the params of the checkpoint
     in ``ckpt``); ``engine_kw`` (``paged``,
     ``page_size``, ``page_pool``, ``kv_quant``, ``chunk_size``) goes to
@@ -118,7 +124,7 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = _restore_params(
-        init_params(transformer.param_defs(cfg), gen, dev), ckpt)
+        init_params(param_defs(cfg), gen, dev), ckpt)
     eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
                         device=dev, **engine_kw)
     prompts = make_prompts(cfg.vocab, requests, *prompt_len, seed)

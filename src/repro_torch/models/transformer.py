@@ -1,5 +1,6 @@
 """Decoder-only transformer LM, dense family, on the Program path
-(counterpart of the dense half of ``repro/models/transformer.py``).
+(counterpart of the dense half of ``repro/models/transformer.py``), and
+the Program-pair entry point of every ported LM family.
 
 ``to_graph`` emits the layer graph (embed -> N x {norm, qkv matmuls,
 flash attention, o-proj, MLP matmul chain} -> final norm -> lm head)
@@ -10,7 +11,9 @@ runtime/executor.py.  ``compile_program_pair`` compiles the stateful
 serving pair (batch-1 prefill writing the KV cache, per-token decode)
 sharing one persistent region table -- contiguous, rolling-window or
 (``paged=True``) the §5.1 paged plan of page pools and a page table,
-optionally in int8 pages.
+optionally in int8 pages.  The recurrent families lower through their
+own modules' graph builders (``ssm`` through models/rwkv.py, ``hybrid``
+through models/zamba2.py), dispatched by ``compile_program_pair``.
 
 ``forward`` is the reference's legacy forward, the training path: the
 stacked ``(L, ...)`` block parameters run as a Python loop (the
@@ -20,8 +23,8 @@ reference's ``jax.lax.scan``), each block optionally under
 differentiable ``flash_attention``.
 
 Not carried yet: ``init_cache`` / ``decode_step`` and ``forward``'s
-``return_cache`` (ROADMAP A.6.4), the MoE and cross-attention variants
-(A.9) and the autotune hook of the compile entry points.
+``return_cache`` (ROADMAP A.6.4), the MoE, audio and cross-attention
+variants (A.9) and the autotune hook of the compile entry points.
 """
 from __future__ import annotations
 
@@ -189,8 +192,10 @@ def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
 
 # --- compile-to-Program lowering --------------------------------------------------
 def _require_dense(cfg: ArchConfig) -> None:
-    """The port lowers the dense decoder-only family only; every other
-    family or feature names the ROADMAP item that ports it."""
+    """Gate what the *transformer-graph* lowering cannot express.  Dense
+    decoder-only configs lower here; the hybrid and ssm families lower
+    through their own modules (``compile_program_pair`` dispatches
+    them); MoE, audio and VLM are not ported and name ROADMAP A.9."""
     blockers = []
     if cfg.family != "dense":
         blockers.append(f"family={cfg.family}")
@@ -204,8 +209,10 @@ def _require_dense(cfg: ArchConfig) -> None:
         blockers.append("shared attention blocks")
     if blockers:
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch lowers the dense decoder-only "
-            f"family only; blocked by {', '.join(blockers)} (ROADMAP A.9)")
+            f"{cfg.name}: the transformer lowering takes the dense "
+            f"decoder-only family (hybrid and ssm pairs lower through "
+            f"their own modules; moe, audio and vlm are not ported, "
+            f"ROADMAP A.9); blocked by {', '.join(blockers)}")
 
 
 def kv_cache_len(cfg: ArchConfig, max_len: int) -> int:
@@ -418,7 +425,13 @@ def compile_program_pair(cfg: ArchConfig, slots: int = 8,
     ``page_pool`` caps the pool (default: the worst case) and
     ``kv_quant="int8"`` stores quantized pages with per-page scales.
     Paged and a sliding window are mutually exclusive (the window plan
-    already bounds the resident rows)."""
+    already bounds the resident rows).
+
+    Family dispatch: ``ssm`` (rwkv6) lowers through models/rwkv.py and
+    ``hybrid`` (zamba2, mamba2) through models/zamba2.py, whose coarse
+    recurrent ops carry their state in the family's named regions; that
+    state is not pageable (``paged`` raises) and not chunkable
+    (``ProgramPair.chunk_blocker``)."""
     if paged and cfg.attn_window:
         raise NotImplementedError(
             f"paged KV and attn_window are mutually exclusive "
@@ -433,14 +446,28 @@ def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
                           hw: HardwareModel, paged: bool = False,
                           page_size: int = 16, page_pool: int | None = None,
                           kv_quant: str | None = None) -> ProgramPair:
-    _require_dense(cfg)
+    if cfg.family == "ssm":
+        from . import rwkv as gmod
+    elif cfg.family == "hybrid":
+        from . import zamba2 as gmod
+    else:
+        gmod = None
+        _require_dense(cfg)
     specs, caps = state_specs(cfg, slots, max_len)
+    if paged and not caps.paged:
+        raise NotImplementedError(
+            f"{cfg.name} is blocked by: family {cfg.family!r} state is not "
+            f"pageable (paged plans assume KV-row granularity)")
     pg = page_size if paged else None
     quant = kv_quant if paged else None
-    pre_graph = to_graph(cfg, batch=1, seq=max_len, write_cache=True,
-                         page_size=pg, kv_quant=quant)
-    dec_graph = to_decode_graph(cfg, slots=slots, max_len=max_len,
-                                page_size=pg, kv_quant=quant)
+    if gmod is None:
+        pre_graph = to_graph(cfg, batch=1, seq=max_len, write_cache=True,
+                             page_size=pg, kv_quant=quant)
+        dec_graph = to_decode_graph(cfg, slots=slots, max_len=max_len,
+                                    page_size=pg, kv_quant=quant)
+    else:
+        pre_graph = gmod.to_graph(cfg, seq=max_len, write_cache=True)
+        dec_graph = gmod.to_decode_graph(cfg, slots=slots, max_len=max_len)
     pre_graph.name = cfg.name + ".prefill"
     pre_sched = compile_model(pre_graph, hw)
     dec_sched = compile_model(dec_graph, hw)

@@ -1,12 +1,12 @@
 """Program executor — runs the compiler's instruction stream (§5.2).
 
-Counterpart of ``repro/runtime/executor.py`` for the CNN and dense-LM
-Program paths: ``run`` walks a ``core/program.py::Program`` and
-dispatches each op to the kernels with the schedule's *pre-resolved*
-decisions — conv strip tiling, strip storage, loop order, matmul block,
-attention (block_q, block_kv) and the fused epilogue flags.  Nothing is
-re-derived at run time; region ids are the allocator's, read from the
-ops.
+Counterpart of ``repro/runtime/executor.py`` for the CNN, dense-LM and
+recurrent-family (rwkv6, zamba2 / mamba2) Program paths: ``run`` walks a
+``core/program.py::Program`` and dispatches each op to the kernels with
+the schedule's *pre-resolved* decisions — conv strip tiling, strip
+storage, loop order, matmul block, attention (block_q, block_kv) and the
+fused epilogue flags.  Nothing is re-derived at run time; region ids are
+the allocator's, read from the ops.
 
 Stateful Programs (the LM serving pair) add a ``ProgramState``: the
 persistent KV-cache buffers keyed by the allocator's persistent region
@@ -16,6 +16,13 @@ into the cache regions at its slot; ``run_decode`` advances every slot
 by one token through the ``decode_attention`` ops.  The reference
 threads the state functionally and donates it to XLA; here both update
 the state's tensors **in place**, on the device they live on.
+
+The recurrent families' coarse block ops (``wkv``, ``ssm_scan``) carry
+their state in the allocator's generic persistent regions, named by
+``op.state_regions`` in the family's order: prefill runs the model's
+``block_prefill`` from zero state and scatters each final state into its
+region at the admitted slot, decode runs ``block_decode`` against every
+slot's state and keeps a dead slot's rows (``live``).
 
 The §5.1 paged plan keeps the KV rows in page pools addressed through
 a per-slot page table: ``run_prefill`` scatters whole pages (the rows of
@@ -30,8 +37,9 @@ the cache rows earlier chunks wrote, bitwise-equal to a whole prefill.
 
 PyTorch runs eagerly, so the reference's ``jitted_runner`` becomes
 ``cached_runner``: one closure per (Program, impl).  The kernels run on
-the device the input lies on (``impl="auto"``).  Op kinds of the other
-LM families raise ``NotImplementedError`` naming their ROADMAP item.
+the device the input lies on (``impl="auto"``).  The MoE and
+cross-attention op kinds raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -58,8 +66,9 @@ __all__ = ["run", "walk", "cached_runner", "ProgramState",
            "sync_page_table", "apply_page_copies"]
 
 # op kind -> the ROADMAP item that ports it
-_NOT_PORTED = {"wkv": "A.9", "ssm_scan": "A.9", "moe_dispatch": "A.9",
-               "cross_attention": "A.9"}
+_NOT_PORTED = {"moe_dispatch": "A.9", "cross_attention": "A.9"}
+# coarse recurrent block ops, dispatched by ``_run_family_op``
+_FAMILY_KERNELS = ("wkv", "ssm_scan")
 
 
 def _param(params, key: str | None):
@@ -179,6 +188,11 @@ def _run_op(op: ProgramOp, src: torch.Tensor, regions: dict, params, *,
     if op.kernel == "avgpool":
         return avgpool2d_ref(src, window=op.window, stride=op.stride,
                              pad=op.pad)
+    if op.kernel in _FAMILY_KERNELS:
+        raise ValueError(
+            f"op {op.name}: the recurrent {op.kernel!r} block runs through "
+            f"run, run_prefill or run_decode; chunked prefill is refused "
+            f"for its family (ProgramPair.chunk_blocker)")
     if op.kernel in _NOT_PORTED:
         raise NotImplementedError(
             f"op {op.name}: program kernel {op.kernel!r} is not ported to "
@@ -201,6 +215,10 @@ def run(program: Program, params, x: torch.Tensor, *,
             raise ValueError(
                 f"op {op.name} needs a ProgramState (persistent KV "
                 f"regions); use run_decode for decode Programs")
+        if op.kernel in _FAMILY_KERNELS:
+            regions[op.out_region] = _run_family_op(
+                op, regions[op.in_region], params, None, impl=impl)
+            continue
         regions[op.out_region] = _run_op(op, regions[op.in_region], regions,
                                          params, impl=impl)
     return regions[program.output_region]
@@ -220,6 +238,56 @@ def walk(program: Program, params, x: torch.Tensor, *,
         with torch.no_grad():
             regions[op.out_region] = _run_op(op, src, regions, params,
                                              impl=impl)
+
+
+def _write_state_row(caches: dict, rid: int, val: torch.Tensor,
+                     slot: int) -> None:
+    """Scatter a prefill op's (1, ...) final state into the (slots, ...)
+    persistent region at the admitted slot, in place."""
+    buf = caches[rid]
+    buf[slot] = val[0].to(buf.dtype)
+
+
+def _run_family_op(op: ProgramOp, src: torch.Tensor, params,
+                   caches: dict | None, *, slot=None, length=None,
+                   live=None, impl: str) -> torch.Tensor:
+    """Dispatch one coarse recurrent block op (``wkv`` | ``ssm_scan``).
+
+    Prefill and decode share one arm per kernel, split on the operand
+    rank -- (B, S, D) is a prefill pass, (slots, D) a decode tick --
+    because the instruction stream is the only difference the lowering
+    leaves between the two.  The ops resolve their buffers through
+    ``op.state_regions`` (the allocator's generic persistent rids, in
+    the family's order) and never assume a KV shape.  Prefill scatters
+    the block's final state at the admitted slot; decode reads and
+    rewrites all slots in place, dead ones kept at their old rows via
+    ``live``.  ``caches=None`` (stateless ``run``) skips the writes --
+    the blocks still compute from their zero init."""
+    from ..models import rwkv, zamba2
+    model = rwkv if op.kernel == "wkv" else zamba2
+    p = _param(params, op.param_key)
+    if src.ndim == 3:                             # prefill pass
+        out, states = model.block_prefill(src, p, impl=impl, length=length)
+        if caches is not None and op.state_regions:
+            for rid, val in zip(op.state_regions, states):
+                _write_state_row(caches, rid, val, slot)
+        return out
+    if caches is None:
+        raise ValueError(
+            f"op {op.name} needs a ProgramState (persistent state "
+            f"regions); use run_decode for decode Programs")
+    states = [caches[r] for r in op.state_regions]
+    if op.kernel == "wkv":
+        out, new = rwkv.block_decode(src, p, *states)
+    else:
+        out, new = zamba2.block_decode(src, p, *states, impl=impl)
+    for old, fresh in zip(states, new):
+        fresh = fresh.to(old.dtype)
+        if live is not None:
+            keep = live.reshape((-1,) + (1,) * (old.ndim - 1))
+            fresh = torch.where(keep, fresh, old)
+        old.copy_(fresh)
+    return out
 
 
 # --- stateful Programs (the LM serving prefill/decode pair) -----------------------
@@ -334,6 +402,11 @@ def run_prefill(program: Program, params, tokens: torch.Tensor,
             else:
                 _write_prefill_cache(state.caches, op, k, v, slot, length)
             regions[op.out_region] = out
+            continue
+        if op.kernel in _FAMILY_KERNELS:
+            regions[op.out_region] = _run_family_op(
+                op, regions[op.in_region], params, state.caches, slot=slot,
+                length=length, impl=impl)
             continue
         regions[op.out_region] = _run_op(op, regions[op.in_region], regions,
                                          params, impl=impl)
@@ -614,6 +687,10 @@ def run_decode(program: Program, params, tokens: torch.Tensor,
             regions[op.out_region] = _run_decode_attention_paged(
                 op, src, regions[op.k_region], regions[op.v_region],
                 state.caches, pos, live, impl=impl)
+            continue
+        if op.kernel in _FAMILY_KERNELS:
+            regions[op.out_region] = _run_family_op(
+                op, src, params, state.caches, live=live, impl=impl)
             continue
         regions[op.out_region] = _run_op(op, src, regions, params, impl=impl)
     state.lengths += live.to(torch.int32)

@@ -7,17 +7,22 @@ batch, executes the compiled ``core/program.py::Program`` once through
 ``runtime/executor.py``, and retires every request with its argmax
 class id.
 
-An ``ArchConfig`` (dense LM) is served statefully: the engine compiles
-the (prefill, decode) Program pair
+An ``ArchConfig`` (an LM of the dense, hybrid or ssm family) is served
+statefully: the engine compiles the (prefill, decode) Program pair
 (``models/transformer.py::compile_program_pair``) whose persistent
-KV-cache regions are owned by the §5.1 allocator, and keeps one
+regions -- KV caches, or a recurrent family's named state -- are owned
+by the §5.1 allocator, and keeps one
 ``runtime/executor.py::ProgramState`` across ticks.  Admission runs the
 prefill Program once per request (the cache written at the admitted
 slot, the first token read off the prompt's last position); every tick
-then runs the decode Program, one token per live slot against the
-cache.  Nothing is prefilled twice (``n_prefill_recomputes`` stays 0).
-Windowed configs serve on the same path with window-sized regions and
-rolling eviction.  Requests enter through a bounded ``AdmissionQueue``.
+then runs the decode Program, one token per live slot against the cache.
+Nothing is prefilled twice (``n_prefill_recomputes`` stays 0).  Windowed
+configs serve on the same path with window-sized regions and rolling
+eviction.  A recurrent family's prefill restarts its slot's state from
+zero and overwrites it, so a slot reused in the same tick carries
+nothing over.  The paged plan and chunked prefill are gated by the
+pair's ``caps`` (``chunk_blocker``), never by assuming KV-shaped
+regions.  Requests enter through a bounded ``AdmissionQueue``.
 
 ``paged=True`` serves off the §5.1 paged plan: page pools and a page
 table, with admission, copy-on-write prefix sharing and on-demand pages
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, CNNConfig
+from ..core.regions import state_specs
 from ..kernels.common import resolve_device
 from ..models.cnn import compile_program
 from ..models.transformer import compile_program_pair
@@ -123,7 +129,7 @@ class ServingEngine:
                                            page_pool=page_pool,
                                            kv_quant=kv_quant)
         else:
-            _check_geometry(program, slots, max_len)
+            _check_geometry(program, cfg, slots, max_len)
         self.program = program
         self.state = executor.init_program_state(program, self.device)
         self.admission = AdmissionQueue(queue_capacity)
@@ -407,17 +413,25 @@ class ServingEngine:
         return finished
 
 
-def _check_geometry(pair, slots: int, max_len: int) -> None:
+def _check_geometry(pair, cfg, slots: int, max_len: int) -> None:
     """Refuse a precompiled pair whose geometry is not the engine's, at
     construction rather than as a shape error mid-serve.  A paged pair
-    keeps its slots in the page table and its extent in the plan."""
+    keeps its slots in the page table and its extent in the plan; any
+    other pair must hold the persistent regions the engine config's own
+    family hook mints, name for name and shape for shape -- which also
+    catches a pair compiled from another config (a windowed pair handed
+    to a dense engine) whose slots and max_len happen to agree."""
     if pair.paged is not None:
         pt = next(s for s in pair.decode.plan.persistent_regions()
                   if s.name == "page_table")
         checks = [(pt.shape, (slots, pair.paged.pages_per_slot)),
                   ((pair.paged.cache_len,), (max_len,))]
     else:
-        checks = []
+        specs, _ = state_specs(cfg, slots, max_len)
+        want = {s.name: s.shape for s in specs}
+        got = {s.name: s.shape
+               for s in pair.decode.plan.persistent_regions()}
+        checks = [(got, want)]
     if pair.max_len is not None:
         checks.append(((pair.slots, pair.max_len), (slots, max_len)))
     for got, want in checks:

@@ -29,10 +29,17 @@ from repro_torch.kernels.flash_attention.bwd_kernel import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_bwd_plain)
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
+from repro_torch.kernels.mamba2 import mamba2_scan  # noqa: E402
+from repro_torch.kernels.mamba2.kernel import (  # noqa: E402
+    mamba2_scan_cuda, mamba2_scan_plain)
 from repro_torch.kernels.matmul.kernel import (  # noqa: E402
     matmul_cuda, matmul_plain)
+from repro_torch.kernels.rwkv6 import wkv6  # noqa: E402
+from repro_torch.kernels.rwkv6.kernel import wkv6_cuda, wkv6_plain  # noqa
 from repro_torch.core.quant import int8_quantize_pages  # noqa: E402
-from repro_torch.models import init_params, transformer  # noqa: E402
+from repro_torch.configs import REGISTRY  # noqa: E402
+from repro_torch.models import init_params, param_defs  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.runtime import executor  # noqa: E402
 
@@ -172,6 +179,33 @@ def test_flash_kernel_matches_plain(dev, case, dt):
     torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
 
 
+# zamba2-7b's shared block: head dim 112 on the tiles of 128 (forward
+# only; the backward kernel keeps its 32 / 64 / 128).
+FLASH_D112 = [(1, 32, 32, 512, 512, 112, True, 4096, None),
+              (2, 4, 2, 70, 70, 112, True, 20, None),
+              (1, 2, 1, 64, 64, 40, False, None, 50)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", range(len(FLASH_D112)))
+def test_flash_kernel_takes_head_dims_past_the_multiples_of_32(dev, case,
+                                                               dt):
+    dtype, tol = DTYPES[dt]
+    B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len = FLASH_D112[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+
+    def heads(S, H):
+        return torch.randn((B, S, H, D), generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+    q, k, v = heads(Sq, Hq), heads(Skv, Hkv), heads(Skv, Hkv)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, kv_len=kv_len)
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("dt", sorted(DTYPES))
 @pytest.mark.parametrize("case", range(len(FLASH)))
 def test_flash_bwd_kernel_matches_plain(dev, case, dt):
@@ -253,7 +287,9 @@ def _leaves(tree):
 DECODE = [(8, 15, 5, 512, 64, [1, 37, 128, 200, 333, 448, 511, 512]),
           (8, 15, 5, 128, 64, [1, 5, 64, 127, 128, 128, 128, 100]),
           (3, 32, 8, 64, 128, [64, 1, 30]),
-          (2, 4, 4, 16, 32, [3, 16])]
+          (2, 4, 4, 16, 32, [3, 16]),
+          (8, 32, 32, 512, 112, [1, 37, 128, 256, 511, 512, 512, 384]),
+          (2, 6, 2, 30, 112, [30, 9])]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -448,3 +484,110 @@ def test_lm_paged_prefill_and_decode_kernels_match_plain(dev, kv_quant):
         toks = ref.argmax(-1).to(torch.int32)
         lens = [n + 1 for n in lens]
     assert forks > 0
+
+
+# (Bt, L, H, P, N, with h0): zamba2-7b's prefill and decode shapes, an L
+# that is not a multiple of the kernel's 64-step chunk, mamba2's N = 128.
+SSD = [(1, 512, 112, 64, 64, False), (1, 512, 112, 64, 64, True),
+       (8, 1, 112, 64, 64, True), (1, 300, 112, 64, 64, True),
+       (2, 77, 40, 64, 128, True), (2, 9, 3, 16, 16, False)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", range(len(SSD)))
+def test_mamba2_scan_kernel_matches_plain(dev, case, dt):
+    """On the model's strided column slices of its conv output, with
+    D-skip through the ops wrapper."""
+    dtype, tol = DTYPES[dt]
+    Bt, L, H, P, N, with_h0 = SSD[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+    xbc = torch.randn((Bt, L, H * P + 2 * N), generator=gen,
+                      device=dev).to(dtype)
+    x = xbc[..., :H * P].reshape(Bt, L, H, P)
+    B, C = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt_ = torch.nn.functional.softplus(
+        torch.randn((Bt, L, H), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.5)
+    h0 = (torch.randn((Bt, H, N, P), generator=gen, device=dev)
+          if with_h0 else None)
+    n0 = mamba2_scan_cuda.launches
+    y, h = mamba2_scan_cuda(x, dt_, A, B, C, h0=h0)
+    torch.cuda.synchronize()
+    assert mamba2_scan_cuda.launches == n0 + 1
+    ref_y, ref_h = mamba2_scan_plain(x, dt_, A, B, C, h0=h0)
+    torch.testing.assert_close(y.float(), ref_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, ref_h, rtol=TOL, atol=TOL)
+    D = torch.randn((H,), generator=gen, device=dev)
+    got = mamba2_scan(x, dt_, A, B, C, D_skip=D, h0=h0)
+    want = y + (D.float()[None, None, :, None] * x.float()).to(y.dtype)
+    assert torch.equal(got, want)
+
+
+# (B, L, H, D, with s0): rwkv6-7b's prefill and decode shapes, a short L
+WKV = [(1, 512, 64, 64, False), (1, 512, 64, 64, True), (8, 1, 64, 64, True),
+       (2, 33, 4, 16, True), (1, 40, 2, 128, False), (3, 7, 5, 32, True)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", range(len(WKV)))
+def test_wkv6_kernel_matches_plain(dev, case, dt):
+    dtype, tol = DTYPES[dt]
+    B, L, H, D, with_s0 = WKV[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+
+    def rows():
+        return torch.randn((B, L, H, D), generator=gen, device=dev)
+    r, k, v = (rows().to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rows() * 0.5)).to(dtype)
+    u = torch.randn((H, D), generator=gen, device=dev).to(dtype)
+    s0 = (torch.randn((B, H, D, D), generator=gen, device=dev)
+          if with_s0 else None)
+    n0 = wkv6_cuda.launches
+    y, s = wkv6_cuda(r, k, v, w, u, s0=s0)
+    torch.cuda.synchronize()
+    assert wkv6_cuda.launches == n0 + 1
+    ref_y, ref_s = wkv6_plain(r, k, v, w, u, s0=s0)
+    torch.testing.assert_close(y.float(), ref_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, ref_s, rtol=TOL, atol=TOL)
+    assert torch.equal(wkv6(r, k, v, w, u, s0=s0), y)
+
+
+@pytest.mark.parametrize("name", ["zamba2-7b", "mamba2", "rwkv6-7b"])
+def test_family_prefill_and_decode_kernels_match_plain(dev, name):
+    """A small f32 config of each recurrent family through run_prefill +
+    run_decode, kernels against plain versions, each on its own state;
+    the scan kernel launches once per mamba layer per call, wkv6 once per
+    rwkv layer per prefill and never in a decode tick."""
+    cfg = REGISTRY[name].smoke()
+    pair = transformer.compile_program_pair(cfg, slots=3, max_len=32)
+    params = init_params(param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    states = {impl: executor.init_program_state(pair, dev)
+              for impl in ("cuda", "reference")}
+    rng = np.random.default_rng(0)
+    toks = torch.zeros((3,), dtype=torch.int32, device=dev)
+    counter = wkv6_cuda if cfg.family == "ssm" else mamba2_scan_cuda
+    n0 = counter.launches
+    for slot, n in enumerate((5, 30, 17)):
+        padded = torch.zeros((1, 32), dtype=torch.int32, device=dev)
+        padded[0, :n] = torch.from_numpy(rng.integers(0, cfg.vocab, n))
+        outs = {impl: executor.run_prefill(pair.prefill, params, padded,
+                                           st, slot, n, impl=impl)
+                for impl, st in states.items()}
+        torch.testing.assert_close(outs["cuda"], outs["reference"],
+                                   rtol=TOL, atol=TOL)
+        toks[slot] = outs["reference"][0, n - 1].argmax()
+    assert counter.launches == n0 + 3 * cfg.n_layers
+    mask = torch.tensor([True, True, False], device=dev)
+    for _ in range(6):               # slot 1 passes max_len
+        outs = {impl: executor.run_decode(pair.decode, params, toks, st,
+                                          mask, impl=impl)
+                for impl, st in states.items()}
+        torch.testing.assert_close(outs["cuda"], outs["reference"],
+                                   rtol=TOL, atol=TOL)
+        toks = outs["reference"].argmax(-1).to(torch.int32)
+    per_tick = 0 if cfg.family == "ssm" else cfg.n_layers
+    assert counter.launches == n0 + 3 * cfg.n_layers + 6 * per_tick
+    for rid, buf in states["cuda"].caches.items():
+        torch.testing.assert_close(buf, states["reference"].caches[rid],
+                                   rtol=TOL, atol=TOL)

@@ -52,6 +52,16 @@ def test_training_modules_load_no_jax_or_repro(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# The recurrent families' modules and kernels, each imported alone.
+FAMILY_MODULES = ["repro_torch.kernels.mamba2", "repro_torch.kernels.rwkv6",
+                  "repro_torch.models.zamba2", "repro_torch.models.rwkv"]
+
+
+@pytest.mark.parametrize("module", FAMILY_MODULES)
+def test_family_modules_load_no_jax_or_repro(module):
+    test_training_modules_load_no_jax_or_repro(module)
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):

@@ -75,7 +75,7 @@ def test_config_matches_reference(name):
 
 def test_unported_family_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        get_config("rwkv6-7b")
+        get_config("whisper-base")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
