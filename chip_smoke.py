@@ -11,13 +11,18 @@ exits non-zero before the last line is printed.  Phases:
 2. build every kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, in parallel) and print the build time;
 3. every distinct conv and FC op of the alexnet-owt and resnet18
-   Programs at batch 8, on real activations (the plain forward's),
-   through the kernel's wrapper and its plain version: max |err|
-   (atol = rtol = 1e-4: f32 sums in another order over reductions of up
-   to 9216 terms), and the device time of the kernel, the plain
-   version, and the library yardstick (cuDNN ``F.conv2d`` or
-   ``torch.addmm``, plus the same epilogue): 20 calls captured in one
-   CUDA graph, so the host's launch latency is not in the reading;
+   Programs at batch 8, and of their SNOWFLAKE paper-faithful Programs
+   (every conv on materialized strips), on real activations (the plain
+   forward's), through the kernel's wrapper and its plain version: max
+   |err| (atol = rtol = 1e-4: f32 sums in another order over reductions
+   of up to 9216 terms), and the device time of the kernel, the plain
+   version, and the library yardstick (cuDNN ``F.conv2d`` on the whole
+   maps or ``torch.addmm``, plus the same epilogue): 20 calls captured
+   in one CUDA graph, so the host's launch latency is not in the
+   reading.  A materialized conv also prints the strip copy's own time,
+   the maps' bytes against the strip buffer's, and the HBM bytes
+   ``core/dataflow.py::conv_strip_traffic`` models for it; its bound
+   counts the strip buffer read once and only the OH rows' FLOPs;
 4. every distinct flash-attention, decode-attention and matmul op of the
    smollm-360m (prefill, decode) Program pair at full width, 8 slots,
    max_len 512, of the same pair with a 128-row window, and of the
@@ -99,7 +104,12 @@ exits non-zero before the last line is printed.  Phases:
    replay (page-table syncs and COW copies replayed in order) holds the
    same logit and token rules as 5b; no serving path launches the
    backward kernel;
-   f. ``repro_torch.launch.train`` trains full-width smollm-360m in bf16
+   f. ``repro_torch.launch.train --smoke`` takes one step of the smoke
+      config as it is (head dim 16, f32, batch 2 x 64): one flash
+      forward and one backward launch per layer, a finite loss, and the
+      same step's loss and gradients through the kernels within 1e-4 of
+      the plain path; then ``repro_torch.launch.train`` trains
+      full-width smollm-360m in bf16
       (batch 8, seq 512, SyntheticLM seed 0, AdamW with the CLI's cosine
       schedule) for one warm-up and five timed steps into a temporary
       checkpoint directory: per step exactly 64 flash forward launches
@@ -117,6 +127,14 @@ exits non-zero before the last line is printed.  Phases:
       slots, max_len 512, 8 prompts of 32-448 tokens, 32 new tokens each;
    h. the same with ``--arch rwkv6-7b`` (32 layers, d_model 4096, 64
       heads of 64).
+   i. ``serve_cnn`` serves the same 20 alexnet-owt images off the
+      SNOWFLAKE paper-faithful Program at batch 8 (``compile_program(...,
+      hw=SNOWFLAKE, paper_faithful=True)`` handed to ``ServingEngine``):
+      exactly ticks x 5 ``conv2d_strips`` launches, no ``conv2d_virtual``
+      launch and ticks x 3 matmul launches; classes equal the plain
+      path's as in 5a; img/s beside 5a's; then one resnet18 SNOWFLAKE
+      paper-faithful batch-8 forward, kernels against plain, with exactly
+      20 strip launches.
    In 5g and 5h the counters must be exactly the Program's kernel ops per
    call (``PAIR_OPS``: zamba2-7b 81 mamba2_scan and 99 matmul per
    admission and per tick, 14 flash per admission, 14 decode per tick;
@@ -139,7 +157,8 @@ exits non-zero before the last line is printed.  Phases:
    by kind and the peak memory are printed;
 6. a ``kernels`` JSON line: per kernel, its launches on the main paths,
    the max error over every checked op, and the times and bound summed
-   over one alexnet-owt batch-8 tick (conv2d_virtual), one smollm-360m
+   over one alexnet-owt batch-8 tick (conv2d_virtual), one SNOWFLAKE
+   paper-faithful alexnet-owt batch-8 tick (conv2d_strips), one smollm-360m
    admission (flash_attention), one smollm-360m decode tick
    (decode_attention, paged_decode_attention, matmul), one smollm-360m
    training step (flash_attention_bwd), one zamba2-7b admission
@@ -217,6 +236,7 @@ KERNEL_OPS = ("matmul", "flash_attention", "decode_attention", "ssm_scan",
 PEAKS = {"NVIDIA H100 80GB HBM3": {"float32": 67e12, "bfloat16": 989e12,
                                    "hbm": 3.35e12}}
 REPLACES = {"conv2d_virtual": "src/repro/kernels/conv2d/kernel.py:241",
+            "conv2d_strips": "src/repro/kernels/conv2d/kernel.py:111",
             "matmul": "src/repro/kernels/matmul/kernel.py:79",
             "flash_attention": "src/repro/kernels/flash_attention/kernel.py:88",
             "flash_attention_bwd":
@@ -228,6 +248,7 @@ REPLACES = {"conv2d_virtual": "src/repro/kernels/conv2d/kernel.py:241",
             "mamba2_scan": "src/repro/kernels/mamba2/kernel.py:78",
             "wkv6": "src/repro/kernels/rwkv6/kernel.py:58"}
 SOURCES = {"conv2d_virtual": "src/repro_torch/kernels/csrc/conv2d.cu",
+           "conv2d_strips": "src/repro_torch/kernels/csrc/conv2d_strips.cu",
            "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -339,15 +360,18 @@ def max_err_ulp(got, want) -> float:
     return err.max().item()
 
 
-def op_cases(cfg, batch, device):
-    """Walk the Program on the plain path; yield each conv / matmul op
-    with the operands the executor hands it."""
+def op_cases(cfg, batch, device, hw=None, paper_faithful=False):
+    """Walk the Program (compiled for ``hw``, the default TPU_V5E when
+    None) on the plain path; yield each conv / matmul op with the
+    operands the executor hands it."""
     import torch
+    from repro_torch.core import TPU_V5E
     from repro_torch.models import cnn, init_params
     from repro_torch.runtime.executor import walk
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = init_params(cnn.param_defs(cfg), gen, device)
-    program = cnn.compile_program(cfg, batch=batch)
+    program = cnn.compile_program(cfg, batch=batch, hw=hw or TPU_V5E,
+                                  paper_faithful=paper_faithful)
     x = torch.randn((batch, cfg.input_hw, cfg.input_hw, cfg.input_ch),
                     generator=gen, device=device)
     for op, src, p, byp in walk(program, params, x, impl="reference"):
@@ -355,13 +379,35 @@ def op_cases(cfg, batch, device):
             yield op, src, p, byp
 
 
-def conv_case(op, x, p, byp):
+def cudnn_conv(op, x, w, bias, byp, stride: int, pad: int, pool):
+    """The library yardstick of a conv kernel: cuDNN ``F.conv2d`` on the
+    whole NHWC maps (read as channels_last) with the same epilogue, then
+    ``pool`` when the kernel fuses one."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.common import apply_activation
+    from repro_torch.kernels.conv2d.kernel import pool_ref
+    w_lib = w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    x_lib = x.permute(0, 3, 1, 2)            # NHWC data as channels_last
+    byp_lib = None if byp is None else byp.permute(0, 3, 1, 2)
+
+    def library():
+        out = F.conv2d(x_lib, w_lib, bias, stride, pad)
+        if byp_lib is not None and op.bypass_first:
+            out = out + byp_lib
+        out = apply_activation(out, op.fuse_activation)
+        if byp_lib is not None and not op.bypass_first:
+            out = out + byp_lib
+        if pool is not None:
+            out = pool_ref(out.permute(0, 2, 3, 1), pool)
+        return out
+    return library
+
+
+def conv_case(op, x, p, byp):
     from repro_torch.kernels.conv2d.kernel import (conv2d_virtual_cuda,
-                                                   conv2d_virtual_plain,
-                                                   pool_ref)
+                                                   conv2d_virtual_plain)
     from repro_torch.kernels.conv2d.ops import norm_pool, virtual_plan
     g, dataflow, _ = virtual_plan(
         tuple(x.shape), tuple(p["w"].shape), stride=op.stride, pad=op.pad,
@@ -373,22 +419,8 @@ def conv_case(op, x, p, byp):
     x = x.contiguous()
     kern = lambda: conv2d_virtual_cuda(x, p["w"], g, dataflow=dataflow, **kw)
     plain = lambda: conv2d_virtual_plain(x, p["w"], g, **kw)
-    w_lib = p["w"].permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    x_lib = x.permute(0, 3, 1, 2)            # NHWC data as channels_last
-    byp_lib = None if byp is None else byp.permute(0, 3, 1, 2)
-
-    def library():
-        out = F.conv2d(x_lib, w_lib, kw["bias"], g.stride, g.pad)
-        if byp_lib is not None and op.bypass_first:
-            out = out + byp_lib
-        out = apply_activation(out, op.fuse_activation)
-        if byp_lib is not None and not op.bypass_first:
-            out = out + byp_lib
-        if g.pool is not None:
-            out = pool_ref(out.permute(0, 2, 3, 1), g.pool)
-        return out
-
+    library = cudnn_conv(op, x, p["w"], kw["bias"], byp, g.stride, g.pad,
+                         g.pool)
     err = max_err(kern(), plain())
     flops = 2 * g.B * g.OH * g.OW * g.Cout * g.kh * g.kw * g.Cin
     nbytes = 4 * (x.numel() + p["w"].numel() + g.Cout
@@ -398,6 +430,53 @@ def conv_case(op, x, p, byp):
         f"{tuple(x.shape)}*{tuple(p['w'].shape)} s{g.stride} p{g.pad} "
         f"rows={g.out_rows} kpt={g.kpt} pool={g.pool} "
         f"bypass={byp is not None} {dataflow.name}")
+
+
+def strips_case(op, x, p, byp):
+    """A materialized conv: the strip copy, then the strips kernel against
+    its plain version on the same strips; the library yardstick is cuDNN
+    on the whole maps (no pool: a requested one runs after the kernel as
+    its own op).  Returns conv_case's tuple plus the copy's thunk and the
+    byte counts it prints."""
+    from repro_torch.core.dataflow import Dataflow, conv_strip_traffic
+    from repro_torch.kernels.conv2d.kernel import (conv2d_strips_cuda,
+                                                   conv2d_strips_plain,
+                                                   materialize_strips,
+                                                   strip_bypass)
+    from repro_torch.kernels.conv2d.ops import strips_plan
+    g, dataflow = strips_plan(tuple(x.shape), tuple(p["w"].shape),
+                              stride=op.stride, pad=op.pad,
+                              tiling=op.conv_tiling, dataflow=op.dataflow)
+    x = x.contiguous()
+    strips = materialize_strips(x, g)
+    sbyp = None if byp is None else strip_bypass(byp, g)
+    kw = dict(bias=p["b"] if op.fuse_bias else None,
+              activation=op.fuse_activation, bypass=sbyp,
+              bypass_first=op.bypass_first)
+    kern = lambda: conv2d_strips_cuda(strips, p["w"], g, dataflow=dataflow,
+                                      **kw)
+    plain = lambda: conv2d_strips_plain(strips, p["w"], g, **kw)
+    copy = lambda: materialize_strips(x, g)
+    library = cudnn_conv(op, x, p["w"], kw["bias"], byp, g.stride, g.pad,
+                         None)
+    err = max_err(kern(), plain())
+    flops = 2 * g.B * g.OH * g.OW * g.Cout * g.kh * g.kw * g.Cin
+    out_el = g.B * g.OH * g.OW * g.Cout
+    nbytes = 4 * (strips.numel() + p["w"].numel() + g.Cout + out_el
+                  + (0 if byp is None else out_el))
+    kloop, mloop = conv_strip_traffic(
+        4 * x.numel(), 4 * p["w"].numel(), 4 * out_el, n_map_tiles=g.NS,
+        n_kernel_tiles=g.Cout // g.kpt,
+        overlap_frac=op.conv_tiling.overlap_frac,
+        strip_storage="materialized")
+    traffic = {"maps_bytes": 4 * x.numel(),
+               "strip_bytes": 4 * strips.numel(),
+               "modeled_bytes": (mloop if dataflow is Dataflow.WEIGHTS_RESIDENT
+                                 else kloop)}
+    return "conv2d_strips", err, kern, plain, library, flops, nbytes, (
+        f"{tuple(x.shape)}*{tuple(p['w'].shape)} s{g.stride} p{g.pad} "
+        f"rows={g.out_rows} kpt={g.kpt} strips={tuple(strips.shape)} "
+        f"bypass={byp is not None} {dataflow.name}"), copy, traffic
 
 
 def matmul_case(op, x, p, byp):
@@ -426,30 +505,60 @@ def matmul_case(op, x, p, byp):
         f"{M}x{K}x{N} block={block} {op.dataflow.name}")
 
 
+# Phase 3's Programs: (label, arch, hardware model name, paper_faithful).
+# "@snowflake" labels the SNOWFLAKE paper-faithful Program, every conv of
+# which runs on materialized strips.
+PHASE3_PROGRAMS = (("alexnet-owt", "alexnet-owt", None, False),
+                   ("resnet18", "resnet18", None, False),
+                   ("alexnet-owt@snowflake", "alexnet-owt", "SNOWFLAKE",
+                    True),
+                   ("resnet18@snowflake", "resnet18", "SNOWFLAKE", True))
+
+
 def check_kernels(device, peaks):
-    """Phase 3; returns the per-op rows (f32)."""
+    """Phase 3; returns the per-op rows (f32).  ``uses`` counts the ops of
+    the row's Program that share its shape (timed once)."""
+    from repro_torch import core
     from repro_torch.configs import CNN_REGISTRY
-    rows, seen = [], set()
-    for arch in ("alexnet-owt", "resnet18"):
-        for op, x, p, byp in op_cases(CNN_REGISTRY[arch], SLOTS, device):
-            case = conv_case if op.kernel == "conv2d" else matmul_case
-            name, err, kern, plain, library, flops, nbytes, desc = case(
-                op, x, p, byp)
-            if desc in seen:
+    rows, seen = [], {}
+    for label, arch, hw, faithful in PHASE3_PROGRAMS:
+        for op, x, p, byp in op_cases(
+                CNN_REGISTRY[arch], SLOTS, device,
+                hw=getattr(core, hw) if hw else None,
+                paper_faithful=faithful):
+            extra = None
+            if op.kernel != "conv2d":
+                case = matmul_case(op, x, p, byp)
+            elif op.strip_storage == "materialized":
+                *case, copy, traffic = strips_case(op, x, p, byp)
+                extra = (copy, traffic)
+            else:
+                case = conv_case(op, x, p, byp)
+            name, err, kern, plain, library, flops, nbytes, desc = case
+            if (label, desc) in seen:
+                seen[(label, desc)]["uses"] += 1
                 continue
-            seen.add(desc)
-            row = {"arch": arch, "op": op.name, "kernel": name,
-                   "shape": desc, "max_abs_err": err,
+            row = {"arch": label, "op": op.name, "kernel": name,
+                   "shape": desc, "max_abs_err": err, "uses": 1,
                    "ms": time_ms(kern), "plain_ms": time_ms(plain),
                    "library_ms": time_ms(library),
                    "flop_ms": flops / peaks["float32"] * 1e3,
                    "byte_ms": nbytes / peaks["hbm"] * 1e3}
             row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
+            seen[(label, desc)] = row
             rows.append(row)
-            print(f"  {arch:11s} {op.name:7s} {name:14s} err={err:.2e} "
+            more = ""
+            if extra is not None:
+                copy, traffic = extra
+                row.update(traffic, copy_ms=time_ms(copy))
+                more = (f" copy={row['copy_ms']:.4f} maps="
+                        f"{traffic['maps_bytes'] / 1e6:.3f}MB strips="
+                        f"{traffic['strip_bytes'] / 1e6:.3f}MB modeled="
+                        f"{traffic['modeled_bytes'] / 1e6:.3f}MB")
+            print(f"  {label:21s} {op.name:7s} {name:14s} err={err:.2e} "
                   f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
-                  f"lib={row['library_ms']:.4f} bound={row['bound_ms']:.4f} "
-                  f"| {desc}", flush=True)
+                  f"lib={row['library_ms']:.4f} bound={row['bound_ms']:.4f}"
+                  f"{more} | {desc}", flush=True)
     return rows
 
 
@@ -458,31 +567,15 @@ def top2_ok(logits) -> "torch.Tensor":
     return (top[:, 0] - top[:, 1]) > 1e-4
 
 
-def serve_alexnet(device):
-    """Phase 5a: the port's CNN serving entry point, on the kernels."""
+def check_classes(res, device, label: str) -> int:
+    """Every served class equals the plain path's on the card, batch by
+    batch as the engine ran it, where the plain top-2 gap exceeds 1e-4;
+    the kernel path's logits are held to the plain path's at 1e-4.
+    Returns how many classes were compared."""
     import numpy as np
     import torch
-    from repro_torch.kernels.conv2d.kernel import conv2d_virtual_cuda
-    from repro_torch.kernels.matmul.kernel import matmul_cuda
-    from repro_torch.launch import serve
     from repro_torch.runtime import executor
-    conv2d_virtual_cuda.launches = 0
-    matmul_cuda.launches = 0
-    res = serve.main(["--arch", "alexnet-owt", "--slots", str(SLOTS),
-                      "--requests", str(REQUESTS), "--seed", str(SEED)])
-    launches = {"conv2d_virtual": conv2d_virtual_cuda.launches,
-                "matmul": matmul_cuda.launches}
     eng, done = res["engine"], res["done"]
-    if len(done) != REQUESTS or not all(r.done for r in done):
-        fail(f"served {len(done)} of {REQUESTS} requests")
-    kinds = [op.kernel for op in eng.program.ops]
-    want = {"conv2d_virtual": eng.n_ticks * kinds.count("conv2d"),
-            "matmul": eng.n_ticks * kinds.count("matmul")}
-    print(f"main path: {eng.n_ticks} ticks, launches {launches}, "
-          f"want {want}")
-    if launches != want:
-        fail(f"launch counts {launches} != ticks x ops {want}")
-    # The plain path on the card, batch by batch as the engine ran it.
     got = [r.out_tokens[0] for r in done]
     images = np.stack(res["images"])
     n_cmp = 0
@@ -499,28 +592,123 @@ def serve_alexnet(device):
             if ok:
                 n_cmp += 1
                 if got[i + k] != w:
-                    fail(f"request {i + k}: class {got[i + k]} != plain {w}")
+                    fail(f"{label} request {i + k}: class {got[i + k]} != "
+                         f"plain {w}")
+    return n_cmp
+
+
+def serve_alexnet(device):
+    """Phase 5a: the port's CNN serving entry point, on the kernels."""
+    from repro_torch.kernels.conv2d.kernel import conv2d_virtual_cuda
+    from repro_torch.kernels.matmul.kernel import matmul_cuda
+    from repro_torch.launch import serve
+    conv2d_virtual_cuda.launches = 0
+    matmul_cuda.launches = 0
+    res = serve.main(["--arch", "alexnet-owt", "--slots", str(SLOTS),
+                      "--requests", str(REQUESTS), "--seed", str(SEED)])
+    launches = {"conv2d_virtual": conv2d_virtual_cuda.launches,
+                "matmul": matmul_cuda.launches}
+    eng, done = res["engine"], res["done"]
+    if len(done) != REQUESTS or not all(r.done for r in done):
+        fail(f"served {len(done)} of {REQUESTS} requests")
+    kinds = [op.kernel for op in eng.program.ops]
+    want = {"conv2d_virtual": eng.n_ticks * kinds.count("conv2d"),
+            "matmul": eng.n_ticks * kinds.count("matmul")}
+    print(f"main path: {eng.n_ticks} ticks, launches {launches}, "
+          f"want {want}")
+    if launches != want:
+        fail(f"launch counts {launches} != ticks x ops {want}")
+    n_cmp = check_classes(res, device, "5a")
     print(f"main path: {n_cmp}/{REQUESTS} class ids compared, all equal "
           f"to the plain path; {REQUESTS / res['seconds']:.1f} img/s "
           f"({res['seconds']:.3f} s)")
     return launches, REQUESTS / res["seconds"]
 
 
-def resnet18_forward(device):
+def serve_paper_faithful(device, virtual_img_s: float):
+    """Phase 5i: the same 20 alexnet-owt images served off the SNOWFLAKE
+    paper-faithful Program through ``serve_cnn`` and ``ServingEngine``,
+    counters set to 0 just before and read just after: exactly ticks x 5
+    strip launches, no zero-copy launch, ticks x 3 matmul launches.
+    Returns (launches, img/s, served ms per tick)."""
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.core import SNOWFLAKE
+    from repro_torch.kernels.conv2d.kernel import (conv2d_strips_cuda,
+                                                   conv2d_virtual_cuda)
+    from repro_torch.kernels.matmul.kernel import matmul_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn
+    program = cnn.compile_program(CNN_REGISTRY["alexnet-owt"], batch=SLOTS,
+                                  hw=SNOWFLAKE, paper_faithful=True)
+    counters = {"conv2d_strips": conv2d_strips_cuda,
+                "conv2d_virtual": conv2d_virtual_cuda, "matmul": matmul_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve.serve_cnn("alexnet-owt", slots=SLOTS, requests=REQUESTS,
+                          device=device, seed=SEED, program=program)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    eng, done = res["engine"], res["done"]
+    if eng.program is not program:
+        fail("5i: the engine did not serve the Program it was given")
+    if len(done) != REQUESTS or not all(r.done for r in done):
+        fail(f"5i: served {len(done)} of {REQUESTS} requests")
+    kinds = [op.kernel for op in program.ops]
+    if (kinds.count("conv2d"), kinds.count("matmul")) != (5, 3):
+        fail(f"5i: the Program lists {kinds}")
+    want = {"conv2d_strips": eng.n_ticks * 5, "conv2d_virtual": 0,
+            "matmul": eng.n_ticks * 3}
+    print(f"5i paper-faithful: {eng.n_ticks} ticks, launches {launches}, "
+          f"want {want}")
+    if launches != want:
+        fail(f"5i: launch counts {launches} != {want}")
+    n_cmp = check_classes(res, device, "5i")
+    img_s = REQUESTS / res["seconds"]
+    tick_ms = 1e3 * res["seconds"] / eng.n_ticks
+    print(f"5i paper-faithful: {n_cmp}/{REQUESTS} class ids compared, all "
+          f"equal to the plain path; {img_s:.1f} img/s ({res['seconds']:.3f}"
+          f" s, {tick_ms:.3f} ms a tick) against 5a's zero-copy "
+          f"{virtual_img_s:.1f} img/s", flush=True)
+    # The two Programs in turns on the same images (zero-copy,
+    # paper-faithful, paper-faithful, zero-copy): 5a ran first and
+    # alone, so its reading and 5i's are not a like-for-like pair.
+    turns = {"zero-copy": [], "paper-faithful": []}
+    for kind in ("zero-copy", "paper-faithful", "paper-faithful",
+                 "zero-copy"):
+        r = serve.serve_cnn("alexnet-owt", slots=SLOTS, requests=REQUESTS,
+                            device=device, seed=SEED,
+                            program=program if kind == "paper-faithful"
+                            else None)
+        turns[kind].append(REQUESTS / r["seconds"])
+    print("5i in turns: " + ", ".join(
+        f"{k} {' and '.join(f'{v:.1f}' for v in vs)} img/s"
+        for k, vs in turns.items()), flush=True)
+    return launches, img_s, tick_ms
+
+
+def resnet18_forward(device, hw=None, paper_faithful=False):
+    """One resnet18 batch-8 forward, kernels against plain; returns the
+    strip launches it made."""
     import torch
     from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.core import TPU_V5E
+    from repro_torch.kernels.conv2d.kernel import conv2d_strips_cuda
     from repro_torch.models import cnn, init_params
     from repro_torch.runtime import executor
     cfg = CNN_REGISTRY["resnet18"]
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     params = init_params(cnn.param_defs(cfg), gen, device)
     x = torch.randn((SLOTS, 224, 224, 3), generator=gen, device=device)
-    program = cnn.compile_program(cfg, batch=SLOTS)
+    program = cnn.compile_program(cfg, batch=SLOTS, hw=hw or TPU_V5E,
+                                  paper_faithful=paper_faithful)
+    n0 = conv2d_strips_cuda.launches
     ker = executor.run(program, params, x, impl="cuda")
+    strips = conv2d_strips_cuda.launches - n0
     ref = executor.run(program, params, x, impl="reference")
     err = max_err(ker, ref)
-    print(f"resnet18 batch {SLOTS}: logits {tuple(ker.shape)}, max |err| "
-          f"{err:.3e} against the plain path")
+    print(f"resnet18 batch {SLOTS} ({program.hw_name}, paper_faithful="
+          f"{paper_faithful}): logits {tuple(ker.shape)}, max |err| "
+          f"{err:.3e} against the plain path, {strips} strip launches")
+    return strips
 
 
 # --- the smollm-360m serving path ------------------------------------------------
@@ -1046,6 +1234,60 @@ def _tree_equal(a, b) -> bool:
     return len(la) == len(lb) and all(
         x.dtype == y.dtype and torch.equal(bits(x), bits(y))
         for x, y in zip(la, lb))
+
+
+def train_smoke(device):
+    """Phase 5f, first: ``repro_torch.launch.train --smoke`` takes one step
+    of the smoke config as it is (head dim 16, f32, 4 layers without
+    remat), counters set to 0 just before and read just after: one flash
+    forward and one backward launch per layer and a finite loss; then the
+    same config's loss and gradients through the kernels against the
+    plain path at 1e-4.  Returns the launches."""
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import init_params, transformer
+    counters = lm_counters()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_smoke_")
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        res = train.main(["--arch", LM_ARCH, "--smoke", "--steps", "1",
+                          "--batch", "2", "--seq", "64", "--ckpt-dir",
+                          ckpt_dir, "--ckpt-every", "1", "--seed",
+                          str(SEED)])
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = res["cfg"]
+    L = cfg.n_layers
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=L, flash_attention_bwd=L)
+    loss = res["trainer"].metrics_history[0]["loss"]
+    print(f"5f smoke: head dim {cfg.head_dim}, {L} layers, one step, loss "
+          f"{loss:.4f}, launches {launches}, want {want}")
+    if cfg.head_dim != 16 or launches != want or not math.isfinite(loss):
+        fail("5f smoke: the smoke step did not run on the flash kernels")
+    params = init_params(transformer.param_defs(cfg),
+                         torch.Generator(device).manual_seed(SEED))
+    gen = torch.Generator(device).manual_seed(SEED + 1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                              device=device) for k in ("tokens", "labels")}
+    b0 = counters["flash_attention_bwd"].launches
+    loss_k, grads_k = loss_and_grads(cfg, params, batch, impl="auto")
+    if counters["flash_attention_bwd"].launches - b0 != L:
+        fail("5f smoke: the kernel-path gradients missed the backward kernel")
+    loss_r, grads_r = loss_and_grads(cfg, params, batch, impl="reference")
+    err = max([max_err(loss_k, loss_r)] + [
+        max_err(g, grads_r_leaf) for g, grads_r_leaf in zip(
+            _named_leaves(grads_k).values(),
+            _named_leaves(grads_r).values())])
+    print(f"5f smoke: loss and every gradient through the kernels within "
+          f"{err:.3e} of the plain path (tolerance {TOL})", flush=True)
+    return launches
 
 
 def train_lm(device, bwd_row):
@@ -1794,6 +2036,11 @@ def main() -> int:
     bwd_row = check_flash_bwd(device, peaks)
     cnn_launches, img_s = serve_alexnet(device)
     resnet18_forward(device)
+    from repro_torch.core import SNOWFLAKE
+    pf_launches, pf_img_s, pf_tick_ms = serve_paper_faithful(device, img_s)
+    n_strips = resnet18_forward(device, hw=SNOWFLAKE, paper_faithful=True)
+    if n_strips != 20:
+        fail(f"5i resnet18: {n_strips} strip launches, want 20")
     from repro_torch.launch import serve
     n_lm = int(LM_ARGS[LM_ARGS.index("--requests") + 1])
     lm_launches, lm_stats, _, _ = serve_lm(
@@ -1803,17 +2050,32 @@ def main() -> int:
                                                    str(LM_WINDOW)]), n_lm)
     paged = {label: serve_paged(label)
              for label in ("5c paged", "5d int8", "5e chunked")}
+    smoke_launches = train_smoke(device)
     train_launches, train_stats = train_lm(device, bwd_row)
     family = {label: serve_family(label, arch) for label, arch in (
         ("5g zamba2-7b", "zamba2-7b"), ("5h rwkv6-7b", "rwkv6-7b"))}
 
     tick = {}
-    for kname in ("conv2d_virtual", "matmul"):
-        mine = [r for r in rows if r["kernel"] == kname
-                and r["arch"] == "alexnet-owt"]
-        tick[kname] = {k: sum(r[k] for r in mine) for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "flop_ms",
-            "byte_ms")}
+    for kname, label in (("conv2d_virtual", "alexnet-owt"),
+                         ("matmul", "alexnet-owt"),
+                         ("conv2d_strips", "alexnet-owt@snowflake"),
+                         ("matmul@snowflake", "alexnet-owt@snowflake")):
+        mine = [r for r in rows if r["kernel"] == kname.split("@")[0]
+                and r["arch"] == label]
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "flop_ms",
+                "byte_ms") + (("copy_ms",) if kname == "conv2d_strips"
+                              else ())
+        tick[kname] = {k: sum(r["uses"] * r[k] for r in mine) for k in keys}
+        tick[kname]["launches"] = sum(r["uses"] for r in mine)
+    ts, tm = tick["conv2d_strips"], tick["matmul@snowflake"]
+    print(f"alexnet-owt SNOWFLAKE paper-faithful tick: served "
+          f"{pf_tick_ms:.3f} ms against a device sum of "
+          f"{ts['ms'] + ts['copy_ms'] + tm['ms']:.3f} ms (conv2d_strips "
+          f"{ts['launches']} x = {ts['ms']:.4f} ms, bound "
+          f"{ts['bound_ms']:.4f}, plain {ts['plain_ms']:.4f}, cuDNN "
+          f"{ts['library_ms']:.4f}; strip copies {ts['copy_ms']:.4f} ms; "
+          f"matmul {tm['launches']} x = {tm['ms']:.4f} ms); zero-copy "
+          f"tick: conv2d_virtual {tick['conv2d_virtual']['ms']:.4f} ms")
     lm = {(p, kind, k): lm_sums(lm_rows, uses, p, kind, k)
           for p in ("full", "window") for kind in ("prefill", "decode")
           for k in ("flash_attention", "decode_attention", "matmul")}
@@ -1874,7 +2136,8 @@ def main() -> int:
           f"{n_wkv * wkv['bound_ms']:.4f}); "
           f"decode tick {family['5h rwkv6-7b'][1]['tick_ms']:.3f} ms")
 
-    per_path = [cnn_launches, lm_launches, win_launches, train_launches] + [
+    per_path = [cnn_launches, pf_launches, lm_launches, win_launches,
+                smoke_launches, train_launches] + [
         launch for launch, _ in list(paged.values()) + list(family.values())]
     launches = {k: sum(p.get(k, 0) for p in per_path) for k in SOURCES}
     errs = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k]
@@ -1895,6 +2158,10 @@ def main() -> int:
         "ms", "plain_ms", "library_ms", "bound_ms", "flop_ms", "byte_ms")}
     per = {"conv2d_virtual": ("alexnet-owt batch-8 tick",
                               tick["conv2d_virtual"]),
+           "conv2d_strips": (
+               "SNOWFLAKE paper-faithful alexnet-owt batch-8 tick (5 "
+               "launches; the strip copies' own device time, "
+               f"{ts['copy_ms']:.4f} ms, is not in ms)", ts),
            "flash_attention": ("smollm-360m admission (prefill)",
                                lm[("full", "prefill", "flash_attention")]),
            "decode_attention": ("smollm-360m decode tick",
@@ -1919,7 +2186,8 @@ def main() -> int:
                {k: n_wkv * wkv[k] for k in ("ms", "plain_ms", "bound_ms",
                                             "flop_ms", "byte_ms")})}
     kernels = []
-    for kname in ("conv2d_virtual", "matmul", "flash_attention",
+    for kname in ("conv2d_virtual", "conv2d_strips", "matmul",
+                  "flash_attention",
                   "decode_attention", "paged_decode_attention",
                   "flash_attention_bwd", "mamba2_scan", "wkv6"):
         what, t = per[kname]
@@ -1934,7 +2202,8 @@ def main() -> int:
         print(f"kernels line: {kname} times per {what}")
         if launches[kname] == 0:
             fail(f"{kname} was never launched on the main paths")
-    print(f"alexnet-owt serving: {img_s:.1f} img/s at {SLOTS} slots; "
+    print(f"alexnet-owt serving: {img_s:.1f} img/s at {SLOTS} slots, "
+          f"SNOWFLAKE paper-faithful {pf_img_s:.1f} img/s; "
           f"smollm-360m serving: {lm_stats['tok_s']:.1f} tok/s, window "
           f"{LM_WINDOW}: {win_stats['tok_s']:.1f} tok/s; "
           + ", ".join(f"{label}: {stats['tok_s']:.1f} tok/s"

@@ -6,9 +6,10 @@ Pipeline:  ModelGraph (ir) -> tiles (tiling) -> loop order (dataflow)
 
 The hardware models are the reference's (``TPU_V5E``, ``SNOWFLAKE``),
 so a Program compiled here lists byte for byte like ``repro``'s.
-``quant`` carries the int8 half of the reference's module (the paged
-KV pools use it); its fixed-point Q-formats, ``roofline``, ``cost``,
-``autotune`` and ``hlo_analysis`` are not carried yet (ROADMAP A.2).
+``quant`` carries the reference's module: the §5.3 fixed-point oracle
+and the int8 half the paged KV pools use.  ``cost`` and ``autotune``
+are not carried yet (ROADMAP A.11), nor ``roofline`` and
+``hlo_analysis`` (A.12).
 """
 from .hw import (HardwareModel, MeshDescriptor, MULTI_POD, SINGLE_POD,
                  SNOWFLAKE, TPU_V5E)

@@ -36,7 +36,8 @@ __all__ = ["ACTIVATIONS", "ACT_CODES", "apply_activation", "pad_to", "unpad",
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = {"conv2d": "conv2d.cu", "matmul": "matmul.cu",
+KERNEL_SOURCES = {"conv2d": "conv2d.cu", "conv2d_strips": "conv2d_strips.cu",
+                  "matmul": "matmul.cu",
                   "flash_attention": "flash_attention.cu",
                   "flash_attention_bwd": "flash_attention_bwd.cu",
                   "decode_attention": "decode_attention.cu",

@@ -31,6 +31,13 @@
 //
 // dataflow sets the CTA order (the TPU grid order, read as L2 locality):
 // MAPS_RESIDENT runs kernel tiles fastest, WEIGHTS_RESIDENT strips fastest.
+//
+// row_starts (strip_offsets="prefetch"): where the TPU kernel reads strip
+// s's first input row from a scalar-prefetched table, each CTA here loads
+// its own entry row_starts[s] instead of the affine s * out_rows * stride.
+// The table counts rows of the padded maps (top_pad = pad + pool_pad *
+// stride phantom rows on top), and the maps here are unpadded, so the
+// kernel subtracts top_pad.  Output strips stay uniform, as on the TPU.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,6 +56,7 @@ struct ConvArgs {
   const float* w;
   const float* bias;
   const float* bypass;
+  const int* row_starts;  // (n_strips,) padded-map rows, or null (affine)
   float* out;
   int B, H, W, Cin, kh, kw, Cout, K;
   int stride, pad, out_rows, OH, OW, n_strips, kpt;
@@ -140,6 +148,11 @@ __global__ void __launch_bounds__(THREADS)
   const float ident = a.pool_op == 1 ? -INFINITY : 0.f;
   const float* xb = a.x + (size_t)b * a.H * a.W * a.Cin;
   const int nk = (a.K + BK - 1) / BK;
+  // Strip s's first input row in the padded maps; a pixel's local conv
+  // row lc = gr - (s * out_rows - pp) reads rows r0 + lc * stride - top_pad
+  // + dy of the unpadded maps.
+  const int r0 = a.row_starts ? a.row_starts[s] : s * a.out_rows * a.stride;
+  const int top_pad = a.pad + a.pp * a.stride;
 
   // This thread's loads: A element (ak, am + 16q), B element (bk + 4q, bn).
   const int ak = tid % BK, am = tid / BK;
@@ -151,7 +164,8 @@ __global__ void __launch_bounds__(THREADS)
     bool pv[4];
     for (int q = 0; q < 4; ++q) {
       Pixel px = tile_pixel(a, s, t, chunk * BM + am + 16 * q);
-      iy0[q] = px.gr * a.stride - a.pad;
+      const int lc = px.gr - (s * a.out_rows - a.pp);
+      iy0[q] = r0 + lc * a.stride - top_pad;
       ix0[q] = px.gc * a.stride - a.pad;
       pv[q] = px.valid;
     }
@@ -264,7 +278,8 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" {
 
 int conv2d_virtual_f32(const float* x, const float* w, const float* bias,
-                       const float* bypass, float* out, int B, int H, int W,
+                       const float* bypass, const int* row_starts,
+                       float* out, int B, int H, int W,
                        int Cin, int kh, int kw, int Cout, int stride, int pad,
                        int out_rows, int OH, int OW, int n_strips, int kpt,
                        int pw, int ps, int pp, int pool_op, int SR, int OHo,
@@ -275,6 +290,7 @@ int conv2d_virtual_f32(const float* x, const float* w, const float* bias,
   a.w = w;
   a.bias = bias;
   a.bypass = bypass;
+  a.row_starts = row_starts;
   a.out = out;
   a.B = B;
   a.H = H;

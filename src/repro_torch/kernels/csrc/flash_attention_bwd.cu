@@ -27,7 +27,11 @@
 // columns of the output rows; accumulators are f32 registers, and each
 // gradient is rounded once to its operand's type on the store.  Shared
 // memory holds the tiles as f32: 82 KB (dQ) and 99 KB (dK/dV) at D = 64,
-// 148 and 165 KB at D = 128, so the launch raises the dynamic limit.
+// 148 and 165 KB at D = 128, so the launch raises the dynamic limit.  A
+// head dim D <= 128 that is not a multiple of 32 (the smoke configs' 16,
+// zamba2-7b's 112) takes the tiles of the next multiple, 32 * DPL columns,
+// as the forward does: the columns past D are zero-filled on load, so they
+// add nothing to a score or to delta, and are never stored.
 //
 // Bound on an H100: at the smollm-360m training shape (B = 8, Hq = 15,
 // Hkv = 5, S = 512, D = 64, causal) the function needs 5 products of
@@ -68,7 +72,7 @@ struct BwdArgs {
   void* dq;          // (B, Hq, Sq, D), contiguous
   void* dk;          // (B, Hkv, Skv, D), contiguous
   void* dv;
-  int B, Hq, Hkv, Sq, Skv;
+  int B, Hq, Hkv, Sq, Skv, D;  // D: the head dim, <= the tile width
   long long q_sb, q_sh, q_ss;  // element strides: batch, head, row
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -110,15 +114,16 @@ __device__ __forceinline__ bool allowed(const BwdArgs& p, int qi, int ki,
 }
 
 // Stage rows [r0, r0 + 64) of a (rows, D) operand as f32 at row pitch
-// ``pitch``; rows at >= n are zero.
+// ``pitch``, DT columns wide; rows at >= n and columns at >= D are zero.
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, int pitch, const T* src,
                                       long long row_stride, int r0, int n,
-                                      int D) {
-  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-    const int r = i / D, d = i - r * D;
+                                      int DT, int D) {
+  for (int i = threadIdx.x; i < 64 * DT; i += THREADS) {
+    const int r = i / DT, d = i - r * DT;
     const int row = r0 + r;
-    dst[r * pitch + d] = row < n ? to_f32(src[row * row_stride + d]) : 0.f;
+    dst[r * pitch + d] =
+        row < n && d < D ? to_f32(src[row * row_stride + d]) : 0.f;
   }
 }
 
@@ -136,7 +141,7 @@ constexpr size_t dkv_smem_bytes(int D) {
 
 template <typename T, int DPL>
 __global__ void __launch_bounds__(THREADS) dq_kernel(BwdArgs p) {
-  constexpr int D = 32 * DPL;
+  constexpr int D = 32 * DPL;  // tile width; the head dim is p.D <= D
   constexpr int KST = D + 1;  // padded K/V rows: lanes read distinct rows
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][D]
@@ -157,8 +162,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(BwdArgs p) {
   const T* k = (const T*)p.k + b * p.k_sb + hk * p.k_sh;
   const T* v = (const T*)p.v + b * p.v_sb + hk * p.v_sh;
 
-  stage(Qs, D, q, p.q_ss, q0, p.Sq, D);
-  stage(dOs, D, dO, p.d_ss, q0, p.Sq, D);
+  stage(Qs, D, q, p.q_ss, q0, p.Sq, D, p.D);
+  stage(dOs, D, dO, p.d_ss, q0, p.Sq, D, p.D);
   __syncthreads();
 
   // delta = rowsum(dO * O) for this warp's rows, kept in registers and
@@ -171,8 +176,9 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(BwdArgs p) {
     if (qi < p.Sq) {
 #pragma unroll
       for (int t = 0; t < DPL; ++t)
-        part += dOs[(row0 + i) * D + lane + 32 * t] *
-                to_f32(o[qi * p.o_ss + lane + 32 * t]);
+        if (lane + 32 * t < p.D)
+          part += dOs[(row0 + i) * D + lane + 32 * t] *
+                  to_f32(o[qi * p.o_ss + lane + 32 * t]);
     }
     delta[i] = warp_sum(part);
     lse[i] = qi < p.Sq ? p.lse[(size_t)bh * p.Sq + qi] : INFINITY;
@@ -195,8 +201,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(BwdArgs p) {
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * BKV;
     __syncthreads();  // every warp is done with the previous K/V tile
-    stage(Ks, KST, k, p.k_ss, k0, p.Skv, D);
-    stage(Vs, KST, v, p.v_ss, k0, p.Skv, D);
+    stage(Ks, KST, k, p.k_ss, k0, p.Skv, D, p.D);
+    stage(Vs, KST, v, p.v_ss, k0, p.Skv, D, p.D);
     __syncthreads();
 
     float s[RPW][2], dp[RPW][2];
@@ -244,20 +250,21 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(BwdArgs p) {
     __syncwarp();  // dSs is rewritten by this warp in the next tile
   }
 
-  T* dq = (T*)p.dq + ((size_t)bh * p.Sq) * D;
+  T* dq = (T*)p.dq + ((size_t)bh * p.Sq) * p.D;
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int qi = q0 + row0 + i;
     if (qi >= p.Sq) continue;
 #pragma unroll
     for (int tt = 0; tt < DPL; ++tt)
-      dq[(size_t)qi * D + lane + 32 * tt] = from_f32<T>(acc[i][tt]);
+      if (lane + 32 * tt < p.D)
+        dq[(size_t)qi * p.D + lane + 32 * tt] = from_f32<T>(acc[i][tt]);
   }
 }
 
 template <typename T, int DPL>
 __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs p) {
-  constexpr int D = 32 * DPL;
+  constexpr int D = 32 * DPL;  // tile width; the head dim is p.D <= D
   constexpr int QST = D + 1;  // padded Q/dO rows: lanes read distinct rows
   extern __shared__ float smem[];
   float* Ks = smem;              // [BKV][D]
@@ -277,8 +284,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs p) {
   const int row0 = warp * RPW;
   const T* k = (const T*)p.k + b * p.k_sb + hk * p.k_sh;
   const T* v = (const T*)p.v + b * p.v_sb + hk * p.v_sh;
-  stage(Ks, D, k, p.k_ss, k0, p.Skv, D);
-  stage(Vs, D, v, p.v_ss, k0, p.Skv, D);
+  stage(Ks, D, k, p.k_ss, k0, p.Skv, D, p.D);
+  stage(Vs, D, v, p.v_ss, k0, p.Skv, D, p.D);
 
   float dk[RPW][DPL], dv[RPW][DPL];
 #pragma unroll
@@ -301,8 +308,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs p) {
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // every warp is done with the previous Q/dO tile
-      stage(Qs, QST, q, p.q_ss, q0, p.Sq, D);
-      stage(dOs, QST, dO, p.d_ss, q0, p.Sq, D);
+      stage(Qs, QST, q, p.q_ss, q0, p.Sq, D, p.D);
+      stage(dOs, QST, dO, p.d_ss, q0, p.Sq, D, p.D);
       if (threadIdx.x < BQ) {
         const int qi = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qi < p.Sq ? p.lse[hrow + qi] : INFINITY;
@@ -367,16 +374,17 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs p) {
     }
   }
 
-  T* dkp = (T*)p.dk + ((size_t)bh * p.Skv) * D;
-  T* dvp = (T*)p.dv + ((size_t)bh * p.Skv) * D;
+  T* dkp = (T*)p.dk + ((size_t)bh * p.Skv) * p.D;
+  T* dvp = (T*)p.dv + ((size_t)bh * p.Skv) * p.D;
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int kj = k0 + row0 + i;
     if (kj >= p.Skv) continue;
 #pragma unroll
     for (int tt = 0; tt < DPL; ++tt) {
-      dkp[(size_t)kj * D + lane + 32 * tt] = from_f32<T>(dk[i][tt]);
-      dvp[(size_t)kj * D + lane + 32 * tt] = from_f32<T>(dv[i][tt]);
+      if (lane + 32 * tt >= p.D) continue;
+      dkp[(size_t)kj * p.D + lane + 32 * tt] = from_f32<T>(dk[i][tt]);
+      dvp[(size_t)kj * p.D + lane + 32 * tt] = from_f32<T>(dv[i][tt]);
     }
   }
 }
@@ -403,14 +411,17 @@ int launch(const BwdArgs& p, cudaStream_t stream) {
 }
 
 template <typename T>
-int dispatch(const BwdArgs& p, int D, void* stream) {
+int dispatch(const BwdArgs& p, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 32:
+  if (p.D < 1) return (int)cudaErrorInvalidValue;
+  switch ((p.D + 31) / 32) {  // 32-column lane groups the head dim needs
+    case 1:
       return launch<T, 1>(p, s);
-    case 64:
+    case 2:
       return launch<T, 2>(p, s);
-    case 128:
+    case 3:
+      return launch<T, 3>(p, s);
+    case 4:
       return launch<T, 4>(p, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -438,6 +449,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
   p.Hkv = dims[2];
   p.Sq = dims[3];
   p.Skv = dims[4];
+  p.D = dims[5];
   long long* dst[15] = {&p.q_sb, &p.q_sh, &p.q_ss, &p.k_sb, &p.k_sh,
                         &p.k_ss, &p.v_sb, &p.v_sh, &p.v_ss, &p.o_sb,
                         &p.o_sh, &p.o_ss, &p.d_sb, &p.d_sh, &p.d_ss};
@@ -466,7 +478,7 @@ int flash_attention_bwd_f32(const float* q, const float* k, const float* v,
   return dispatch<float>(make_args(q, k, v, out, dout, lse, delta, dq, dk,
                                    dv, dims, strides, scale, causal, window,
                                    kv_len),
-                         dims[5], stream);
+                         stream);
 }
 
 int flash_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -481,7 +493,7 @@ int flash_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return dispatch<__nv_bfloat16>(
       make_args(q, k, v, out, dout, lse, delta, dq, dk, dv, dims, strides,
                 scale, causal, window, kv_len),
-      dims[5], stream);
+      stream);
 }
 
 const char* flash_attention_bwd_error_string(int err) {

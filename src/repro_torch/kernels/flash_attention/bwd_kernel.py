@@ -36,7 +36,9 @@ from .ref import flash_bwd_ref
 
 __all__ = ["flash_attention_bwd_cuda", "flash_attention_bwd_plain"]
 
-HEAD_DIMS = (32, 64, 128)       # the kernel's instantiations
+# The widest head the kernel's tiles take: D <= 128 runs on the tiles of
+# the next multiple of 32 (csrc/flash_attention_bwd.cu).
+MAX_HEAD_DIM = 128
 
 _LAUNCHERS = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
@@ -68,9 +70,9 @@ def _check(q, k, v, out, lse, do):
             f"{tuple(out.shape)}/{tuple(do.shape)}, k/v {tuple(k.shape)}/"
             f"{tuple(v.shape)} and lse {tuple(lse.shape)} do not form "
             f"(B,Hq,Sq,D) x (B,Hkv,Skv,D) with lse (B,Hq,Sq), Hq % Hkv == 0")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd_cuda: head dim {D} not in "
-                         f"{HEAD_DIMS}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd_cuda: head dim {D} is past "
+                         f"the kernel's {MAX_HEAD_DIM}-column tiles")
     for name, t in (("k", k), ("v", v), ("out", out), ("do", do)):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"flash_attention_bwd_cuda: {name} must be "
@@ -92,7 +94,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, do, *, scale: float,
                              kv_len: int | None):
     """Launch the two backward passes: q, out, do (B,Hq,Sq,D), k and v
     (B,Hkv,Skv,D), all float32 or all bfloat16 on the card, any strides
-    with D contiguous; lse (B,Hq,Sq) contiguous f32; D in ``HEAD_DIMS``.
+    with D contiguous; lse (B,Hq,Sq) contiguous f32; D <= 128.
     Returns (dq, dk, dv), contiguous, in q's type, each rounded once from
     its f32 sum.  Raises on a CPU tensor."""
     _check(q, k, v, out, lse, do)

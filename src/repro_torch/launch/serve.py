@@ -88,16 +88,19 @@ def _restore_params(params, ckpt: str | None):
 
 
 def serve_cnn(arch: str, *, slots: int, requests: int, device=None,
-              seed: int = 0, ckpt: str | None = None) -> dict:
+              seed: int = 0, ckpt: str | None = None, program=None) -> dict:
     """Serve ``requests`` random images of ``arch`` with random weights
-    drawn from ``seed`` (or the params of the checkpoint in ``ckpt``);
-    returns the engine, the finished requests (by uid), the images and
-    the wall seconds of the serving loop."""
+    drawn from ``seed`` (or the params of the checkpoint in ``ckpt``),
+    off ``program`` when one is given (a paper-faithful or SNOWFLAKE
+    Program) or the engine's default Program; returns the engine, the
+    finished requests (by uid), the images and the wall seconds of the
+    serving loop."""
     cfg = CNN_REGISTRY[arch]
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = _restore_params(init_params(cnn.param_defs(cfg), gen, dev), ckpt)
-    eng = ServingEngine(cfg, params, slots=slots, device=dev)
+    eng = ServingEngine(cfg, params, slots=slots, device=dev,
+                        program=program)
     images = make_images(cfg, requests, seed)
     t0 = time.perf_counter()
     for i, img in enumerate(images):

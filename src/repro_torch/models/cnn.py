@@ -8,7 +8,7 @@ executable ``Program`` with §5.1 memory regions, and ``forward``
 compiles the Program once per (config, batch, hw) and executes it
 through ``runtime/executor.py``.  The reference's autotune hook (a
 tuned schedule cache threaded into the compile) is not carried yet
-(ROADMAP A.4).
+(ROADMAP A.11).
 """
 from __future__ import annotations
 

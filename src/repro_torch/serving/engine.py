@@ -115,9 +115,12 @@ class ServingEngine:
         self.slots = slots
         self.impl = impl
         if isinstance(cfg, CNNConfig):
+            # The Program handed in (paper-faithful, another hardware
+            # model) is the one served, as in the reference.
             self.queue: list[Request] = []
             self.n_ticks = 0
-            self.program = compile_program(cfg, batch=slots)
+            self.program = (program if program is not None
+                            else compile_program(cfg, batch=slots))
             self._infer = executor.cached_runner(self.program, impl=impl)
             return
         self.max_len = max_len

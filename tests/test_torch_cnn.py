@@ -1,7 +1,10 @@
 """The port's compiled-Program CNN forward against ``repro``'s, on the
 same numpy weights and inputs: full width (alexnet-owt, resnet18) on
-the plain path, and the small TINY net against the Pallas kernels in
-interpret mode; plus the weight bridge."""
+the plain path, their paper-faithful Programs (SNOWFLAKE and TPU_V5E,
+every conv on materialized strips) on the plain path and through the
+strip wrapper with the kernels' plain versions standing in, and the
+small TINY net (zero-copy and paper-faithful) against the Pallas
+kernels in interpret mode; plus the weight bridge."""
 import math
 
 import pytest
@@ -13,10 +16,15 @@ import ml_dtypes  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import CNN_REGISTRY as JAX_CNNS  # noqa: E402
+from repro.core import SNOWFLAKE as JAX_SNOWFLAKE  # noqa: E402
+from repro.core import TPU_V5E as JAX_TPU_V5E  # noqa: E402
 from repro.models import cnn as jax_cnn  # noqa: E402
 from repro.runtime import executor as jax_executor  # noqa: E402
 
 from repro_torch.configs import CNN_REGISTRY  # noqa: E402
+from repro_torch.core import SNOWFLAKE, TPU_V5E  # noqa: E402
+from repro_torch.kernels.conv2d import kernel as conv_kernel  # noqa: E402
+from repro_torch.kernels.conv2d import ops as conv_ops  # noqa: E402
 from repro_torch.models import cnn, params_from_numpy, tree_paths  # noqa: E402
 from repro_torch.runtime import executor  # noqa: E402
 
@@ -77,6 +85,78 @@ def test_tiny_program_matches_pallas_interpret():
     oracle = cnn.reference_forward(p, torch.from_numpy(x), TINY)
     np.testing.assert_allclose(out.numpy(), oracle.numpy(), rtol=0,
                                atol=1e-5)
+
+
+HW = {"snowflake": (SNOWFLAKE, JAX_SNOWFLAKE),
+      "tpu_v5e": (TPU_V5E, JAX_TPU_V5E)}
+
+
+def use_strip_stand_ins(monkeypatch):
+    """On CPU tensors, route the port's conv2d down its kernel path with
+    each CUDA wrapper's plain version in its place, so the strip copy,
+    the strip conv and the trim run as they run on the card.  Returns
+    the list of the strip convs' dataflows, one per call."""
+    calls = []
+
+    def strips(s, w, g, *, dataflow, **kw):
+        calls.append(dataflow)
+        return conv_kernel.conv2d_strips_plain(s, w, g, **kw)
+
+    def virtual(x, w, g, *, dataflow, row_starts, **kw):
+        return conv_kernel.conv2d_virtual_plain(x, w, g, **kw)
+
+    monkeypatch.setattr(conv_ops, "use_kernel", lambda impl, x: True)
+    monkeypatch.setattr(conv_ops, "conv2d_strips_cuda", strips)
+    monkeypatch.setattr(conv_ops, "conv2d_virtual_cuda", virtual)
+    return calls
+
+
+@pytest.fixture
+def strip_stand_ins(monkeypatch):
+    return use_strip_stand_ins(monkeypatch)
+
+
+@pytest.mark.parametrize("hw", sorted(HW))
+@pytest.mark.parametrize("name", ["alexnet-owt", "resnet18"])
+def test_paper_faithful_program_matches_reference(name, hw, monkeypatch):
+    cfg, jcfg = CNN_REGISTRY[name], JAX_CNNS[name]
+    port_hw, jax_hw = HW[hw]
+    params = numpy_params(jax_cnn.param_defs(jcfg), seed=7)
+    x = np.random.default_rng(8).standard_normal(
+        (2, cfg.input_hw, cfg.input_hw, cfg.input_ch)).astype(np.float32)
+    jprog = jax_cnn.compile_program(jcfg, batch=2, hw=jax_hw,
+                                    paper_faithful=True)
+    ref = np.asarray(jax_executor.run(jprog, _jax_tree(params),
+                                      jnp.asarray(x), impl="reference"))
+    prog = cnn.compile_program(cfg, batch=2, hw=port_hw,
+                               paper_faithful=True)
+    p, xt = params_from_numpy(params), torch.from_numpy(x)
+    out = executor.run(prog, p, xt)
+    assert out.shape == (2, cfg.n_classes)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+    calls = use_strip_stand_ins(monkeypatch)
+    strips = executor.run(prog, p, xt)
+    assert len(calls) == sum(op.kernel == "conv2d" for op in prog.ops)
+    np.testing.assert_allclose(strips.numpy(), ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw", sorted(HW))
+def test_tiny_paper_faithful_program_matches_pallas_interpret(
+        hw, strip_stand_ins):
+    port_hw, jax_hw = HW[hw]
+    params = numpy_params(jax_cnn.param_defs(JAX_TINY), seed=9)
+    x = np.random.default_rng(10).standard_normal(
+        (2, 16, 16, 4)).astype(np.float32)
+    jprog = jax_cnn.compile_program(JAX_TINY, batch=2, hw=jax_hw,
+                                    paper_faithful=True)
+    ref = jax_executor.run(jprog, _jax_tree(params), jnp.asarray(x),
+                           impl="pallas", interpret=True)
+    prog = cnn.compile_program(TINY, batch=2, hw=port_hw,
+                               paper_faithful=True)
+    out = executor.run(prog, params_from_numpy(params), torch.from_numpy(x))
+    assert len(strip_stand_ins) == 3
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["alexnet-owt", "resnet18", "resnet50"])

@@ -19,7 +19,9 @@ from repro_torch.core.dataflow import Dataflow  # noqa: E402
 from repro_torch.kernels import (conv2d, decode_attention,  # noqa: E402
                                  flash_attention, matmul)
 from repro_torch.kernels.conv2d.kernel import (  # noqa: E402
-    conv2d_virtual_cuda, conv2d_virtual_plain, virtual_geometry)
+    conv2d_strips_cuda, conv2d_strips_plain, conv2d_virtual_cuda,
+    conv2d_virtual_plain, materialize_strips, prefetch_row_starts,
+    strip_bypass, strips_geometry, unstrip, virtual_geometry)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
@@ -36,7 +38,11 @@ from repro_torch.kernels.matmul.kernel import (  # noqa: E402
     matmul_cuda, matmul_plain)
 from repro_torch.kernels.rwkv6 import wkv6  # noqa: E402
 from repro_torch.kernels.rwkv6.kernel import wkv6_cuda, wkv6_plain  # noqa
+from repro_torch.core import quant  # noqa: E402
+from repro_torch.core import SNOWFLAKE  # noqa: E402
 from repro_torch.core.quant import int8_quantize_pages  # noqa: E402
+from repro_torch.configs import CNN_REGISTRY  # noqa: E402
+from repro_torch.models import cnn  # noqa: E402
 from repro_torch.configs import REGISTRY  # noqa: E402
 from repro_torch.models import init_params, param_defs  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -99,6 +105,118 @@ def test_conv2d_kernel_matches_plain(dev, case, df):
     assert conv2d_virtual_cuda.launches == n0 + 1
     torch.testing.assert_close(out, conv2d_virtual_plain(x, w, g, **kw),
                                rtol=TOL, atol=TOL)
+
+
+def _snowflake_convs():
+    """(x shape, w shape, stride, pad, out_rows, kpt, bypass) of each
+    distinct conv of the SNOWFLAKE paper-faithful alexnet-owt and
+    resnet18 Programs, at batch 2."""
+    cases = []
+    for arch in ("alexnet-owt", "resnet18"):
+        cfg = CNN_REGISTRY[arch]
+        shapes = cnn.trace_shapes(cfg)
+        prog = cnn.compile_program(cfg, batch=2, hw=SNOWFLAKE,
+                                   paper_faithful=True)
+        for op in prog.ops:
+            if op.kernel != "conv2d":
+                continue
+            i = int(op.param_key.split("_")[1])
+            h, w, c = shapes[i]
+            case = ((2, h, w, c), (cfg.layers[i].k, cfg.layers[i].k, c,
+                                   cfg.layers[i].c_out), op.stride, op.pad,
+                    op.conv_tiling.out_rows,
+                    op.conv_tiling.kernels_per_tile, op.fuse_bypass)
+            if case not in cases:
+                cases.append(case)
+    return cases
+
+
+# (x shape, w shape, stride, pad, out_rows, kpt, bypass): ragged strips,
+# stride 2, pad 0 / 1 / 2 and a prime Cout.
+STRIPS_RAGGED = [((1, 39, 39, 3), (11, 11, 3, 16), 4, 2, 4, 11, False),
+                 ((2, 13, 13, 16), (5, 5, 16, 16), 1, 2, 5, 2, True),
+                 ((1, 14, 14, 8), (1, 1, 8, 16), 2, 0, 2, 64, False),
+                 ((1, 11, 9, 5), (3, 3, 5, 13), 1, 1, 4, 5, True),
+                 ((2, 10, 10, 4), (5, 5, 4, 6), 2, 0, 3, 6, False)]
+STRIPS_CASES = _snowflake_convs() + STRIPS_RAGGED
+
+
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("df", [Dataflow.MAPS_RESIDENT,
+                                Dataflow.WEIGHTS_RESIDENT])
+@pytest.mark.parametrize("case", range(len(STRIPS_CASES)))
+def test_conv2d_strips_kernel_matches_plain(dev, case, df, first):
+    xs, ws, stride, pad, rows, kpt, has_byp = STRIPS_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+    x = torch.randn(xs, generator=gen, device=dev)
+    w = torch.randn(ws, generator=gen, device=dev) * (
+        ws[0] * ws[1] * ws[2]) ** -0.5
+    b = torch.randn(ws[3], generator=gen, device=dev)
+    g = strips_geometry(xs, ws, stride=stride, pad=pad, out_rows=rows,
+                        kpt=kpt)
+    byp = (strip_bypass(torch.randn((g.B, g.OH, g.OW, g.Cout), generator=gen,
+                                    device=dev), g) if has_byp else None)
+    strips = materialize_strips(x, g)
+    kw = dict(bias=b, activation="relu", bypass=byp, bypass_first=first)
+    n0 = conv2d_strips_cuda.launches
+    out = conv2d_strips_cuda(strips, w, g, dataflow=df, **kw)
+    torch.cuda.synchronize()
+    assert conv2d_strips_cuda.launches == n0 + 1
+    torch.testing.assert_close(out, conv2d_strips_plain(strips, w, g, **kw),
+                               rtol=TOL, atol=TOL)
+    torch.testing.assert_close(
+        unstrip(out, g), conv2d(x, w, stride=stride, pad=pad, bias=b,
+                                activation="relu", impl="reference",
+                                bypass=None if byp is None
+                                else unstrip(byp, g), bypass_first=first),
+        rtol=TOL, atol=TOL)
+
+
+def test_materialized_conv_dispatches_to_the_strips_kernel(dev):
+    x = torch.randn((2, 12, 12, 4), device=dev)
+    w = torch.randn((3, 3, 4, 8), device=dev)
+    n_s, n_v = conv2d_strips_cuda.launches, conv2d_virtual_cuda.launches
+    out = conv2d(x, w, pad=1, activation="relu", fuse_pool=(2, 2),
+                 strip_storage="materialized")
+    assert (conv2d_strips_cuda.launches, conv2d_virtual_cuda.launches) == (
+        n_s + 1, n_v)
+    torch.testing.assert_close(
+        out, conv2d(x, w, pad=1, activation="relu", fuse_pool=(2, 2),
+                    impl="reference"), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("case", range(len(CONV)))
+def test_prefetched_row_starts_equal_affine_offsets_bit_for_bit(dev, case):
+    xs, k, cout, stride, pad, rows, kpt, pool, has_byp, first, act = \
+        CONV[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+    x = torch.randn(xs, generator=gen, device=dev)
+    w = torch.randn((k, k, xs[3], cout), generator=gen, device=dev) * 0.3
+    g = virtual_geometry(xs, tuple(w.shape), stride=stride, pad=pad,
+                         out_rows=rows, kpt=kpt, pool=pool)
+    byp = (torch.randn((g.B, g.OH, g.OW, cout), generator=gen, device=dev)
+           if has_byp else None)
+    kw = dict(activation=act, bypass=byp, bypass_first=first)
+    affine = conv2d_virtual_cuda(x, w, g, **kw)
+    table = conv2d_virtual_cuda(x, w, g, row_starts=prefetch_row_starts(
+        g, dev), **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(table, affine, rtol=0, atol=0)
+
+
+def test_qmatmul_on_the_card_equals_the_cpu(dev):
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randint(-2 ** 15, 2 ** 15, (9, 300), generator=gen,
+                      dtype=torch.int32).to(torch.int16)
+    b = torch.randint(-2 ** 15, 2 ** 15, (300, 7), generator=gen,
+                      dtype=torch.int32).to(torch.int16)
+    bias = torch.randint(-300, 300, (7,), generator=gen,
+                         dtype=torch.int32).to(torch.int16)
+    for fmt in (quant.Q8_8, quant.Q5_11):
+        cpu = quant.qmatmul(a, b, fmt, bias_q=bias, relu=True)
+        card = quant.qmatmul(a.to(dev), b.to(dev), fmt,
+                             bias_q=bias.to(dev), relu=True)
+        assert torch.equal(card.cpu(), cpu)
 
 
 @pytest.mark.parametrize("df", list(Dataflow))
@@ -179,11 +297,16 @@ def test_flash_kernel_matches_plain(dev, case, dt):
     torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
 
 
-# zamba2-7b's shared block: head dim 112 on the tiles of 128 (forward
-# only; the backward kernel keeps its 32 / 64 / 128).
+# zamba2-7b's shared block: head dim 112 on the tiles of 128; the smoke
+# configs' 16 on the tiles of 32; 40 on the tiles of 64.
 FLASH_D112 = [(1, 32, 32, 512, 512, 112, True, 4096, None),
               (2, 4, 2, 70, 70, 112, True, 20, None),
               (1, 2, 1, 64, 64, 40, False, None, 50)]
+FLASH_BWD_D = [(2, 4, 2, 96, 96, 16, True, None, None),
+               (1, 4, 4, 70, 130, 16, False, 40, 100),
+               (1, 32, 32, 512, 512, 112, True, 4096, None),
+               (2, 4, 2, 70, 70, 112, True, 20, None),
+               (1, 2, 1, 64, 64, 40, False, None, 50)]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -231,6 +354,72 @@ def test_flash_bwd_kernel_matches_plain(dev, case, dt):
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", range(len(FLASH_BWD_D)))
+def test_flash_bwd_kernel_takes_head_dims_past_the_multiples_of_32(dev, case,
+                                                                   dt):
+    """The backward kernel at the smoke configs' D = 16 and zamba2-7b's
+    D = 112, on the zero-filled tiles of the next multiple of 32."""
+    dtype, tol = DTYPES[dt]
+    B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len = FLASH_BWD_D[case]
+    gen = torch.Generator(device=dev).manual_seed(200 + case)
+
+    def heads(S, H):
+        return torch.randn((B, S, H, D), generator=gen, device=dev).to(
+            dtype).transpose(1, 2)
+    q, k, v, do = heads(Sq, Hq), heads(Skv, Hkv), heads(Skv, Hkv), \
+        heads(Sq, Hq)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, kv_len=kv_len)
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_flash_bwd_kernel_refuses_head_dims_past_128(dev):
+    q = torch.zeros((1, 1, 8, 136), device=dev)
+    with pytest.raises(ValueError, match="128"):
+        flash_attention_bwd_cuda(q, q, q, q, torch.zeros((1, 1, 8),
+                                                         device=dev), q,
+                                 scale=1.0, causal=True, window=None,
+                                 kv_len=None)
+
+
+def test_smoke_trainer_step_runs_on_the_backward_kernel(dev, tmp_path):
+    """``launch.train --arch smollm-360m --smoke`` as it is (head dim 16):
+    one Trainer step through the flash forward and backward kernels, and
+    the same step's loss and gradients against the plain path."""
+    from repro_torch.launch import train
+    cfg = SMOLLM_360M.smoke()
+    assert cfg.head_dim == 16
+    f0, b0 = flash_attention_cuda.launches, flash_attention_bwd_cuda.launches
+    res = train.main(["--arch", "smollm-360m", "--smoke", "--steps", "1",
+                      "--batch", "2", "--seq", "64", "--ckpt-dir",
+                      str(tmp_path), "--ckpt-every", "1"])
+    torch.cuda.synchronize()
+    assert res["step"] == 1
+    assert np.isfinite(res["trainer"].metrics_history[0]["loss"])
+    # Four layers train without remat (steps.py remats from 16 layers),
+    # so one forward launch per layer.
+    assert (flash_attention_cuda.launches - f0,
+            flash_attention_bwd_cuda.launches - b0) == (cfg.n_layers,
+                                                        cfg.n_layers)
+    params = init_params(transformer.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                              device=dev) for k in ("tokens", "labels")}
+    loss, grads = loss_and_grads(cfg, params, batch, impl="auto", remat=True)
+    ref_loss, ref_grads = loss_and_grads(cfg, params, batch,
+                                         impl="reference", remat=True)
+    torch.testing.assert_close(loss, ref_loss, rtol=TOL, atol=TOL)
+    for (g, w) in zip(_leaves(grads), _leaves(ref_grads)):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("case", [(True, None, 96, 96), (True, 40, 96, 96),

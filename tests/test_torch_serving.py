@@ -55,6 +55,47 @@ def test_engine_class_ids_match_reference_engine():
             assert r.out_tokens == w.out_tokens
 
 
+def test_engine_serves_the_program_it_is_given():
+    """A paper-faithful SNOWFLAKE Program handed to the engine is the one
+    it runs (every conv on materialized strips), and its classes equal
+    ``repro``'s engine serving the same Program on the same weights."""
+    from repro.core import SNOWFLAKE as JAX_SNOWFLAKE
+    from repro_torch.core import SNOWFLAKE
+    cfg, jcfg = CNN_REGISTRY["alexnet-owt"], JAX_CNNS["alexnet-owt"]
+    params = numpy_params(jax_cnn.param_defs(jcfg), seed=11)
+    rng = np.random.default_rng(12)
+    images = [rng.standard_normal((224, 224, 3)).astype(np.float32)
+              for _ in range(3)]
+    program = cnn.compile_program(cfg, batch=2, hw=SNOWFLAKE,
+                                  paper_faithful=True)
+    assert program is not cnn.compile_program(cfg, batch=2)
+    ours = ServingEngine(cfg, params_from_numpy(params), slots=2,
+                         device="cpu", program=program)
+    assert ours.program is program
+    assert {op.strip_storage for op in program.ops
+            if op.kernel == "conv2d"} == {"materialized"}
+    ref = JaxEngine(jcfg, _jax_tree(params), slots=2, impl="reference",
+                    program=jax_cnn.compile_program(
+                        jcfg, batch=2, hw=JAX_SNOWFLAKE,
+                        paper_faithful=True))
+    for i, img in enumerate(images):
+        ours.submit(Request(uid=i, prompt=img))
+        ref.submit(JaxRequest(uid=i, prompt=img))
+    got = sorted(ours.run_until_drained(), key=lambda r: r.uid)
+    want = sorted(ref.run_until_drained(), key=lambda r: r.uid)
+    assert ours.n_ticks == 2 and all(r.done for r in got)
+    x = torch.from_numpy(np.stack(images + [np.zeros_like(images[0])]))
+    logits = torch.cat([executor.run(program, ours.params, x[i:i + 2])
+                        for i in (0, 2)])[:3]
+    top = logits.topk(2, dim=-1).values
+    clear = (top[:, 0] - top[:, 1]) > 1e-4
+    assert clear.any()
+    for r, w, ok in zip(got, want, clear.tolist()):
+        if ok:
+            assert r.out_tokens == w.out_tokens == [int(
+                logits[r.uid].argmax())]
+
+
 def test_serve_cli_runs_on_cpu():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run(
