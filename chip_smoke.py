@@ -65,8 +65,16 @@ exits non-zero before the last line is printed.  Phases:
    counts 5 N P (scan) or 5 D^2 (wkv) f32 FLOP per step and head and each
    operand moved once; no PyTorch call computes either, so neither has a
    library yardstick;
+   Each matmul row names the path ``matmul_plan`` gives it (skinny at
+   M <= 64, wgmma for bf16 above, simt for the f32 checks at M = 512),
+   and the bf16 matmul rows are summed per smollm-360m and zamba2-7b
+   admission and decode tick, the f32 ones per alexnet-owt tick, with
+   their launches, ``library_ms`` and ``bound_ms``;
 5. the main paths, each with the launch counters set to 0 just before
-   it and read just after:
+   it and read just after.  The matmul wrapper's per-path counters must
+   show every decode tick (M = 8 slots) and every CNN FC layer on the
+   skinny path, every admission and chunk (M = 512 rows a prompt) on
+   wgmma, and no served call on simt:
    a. ``repro_torch.launch.serve`` serves 20 alexnet-owt images at full
       width with 8 slots; every class must equal the plain path's on
       the card (rows whose top-2 logit gap exceeds 1e-4), and each
@@ -296,6 +304,25 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+def reset_matmul_paths() -> None:
+    """Set the matmul wrapper's per-path launch counts to 0."""
+    from repro_torch.kernels.matmul.kernel import matmul_cuda
+    for path in matmul_cuda.path_launches:
+        matmul_cuda.path_launches[path] = 0
+
+
+def check_matmul_paths(label: str, skinny: int, wgmma: int) -> None:
+    """The matmul launches since the last reset went exactly ``skinny``
+    times through the skinny path, ``wgmma`` times through wgmma, and
+    never through simt."""
+    from repro_torch.kernels.matmul.kernel import matmul_cuda
+    got = dict(matmul_cuda.path_launches)
+    want = {"skinny": skinny, "wgmma": wgmma, "simt": 0}
+    print(f"{label}: matmul paths {got}, want {want}")
+    if got != want:
+        fail(f"{label}: matmul paths {got} != {want}")
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Device time of one ``fn()`` call: ``reps`` calls captured into one
     CUDA graph after ``warmup`` eager calls, the graph replayed five
@@ -482,7 +509,8 @@ def strips_case(op, x, p, byp):
 def matmul_case(op, x, p, byp):
     import torch
     from repro_torch.kernels.common import apply_activation
-    from repro_torch.kernels.matmul.kernel import matmul_cuda, matmul_plain
+    from repro_torch.kernels.matmul.kernel import (matmul_cuda,
+                                                   matmul_plain, matmul_plan)
     a = x.reshape(x.shape[0], -1).contiguous()
     w = p["w"]
     M, K = a.shape
@@ -501,8 +529,9 @@ def matmul_case(op, x, p, byp):
     err = max_err(kern(), plain())
     flops = 2 * M * N * K
     nbytes = 4 * (M * K + K * N + M * N + (0 if bias is None else N))
+    path = matmul_plan(M, K, N, a.dtype).path
     return "matmul", err, kern, plain, library, flops, nbytes, (
-        f"{M}x{K}x{N} block={block} {op.dataflow.name}")
+        f"{M}x{K}x{N} block={block} {op.dataflow.name} path={path}")
 
 
 # Phase 3's Programs: (label, arch, hardware model name, paper_faithful).
@@ -604,6 +633,7 @@ def serve_alexnet(device):
     from repro_torch.launch import serve
     conv2d_virtual_cuda.launches = 0
     matmul_cuda.launches = 0
+    reset_matmul_paths()
     res = serve.main(["--arch", "alexnet-owt", "--slots", str(SLOTS),
                       "--requests", str(REQUESTS), "--seed", str(SEED)])
     launches = {"conv2d_virtual": conv2d_virtual_cuda.launches,
@@ -618,6 +648,7 @@ def serve_alexnet(device):
           f"want {want}")
     if launches != want:
         fail(f"launch counts {launches} != ticks x ops {want}")
+    check_matmul_paths("main path", want["matmul"], 0)
     n_cmp = check_classes(res, device, "5a")
     print(f"main path: {n_cmp}/{REQUESTS} class ids compared, all equal "
           f"to the plain path; {REQUESTS / res['seconds']:.1f} img/s "
@@ -644,6 +675,7 @@ def serve_paper_faithful(device, virtual_img_s: float):
                 "conv2d_virtual": conv2d_virtual_cuda, "matmul": matmul_cuda}
     for fn in counters.values():
         fn.launches = 0
+    reset_matmul_paths()
     res = serve.serve_cnn("alexnet-owt", slots=SLOTS, requests=REQUESTS,
                           device=device, seed=SEED, program=program)
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -661,6 +693,7 @@ def serve_paper_faithful(device, virtual_img_s: float):
           f"want {want}")
     if launches != want:
         fail(f"5i: launch counts {launches} != {want}")
+    check_matmul_paths("5i paper-faithful", want["matmul"], 0)
     n_cmp = check_classes(res, device, "5i")
     img_s = REQUESTS / res["seconds"]
     tick_ms = 1e3 * res["seconds"] / eng.n_ticks
@@ -701,8 +734,11 @@ def resnet18_forward(device, hw=None, paper_faithful=False):
     program = cnn.compile_program(cfg, batch=SLOTS, hw=hw or TPU_V5E,
                                   paper_faithful=paper_faithful)
     n0 = conv2d_strips_cuda.launches
+    reset_matmul_paths()
     ker = executor.run(program, params, x, impl="cuda")
     strips = conv2d_strips_cuda.launches - n0
+    check_matmul_paths(f"resnet18 ({program.hw_name})", sum(
+        op.kernel == "matmul" for op in program.ops), 0)
     ref = executor.run(program, params, x, impl="reference")
     err = max_err(ker, ref)
     print(f"resnet18 batch {SLOTS} ({program.hw_name}, paper_faithful="
@@ -868,6 +904,7 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
     pairs; returns (rows by description, per (pair, program) op
     counts)."""
     import torch
+    from repro_torch.kernels.matmul.kernel import matmul_plan
     cfg, pairs = lm_pairs(arch)
     ops, uses = lm_op_descs(cfg, pairs)
     rows = {}
@@ -891,6 +928,9 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
                "flop_ms": flops / peaks["bfloat16"] * 1e3,
                "byte_ms": nbytes / peaks["hbm"] * 1e3}
         row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
+        if kernel == "matmul":
+            row["path"] = matmul_plan(*shape, torch.bfloat16).path
+            name = f"matmul/{row['path']}"
         rows[desc] = row
         print(f"  {name:16s} err f32={errs[0]:.2e} bf16={errs[1]:.2e} "
               f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
@@ -1726,6 +1766,7 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
     counters = lm_counters()
     for fn in counters.values():
         fn.launches = 0
+    reset_matmul_paths()
     with Recorder() as rec:
         res = run()
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -1760,6 +1801,10 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
             or (dict(pre), dict(dec)) != PAIR_OPS[arch]):
         fail(f"{label}: launch counts {launches} != {want}, or ops per "
              f"call not {PAIR_OPS[arch]}")
+    # Decode ticks (M = slots) on skinny, admissions and chunks (M =
+    # max_len rows per prompt) on wgmma.
+    check_matmul_paths(label, ticks * dec["matmul"],
+                       passes * pre["matmul"])
     worst, n_rows, n_ids, spread, bound = rec.replay_plain(eng, arch)
     n_tok = sum(len(r.out_tokens) for r in done)
     stats = {"tok_s": n_tok / res["seconds"], "seconds": res["seconds"],
@@ -2128,6 +2173,20 @@ def main() -> int:
                   f"{k} {x['launches']} x = {x['ms']:.3f} ms"
                   for k, x in parts.items()) + "); cuBLAS in_proj / "
               "out_proj and the plain torch around them not timed per op")
+    # The matmul kernel per Program run: the bf16 phase-4 rows summed over
+    # smollm-360m's and zamba2-7b's admissions (M = 512, wgmma) and
+    # decode ticks (M = 8, skinny), and the f32 phase-3 rows over one
+    # alexnet-owt batch-8 tick (skinny).
+    for what, t in (
+            ("smollm-360m decode tick, bf16",
+             lm[("full", "decode", "matmul")]),
+            ("smollm-360m admission, bf16", lm[("full", "prefill", "matmul")]),
+            ("zamba2-7b admission, bf16", z["prefill"]["matmul"]),
+            ("zamba2-7b decode tick, bf16", z["decode"]["matmul"]),
+            ("alexnet-owt tick, f32", tick["matmul"])):
+        print(f"matmul per {what}: {t['launches']} launches, ms "
+              f"{t['ms']:.4f}, library_ms {t['library_ms']:.4f}, bound_ms "
+              f"{t['bound_ms']:.4f}, plain_ms {t['plain_ms']:.4f}")
     wkv = ssm["wkv6"]["rows"]["admission"]
     print(f"rwkv6-7b admission: served "
           f"{family['5h rwkv6-7b'][1]['prefill_ms']:.3f} ms, wkv6 {n_wkv} x "

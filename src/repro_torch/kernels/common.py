@@ -14,14 +14,17 @@ launch to the plain version.
 Kernels are CUDA C++ sources under ``csrc/``, compiled at first use by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the repository root
 (one shared library with a plain C interface per source, loaded with
-``ctypes``).  The library name carries a hash of its source, so an edited
-source is rebuilt and a stale library is never loaded.
+``ctypes``).  The library name carries a hash of its source and of every
+header it includes (``csrc/hopper.cuh``: the TMA, mbarrier, mma and
+wgmma helpers), so an edited source or header is rebuilt and a stale
+library is never loaded.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -123,11 +126,29 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every header it includes by quotes, transitively,
+    resolved against the including file's directory (as nvcc does)."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep.exists():
+            _sources(dep, seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / KERNEL_SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, every header
+    the source includes and the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(CSRC_DIR / KERNEL_SOURCES[name], []):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,29 +1,36 @@
-"""Scheduled matmul: the Hopper kernel and its plain version.
+"""Scheduled matmul: the Hopper kernels, their plan and their plain version.
 
 ``matmul_cuda`` replaces ``repro/kernels/matmul/kernel.py::matmul_pallas``
 (its ``pallas_call`` at line 161): ``(M,K) x (K,N)`` with f32
 accumulation and the epilogue bias -> activation -> bypass, in float32
 or bfloat16 (every operand and the output in the one type, as the
 reference writes ``out_dtype = a.dtype``).  The source is
-``csrc/matmul.cu``.
+``csrc/matmul.cu``; ragged M, N and K are masked in the kernels, never
+padded in device memory (``repro/kernels/matmul/ops.py:57-69`` pads).
 
-What bounds it on an H100: the FC layers of the CNN Programs and the LM
-decode projections have M = batch or slots (a few rows) and 0.6-151 MB
-of weights, about M/2 FLOP per weight byte in f32 (M in bf16), far
-below the card's ridge, so the weight bytes over HBM bound it (fc_08 at
-batch 8: 151 MB, 45 us at 3.35 TB/s).  The kernel streams disjoint
-32-column weight slabs per CTA with a deep K slice and a register
-prefetch, and masks the ragged edges of M, N and K instead of padding
-the operands to the schedule's block (``repro/kernels/matmul/ops.py:
-57-69`` pads).
+``matmul_plan`` picks one of three hand-written paths from the shape,
+the type and the operands' 16-byte alignment, in plain Python:
 
-The three dataflows keep their meaning as CTA orders (see the source):
-the schedule's ``block`` and ``dataflow`` are taken verbatim.
-``matmul_plain`` computes the same function with PyTorch ops.
+- ``skinny`` (M <= 64): the LM decode projections and the CNN FC
+  layers, bound by the weight bytes over HBM.  Split-K over CTAs, 64
+  output columns a CTA, enough splits for about two CTAs per SM
+  (``TARGET_CTAS``); mma.sync in bf16, SIMT FMAs in f32.  Partial sums
+  go to an f32 workspace the wrapper allocates and a second kernel sums
+  them in a fixed order, so a result repeats bit for bit.
+- ``wgmma`` (bf16, M > 64): the LM prefill and chunk projections, bound
+  by the tensor cores.  TMA + wgmma on 128 x 128 tiles.
+- ``simt``: everything else (f32 at M > 64, bf16 with K or N not a
+  multiple of 8, unaligned operands).
+
+The schedule's ``dataflow`` and ``block`` set the CTA raster of the
+wgmma and simt paths (see the source); the skinny path reads each weight
+byte once whatever the order and takes neither.  ``matmul_plain``
+computes the same function with PyTorch ops.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -31,7 +38,7 @@ from ...core.dataflow import Dataflow
 from ..common import ACT_CODES, check_launch, load_library
 from .ref import matmul_ref
 
-__all__ = ["matmul_cuda", "matmul_plain"]
+__all__ = ["MatmulPlan", "matmul_cuda", "matmul_plain", "matmul_plan"]
 
 _DATAFLOW_CODES = {Dataflow.MAPS_RESIDENT: 0, Dataflow.WEIGHTS_RESIDENT: 1,
                    Dataflow.OUTPUT_STATIONARY: 2}
@@ -48,8 +55,10 @@ def matmul_plain(a, b, *, bias=None, activation: str | None = None,
 def launch_args(a, b, out, *, dataflow: Dataflow,
                 block: tuple[int, int, int], bias=None,
                 activation: str | None = None, bypass=None) -> list:
-    """Checks the operands and returns ``matmul_f32`` / ``matmul_bf16``'s
-    arguments after the five pointers' tensors and before the stream."""
+    """Checks the operands and returns the simt and wgmma launchers'
+    arguments after the five pointers' tensors and before the stream:
+    M, K, N, the dataflow's code, the block's bm and bn, the activation's
+    code."""
     if a.dtype not in _LAUNCHERS:
         raise TypeError(f"matmul_cuda: a must be float32 or bfloat16, got "
                         f"{a.dtype}")
@@ -72,14 +81,92 @@ def launch_args(a, b, out, *, dataflow: Dataflow,
             ACT_CODES[activation]]
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_LAUNCHERS = {torch.float32: "matmul_f32", torch.bfloat16: "matmul_bf16"}
+# The skinny path: about two CTAs per SM of the H100 (132 SMs) on every
+# shape, 64 output columns a CTA, K sliced in multiples of 32 rows.
+SM_COUNT = 132
+TARGET_CTAS = 2 * SM_COUNT
+SKINNY_MAX_M = 64
+SKINNY_BN = 64
+K_GRAIN = 32
+WGMMA_TILE = (128, 128, 64)
+SIMT_TILE = (16, 32, 128)
 
 
-def _launcher(dtype):
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """One launch: ``path`` ("skinny" | "wgmma" | "simt"), the CTA
+    ``tile`` (rows, columns, K rows a stage), ``splits`` K slices of
+    ``kchunk`` rows (the last may be short), and ``grid``, the CTAs along
+    (M, N, K).  The simt path's OUTPUT_STATIONARY raster pads its grid to
+    whole blocks of the schedule; ``grid`` counts the tiles."""
+    path: str
+    tile: tuple[int, int, int]
+    splits: int
+    kchunk: int
+    grid: tuple[int, int, int]
+
+    @property
+    def ctas(self) -> int:
+        m, n, k = self.grid
+        return m * n * k
+
+    def k_slices(self, K: int) -> list[tuple[int, int]]:
+        """[begin, end) of each split's K rows."""
+        return [(s * self.kchunk, min(K, (s + 1) * self.kchunk))
+                for s in range(self.splits)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def matmul_plan(M: int, K: int, N: int, dtype, *,
+                aligned: bool = True) -> MatmulPlan:
+    """The path, tile, split count and grid for an (M,K) x (K,N) product
+    in ``dtype``.  ``aligned``: every operand starts on 16 bytes.  The
+    skinny and wgmma paths load 16-byte vectors (TMA rows for wgmma), so
+    they need K and N whole vectors (multiples of 4 in f32, 8 in bf16)."""
+    if dtype not in _LAUNCHERS:
+        raise TypeError(f"matmul_cuda: a must be float32 or bfloat16, got "
+                        f"{dtype}")
+    vec = 16 // (4 if dtype == torch.float32 else 2)
+    fits = aligned and K % vec == 0 and N % vec == 0
+    if fits and M <= SKINNY_MAX_M:
+        if dtype == torch.float32:
+            rows, bk = (8 if M <= 8 else 16), 32
+        else:
+            rows, bk = 16 * max(1, _cdiv(M, 16)), 64
+        m_tiles, n_tiles = _cdiv(M, rows), _cdiv(N, SKINNY_BN)
+        want = max(1, _cdiv(TARGET_CTAS, max(1, m_tiles * n_tiles)))
+        kchunk = K_GRAIN * max(1, _cdiv(_cdiv(K, K_GRAIN), want))
+        splits = max(1, _cdiv(K, kchunk))
+        return MatmulPlan("skinny", (rows, SKINNY_BN, bk), splits, kchunk,
+                          (m_tiles, n_tiles, splits))
+    if fits and dtype == torch.bfloat16:
+        bm, bn, _ = WGMMA_TILE
+        return MatmulPlan("wgmma", WGMMA_TILE, 1, K,
+                          (_cdiv(M, bm), _cdiv(N, bn), 1))
+    bm, bn, _ = SIMT_TILE
+    return MatmulPlan("simt", SIMT_TILE, 1, K,
+                      (_cdiv(M, bm), _cdiv(N, bn), 1))
+
+
+# The C launchers: matmul_<f32|bf16> (simt), matmul_skinny_<f32|bf16>,
+# matmul_wgmma_bf16.
+_LAUNCHERS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _launcher(path: str, dtype):
     lib = load_library("matmul")
-    fn = getattr(lib, _LAUNCHERS[dtype])
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    kind = "" if path == "simt" else f"{path}_"
+    fn = getattr(lib, f"matmul_{kind}{_LAUNCHERS[dtype]}")
+    # Five operand pointers, then the skinny path's workspace and M, K, N,
+    # kchunk, splits, act, or the others' M, K, N, dataflow, bm, bn, act;
+    # then the stream.
+    fn.argtypes = ([_P] * 6 + [_I] * 6 if path == "skinny"
+                   else [_P] * 5 + [_I] * 7) + [_P]
+    fn.restype = ctypes.c_int
     return lib, fn
 
 
@@ -87,12 +174,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def matmul_cuda(a, b, *, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY,
                 block: tuple[int, int, int] = (128, 128, 128), bias=None,
                 activation: str | None = None, bypass=None) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors: a (M,K), b (K,N), bias
-    (N,), bypass (M,N), all float32 or all bfloat16, and contiguous;
-    ragged shapes are fine.  Raises on a CPU tensor."""
+    """Launch the planned CUDA path on CUDA tensors: a (M,K), b (K,N),
+    bias (N,), bypass (M,N), all float32 or all bfloat16, and contiguous;
+    ragged shapes are fine.  Raises on a CPU tensor.  Counts one launch
+    in ``launches`` and one in ``path_launches[plan.path]``."""
     if not a.is_cuda:
         raise RuntimeError(f"matmul_cuda needs CUDA tensors, got one on "
                            f"{a.device}")
@@ -100,14 +192,25 @@ def matmul_cuda(a, b, *, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY,
                       device=a.device)
     args = launch_args(a, b, out, dataflow=dataflow, block=block, bias=bias,
                        activation=activation, bypass=bypass)
-    lib, fn = _launcher(a.dtype)
+    M, K, N, df, bm, bn, act = args
+    plan = matmul_plan(M, K, N, a.dtype,
+                       aligned=_aligned(a, b, bias, bypass, out))
+    lib, fn = _launcher(plan.path, a.dtype)
+    ptrs = [_ptr(a), _ptr(b), _ptr(bias), _ptr(bypass), _ptr(out)]
+    if plan.path == "skinny":
+        ws = (torch.empty(plan.splits * M * N, dtype=torch.float32,
+                          device=a.device) if plan.splits > 1 else None)
+        tail = [_ptr(ws), M, K, N, plan.kchunk, plan.splits, act]
+    else:
+        tail = args
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(_ptr(a), _ptr(b), _ptr(bias), _ptr(bypass), _ptr(out),
-                 *args, stream)
+        err = fn(*ptrs, *tail, stream)
     check_launch(lib, "matmul", err)
     matmul_cuda.launches += 1
+    matmul_cuda.path_launches[plan.path] += 1
     return out
 
 
 matmul_cuda.launches = 0
+matmul_cuda.path_launches = {"skinny": 0, "wgmma": 0, "simt": 0}

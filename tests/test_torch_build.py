@@ -1,7 +1,9 @@
 """The kernel build helper, driven through a stand-in ``nvcc``: one
 compiler process per source, libraries named by source hash, reuse of
-a finished build, and a failed build raising with the compiler's log."""
+a finished build, a rebuild when an included header changes, and a
+failed build raising with the compiler's log."""
 import os
+import shutil
 import stat
 
 import pytest
@@ -72,3 +74,23 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(common, "_LIBS", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         common.build_kernels(["conv2d"])
+
+
+def test_editing_an_included_header_rebuilds(fake_toolkit, tmp_path,
+                                             monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(common.CSRC_DIR, csrc)
+    monkeypatch.setattr(common, "CSRC_DIR", csrc)
+    assert b'#include "hopper.cuh"' in (csrc / "matmul.cu").read_bytes()
+    common.build_kernels(["matmul"])
+    before, conv = common._lib_path("matmul"), common._lib_path("conv2d")
+    assert before.exists()
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("\n// an edited helper\n")
+    after = common._lib_path("matmul")
+    assert after != before and not after.exists()
+    assert common._lib_path("conv2d") == conv     # includes no header
+    common._LIBS.clear()
+    common.build_kernels(["matmul"])
+    assert after.exists()
+    assert len((fake_toolkit / "calls.log").read_text().splitlines()) == 2

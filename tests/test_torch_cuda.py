@@ -35,7 +35,7 @@ from repro_torch.kernels.mamba2 import mamba2_scan  # noqa: E402
 from repro_torch.kernels.mamba2.kernel import (  # noqa: E402
     mamba2_scan_cuda, mamba2_scan_plain)
 from repro_torch.kernels.matmul.kernel import (  # noqa: E402
-    matmul_cuda, matmul_plain)
+    matmul_cuda, matmul_plain, matmul_plan)
 from repro_torch.kernels.rwkv6 import wkv6  # noqa: E402
 from repro_torch.kernels.rwkv6.kernel import wkv6_cuda, wkv6_plain  # noqa
 from repro_torch.core import quant  # noqa: E402
@@ -266,6 +266,111 @@ def test_matmul_kernel_matches_plain_in_both_types(dev, shape, dt):
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), matmul_plain(a, b, **kw).float(),
                                rtol=tol, atol=tol)
+
+
+# Each matmul path against the plain version: every (M, K, N) of the
+# grid in both types; the epilogue cycles over the cases so that every
+# path meets bias, silu / gelu and bypass.
+MATMUL_M = (1, 8, 37, 64, 65, 128, 512, 700)
+MATMUL_K = (960, 300, 14336)
+MATMUL_N = (70, 320, 960, 49152)
+MATMUL_EPILOGUES = ({"bias": True, "activation": "gelu", "bypass": False},
+                    {"bias": False, "activation": "silu", "bypass": True},
+                    {"bias": True, "activation": "silu", "bypass": True},
+                    {"bias": True, "activation": None, "bypass": True})
+MATMUL_GRID = [(M, K, N) for M in MATMUL_M for K in MATMUL_K
+               for N in MATMUL_N]
+
+
+def _check_matmul_path(dev, shape, dt, epi):
+    """matmul_cuda against matmul_plain on one shape, with the launch
+    counted on the path matmul_plan names."""
+    dtype, tol = DTYPES[dt]
+    M, K, N = shape
+    gen = torch.Generator(device=dev).manual_seed(M * 7 + K + N)
+    a = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    b = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(dtype)
+    kw = dict(
+        bias=(torch.randn(N, generator=gen, device=dev).to(dtype)
+              if epi["bias"] else None),
+        activation=epi["activation"],
+        bypass=(torch.randn((M, N), generator=gen, device=dev).to(dtype)
+                if epi["bypass"] else None))
+    path = matmul_plan(M, K, N, dtype).path
+    before = dict(matmul_cuda.path_launches)
+    out = matmul_cuda(a, b, dataflow=Dataflow.MAPS_RESIDENT,
+                      block=(512, 1024, 1024), **kw)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in matmul_cuda.path_launches.items()
+            } == {p: int(p == path) for p in before}
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), matmul_plain(a, b, **kw).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("shape", MATMUL_GRID, ids=str)
+def test_matmul_paths_match_plain(dev, shape, dt):
+    i = MATMUL_GRID.index(shape)      # every path meets all four epilogues
+    _check_matmul_path(dev, shape, dt,
+                       MATMUL_EPILOGUES[(i + i // 4) % len(MATMUL_EPILOGUES)])
+
+
+# Ragged edges the grid leaves out: K and N whole 16-byte vectors but not
+# whole tiles (a TMA box or a skinny stage past K or N is zero-filled),
+# and the smallest aligned shapes.
+MATMUL_RAGGED = [(8, 1000, 1000), (37, 1000, 1000), (65, 1000, 1000),
+                 (512, 1000, 1000), (200, 264, 136), (1, 8, 8),
+                 (130, 72, 8), (64, 8200, 72)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("shape", MATMUL_RAGGED, ids=str)
+def test_matmul_paths_match_plain_on_ragged_tiles(dev, shape, dt):
+    i = MATMUL_RAGGED.index(shape)
+    _check_matmul_path(dev, shape, dt,
+                       MATMUL_EPILOGUES[i % len(MATMUL_EPILOGUES)])
+
+
+def test_skinny_split_k_repeats_bit_for_bit(dev):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn((8, 960), generator=gen, device=dev).bfloat16()
+    b = torch.randn((960, 320), generator=gen, device=dev).bfloat16()
+    assert matmul_plan(8, 960, 320, torch.bfloat16).splits > 1
+    first = matmul_cuda(a, b, activation="silu")
+    for _ in range(3):
+        assert torch.equal(matmul_cuda(a, b, activation="silu"), first)
+
+
+def test_matmul_path_counters_of_a_smoke_lm_tick_and_admission(dev):
+    """The bf16 smoke LM: every matmul of an admission (M = max_len = 128)
+    runs on wgmma, every matmul of a decode tick (M = 8 slots) on skinny,
+    none on simt."""
+    cfg = dataclasses.replace(SMOLLM_360M.smoke(), dtype="bfloat16")
+    pair = transformer.compile_program_pair(cfg, slots=8, max_len=128)
+    params = init_params(transformer.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    state = executor.init_program_state(pair, dev)
+    n_pre = sum(op.kernel == "matmul" for op in pair.prefill.ops)
+    n_dec = sum(op.kernel == "matmul" for op in pair.decode.ops)
+    tokens = torch.zeros((1, 128), dtype=torch.int32, device=dev)
+    tokens[0, :40] = torch.arange(1, 41, device=dev)
+
+    def delta(fn):
+        before = dict(matmul_cuda.path_launches)
+        out = fn()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
+        return {k: v - before[k] for k, v in matmul_cuda.path_launches.items()}
+    assert delta(lambda: executor.run_prefill(
+        pair.prefill, params, tokens, state, 0, 40, impl="cuda")) == {
+            "skinny": 0, "wgmma": n_pre, "simt": 0}
+    toks = torch.ones((8,), dtype=torch.int32, device=dev)
+    mask = torch.zeros((8,), dtype=torch.bool, device=dev)
+    mask[0] = True
+    assert delta(lambda: executor.run_decode(
+        pair.decode, params, toks, state, mask, impl="cuda")) == {
+            "skinny": n_dec, "wgmma": 0, "simt": 0}
 
 
 # (B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len)
