@@ -22,16 +22,8 @@
 //    group sum needs no atomics -- and accumulates dV += p^T dO and
 //    dK += dS^T Q.  It reads delta from the dQ pass (same stream).
 // Tiles wholly outside the causal / window / kv_len span are skipped, as
-// the TPU kernels skip whole blocks.  Each warp owns 8 rows of the CTA's
-// tile (8 warps); each lane two columns of the 64-wide score tile and D/32
-// columns of the output rows; accumulators are f32 registers, and each
-// gradient is rounded once to its operand's type on the store.  Shared
-// memory holds the tiles as f32: 82 KB (dQ) and 99 KB (dK/dV) at D = 64,
-// 148 and 165 KB at D = 128, so the launch raises the dynamic limit.  A
-// head dim D <= 128 that is not a multiple of 32 (the smoke configs' 16,
-// zamba2-7b's 112) takes the tiles of the next multiple, 32 * DPL columns,
-// as the forward does: the columns past D are zero-filled on load, so they
-// add nothing to a score or to delta, and are never stored.
+// the TPU kernels skip whole blocks.  Accumulators are f32 registers, and
+// each gradient is rounded once to its operand's type on the store.
 //
 // Bound on an H100: at the smollm-360m training shape (B = 8, Hq = 15,
 // Hkv = 5, S = 512, D = 64, causal) the function needs 5 products of
@@ -40,8 +32,35 @@
 // 240 FLOP per byte, under the bf16 ridge (about 295), so HBM bandwidth
 // bounds it.  These two passes do 7 products (the dQ pass recomputes S
 // and dP) and move the delta scratch besides, the price of needing no
-// atomics.  This kernel is a SIMT loop with f32 FMAs, far from either
-// bound; wgmma and TMA are later work.
+// atomics.
+//
+// Two paths; the wrapper (flash_plan) picks one by type and alignment:
+//
+// mma (bf16, D % 8 == 0, base pointers and strides 16-byte aligned): 4
+//   warps of 16 rows each, bf16 tiles through cp.async, mma.sync m16n8k16
+//   with f32 accumulators and the forward's fragments, swizzle and masks
+//   (flash_mma.cuh).  dQ pass: Q and dO are A fragments in registers, K
+//   and V double-buffered; S = Q K^T and dP = dO V^T (K, V as they lie),
+//   dS = P (dP - delta) scale in f32 registers, dQ += dS K (K by
+//   ldmatrix.trans).  dK/dV pass: Q, dO and the q tile's lse and delta
+//   double-buffered; S^T = K Q^T and dP^T = V dO^T, dV += P^T dO and
+//   dK += dS^T Q (Q, dO by ldmatrix.trans); K and V stay A fragments in
+//   registers up to D = 64 and are re-read from shared memory above it,
+//   where the dK and dV accumulators need the registers.  A 64-row tile
+//   of the other operand is taken 32 columns at a time, so S, dP and their
+//   transposes hold 16 registers each.  P and dS, the f32 operands of the
+//   second products, enter them split into three bf16 parts that sum to
+//   them exactly (flash_mma.cuh::split3; three mma into one f32
+//   accumulator), so the kernel sums the plain version's own terms, in
+//   another order: 14 products of tensor work against the function's 5.
+//   Two parts (16 bits of P and dS) take 10 products, but their
+//   products no longer sum the same terms.
+// simt (f32 and unaligned bf16): each warp owns 8 rows of the CTA's tile
+//   (8 warps); each lane two columns of the 64-wide score tile and D/32
+//   columns of the output rows, f32 FMAs.  Shared memory holds the tiles
+//   as f32: 82 KB (dQ) and 99 KB (dK/dV) at D = 64, 148 and 165 KB at
+//   D = 128.  A head dim D <= 128 that is not a multiple of 32 takes the
+//   tiles of the next multiple, zero-filled past D.
 //
 // q, k, v, out and dO are addressed through element strides (D
 // contiguous), so the transposed head views of the model are read in
@@ -50,6 +69,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -390,7 +411,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(BwdArgs p) {
 }
 
 template <typename T, int DPL>
-int launch(const BwdArgs& p, cudaStream_t stream) {
+int launch(const BwdArgs& p, dim3 dq_grid, dim3 dkv_grid,
+           cudaStream_t stream) {
   const size_t dq_smem = dq_smem_bytes(32 * DPL);
   const size_t dkv_smem = dkv_smem_bytes(32 * DPL);
   cudaError_t err = cudaFuncSetAttribute(
@@ -401,28 +423,408 @@ int launch(const BwdArgs& p, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dkv_smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 dq_grid((p.Sq + BQ - 1) / BQ, p.B * p.Hq);
   dq_kernel<T, DPL><<<dq_grid, THREADS, dq_smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 dkv_grid((p.Skv + BKV - 1) / BKV, p.B * p.Hkv);
   dkv_kernel<T, DPL><<<dkv_grid, THREADS, dkv_smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// plan: the wrapper's flash_plan, (d_tile, dQ grid x, y, dK/dV grid x, y).
 template <typename T>
-int dispatch(const BwdArgs& p, void* stream) {
+int dispatch(const BwdArgs& p, const int* plan, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (p.D < 1) return (int)cudaErrorInvalidValue;
-  switch ((p.D + 31) / 32) {  // 32-column lane groups the head dim needs
-    case 1:
-      return launch<T, 1>(p, s);
-    case 2:
-      return launch<T, 2>(p, s);
-    case 3:
-      return launch<T, 3>(p, s);
-    case 4:
-      return launch<T, 4>(p, s);
+  const dim3 dq(plan[1], plan[2]), dkv(plan[3], plan[4]);
+  if (p.D < 1 || plan[0] < p.D) return (int)cudaErrorInvalidValue;
+  switch (plan[0]) {  // the tile: 32 columns a lane group
+    case 32:
+      return launch<T, 1>(p, dq, dkv, s);
+    case 64:
+      return launch<T, 2>(p, dq, dkv, s);
+    case 96:
+      return launch<T, 3>(p, dq, dkv, s);
+    case 128:
+      return launch<T, 4>(p, dq, dkv, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// --- mma path (bf16, 16-byte-aligned operands) ------------------------------
+// The same two passes on mma.sync; P and dS enter their products split
+// into three exact bf16 parts (flash_mma.cuh::split3).  Each warp owns 16 rows of the CTA's
+// 64; a 64-row tile of the other operand is taken 32 columns at a time,
+// so S, dP and their transposes take 16 accumulator registers each.
+
+// dQ pass: grid (B * Hq, q tiles), under causal heaviest first.  Q and dO
+// as A fragments in registers; K and V double-buffered; S = Q K^T and
+// dP = dO V^T with K and V read as they lie, dS = P (dP - delta) scale,
+// dQ += dS K with K read transposed.
+template <int DT>
+__global__ void __launch_bounds__(flash_mma::THREADS)
+    dq_mma_kernel(BwdArgs p) {
+  using namespace flash_mma;
+  using TL = Tile<DT>;
+  extern __shared__ __align__(128) unsigned char smem_dq[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_dq);
+  bf16* sdO = sQ + TL::ELEMS;
+  bf16* sK = sdO + TL::ELEMS;     // [2][tile]
+  bf16* sV = sK + 2 * TL::ELEMS;  // [2][tile]
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.Hq, h = bh - b * p.Hq;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * ROWS;
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* q = (const bf16*)p.q + b * p.q_sb + h * p.q_sh;
+  const bf16* o = (const bf16*)p.out + b * p.o_sb + h * p.o_sh;
+  const bf16* dO = (const bf16*)p.dout + b * p.d_sb + h * p.d_sh;
+  const bf16* k = (const bf16*)p.k + b * p.k_sb + hk * p.k_sh;
+  const bf16* v = (const bf16*)p.v + b * p.v_sb + hk * p.v_sh;
+
+  const int kv_len = min(p.kv_len, p.Skv);
+  int t_end = (kv_len + ROWS - 1) / ROWS;
+  if (p.causal) t_end = min(t_end, (q0 + ROWS - 1) / ROWS + 1);
+  int t_begin = 0;
+  if (p.window > 0) t_begin = max(0, q0 - p.window + 1) / ROWS;
+
+  load_tile<DT>(sQ, q, p.q_ss, q0, p.Sq, p.D);
+  load_tile<DT>(sdO, dO, p.d_ss, q0, p.Sq, p.D);
+  if (t_begin < t_end) {
+    load_tile<DT>(sK, k, p.k_ss, t_begin * ROWS, p.Skv, p.D);
+    load_tile<DT>(sV, v, p.v_ss, t_begin * ROWS, p.Skv, p.D);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(dO * O) for the warp's 16 rows, written out for the
+  // dK/dV pass; rows g and g + 8 keep theirs, and their lse.
+  float dl[2], ls[2];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int qi = q0 + r0 + i;
+    float part = 0.f;
+    if (qi < p.Sq)
+      for (int c = lane; c < p.D; c += 32)
+        part += to_f32(dO[qi * p.d_ss + c]) * to_f32(o[qi * p.o_ss + c]);
+    const float d = warp_sum(part);
+    if (qi < p.Sq && lane == 0) p.delta[(size_t)bh * p.Sq + qi] = d;
+    if ((i & 7) == g) dl[i >> 3] = d;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + g + 8 * r;
+    ls[r] = qi < p.Sq ? p.lse[(size_t)bh * p.Sq + qi] : INFINITY;
+  }
+
+  uint32_t qf[TL::KS][4], df[TL::KS][4];
+  float dq[TL::NT][4];
+#pragma unroll
+  for (int n = 0; n < TL::NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      load_tile<DT>(sK + (buf ^ 1) * TL::ELEMS, k, p.k_ss, (t + 1) * ROWS,
+                    p.Skv, p.D);
+      load_tile<DT>(sV + (buf ^ 1) * TL::ELEMS, v, p.v_ss, (t + 1) * ROWS,
+                    p.Skv, p.D);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == t_begin) {
+#pragma unroll
+      for (int kk = 0; kk < TL::KS; ++kk) {
+        frag_a<DT>(qf[kk], sQ, r0, kk);
+        frag_a<DT>(df[kk], sdO, r0, kk);
+      }
+    }
+    const bf16* cK = sK + buf * TL::ELEMS;
+    const bf16* cV = sV + buf * TL::ELEMS;
+    const int k0 = t * ROWS;
+    const bool edge = crosses_edge(q0, k0, kv_len, p.causal, p.window);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < TL::KS; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t kb[4], vb[4];
+          frag_b_rows<DT>(kb, cK, half * 32 + jp * 16, kk);
+          frag_b_rows<DT>(vb, cV, half * 32 + jp * 16, kk);
+          mma_bf16_16816(s[2 * jp], qf[kk], kb[0], kb[1]);
+          mma_bf16_16816(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+          mma_bf16_16816(dp[2 * jp], df[kk], vb[0], vb[1]);
+          mma_bf16_16816(dp[2 * jp + 1], df[kk], vb[2], vb[3]);
+        }
+      }
+      // dS = P (dP - delta) scale, P = exp(S scale - lse), in place of dp.
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sc = s[j][e] * p.scale;
+          if (edge && !visible(q0 + r0 + g + ((e >> 1) << 3),
+                               k0 + half * 32 + j * 8 + 2 * t4 + (e & 1),
+                               kv_len, p.causal, p.window))
+            sc = NEG_INF;
+          const float pr = expf(sc - ls[e >> 1]);
+          dp[j][e] = pr * (dp[j][e] - dl[e >> 1]) * p.scale;
+        }
+      // dQ += dS K over the half's 32 keys, 16 a step.
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t hi[4], mi[4], lo[4];
+        acc_to_a3(dp[2 * ks], dp[2 * ks + 1], hi, mi, lo);
+#pragma unroll
+        for (int jp = 0; jp < TL::NT / 2; ++jp) {
+          uint32_t kb[4];
+          frag_b_cols<DT>(kb, cK, half * 32 + ks * 16, jp);
+          mma_split3(dq[2 * jp], hi, mi, lo, kb[0], kb[1]);
+          mma_split3(dq[2 * jp + 1], hi, mi, lo, kb[2], kb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+  bf16* dqp = (bf16*)p.dq + (size_t)bh * p.Sq * p.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + g + 8 * r;
+    if (qi >= p.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < TL::NT; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (col < p.D)
+        store2(dqp + (size_t)qi * p.D + col, dq[n][2 * r], dq[n][2 * r + 1]);
+    }
+  }
+}
+
+// dK/dV pass: grid (B * Hkv, kv tiles).  Walks the G q heads of its group
+// and their q tiles in order (no atomics); Q, dO and the q tile's lse and
+// delta double-buffered.  S^T = K Q^T and dP^T = V dO^T (Q and dO read as
+// they lie), P^T, dS^T in place, dV += P^T dO and dK += dS^T Q (dO and Q
+// read transposed).  K and V stay A fragments in registers up to 64
+// columns; wider tiles re-read them from shared memory for each product,
+// keeping the registers for the dK and dV accumulators.
+template <int DT>
+__global__ void __launch_bounds__(flash_mma::THREADS)
+    dkv_mma_kernel(BwdArgs p) {
+  using namespace flash_mma;
+  using TL = Tile<DT>;
+  constexpr bool KV_REGS = DT <= 64;
+  constexpr int KF = KV_REGS ? TL::KS : 1;
+  extern __shared__ __align__(128) unsigned char smem_dkv[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_dkv);
+  bf16* sV = sK + TL::ELEMS;
+  bf16* sQ = sV + TL::ELEMS;       // [2][tile]
+  bf16* sdO = sQ + 2 * TL::ELEMS;  // [2][tile]
+  float* sL = reinterpret_cast<float*>(sdO + 2 * TL::ELEMS);  // [2][64] lse
+  float* sD = sL + 2 * ROWS;                                  // [2][64] delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / p.Hkv, hk = bh - b * p.Hkv;
+  const int G = p.Hq / p.Hkv;
+  const int k0 = blockIdx.y * ROWS;
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* k = (const bf16*)p.k + b * p.k_sb + hk * p.k_sh;
+  const bf16* v = (const bf16*)p.v + b * p.v_sb + hk * p.v_sh;
+
+  // The q tiles with a row that attends some key of this kv tile.
+  const int kv_len = min(p.kv_len, p.Skv);
+  const int nq = (p.Sq + ROWS - 1) / ROWS;
+  int qt_begin = 0, qt_end = k0 < kv_len ? nq : 0;
+  if (p.causal) qt_begin = k0 / ROWS;
+  if (p.window > 0) qt_end = min(qt_end, (k0 + ROWS - 2 + p.window) / ROWS + 1);
+  const int span = max(0, qt_end - qt_begin);
+  const int items = G * span;  // (q head of the group, q tile) in order
+
+  // Item ``it``'s Q and dO tiles (cp.async) and lse / delta (plain loads)
+  // into buffer ``buf``.
+  auto stage = [&](int it, int buf) {
+    const int h = hk * G + it / span;
+    const int q0 = (qt_begin + it % span) * ROWS;
+    load_tile<DT>(sQ + buf * TL::ELEMS,
+                  (const bf16*)p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0,
+                  p.Sq, p.D);
+    load_tile<DT>(sdO + buf * TL::ELEMS,
+                  (const bf16*)p.dout + b * p.d_sb + h * p.d_sh, p.d_ss, q0,
+                  p.Sq, p.D);
+    if (threadIdx.x < ROWS) {
+      const int qi = q0 + threadIdx.x;
+      const size_t hrow = ((size_t)b * p.Hq + h) * p.Sq;
+      sL[buf * ROWS + threadIdx.x] = qi < p.Sq ? p.lse[hrow + qi] : INFINITY;
+      sD[buf * ROWS + threadIdx.x] = qi < p.Sq ? p.delta[hrow + qi] : 0.f;
+    }
+  };
+
+  load_tile<DT>(sK, k, p.k_ss, k0, p.Skv, p.D);
+  load_tile<DT>(sV, v, p.v_ss, k0, p.Skv, p.D);
+  if (items > 0) stage(0, 0);
+  cp_async_commit();
+
+  uint32_t kf[KF][4], vf[KF][4];
+  float dk[TL::NT][4], dv[TL::NT][4];
+#pragma unroll
+  for (int n = 0; n < TL::NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int it = 0; it < items; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < items) stage(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (KV_REGS && it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KF; ++kk) {
+        frag_a<DT>(kf[kk], sK, r0, kk);
+        frag_a<DT>(vf[kk], sV, r0, kk);
+      }
+    }
+    const int q0 = (qt_begin + it % span) * ROWS;
+    const bf16* cQ = sQ + buf * TL::ELEMS;
+    const bf16* cdO = sdO + buf * TL::ELEMS;
+    const float* cL = sL + buf * ROWS;
+    const float* cD = sD + buf * ROWS;
+    const bool edge = crosses_edge(q0, k0, kv_len, p.causal, p.window);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < TL::KS; ++kk) {
+        uint32_t ka[4], va[4];
+        const uint32_t* ak = ka;
+        const uint32_t* av = va;
+        if constexpr (KV_REGS) {
+          ak = kf[kk];
+          av = vf[kk];
+        } else {
+          frag_a<DT>(ka, sK, r0, kk);
+          frag_a<DT>(va, sV, r0, kk);
+        }
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          uint32_t qb[4], ob[4];
+          frag_b_rows<DT>(qb, cQ, half * 32 + jp * 16, kk);
+          frag_b_rows<DT>(ob, cdO, half * 32 + jp * 16, kk);
+          mma_bf16_16816(st[2 * jp], ak, qb[0], qb[1]);
+          mma_bf16_16816(st[2 * jp + 1], ak, qb[2], qb[3]);
+          mma_bf16_16816(dpt[2 * jp], av, ob[0], ob[1]);
+          mma_bf16_16816(dpt[2 * jp + 1], av, ob[2], ob[3]);
+        }
+      }
+      // P^T into st, dS^T into dpt: rows are keys, columns queries.
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = half * 32 + j * 8 + 2 * t4 + (e & 1);
+          float sc = st[j][e] * p.scale;
+          if (edge && !visible(q0 + qc, k0 + r0 + g + ((e >> 1) << 3),
+                               kv_len, p.causal, p.window))
+            sc = NEG_INF;
+          const float pr = expf(sc - cL[qc]);
+          st[j][e] = pr;
+          dpt[j][e] = pr * (dpt[j][e] - cD[qc]) * p.scale;
+        }
+      // dV += P^T dO and dK += dS^T Q over the half's 32 queries.
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t phi[4], pmi[4], plo[4], shi[4], smi[4], slo[4];
+        acc_to_a3(st[2 * ks], st[2 * ks + 1], phi, pmi, plo);
+        acc_to_a3(dpt[2 * ks], dpt[2 * ks + 1], shi, smi, slo);
+#pragma unroll
+        for (int jp = 0; jp < TL::NT / 2; ++jp) {
+          uint32_t ob[4], qb[4];
+          frag_b_cols<DT>(ob, cdO, half * 32 + ks * 16, jp);
+          frag_b_cols<DT>(qb, cQ, half * 32 + ks * 16, jp);
+          mma_split3(dv[2 * jp], phi, pmi, plo, ob[0], ob[1]);
+          mma_split3(dv[2 * jp + 1], phi, pmi, plo, ob[2], ob[3]);
+          mma_split3(dk[2 * jp], shi, smi, slo, qb[0], qb[1]);
+          mma_split3(dk[2 * jp + 1], shi, smi, slo, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+  bf16* dkp = (bf16*)p.dk + (size_t)bh * p.Skv * p.D;
+  bf16* dvp = (bf16*)p.dv + (size_t)bh * p.Skv * p.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = k0 + r0 + g + 8 * r;
+    if (kj >= p.Skv) continue;
+#pragma unroll
+    for (int n = 0; n < TL::NT; ++n) {
+      const int col = n * 8 + 2 * t4;
+      if (col >= p.D) continue;
+      store2(dkp + (size_t)kj * p.D + col, dk[n][2 * r], dk[n][2 * r + 1]);
+      store2(dvp + (size_t)kj * p.D + col, dv[n][2 * r], dv[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int DT>
+int launch_mma(const BwdArgs& p, dim3 dq_grid, dim3 dkv_grid,
+               cudaStream_t stream) {
+  using TL = flash_mma::Tile<DT>;
+  constexpr size_t dq_smem = 6 * TL::ELEMS * sizeof(__nv_bfloat16);
+  constexpr size_t dkv_smem =
+      6 * TL::ELEMS * sizeof(__nv_bfloat16) + 4 * flash_mma::ROWS * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_mma_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dq_smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dkv_mma_kernel<DT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dkv_smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_mma_kernel<DT><<<dq_grid, flash_mma::THREADS, dq_smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dkv_mma_kernel<DT><<<dkv_grid, flash_mma::THREADS, dkv_smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_mma(const BwdArgs& p, const int* plan, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 dq(plan[1], plan[2]), dkv(plan[3], plan[4]);
+  if (p.D < 8 || p.D % 8 || plan[0] < p.D) return (int)cudaErrorInvalidValue;
+  switch (plan[0]) {  // the tile: the head dim rounded up to 16
+    case 16:
+      return launch_mma<16>(p, dq, dkv, s);
+    case 32:
+      return launch_mma<32>(p, dq, dkv, s);
+    case 48:
+      return launch_mma<48>(p, dq, dkv, s);
+    case 64:
+      return launch_mma<64>(p, dq, dkv, s);
+    case 80:
+      return launch_mma<80>(p, dq, dkv, s);
+    case 96:
+      return launch_mma<96>(p, dq, dkv, s);
+    case 112:
+      return launch_mma<112>(p, dq, dkv, s);
+    case 128:
+      return launch_mma<128>(p, dq, dkv, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -466,19 +868,21 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dims: B, Hq, Hkv, Sq, Skv, D.  strides: (batch, head, row) element
-// strides of q, k, v, out and dout, in that order.  delta is (B, Hq, Sq)
-// f32 scratch the dQ pass fills and the dK/dV pass reads.
+// strides of q, k, v, out and dout, in that order.  plan: the wrapper's
+// flash_plan, (d_tile, dQ grid x, y, dK/dV grid x, y), launched as
+// given.  delta is (B, Hq, Sq) f32 scratch the dQ pass fills and the
+// dK/dV pass reads.
 int flash_attention_bwd_f32(const float* q, const float* k, const float* v,
                             const float* out, const float* dout,
                             const float* lse, float* delta, float* dq,
                             float* dk, float* dv, const int* dims,
-                            const long long* strides, float scale,
-                            int causal, int window, int kv_len,
+                            const long long* strides, const int* plan,
+                            float scale, int causal, int window, int kv_len,
                             void* stream) {
   return dispatch<float>(make_args(q, k, v, out, dout, lse, delta, dq, dk,
                                    dv, dims, strides, scale, causal, window,
                                    kv_len),
-                         stream);
+                         plan, stream);
 }
 
 int flash_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -488,12 +892,25 @@ int flash_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                              float* delta, __nv_bfloat16* dq,
                              __nv_bfloat16* dk, __nv_bfloat16* dv,
                              const int* dims, const long long* strides,
-                             float scale, int causal, int window, int kv_len,
-                             void* stream) {
+                             const int* plan, float scale, int causal,
+                             int window, int kv_len, void* stream) {
   return dispatch<__nv_bfloat16>(
       make_args(q, k, v, out, dout, lse, delta, dq, dk, dv, dims, strides,
                 scale, causal, window, kv_len),
-      stream);
+      plan, stream);
+}
+
+// The tensor-core path: bf16, D % 8 == 0, every base pointer and
+// stride a multiple of 16 bytes (the wrapper's flash_plan checks).
+int flash_attention_bwd_mma_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* out, const __nv_bfloat16* dout, const float* lse,
+    float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+    const int* dims, const long long* strides, const int* plan, float scale,
+    int causal, int window, int kv_len, void* stream) {
+  return dispatch_mma(make_args(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                dims, strides, scale, causal, window, kv_len),
+                      plan, stream);
 }
 
 const char* flash_attention_bwd_error_string(int err) {

@@ -373,6 +373,33 @@ def test_matmul_path_counters_of_a_smoke_lm_tick_and_admission(dev):
             "skinny": n_dec, "wgmma": 0, "simt": 0}
 
 
+# The flash path each type takes on aligned operands (flash_plan).
+_PATH = {"f32": "simt", "bf16": "mma"}
+
+
+def _one(path: str) -> dict:
+    return {"mma": 0, "simt": 0, path: 1}
+
+
+def _path_delta(fn, call):
+    """``call()``'s result and the launches it added to each of ``fn``'s
+    path counters."""
+    before = dict(fn.path_launches)
+    res = call()
+    return res, {k: fn.path_launches[k] - before[k] for k in before}
+
+
+def _offset(t):
+    """``t`` (a (B,H,S,D) view of a (B,S,H,D) buffer) copied into a buffer
+    that starts 2 bytes past a 16-byte boundary: the same values and
+    layout, which the mma path cannot load in 16-byte vectors."""
+    B, H, S, D = t.shape
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(B, S, H, D).transpose(1, 2)
+    view.copy_(t)
+    return view
+
+
 # (B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len)
 FLASH = [(1, 15, 5, 512, 512, 64, True, None, None),
          (1, 15, 5, 512, 512, 64, True, 128, None),
@@ -394,9 +421,11 @@ def test_flash_kernel_matches_plain(dev, case, dt):
     q, k, v = heads(Sq, Hq), heads(Skv, Hkv), heads(Skv, Hkv)
     kw = dict(scale=D ** -0.5, causal=causal, window=window, kv_len=kv_len)
     n0 = flash_attention_cuda.launches
-    out, lse = flash_attention_cuda(q, k, v, **kw)
+    (out, lse), paths = _path_delta(
+        flash_attention_cuda, lambda: flash_attention_cuda(q, k, v, **kw))
     torch.cuda.synchronize()
     assert flash_attention_cuda.launches == n0 + 1
+    assert paths == _one(_PATH[dt])
     ref, ref_lse = flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
@@ -427,8 +456,10 @@ def test_flash_kernel_takes_head_dims_past_the_multiples_of_32(dev, case,
             dtype).transpose(1, 2)
     q, k, v = heads(Sq, Hq), heads(Skv, Hkv), heads(Skv, Hkv)
     kw = dict(scale=D ** -0.5, causal=causal, window=window, kv_len=kv_len)
-    out, lse = flash_attention_cuda(q, k, v, **kw)
+    (out, lse), paths = _path_delta(
+        flash_attention_cuda, lambda: flash_attention_cuda(q, k, v, **kw))
     torch.cuda.synchronize()
+    assert paths == _one(_PATH[dt])
     ref, ref_lse = flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
@@ -452,9 +483,12 @@ def test_flash_bwd_kernel_matches_plain(dev, case, dt):
     kw = dict(scale=D ** -0.5, causal=causal, window=window, kv_len=kv_len)
     out, lse = flash_attention_cuda(q, k, v, **kw)
     n0 = flash_attention_bwd_cuda.launches
-    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    got, paths = _path_delta(flash_attention_bwd_cuda,
+                             lambda: flash_attention_bwd_cuda(
+                                 q, k, v, out, lse, do, **kw))
     torch.cuda.synchronize()
     assert flash_attention_bwd_cuda.launches == n0 + 1
+    assert paths == _one(_PATH[dt])
     want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
@@ -478,8 +512,11 @@ def test_flash_bwd_kernel_takes_head_dims_past_the_multiples_of_32(dev, case,
         heads(Sq, Hq)
     kw = dict(scale=D ** -0.5, causal=causal, window=window, kv_len=kv_len)
     out, lse = flash_attention_cuda(q, k, v, **kw)
-    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    got, paths = _path_delta(flash_attention_bwd_cuda,
+                             lambda: flash_attention_bwd_cuda(
+                                 q, k, v, out, lse, do, **kw))
     torch.cuda.synchronize()
+    assert paths == _one(_PATH[dt])
     want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
@@ -493,6 +530,96 @@ def test_flash_bwd_kernel_refuses_head_dims_past_128(dev):
                                                          device=dev), q,
                                  scale=1.0, causal=True, window=None,
                                  kv_len=None)
+
+
+# Ragged q and kv lengths (not multiples of the 64-row tiles) with a
+# kv_len and a window; every mma head-dim tile width with GQA.  Every
+# query row sees at least one key: a row that sees none has no defined
+# value (the plain version averages V over its own chunk, the Pallas
+# kernel over its unskipped blocks, the CUDA kernels over their
+# unskipped tiles).
+FLASH_RAGGED = [(2, 6, 2, 129, 130, 64, False, 40, 120),
+                (1, 4, 2, 70, 130, 32, True, 33, 65),
+                (1, 4, 4, 70, 129, 112, True, 50, 129)]
+FLASH_DIMS = [(1, 6, 2, 100, 100, D, True, None, None)
+              for D in (16, 40, 64, 112, 128)]
+# (case, path): the cases above run on mma in bf16 through the tests
+# above (aligned operands) and on simt here; the new ones on both.
+FLASH_FWD_PATHS = ([(c, "simt") for c in FLASH + FLASH_D112]
+                   + [(c, path) for c in FLASH_RAGGED + FLASH_DIMS
+                      for path in ("mma", "simt")])
+FLASH_BWD_PATHS = ([(c, "simt") for c in FLASH + FLASH_BWD_D]
+                   + [(c, path) for c in FLASH_RAGGED + FLASH_DIMS
+                      for path in ("mma", "simt")])
+
+
+def _flash_operands(case, dev, seed, grad: bool):
+    B, Hq, Hkv, Sq, Skv, D, causal, window, kv_len = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def heads(S, H):                 # the executor's (B, S, H, D) layout
+        return torch.randn((B, S, H, D), generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2)
+    ops = [heads(Sq, Hq), heads(Skv, Hkv), heads(Skv, Hkv)]
+    if grad:
+        ops.append(heads(Sq, Hq))
+    kw = dict(scale=D ** -0.5, causal=causal, window=window, kv_len=kv_len)
+    return ops, kw
+
+
+@pytest.mark.parametrize("i", range(len(FLASH_FWD_PATHS)))
+def test_flash_paths_match_plain_in_bf16(dev, i):
+    """Both forward paths in bf16 (simt through operands 2 bytes off a
+    16-byte boundary), each counted on its own path."""
+    case, path = FLASH_FWD_PATHS[i]
+    (q, k, v), kw = _flash_operands(case, dev, 300 + i, grad=False)
+    if path == "simt":
+        q, k, v = _offset(q), _offset(k), _offset(v)
+    (out, lse), paths = _path_delta(
+        flash_attention_cuda, lambda: flash_attention_cuda(q, k, v, **kw))
+    torch.cuda.synchronize()
+    assert paths == _one(path)
+    ref, ref_lse = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("i", range(len(FLASH_BWD_PATHS)))
+def test_flash_bwd_paths_match_plain_in_bf16(dev, i):
+    """Both backward paths in bf16 on the forward kernel's out and lse,
+    each counted on its own path."""
+    case, path = FLASH_BWD_PATHS[i]
+    (q, k, v, do), kw = _flash_operands(case, dev, 400 + i, grad=True)
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    if path == "simt":
+        q, k, v, out, do = map(_offset, (q, k, v, out, do))
+    got, paths = _path_delta(flash_attention_bwd_cuda,
+                             lambda: flash_attention_bwd_cuda(
+                                 q, k, v, out, lse, do, **kw))
+    torch.cuda.synchronize()
+    assert paths == _one(path)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+
+
+def test_flash_mma_backward_repeats_bit_for_bit(dev):
+    """Two backward calls on the same inputs at the smollm-360m training
+    heads agree bit for bit: the two passes use no atomics."""
+    (q, k, v, do), kw = _flash_operands(
+        (2, 15, 5, 512, 512, 64, True, None, None), dev, 500, grad=True)
+    out, lse = flash_attention_cuda(q, k, v, **kw)
+    first, paths = _path_delta(flash_attention_bwd_cuda,
+                               lambda: flash_attention_bwd_cuda(
+                                   q, k, v, out, lse, do, **kw))
+    second = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert paths == _one("mma")
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_smoke_trainer_step_runs_on_the_backward_kernel(dev, tmp_path):
