@@ -39,13 +39,16 @@ exits non-zero before the last line is printed.  Phases:
    operand type's peak, bytes / HBM rate) from the data sheet of the
    card named, counting each input read once, each output written once
    and only the unmasked work (causal and window pairs, live cache
-   rows).  The paged decode op runs at the same width and lengths over
-   (257, 16, 5, 64) pools through a table of shuffled page ids, two
-   pairs of sequences sharing pages: f32 (1e-4), bf16 (2^-7) and int8
-   pools with bf16 q (2^-7); its bound counts each distinct live page
-   row once, and beside it are timed the contiguous kernel at the same
-   lengths and, as the library yardstick, SDPA over the already-gathered
-   view.  The flash-attention backward runs at the training shape (batch
+   rows).  Each decode row prints ``decode_plan``'s split (splits x
+   split rows, tile rows, CTAs).  The paged decode op runs at the same
+   width and lengths over (257, 16, 5, 64) pools through a table of
+   shuffled page ids, two pairs of sequences sharing pages: f32 (1e-4),
+   bf16 (2^-7) and int8 pools with bf16 q (2^-7), each with its plan;
+   its bound counts each distinct live page row once, and beside it are
+   timed the contiguous kernel at the same lengths and, as the library
+   yardstick, SDPA over the already-gathered view.  The same operands at
+   head dim 112 in bf16 and int8 pools (bf16 q, 2^-7) are checked, not
+   timed.  The flash-attention backward runs at the training shape (batch
    8, 15 q / 5 kv heads of 64, 512 rows): causal, window 128 and a
    kv_len = 450 mask, f32 (1e-4) and bf16 (one bf16 ulp plus the f32
    rounding bound of the plain version's sums, ``bwd_slack``), on the
@@ -1006,6 +1009,7 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
     pairs; returns (rows by description, per (pair, program) op
     counts)."""
     import torch
+    from repro_torch.kernels.decode_attention.kernel import decode_plan
     from repro_torch.kernels.matmul.kernel import matmul_plan
     cfg, pairs = lm_pairs(arch)
     ops, uses = lm_op_descs(cfg, pairs)
@@ -1047,15 +1051,20 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
                "flop_ms": flops / peaks["bfloat16"] * 1e3,
                "byte_ms": nbytes / peaks["hbm"] * 1e3}
         row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
+        extra = ""
         if kernel == "matmul":
             row["path"] = matmul_plan(*shape, torch.bfloat16).path
             name = f"matmul/{row['path']}"
         elif kernel == "flash_attention":
             name = "flash/mma"
+            extra = f" bf16 simt={errs[2]:.2e}"
+        else:
+            a = op.attn
+            extra = " " + plan_text(decode_plan(
+                SLOTS, a.heads, a.kv_heads, shape[0], a.head_dim,
+                torch.bfloat16))
         rows[desc] = row
-        simt = (f" bf16 simt={errs[2]:.2e}" if kernel == "flash_attention"
-                else "")
-        print(f"  {name:16s} err f32={errs[0]:.2e} bf16={errs[1]:.2e}{simt} "
+        print(f"  {name:16s} err f32={errs[0]:.2e} bf16={errs[1]:.2e}{extra} "
               f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
               f"lib={row['library_ms']:.4f} bound={row['bound_ms']:.4f} "
               f"| {desc}", flush=True)
@@ -1063,17 +1072,18 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
     return rows, uses
 
 
-def paged_operands(pool_dtype, q_dtype, device, gen):
+def paged_operands(pool_dtype, q_dtype, device, gen, D=None):
     """Phase 4's paged decode operands at the served geometry: (257, 16,
-    5, 64) pools, q for 8 sequences of ``_kv_lens(512)`` rows through a
-    table of shuffled page ids -- the two full (wrapped) rings share
-    their first 16 pages, sequences 3 and 4 their first 8 -- and the
-    null page 0 past each sequence's pages, as the PagePool leaves it."""
+    5, 64) pools (head dim ``D`` where given), q for 8 sequences of
+    ``_kv_lens(512)`` rows through a table of shuffled page ids -- the
+    two full (wrapped) rings share their first 16 pages, sequences 3 and
+    4 their first 8 -- and the null page 0 past each sequence's pages, as
+    the PagePool leaves it."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.quant import int8_quantize_pages
     cfg = get_config(LM_ARCH)
-    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, D or cfg.hd
     lens = _kv_lens(LM_MAX_LEN)
     q = torch.randn((SLOTS, Hq, D), generator=gen, device=device).to(q_dtype)
     kp, vp = (torch.randn((N_PAGES, PAGE_SIZE, Hkv, D), generator=gen,
@@ -1106,7 +1116,7 @@ def paged_case(pool_dtype, q_dtype, device, gen, peaks):
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import gather_pages
     from repro_torch.kernels.decode_attention.kernel import (
-        decode_attention_cuda, paged_decode_attention_cuda,
+        decode_attention_cuda, decode_plan, paged_decode_attention_cuda,
         paged_decode_attention_plain)
     q, kp, vp, table, kv_len, scales = paged_operands(pool_dtype, q_dtype,
                                                       device, gen)
@@ -1136,6 +1146,8 @@ def paged_case(pool_dtype, q_dtype, device, gen, peaks):
     flops = 4 * D * Hq * sum(lens)
     tol = TOL if q_dtype == torch.float32 else BF16_TOL
     err = max_err(kern(), plain(), tol)
+    plan = decode_plan(B, Hq, Hkv, table.shape[1] * PAGE_SIZE, D, q_dtype,
+                       kv_dtype=pool_dtype, page_size=PAGE_SIZE)
     peak = peaks["float32" if q_dtype == torch.float32 else "bfloat16"]
     row = {"pools": str(pool_dtype).removeprefix("torch."),
            "q": str(q_dtype).removeprefix("torch."), "max_abs_err": err,
@@ -1144,7 +1156,7 @@ def paged_case(pool_dtype, q_dtype, device, gen, peaks):
            "library_ms": time_ms(library),
            "flop_ms": flops / peak * 1e3,
            "byte_ms": nbytes / peaks["hbm"] * 1e3,
-           "live_rows": len(rows), "bytes": nbytes}
+           "live_rows": len(rows), "bytes": nbytes, "plan": plan_text(plan)}
     row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
     return row
 
@@ -1160,8 +1172,8 @@ def check_paged_kernel(device, peaks):
         gen = torch.Generator(device=device).manual_seed(SEED + 100 + i)
         row = paged_case(pool_dtype, q_dtype, device, gen, peaks)
         rows[row["pools"]] = row
-        print(f"  paged_decode_attention {row['pools']} pools, {row['q']} q: "
-              f"err={row['max_abs_err']:.2e} ms={row['ms']:.4f} "
+        print(f"  paged_decode_attention {row['pools']} pools, {row['q']} q, "
+              f"{row['plan']}: err={row['max_abs_err']:.2e} ms={row['ms']:.4f} "
               f"plain={row['plain_ms']:.4f} contiguous kernel="
               f"{row['contiguous_ms']:.4f} library (SDPA over the "
               f"already-gathered view)={row['library_ms']:.4f} "
@@ -1169,7 +1181,33 @@ def check_paged_kernel(device, peaks):
               f"live rows, {row['bytes']} B) | lens "
               f"{_kv_lens(LM_MAX_LEN)} pools ({N_PAGES}, {PAGE_SIZE}, 5, 64)",
               flush=True)
+    # Head dim 112 (zamba2-7b's), which pages on the card since the split
+    # kernels: bf16 and int8 pools with bf16 q, checked, not timed.
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_plan, paged_decode_attention_cuda,
+        paged_decode_attention_plain)
+    for i, pool_dtype in enumerate((torch.bfloat16, torch.int8)):
+        gen = torch.Generator(device=device).manual_seed(SEED + 110 + i)
+        q, kp, vp, table, kv_len, scales = paged_operands(
+            pool_dtype, torch.bfloat16, device, gen, D=112)
+        kw = dict(scale=112 ** -0.5, **scales)
+        err = max_err(paged_decode_attention_cuda(q, kp, vp, table, kv_len,
+                                                  **kw),
+                      paged_decode_attention_plain(q, kp, vp, table, kv_len,
+                                                   **kw), BF16_TOL)
+        rows[f"D112 {pool_dtype}"] = {"max_abs_err": err}
+        plan = decode_plan(*q.shape[:2], kp.shape[2], table.shape[1]
+                           * PAGE_SIZE, 112, q.dtype, kv_dtype=pool_dtype,
+                           page_size=PAGE_SIZE)
+        print(f"  paged_decode_attention D=112 {pool_dtype} pools, bf16 q, "
+              f"{plan_text(plan)}: err={err:.2e} (untimed)", flush=True)
     return rows
+
+
+def plan_text(plan) -> str:
+    """A decode plan as phase 4 prints it."""
+    return (f"plan {plan.splits} x {plan.split_rows} rows (tiles of "
+            f"{plan.tile_rows}), {plan.grid[0] * plan.grid[1]} CTAs")
 
 
 # (Bt, L, H, P, N, with h0, timed as): zamba2-7b's admission (h0 zero, as

@@ -25,7 +25,7 @@ from repro_torch.kernels.conv2d.kernel import (  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention)
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    decode_attention_cuda, decode_attention_plain,
+    decode_attention_cuda, decode_attention_plain, decode_plan,
     paged_decode_attention_cuda, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention.bwd_kernel import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_bwd_plain)
@@ -710,7 +710,11 @@ DECODE = [(8, 15, 5, 512, 64, [1, 37, 128, 200, 333, 448, 511, 512]),
           (3, 32, 8, 64, 128, [64, 1, 30]),
           (2, 4, 4, 16, 32, [3, 16]),
           (8, 32, 32, 512, 112, [1, 37, 128, 256, 511, 512, 512, 384]),
-          (2, 6, 2, 30, 112, [30, 9])]
+          (2, 6, 2, 30, 112, [30, 9]),
+          # 8 splits of 32 rows: 100 ends mid-split, 64 on a boundary
+          (4, 8, 2, 256, 64, [100, 64, 1, 256]),
+          # 528 pairs: one split of three tiles, a cluster of one CTA
+          (66, 8, 8, 96, 64, [1 + (37 * i) % 96 for i in range(66)])]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -736,7 +740,14 @@ def test_decode_kernel_matches_plain(dev, case, dt):
 # (B, Hq, Hkv, D, page_size, pages_per_slot, n_pages, kv_len per sequence)
 PAGED = [(8, 15, 5, 64, 16, 32, 257, [1, 37, 128, 256, 511, 512, 512, 384]),
          (3, 32, 8, 128, 16, 4, 13, [64, 1, 30]),
-         (2, 4, 4, 32, 4, 4, 9, [3, 16])]
+         (2, 4, 4, 32, 4, 4, 9, [3, 16]),
+         # 4 splits of 4 pages of 8 rows: 100 ends mid-split
+         (4, 8, 2, 64, 8, 16, 70, [100, 64, 1, 128]),
+         # 528 pairs: one split of 4 pages, a cluster of one CTA
+         (66, 16, 8, 64, 16, 4, 270, [1 + (23 * i) % 64 for i in range(66)]),
+         # head dims no power-of-two rule admits (zamba2-7b's 112)
+         (8, 15, 5, 112, 16, 32, 257, [1, 37, 128, 256, 511, 512, 512, 384]),
+         (3, 6, 2, 96, 16, 8, 30, [128, 17, 64])]
 # pool type -> q types served with it
 PAGED_TYPES = {"f32": ("f32",), "bf16": ("bf16",), "int8": ("f32", "bf16")}
 
@@ -780,6 +791,46 @@ def test_paged_decode_kernel_matches_plain(dev, case, types):
                                        scale=D ** -0.5, **kw)
     tol = DTYPES[q_dt][1]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _decode_calls(dev):
+    """The smollm-360m tick's contiguous and paged (int8 pools) calls, each
+    split several ways, as zero-argument callables."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, Hq, Hkv, S, D, lens = DECODE[0]
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
+    ck, cv = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+    assert decode_plan(B, Hq, Hkv, S, D, dtype).splits > 1
+    pq, kp, vp, table, pl, kw = paged_case(dev, 0, "int8", "bf16")
+    return (lambda: decode_attention_cuda(q, k, v, kv_len, scale=D ** -0.5),
+            lambda: paged_decode_attention_cuda(pq, kp, vp, table, pl,
+                                                scale=D ** -0.5, **kw))
+
+
+def test_decode_kernels_repeat_bit_for_bit(dev):
+    """The splits merge in a fixed order: two calls, the same bits."""
+    for call in _decode_calls(dev):
+        first = call()
+        for _ in range(3):
+            assert torch.equal(call(), first)
+
+
+def test_decode_kernels_replay_in_a_cuda_graph(dev):
+    """A captured call replays equal to the eager one: the wrappers read
+    neither kv_len nor the table on the host (no sync to capture)."""
+    for call in _decode_calls(dev):
+        eager = call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 def test_paged_op_dispatches_to_the_kernel(dev):
