@@ -22,7 +22,10 @@ exits non-zero before the last line is printed.  Phases:
    reading.  A materialized conv also prints the strip copy's own time,
    the maps' bytes against the strip buffer's, and the HBM bytes
    ``core/dataflow.py::conv_strip_traffic`` models for it; its bound
-   counts the strip buffer read once and only the OH rows' FLOPs;
+   counts the strip buffer read once and only the OH rows' FLOPs.  Each
+   conv row ends with ``conv_plan``'s launch (pixel tile, splits and
+   slices of K, CTAs, a fused pool's pooled tile and conv region); the
+   kernels' ptxas lines (registers, spills) print after the build;
 4. every distinct flash-attention, decode-attention and matmul op of the
    smollm-360m (prefill, decode) Program pair at full width, 8 slots,
    max_len 512, of the same pair with a 128-row window, and of the
@@ -533,6 +536,18 @@ def cudnn_conv(op, x, w, bias, byp, stride: int, pad: int, pool):
     return library
 
 
+def conv_plan_text(g, *operands) -> str:
+    """``conv_plan``'s launch of geometry ``g`` on these operands: pixel
+    tile, splits, CTAs and, with a fused pool, the pooled tile."""
+    from repro_torch.kernels.conv2d.kernel import conv_plan
+    plan = conv_plan(g, aligned=all(t.data_ptr() % 16 == 0
+                                    for t in operands))
+    pool = (f" pooled {plan.tile_r}x{plan.tile_c} (conv {plan.conv_r}x"
+            f"{plan.conv_c})" if plan.tile_r else "")
+    return (f"plan: {plan.bm}-pixel tiles, {plan.splits} splits of "
+            f"{plan.kps}/{plan.k_slices} slices, {plan.ctas} CTAs{pool}")
+
+
 def conv_case(op, x, p, byp):
     from repro_torch.kernels.conv2d.kernel import (conv2d_virtual_cuda,
                                                    conv2d_virtual_plain)
@@ -557,7 +572,8 @@ def conv_case(op, x, p, byp):
     return "conv2d_virtual", err, kern, plain, library, flops, nbytes, (
         f"{tuple(x.shape)}*{tuple(p['w'].shape)} s{g.stride} p{g.pad} "
         f"rows={g.out_rows} kpt={g.kpt} pool={g.pool} "
-        f"bypass={byp is not None} {dataflow.name}")
+        f"bypass={byp is not None} {dataflow.name}; "
+        f"{conv_plan_text(g, x, p['w'])}")
 
 
 def strips_case(op, x, p, byp):
@@ -604,7 +620,8 @@ def strips_case(op, x, p, byp):
     return "conv2d_strips", err, kern, plain, library, flops, nbytes, (
         f"{tuple(x.shape)}*{tuple(p['w'].shape)} s{g.stride} p{g.pad} "
         f"rows={g.out_rows} kpt={g.kpt} strips={tuple(strips.shape)} "
-        f"bypass={byp is not None} {dataflow.name}"), copy, traffic
+        f"bypass={byp is not None} {dataflow.name}; "
+        f"{conv_plan_text(g, strips, p['w'])}"), copy, traffic
 
 
 def matmul_case(op, x, p, byp):

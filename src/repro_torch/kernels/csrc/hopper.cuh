@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// cp.async with zero-fill, ldmatrix, mma.sync m16n8k16 (bf16 -> f32),
-// mbarriers, TMA 2D tile loads, and wgmma (shared-memory descriptors for
-// 128-byte-swizzled tiles, m64n128k16 bf16 -> f32).  Each is one PTX
-// instruction or a short sequence of them; no library code is called.
+// cp.async (16 and 4 bytes) with zero-fill, ldmatrix, mma.sync m16n8k16
+// (bf16 -> f32) and m16n8k8 (tf32 -> f32), mbarriers, TMA 2D tile loads,
+// and wgmma (shared-memory descriptors for 128-byte-swizzled tiles,
+// m64n128k16 bf16 -> f32).  Each is one PTX instruction or a short
+// sequence of them; no library code is called.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap types only; nothing from libcuda
@@ -23,6 +24,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+// 4 bytes global -> shared (src 4-byte aligned), zero-filled when !pred.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(n)
                : "memory");
@@ -58,6 +68,19 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
                                                uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col).  Lane l, g = l/4,
+// t = l%4, holds a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]}, b =
+// {B[t][g], B[t+4][g]} and c = {C[g][2t], C[g][2t+1], C[g+8][2t],
+// C[g+8][2t+1]}.
+__device__ __forceinline__ void mma_tf32_1688(float* c, const uint32_t* a,
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -83,13 +83,16 @@ def test_editing_an_included_header_rebuilds(fake_toolkit, tmp_path,
     monkeypatch.setattr(common, "CSRC_DIR", csrc)
     assert b'#include "hopper.cuh"' in (csrc / "matmul.cu").read_bytes()
     common.build_kernels(["matmul"])
-    before, conv = common._lib_path("matmul"), common._lib_path("conv2d")
+    before, wkv = common._lib_path("matmul"), common._lib_path("wkv6")
+    conv = common._lib_path("conv2d")
     assert before.exists()
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("\n// an edited helper\n")
     after = common._lib_path("matmul")
     assert after != before and not after.exists()
-    assert common._lib_path("conv2d") == conv     # includes no header
+    assert common._lib_path("wkv6") == wkv        # includes no header
+    assert common._lib_path("conv2d") != conv     # hopper.cuh, through
+                                                  # conv_mma.cuh
     common._LIBS.clear()
     common.build_kernels(["matmul"])
     assert after.exists()

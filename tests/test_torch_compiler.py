@@ -21,7 +21,8 @@ from repro.models import cnn as jax_cnn  # noqa: E402
 from repro_torch.configs import CNN_REGISTRY  # noqa: E402
 from repro_torch.configs.base import CNNConfig, CNNLayer  # noqa: E402
 from repro_torch.core import SNOWFLAKE, TPU_V5E  # noqa: E402
-from repro_torch.kernels.conv2d.kernel import virtual_geometry  # noqa: E402
+from repro_torch.kernels.conv2d.kernel import (  # noqa: E402
+    conv_plan, virtual_geometry)
 from repro_torch.kernels.conv2d.ops import norm_pool  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 
@@ -161,6 +162,8 @@ def test_virtual_geometry_matches_reference_kernel_args(case, monkeypatch):
     # The strip table reaches exactly the rows the padded maps hold.
     assert (g.n_strips - 1) * g.out_rows * g.stride + g.in_rows <= g.Hp
     if g.pool is not None:
-        tile_r, tile_c = g.cuda_tile()
+        plan = conv_plan(g)
         pw, ps = g.pool[:2]
-        assert ((tile_r - 1) * ps + pw) * ((tile_c - 1) * ps + pw) <= 256
+        assert (plan.conv_r, plan.conv_c) == ((plan.tile_r - 1) * ps + pw,
+                                              (plan.tile_c - 1) * ps + pw)
+        assert plan.conv_r * plan.conv_c <= plan.bm <= 256

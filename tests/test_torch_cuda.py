@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import dataclasses  # noqa: E402
+import importlib  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -81,6 +82,16 @@ CONV = [
      "tanh"),
     ((1, 23, 23, 3), 11, 8, 4, 2, 5, 8, (3, 2, 0, "max"), False, True,
      "relu"),
+    # conv_plan's corners: kpt = 96 (a channel tile past a kpt tile), K =
+    # 576 (18 slices: 8 splits leave the last ones empty), pooled tiles
+    # ragged at the right and bottom edges (27 -> 13 pooled, 7 x 7 tiles),
+    # a whole-image pooled tile, K = 900 not a multiple of BK * splits.
+    ((1, 9, 9, 64), 3, 192, 1, 1, 4, 96, None, False, True, "relu"),
+    ((1, 27, 27, 12), 5, 72, 1, 2, 26, 72, (3, 2, 0, "max"), False, True,
+     "relu"),
+    ((2, 13, 13, 36), 3, 64, 1, 1, 12, 64, (3, 2, 0, "avg"), False, True,
+     "gelu"),
+    ((1, 7, 7, 100), 3, 68, 1, 1, 7, 68, None, True, False, None),
 ]
 
 
@@ -137,7 +148,8 @@ STRIPS_RAGGED = [((1, 39, 39, 3), (11, 11, 3, 16), 4, 2, 4, 11, False),
                  ((2, 13, 13, 16), (5, 5, 16, 16), 1, 2, 5, 2, True),
                  ((1, 14, 14, 8), (1, 1, 8, 16), 2, 0, 2, 64, False),
                  ((1, 11, 9, 5), (3, 3, 5, 13), 1, 1, 4, 5, True),
-                 ((2, 10, 10, 4), (5, 5, 4, 6), 2, 0, 3, 6, False)]
+                 ((2, 10, 10, 4), (5, 5, 4, 6), 2, 0, 3, 6, False),
+                 ((1, 7, 7, 64), (3, 3, 64, 96), 1, 1, 1, 1, True)]
 STRIPS_CASES = _snowflake_convs() + STRIPS_RAGGED
 
 
@@ -202,6 +214,113 @@ def test_prefetched_row_starts_equal_affine_offsets_bit_for_bit(dev, case):
         g, dev), **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(table, affine, rtol=0, atol=0)
+
+
+_CONV_KERNEL = importlib.import_module("repro_torch.kernels.conv2d.kernel")
+
+
+def _force_splits(monkeypatch, splits: int) -> None:
+    """Make conv_plan take one split (no SMs to fill) or as many as it may
+    (SMs without end: one slice a split at least)."""
+    monkeypatch.setattr(_CONV_KERNEL, "SMS", 0 if splits == 1 else 10 ** 9)
+
+
+def _conv_call(dev, case, seed=0):
+    """(zero-argument kernel call, its plain version, geometry) of CONV
+    case ``case``."""
+    xs, k, cout, stride, pad, rows, kpt, pool, has_byp, first, act = \
+        CONV[case]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(xs, generator=gen, device=dev)
+    w = torch.randn((k, k, xs[3], cout), generator=gen, device=dev) * 0.3
+    b = torch.randn(cout, generator=gen, device=dev)
+    g = virtual_geometry(xs, tuple(w.shape), stride=stride, pad=pad,
+                         out_rows=rows, kpt=kpt, pool=pool)
+    byp = (torch.randn((g.B, g.OH, g.OW, cout), generator=gen, device=dev)
+           if has_byp else None)
+    kw = dict(bias=b, activation=act, bypass=byp, bypass_first=first)
+    return (lambda: conv2d_virtual_cuda(x, w, g, **kw),
+            lambda: conv2d_virtual_plain(x, w, g, **kw), g)
+
+
+def _strips_call(dev, case, seed=0):
+    xs, ws, stride, pad, rows, kpt, has_byp = STRIPS_RAGGED[case]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(xs, generator=gen, device=dev)
+    w = torch.randn(ws, generator=gen, device=dev) * (
+        ws[0] * ws[1] * ws[2]) ** -0.5
+    b = torch.randn(ws[3], generator=gen, device=dev)
+    g = strips_geometry(xs, ws, stride=stride, pad=pad, out_rows=rows,
+                        kpt=kpt)
+    byp = (strip_bypass(torch.randn((g.B, g.OH, g.OW, g.Cout), generator=gen,
+                                    device=dev), g) if has_byp else None)
+    strips = materialize_strips(x, g)
+    kw = dict(bias=b, activation="relu", bypass=byp, bypass_first=False)
+    return (lambda: conv2d_strips_cuda(strips, w, g, **kw),
+            lambda: conv2d_strips_plain(strips, w, g, **kw), g)
+
+
+@pytest.mark.parametrize("splits", [1, 8])
+@pytest.mark.parametrize("case", range(len(CONV)))
+def test_conv2d_kernel_matches_plain_at_one_and_eight_splits(
+        dev, monkeypatch, case, splits):
+    """Every CONV case with one split, and with the most splits K allows
+    (8 where K has 8 slices or more: the merge in the cluster)."""
+    _force_splits(monkeypatch, splits)
+    kern, plain, g = _conv_call(dev, case, seed=case)
+    plan = _CONV_KERNEL.conv_plan(g)
+    k_slices = plan.k_slices
+    assert plan.splits == (1 if splits == 1 else
+                           min(8, 1 << (k_slices.bit_length() - 1)))
+    out = kern()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("splits", [1, 8])
+@pytest.mark.parametrize("case", range(len(STRIPS_RAGGED)))
+def test_conv2d_strips_kernel_matches_plain_at_one_and_eight_splits(
+        dev, monkeypatch, case, splits):
+    _force_splits(monkeypatch, splits)
+    kern, plain, g = _strips_call(dev, case, seed=case)
+    plan = _CONV_KERNEL.conv_plan(g)
+    assert plan.splits == (1 if splits == 1 else
+                           min(8, 1 << (plan.k_slices.bit_length() - 1)))
+    out = kern()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain(), rtol=TOL, atol=TOL)
+
+
+def _split_conv_calls(dev):
+    """A zero-copy (pooled, 8 splits) and a strips (4 splits) call as
+    conv_plan gives them, as zero-argument callables."""
+    kern, _, g = _conv_call(dev, 10, seed=5)
+    assert _CONV_KERNEL.conv_plan(g).splits > 1
+    skern, _, sg = _strips_call(dev, 5, seed=6)
+    assert _CONV_KERNEL.conv_plan(sg).splits > 1
+    return kern, skern
+
+
+def test_conv_kernels_repeat_bit_for_bit(dev):
+    """The splits merge in a fixed order: repeated calls, the same bits."""
+    for call in _split_conv_calls(dev):
+        first = call()
+        for _ in range(3):
+            assert torch.equal(call(), first)
+
+
+def test_conv_kernels_replay_in_a_cuda_graph(dev):
+    """A captured call replays equal to the eager one: the wrappers read
+    nothing on the host (no sync to capture)."""
+    for call in _split_conv_calls(dev):
+        eager = call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 def test_qmatmul_on_the_card_equals_the_cpu(dev):

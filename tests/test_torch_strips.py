@@ -25,9 +25,9 @@ from repro_torch.core import SNOWFLAKE, TPU_V5E  # noqa: E402
 from repro_torch.core.dataflow import Dataflow  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d_ref  # noqa: E402
 from repro_torch.kernels.conv2d.kernel import (  # noqa: E402
-    conv2d_strips_cuda, conv2d_strips_plain, launch_args,
-    materialize_strips, prefetch_row_starts, strip_bypass, strips_geometry,
-    strips_launch_args, unstrip, virtual_geometry)
+    conv2d_strips_cuda, conv2d_strips_plain, conv_plan, launch_args,
+    materialize_strips, plan_args, prefetch_row_starts, strip_bypass,
+    strips_geometry, strips_launch_args, unstrip, virtual_geometry)
 from repro_torch.kernels.conv2d.ops import (conv2d, norm_pool,  # noqa: E402
                                             strips_plan)
 from repro_torch.models import cnn  # noqa: E402
@@ -242,7 +242,8 @@ def test_strips_launch_args_check_the_operands():
                               bypass=sbyp, bypass_first=True,
                               dataflow=Dataflow.WEIGHTS_RESIDENT)
     assert args == [g.NS, g.in_rows, g.Wp, g.Cin, g.kh, g.kw, g.Cout,
-                    g.stride, g.out_rows, g.OW, 1, 1, 1]
+                    g.stride, g.out_rows, g.OW, 1, 1, 1] + plan_args(
+        conv_plan(g))
     with pytest.raises(TypeError, match="bypass must be float32"):
         strips_launch_args(strips, w, g, out, bypass=sbyp[:, :1])
     with pytest.raises(TypeError, match="strips must be float32"):
