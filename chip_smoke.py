@@ -25,7 +25,10 @@ exits non-zero before the last line is printed.  Phases:
    counts the strip buffer read once and only the OH rows' FLOPs.  Each
    conv row ends with ``conv_plan``'s launch (pixel tile, splits and
    slices of K, CTAs, a fused pool's pooled tile and conv region); the
-   kernels' ptxas lines (registers, spills) print after the build;
+   kernels' ptxas lines (registers, spills) print after the build.  Then
+   every conv of the alexnet-owt zero-copy and paper-faithful Programs
+   again in bf16 (maps, weights, bias, bypass), both kernels against
+   their plain versions at atol = rtol = 2^-7, untimed;
 4. every distinct flash-attention, decode-attention and matmul op of the
    smollm-360m (prefill, decode) Program pair at full width, 8 slots,
    max_len 512, of the same pair with a 128-row window, and of the
@@ -43,7 +46,9 @@ exits non-zero before the last line is printed.  Phases:
    card named, counting each input read once, each output written once
    and only the unmasked work (causal and window pairs, live cache
    rows).  Each decode row prints ``decode_plan``'s split (splits x
-   split rows, tile rows, CTAs).  The paged decode op runs at the same
+   split rows, tile rows, CTAs) and is also checked over a float8 e4m3
+   cache (the config's ``kv_dtype="float8"``) under bf16 q (2^-7) and
+   f32 q (1e-4).  The paged decode op runs at the same
    width and lengths over (257, 16, 5, 64) pools through a table of
    shuffled page ids, two pairs of sequences sharing pages: f32 (1e-4),
    bf16 (2^-7) and int8 pools with bf16 q (2^-7), each with its plan;
@@ -68,13 +73,19 @@ exits non-zero before the last line is printed.  Phases:
    against their plain versions (the sequential f32 recurrence), f32 at
    1e-4 and bf16 at 2^-7 (their f32 final states at 1e-4): mamba2_scan at
    zamba2-7b's admission (1, 512, 112, 64), N = 64, with and without h0,
-   its decode tick (8, 1, 112, 64) and an L of 300 (not a multiple of the
-   kernel's 64-step chunk), on strided column slices as the model hands
-   them; wkv6 at rwkv6-7b's admission (1, 512, 64, 64), with and without
-   s0, and a short L.  Timed at the served shapes in bf16; their bound
-   counts 5 N P (scan) or 5 D^2 (wkv) f32 FLOP per step and head and each
-   operand moved once; no PyTorch call computes either, so neither has a
-   library yardstick;
+   its decode tick (8, 1, 112, 64), an L of 300 (not a multiple of the
+   kernels' 64-step chunk) and L = 2048 (32 chunks), on strided column
+   slices as the model hands them; wkv6 at rwkv6-7b's admission (1, 512,
+   64, 64), with and without s0, a short L, L = 2048 and head dim 48.
+   Each case prints the plan it ran on (``ssd_plan``: step or chunked
+   path, chunks, CTAs, kernels; ``wkv_plan``: chunks, CTAs, rows a
+   thread).  The served shapes, L = 2048 and D = 48 are timed in bf16,
+   per launch; their bound counts 5 N P (scan) or 5 D^2 (wkv) f32 FLOP
+   per step and head and each operand moved once, and beside it the
+   chunk-form bound: the chunked scan's products at the TF32 tensor-core
+   rate (3xTF32 issues an f32 product three times, one with a bf16 side
+   twice), the chunked wkv's work at the f32 FMA rate.  No PyTorch call
+   computes either, so neither has a library yardstick;
    Each matmul row names the path ``matmul_plan`` gives it (skinny at
    M <= 64, wgmma for bf16 above, simt for the f32 checks at M = 512),
    and the bf16 matmul rows are summed per smollm-360m and zamba2-7b
@@ -258,7 +269,7 @@ KERNEL_OPS = ("matmul", "flash_attention", "decode_attention", "ssm_scan",
 # tensor cores, bf16 dense tensor cores).  Another card has no entry
 # here and the script stops rather than bound it by a wrong peak.
 PEAKS = {"NVIDIA H100 80GB HBM3": {"float32": 67e12, "bfloat16": 989e12,
-                                   "hbm": 3.35e12}}
+                                   "tfloat32": 495e12, "hbm": 3.35e12}}
 REPLACES = {"conv2d_virtual": "src/repro/kernels/conv2d/kernel.py:241",
             "conv2d_strips": "src/repro/kernels/conv2d/kernel.py:111",
             "matmul": "src/repro/kernels/matmul/kernel.py:79",
@@ -709,6 +720,66 @@ def check_kernels(device, peaks):
     return rows
 
 
+def check_bf16_convs(device):
+    """Phase 3's bf16 check: every conv of the alexnet-owt zero-copy and
+    SNOWFLAKE paper-faithful Programs again with its maps, weights, bias
+    and bypass in bf16, through the kernel (exact bf16 products, f32 sums,
+    one rounding) against its plain version (f32 sums, one rounding), at
+    atol = rtol = 2^-7.  Not timed.  Returns rows of (kernel, arch,
+    max_abs_err)."""
+    import torch
+    from repro_torch.core import SNOWFLAKE
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.kernels.conv2d.kernel import (
+        conv2d_strips_cuda, conv2d_strips_plain, conv2d_virtual_cuda,
+        conv2d_virtual_plain, materialize_strips, strip_bypass)
+    from repro_torch.kernels.conv2d.ops import (norm_pool, strips_plan,
+                                                virtual_plan)
+    bf = torch.bfloat16
+    rows = []
+    for label, hw, faithful in (("alexnet-owt", None, False),
+                                ("alexnet-owt@snowflake", SNOWFLAKE, True)):
+        for op, x, p, byp in op_cases(CNN_REGISTRY["alexnet-owt"], SLOTS,
+                                      device, hw=hw,
+                                      paper_faithful=faithful):
+            if op.kernel != "conv2d":
+                continue
+            xb, w = x.contiguous().to(bf), p["w"].to(bf)
+            yb = None if byp is None else byp.to(bf)
+            kw = dict(bias=p["b"].to(bf) if op.fuse_bias else None,
+                      activation=op.fuse_activation,
+                      bypass_first=op.bypass_first)
+            if op.strip_storage == "materialized":
+                g, dataflow = strips_plan(
+                    tuple(x.shape), tuple(w.shape), stride=op.stride,
+                    pad=op.pad, tiling=op.conv_tiling, dataflow=op.dataflow)
+                strips = materialize_strips(xb, g)
+                sbyp = None if yb is None else strip_bypass(yb, g)
+                name = "conv2d_strips"
+                got = conv2d_strips_cuda(strips, w, g, dataflow=dataflow,
+                                         bypass=sbyp, **kw)
+                want = conv2d_strips_plain(strips, w, g, bypass=sbyp, **kw)
+            else:
+                g, dataflow, _ = virtual_plan(
+                    tuple(x.shape), tuple(w.shape), stride=op.stride,
+                    pad=op.pad, pool=norm_pool(op.fuse_pool),
+                    has_bypass=yb is not None, tiling=op.conv_tiling,
+                    dataflow=op.dataflow)
+                name = "conv2d_virtual"
+                got = conv2d_virtual_cuda(xb, w, g, dataflow=dataflow,
+                                          bypass=yb, **kw)
+                want = conv2d_virtual_plain(xb, w, g, bypass=yb, **kw)
+            if got.dtype != bf:
+                fail(f"{name} {op.name} bf16 wrote {got.dtype}")
+            err = max_err(got, want, BF16_TOL)
+            rows.append({"kernel": name, "arch": f"{label} bf16",
+                         "op": op.name, "max_abs_err": err})
+            print(f"  {label:21s} {op.name:7s} {name:14s} bf16 err={err:.2e}"
+                  f" (max |out| {want.float().abs().max().item():.1f})",
+                  flush=True)
+    return rows
+
+
 def top2_ok(logits) -> "torch.Tensor":
     top = logits.topk(2, dim=-1).values
     return (top[:, 0] - top[:, 1]) > 1e-4
@@ -991,7 +1062,9 @@ def _kv_lens(cache: int):
     return lens[:SLOTS]
 
 
-def lm_decode_case(op, cache, dtype, device, gen):
+def lm_decode_case(op, cache, dtype, device, gen, kv_dtype=None):
+    """One decode op: q in ``dtype``, the cache in ``kv_dtype`` (default
+    ``dtype``; ``torch.float8_e4m3fn`` for the config's float8 caches)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1002,7 +1075,7 @@ def lm_decode_case(op, cache, dtype, device, gen):
                     device=device).to(dtype)
     # the (slots, rows, kv heads, D) cache regions, viewed (B, Hkv, S, D)
     ck, cv = (torch.randn((SLOTS, cache, a.kv_heads, a.head_dim),
-                          generator=gen, device=device).to(dtype)
+                          generator=gen, device=device).to(kv_dtype or dtype)
               for _ in range(2))
     k, v = ck.transpose(1, 2), cv.transpose(1, 2)
     lens = _kv_lens(cache)
@@ -1052,6 +1125,17 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
                 if taken != [want]:
                     fail(f"flash {desc} {dtype}: ran on {taken}, not "
                          f"{want}")
+        if kernel == "decode_attention":
+            # A float8 e4m3 cache (kv_dtype="float8") under bf16 and f32
+            # q: widened to f32 inside the kernel, the plain version on
+            # the same float8 values.
+            for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                               (torch.float32, TOL)):
+                gen = torch.Generator(device=device).manual_seed(SEED + i)
+                fp8 = lm_decode_case(op, shape[0], dtype, device, gen,
+                                     kv_dtype=torch.float8_e4m3fn)
+                errs.append(max_err(fp8[0](), fp8[1](), tol))
+            del fp8
         if kernel == "flash_attention":
             # bf16 on simt too, through operands off a 16-byte boundary.
             gen = torch.Generator(device=device).manual_seed(SEED + i)
@@ -1077,9 +1161,10 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
             extra = f" bf16 simt={errs[2]:.2e}"
         else:
             a = op.attn
-            extra = " " + plan_text(decode_plan(
-                SLOTS, a.heads, a.kv_heads, shape[0], a.head_dim,
-                torch.bfloat16))
+            extra = (f" float8 cache: bf16 q {errs[2]:.2e}, f32 q "
+                     f"{errs[3]:.2e}; " + plan_text(decode_plan(
+                         SLOTS, a.heads, a.kv_heads, shape[0], a.head_dim,
+                         torch.bfloat16)))
         rows[desc] = row
         print(f"  {name:16s} err f32={errs[0]:.2e} bf16={errs[1]:.2e}{extra} "
               f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
@@ -1228,24 +1313,79 @@ def plan_text(plan) -> str:
 
 
 # (Bt, L, H, P, N, with h0, timed as): zamba2-7b's admission (h0 zero, as
-# a prefill starts) and decode tick, and an L that is not a multiple of
-# the kernel's 64-step chunk.
+# a prefill starts) and decode tick, an L that is not a multiple of the
+# kernels' 64-step chunk, and a 2048-row prompt (32 chunks).
 SSD_CASES = [(1, 512, 112, 64, 64, False, "admission"),
              (1, 512, 112, 64, 64, True, None),
              (8, 1, 112, 64, 64, True, "tick"),
-             (1, 300, 112, 64, 64, True, None)]
-# (B, L, H, D, with s0, timed as): rwkv6-7b's admission, and a short L.
+             (1, 300, 112, 64, 64, True, None),
+             (1, 2048, 112, 64, 64, True, "L2048")]
+# (B, L, H, D, with s0, timed as): rwkv6-7b's admission, a short L, a
+# 2048-row prompt, and head dim 48 (no power of two).
 WKV_CASES = [(1, 512, 64, 64, False, "admission"),
-             (1, 512, 64, 64, True, None), (8, 5, 64, 64, True, None)]
+             (1, 512, 64, 64, True, None), (8, 5, 64, 64, True, None),
+             (1, 2048, 64, 64, True, "L2048"),
+             (1, 512, 64, 48, True, "D48")]
+
+
+def ssd_chunk_flops(Bt, L, H, P, N, dtype):
+    """(FLOP, TF32 tensor-core FLOP issued) of ``ssd_plan``'s chunked form:
+    per chunk of q rows, the local state (B o w)^T x (2 q N P), C B^T and
+    G x on the causal half (q (q + 1) N and q (q + 1) P) and C S (2 q N
+    P); 3xTF32 issues each f32 product three times, and a product with a
+    bf16 side (exact in TF32) twice, C B^T of bf16 operands once.  None
+    on the step path, which has no chunk products."""
+    import torch
+    from repro_torch.kernels.mamba2.kernel import ssd_plan
+    plan = ssd_plan(Bt, L, H, P, N, dtype)
+    if plan.path != "chunked":
+        return None
+    bf = dtype == torch.bfloat16
+    flops = issued = 0
+    for c in range(plan.n_chunks):
+        q = min(plan.chunk, L - c * plan.chunk)
+        parts = ((2 * q * N * P, 2 if bf else 3),
+                 (q * (q + 1) * N, 1 if bf else 3),
+                 (q * (q + 1) * P, 2 if bf else 3),
+                 (2 * q * N * P, 2 if bf else 3))
+        flops += sum(f for f, _ in parts)
+        issued += sum(f * n for f, n in parts)
+    return Bt * H * flops, Bt * H * issued
+
+
+def ssd_plan_text(case, dtype) -> str:
+    from repro_torch.kernels.mamba2.kernel import ssd_plan
+    plan = ssd_plan(*case[:5], dtype)
+    if plan.path == "step":
+        return (f"plan step: {plan.grid[0] * plan.grid[1]} CTAs, 1 kernel, "
+                f"{plan.smem[0]} B shared")
+    return (f"plan chunked: {plan.n_chunks} chunks of {plan.chunk}, "
+            f"{plan.grid[0] * plan.grid[1] * plan.grid[2]} CTAs a chunk "
+            f"kernel, pass {plan.pass_grid[0] * plan.pass_grid[1]} CTAs, "
+            f"cluster {plan.cluster}, {plan.kernels} kernels, shared "
+            f"{plan.smem[0]} / {plan.smem[1]} B")
+
+
+def wkv_plan_text(case, dtype) -> str:
+    from repro_torch.kernels.rwkv6.kernel import wkv_plan
+    plan = wkv_plan(*case[:4], dtype)
+    g = plan.local_grid
+    return (f"plan: {plan.n_chunks} chunks of {plan.chunk}, "
+            f"{g[0] * g[1] * g[2]} local CTAs ({g[0]} column blocks, "
+            f"{plan.rows} rows a thread), pass "
+            f"{plan.pass_grid[0] * plan.pass_grid[1]} CTAs, "
+            f"{plan.out_grid[0] * plan.out_grid[1] * plan.out_grid[2]} "
+            f"output CTAs, cluster {plan.cluster}, {plan.kernels} kernels")
 
 
 def ssd_case(case, dtype, device, gen):
     """One mamba2_scan check on the model's operands: x, B, C strided
     column slices of one (Bt, L, H*P + 2N) conv output, f32 dt from a
-    softplus, A < 0.  Returns (kern, plain, flops, bytes).  The bound
-    counts the recurrence's 5 N P f32 FLOP per step and head (decay,
-    outer-product update, read-out) and x, B, C, dt, A, h0 read and y and
-    the final state written once."""
+    softplus, A < 0.  Returns (kern, plain, flops, bytes, chunk-form
+    work as (peak name, FLOP issued) or None).  The bound counts the
+    recurrence's 5 N P f32 FLOP per step and head (decay, outer-product
+    update, read-out) and x, B, C, dt, A, h0 read and y and the final
+    state written once."""
     import torch
     from repro_torch.kernels.mamba2.kernel import (mamba2_scan_cuda,
                                                    mamba2_scan_plain)
@@ -1264,17 +1404,23 @@ def ssd_case(case, dtype, device, gen):
     es = x.element_size()
     nbytes = (es * (2 * Bt * L * H * P + 2 * Bt * L * N) + 4 * Bt * L * H
               + 4 * H + 4 * Bt * H * N * P * (2 if with_h0 else 1))
-    return kern, plain, 5 * N * P * Bt * L * H, nbytes
+    chunk = ssd_chunk_flops(Bt, L, H, P, N, dtype)
+    return kern, plain, 5 * N * P * Bt * L * H, nbytes, (
+        None if chunk is None else ("tfloat32", chunk[1]))
 
 
 def wkv_case(case, dtype, device, gen):
     """One wkv6 check: r, k, v, w (w = exp(-exp(.)) in (0, 1)) in the
     model's (B, L, H, D) layout, u (H, D).  Returns (kern, plain, flops,
-    bytes).  The bound counts 5 D^2 f32 FLOP per step and head (read-out
-    and decayed rank-1 update) and r, k, v, w, u, s0 read and y and the
-    final state written once."""
+    bytes, chunk-form work as (peak name, FLOP)).  The bound counts 5 D^2
+    f32 FLOP per step and head (read-out and decayed rank-1 update) and
+    r, k, v, w, u, s0 read and y and the final state written once; the
+    chunk form adds what the chunked kernels compute beyond it -- the
+    state pass (2 D^2 a chunk) and the output product (r o a)^T S (2 D^2
+    a step) -- at the f32 FMA rate."""
     import torch
-    from repro_torch.kernels.rwkv6.kernel import wkv6_cuda, wkv6_plain
+    from repro_torch.kernels.rwkv6.kernel import (wkv6_cuda, wkv6_plain,
+                                                  wkv_plan)
     B, L, H, D, with_s0, _ = case
 
     def rows():
@@ -1288,49 +1434,63 @@ def wkv_case(case, dtype, device, gen):
     plain = lambda: wkv6_plain(r, k, v, w, u, s0=s0)
     nbytes = (r.element_size() * (5 * B * L * H * D + H * D)
               + 4 * B * H * D * D * (2 if with_s0 else 1))
-    return kern, plain, 5 * D * D * B * L * H, nbytes
+    nc = wkv_plan(B, L, H, D, dtype).n_chunks
+    return kern, plain, 5 * D * D * B * L * H, nbytes, (
+        "float32", B * H * D * D * (7 * L + 2 * nc))
 
 
 def check_ssm_kernels(device, peaks):
     """Phase 4, the recurrent kernels: each case in f32 (atol = rtol =
     1e-4) and bf16 (2^-7, y; the f32 state at 1e-4), against the plain
-    version (the sequential f32 recurrence, y rounded once); the served
-    shapes timed in bf16.  No single PyTorch call computes either
-    function, so neither has a library yardstick.  Returns {kernel:
-    {"max_abs_err": e, "rows": {timed as: row}}}."""
+    version (the sequential f32 recurrence, y rounded once), with the
+    plan it ran on; the served shapes, L = 2048 and wkv6's D = 48 timed
+    in bf16, per launch, beside the plain version and the bounds.  No
+    single PyTorch call computes either function, so neither has a
+    library yardstick.  Returns {kernel: {"max_abs_err": e, "rows":
+    {timed as: row}}}."""
     import torch
     out = {}
-    for kernel, cases, make in (("mamba2_scan", SSD_CASES, ssd_case),
-                                ("wkv6", WKV_CASES, wkv_case)):
+    for kernel, cases, make, text in (
+            ("mamba2_scan", SSD_CASES, ssd_case, ssd_plan_text),
+            ("wkv6", WKV_CASES, wkv_case, wkv_plan_text)):
         errs, rows = [], {}
         for i, case in enumerate(cases):
             for dtype, tol in ((torch.float32, TOL),
                                (torch.bfloat16, BF16_TOL)):
                 gen = torch.Generator(device=device).manual_seed(
                     SEED + 300 + i)
-                kern, plain, flops, nbytes = make(case, dtype, device, gen)
+                kern, plain, flops, nbytes, chunk = make(case, dtype,
+                                                         device, gen)
                 (y, s), (y_ref, s_ref) = kern(), plain()
                 err = max(max_err(y, y_ref, tol), max_err(s, s_ref))
                 errs.append(err)
                 print(f"  {kernel} {case[:-1]} "
                       f"{str(dtype).removeprefix('torch.')}: max |err| "
-                      f"{err:.2e}", flush=True)
+                      f"{err:.2e}; {text(case, dtype)}", flush=True)
             timed = case[-1]
             if timed is not None:
                 # The plain version is a Python loop of ~6 ops per step:
-                # two calls (some 6,000 launches) in the timed graph.
+                # two calls (some 6,000 launches at L = 512) in the graph.
                 row = {"ms": time_ms(kern),
                        "plain_ms": time_ms(plain, reps=2, warmup=1),
                        "library_ms": None,
                        "flop_ms": flops / peaks["float32"] * 1e3,
                        "byte_ms": nbytes / peaks["hbm"] * 1e3,
+                       "chunk_ms": (None if chunk is None else
+                                    chunk[1] / peaks[chunk[0]] * 1e3),
                        "flops": flops, "bytes": nbytes}
                 row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
                 rows[timed] = row
+                chunk_ms = ("none (step path)" if chunk is None else
+                            f"{row['chunk_ms']:.4f}")
+                unit = "TF32 tensor-core" if kernel == "mamba2_scan" else \
+                    "f32 FMA"
                 print(f"  {kernel} bf16 {case[:-1]} ({timed}): "
-                      f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
-                      f"bound={row['bound_ms']:.4f} ({flops / 1e9:.3f} "
-                      f"GFLOP f32, {nbytes / 1e6:.2f} MB)", flush=True)
+                      f"ms={row['ms']:.4f} a launch, plain="
+                      f"{row['plain_ms']:.4f} bound={row['bound_ms']:.4f} "
+                      f"({flops / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.2f} "
+                      f"MB); chunk-form bound at the {unit} rate {chunk_ms}",
+                      flush=True)
             del kern, plain, y, s, y_ref, s_ref
         out[kernel] = {"max_abs_err": max(errs), "rows": rows}
     return out
@@ -2355,6 +2515,7 @@ def main() -> int:
                 print(f"  {lib} {kernel}: {line.strip()}")
 
     rows = check_kernels(device, peaks)
+    rows += check_bf16_convs(device)
     lm_rows, uses = check_lm_kernels(device, peaks)
     z_rows, z_uses = check_lm_kernels(device, peaks, "zamba2-7b")
     paged_rows = check_paged_kernel(device, peaks)

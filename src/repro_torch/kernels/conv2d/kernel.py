@@ -36,7 +36,10 @@ once), and split-K over the CTAs of one thread-block cluster, merged in
 split order through distributed shared memory: one launch, no
 workspace, the same bits from run to run.  ``conv_plan`` picks the tile,
 the pooled tile shape and the splits from shapes alone, so a launch
-reads nothing on the host and can be captured in a CUDA graph.
+reads nothing on the host and can be captured in a CUDA graph.  Both
+take f32 or bf16 operands (all of one type, as the reference takes the
+input's type): a bf16 value is exact in TF32, so its products need no
+split; the sums are f32 and the output is rounded to bf16 once.
 
 ``virtual_geometry`` is the one pure-Python home of the strip extents
 ``repro/kernels/conv2d/ops.py:152-174`` derives (``out_rows`` rounded to
@@ -72,6 +75,8 @@ __all__ = ["ConvPlan", "conv_plan", "VirtualGeometry", "virtual_geometry",
            "conv2d_strips_plain"]
 
 _POOL_CODES = {None: 0, "max": 1, "avg": 2}
+# The C launchers' suffix by operand type.
+_TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # The core's constants (csrc/conv_mma.cuh): channels a CTA tile holds, the
 # reduction slice, the ring's stages, the pixel tiles it is built for.
 BN, BK, STAGES = 64, 32, 3
@@ -316,9 +321,9 @@ def launch_args(x, w, g: VirtualGeometry, out, *, bias=None,
                 bypass_first: bool = False,
                 dataflow: Dataflow = Dataflow.MAPS_RESIDENT,
                 row_starts=None) -> list:
-    """Checks the operands and returns the ints ``conv2d_virtual_f32``
-    takes after the six pointers: the geometry, then ``conv_plan``'s
-    fields."""
+    """Checks the operands (all float32 or all bfloat16) and returns the
+    ints ``conv2d_virtual_f32`` / ``_bf16`` take after the six pointers:
+    the geometry, then ``conv_plan``'s fields."""
     if g.pool is not None and bypass is not None:
         raise ValueError("fused pool is not combinable with bypass")
     if row_starts is not None and (
@@ -336,9 +341,11 @@ def launch_args(x, w, g: VirtualGeometry, out, *, bias=None,
     if bypass is not None:
         want["bypass"] = (bypass, (g.B, g.OH, g.OW, g.Cout))
     for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
+        if (tuple(t.shape) != shape or t.dtype not in _TYPES
+                or t.dtype != x.dtype and name != "x"):
             raise TypeError(f"conv2d_virtual_cuda: {name} must be float32 "
-                            f"{shape}, got {t.dtype} {tuple(t.shape)}")
+                            f"or bfloat16 {shape} in x's type, got "
+                            f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"conv2d_virtual_cuda: {name} must be "
                              f"contiguous on {x.device}")
@@ -372,21 +379,22 @@ def conv2d_virtual_cuda(x, w, g: VirtualGeometry, *, bias=None,
                         bypass_first: bool = False,
                         dataflow: Dataflow = Dataflow.MAPS_RESIDENT,
                         row_starts=None) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors: x (B, H, W, Cin) f32
-    unpadded, w (kh, kw, Cin, Cout), bias (Cout,), bypass (B, OH, OW,
-    Cout), row_starts (n_strips,) int32 strip input rows in the padded
-    maps (``prefetch_row_starts``) or None for the affine offsets.
-    One launch on ``conv_plan``'s grid; ``launches`` counts it.  Returns
-    (B, OHo, OWo, Cout).  Raises on a CPU tensor."""
+    """Launch the CUDA kernel on CUDA tensors: x (B, H, W, Cin) f32 or
+    bf16 unpadded, w (kh, kw, Cin, Cout), bias (Cout,), bypass (B, OH,
+    OW, Cout), all in x's type, row_starts (n_strips,) int32 strip input
+    rows in the padded maps (``prefetch_row_starts``) or None for the
+    affine offsets.  One launch on ``conv_plan``'s grid; ``launches``
+    counts it.  Returns (B, OHo, OWo, Cout) in x's type.  Raises on a CPU
+    tensor."""
     if not x.is_cuda:
         raise RuntimeError("conv2d_virtual_cuda needs CUDA tensors, got "
                            f"one on {x.device}")
-    out = torch.empty((g.B, g.OHo, g.OWo, g.Cout), dtype=torch.float32,
+    out = torch.empty((g.B, g.OHo, g.OWo, g.Cout), dtype=x.dtype,
                       device=x.device)
     args = launch_args(x, w, g, out, bias=bias, activation=activation,
                        bypass=bypass, bypass_first=bypass_first,
                        dataflow=dataflow, row_starts=row_starts)
-    _call("conv2d", "conv2d_virtual_f32", [
+    _call("conv2d", f"conv2d_virtual_{_TYPES[x.dtype]}", [
         _ptr(x), _ptr(w), _ptr(bias), _ptr(bypass), _ptr(row_starts),
         _ptr(out)], args, x.device)
     conv2d_virtual_cuda.launches += 1
@@ -493,9 +501,9 @@ def strips_launch_args(strips, w, g: StripsGeometry, out, *, bias=None,
                        activation: str | None = None, bypass=None,
                        bypass_first: bool = False,
                        dataflow: Dataflow = Dataflow.MAPS_RESIDENT) -> list:
-    """Checks the operands and returns the ints ``conv2d_strips_f32``
-    takes after the five pointers: the geometry, then ``conv_plan``'s
-    fields."""
+    """Checks the operands (all float32 or all bfloat16) and returns the
+    ints ``conv2d_strips_f32`` / ``_bf16`` take after the five pointers:
+    the geometry, then ``conv_plan``'s fields."""
     want = {"strips": (strips, (g.NS, g.in_rows, g.Wp, g.Cin)),
             "w": (w, (g.kh, g.kw, g.Cin, g.Cout)),
             "out": (out, (g.NS, g.out_rows, g.OW, g.Cout))}
@@ -504,9 +512,11 @@ def strips_launch_args(strips, w, g: StripsGeometry, out, *, bias=None,
     if bypass is not None:
         want["bypass"] = (bypass, (g.NS, g.out_rows, g.OW, g.Cout))
     for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
+        if (tuple(t.shape) != shape or t.dtype not in _TYPES
+                or t.dtype != strips.dtype and name != "strips"):
             raise TypeError(f"conv2d_strips_cuda: {name} must be float32 "
-                            f"{shape}, got {t.dtype} {tuple(t.shape)}")
+                            f"or bfloat16 {shape} in the strips' type, got "
+                            f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous() or t.device != strips.device:
             raise ValueError(f"conv2d_strips_cuda: {name} must be "
                              f"contiguous on {strips.device}")
@@ -522,19 +532,20 @@ def conv2d_strips_cuda(strips, w, g: StripsGeometry, *, bias=None,
                        dataflow: Dataflow = Dataflow.MAPS_RESIDENT
                        ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors: strips (B*NS, in_rows, Wp,
-    Cin) f32 from ``materialize_strips``, w (kh, kw, Cin, Cout), bias
-    (Cout,), bypass (B*NS, out_rows, OW, Cout) from ``strip_bypass``.
-    One launch on ``conv_plan``'s grid; ``launches`` counts it.  Returns
-    (B*NS, out_rows, OW, Cout).  Raises on a CPU tensor."""
+    Cin) f32 or bf16 from ``materialize_strips``, w (kh, kw, Cin, Cout),
+    bias (Cout,), bypass (B*NS, out_rows, OW, Cout) from
+    ``strip_bypass``, all in the strips' type.  One launch on
+    ``conv_plan``'s grid; ``launches`` counts it.  Returns (B*NS,
+    out_rows, OW, Cout) in the strips' type.  Raises on a CPU tensor."""
     if not strips.is_cuda:
         raise RuntimeError("conv2d_strips_cuda needs CUDA tensors, got "
                            f"one on {strips.device}")
-    out = torch.empty((g.NS, g.out_rows, g.OW, g.Cout), dtype=torch.float32,
+    out = torch.empty((g.NS, g.out_rows, g.OW, g.Cout), dtype=strips.dtype,
                       device=strips.device)
     args = strips_launch_args(strips, w, g, out, bias=bias,
                               activation=activation, bypass=bypass,
                               bypass_first=bypass_first, dataflow=dataflow)
-    _call("conv2d_strips", "conv2d_strips_f32", [
+    _call("conv2d_strips", f"conv2d_strips_{_TYPES[strips.dtype]}", [
         _ptr(strips), _ptr(w), _ptr(bias), _ptr(bypass), _ptr(out)], args,
         strips.device)
     conv2d_strips_cuda.launches += 1

@@ -68,7 +68,8 @@ def conv2d(x, w, *, stride: int = 1, pad: int = 0, bias=None,
     the schedule's resolved ``ConvTiling`` (as a ``core/program.py`` op
     carries it); when given, no tiling is re-derived here; without one
     the tiling is chosen for ``TPU_V5E``, the hardware the port's
-    Programs are compiled for.  The kernels are f32 only.
+    Programs are compiled for.  The kernels take f32 or bf16 operands,
+    all of x's type.
     """
     if strip_storage not in ("auto", "virtual", "materialized"):
         raise ValueError(f"strip_storage must be auto|virtual|materialized, "

@@ -1,4 +1,5 @@
-// Zero-copy row-strip implicit-GEMM conv2d for Hopper (sm_90a), f32.
+// Zero-copy row-strip implicit-GEMM conv2d for Hopper (sm_90a), f32 or
+// bf16.
 //
 // Replaces repro/kernels/conv2d/kernel.py::conv2d_virtual_pallas (line
 // 241; its pallas_call at 342/346).  The schedule's strip ownership is
@@ -81,14 +82,12 @@ struct VirtualRows {
   }
 };
 
-}  // namespace
-
-extern "C" {
-
-// a: the n_args ints conv2d/kernel.py::launch_args lists, in its order.
-int conv2d_virtual_f32(const float* x, const float* w, const float* bias,
-                       const float* bypass, const int* row_starts,
-                       float* out, const int* a, int n_args, void* stream) {
+// a: the n_args ints conv2d/kernel.py::launch_args lists, in its order;
+// the operands are all of type T.
+template <typename T>
+int run(const void* x, const void* w, const void* bias, const void* bypass,
+        const int* row_starts, void* out, const int* a, int n_args,
+        void* stream) {
   if (n_args != 36) return (int)cudaErrorInvalidValue;
   ConvParams p = {};
   p.x = x;
@@ -140,8 +139,27 @@ int conv2d_virtual_f32(const float* x, const float* w, const float* bias,
     return (int)cudaErrorInvalidValue;
   if (!p.pool_op && (long long)p.n_mt * bm < p.M)
     return (int)cudaErrorInvalidValue;
-  return conv_mma::launch<VirtualRows>(p, bm, va, vb, smem,
-                                       (cudaStream_t)stream);
+  return conv_mma::launch<T, VirtualRows>(p, bm, va, vb, smem,
+                                          (cudaStream_t)stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+int conv2d_virtual_f32(const float* x, const float* w, const float* bias,
+                       const float* bypass, const int* row_starts,
+                       float* out, const int* a, int n_args, void* stream) {
+  return run<float>(x, w, bias, bypass, row_starts, out, a, n_args, stream);
+}
+
+int conv2d_virtual_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                        const __nv_bfloat16* bias,
+                        const __nv_bfloat16* bypass, const int* row_starts,
+                        __nv_bfloat16* out, const int* a, int n_args,
+                        void* stream) {
+  return run<__nv_bfloat16>(x, w, bias, bypass, row_starts, out, a, n_args,
+                            stream);
 }
 
 const char* conv2d_error_string(int err) {

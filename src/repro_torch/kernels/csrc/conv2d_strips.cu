@@ -1,4 +1,5 @@
-// Materialized-strip implicit-GEMM conv2d for Hopper (sm_90a), f32.
+// Materialized-strip implicit-GEMM conv2d for Hopper (sm_90a), f32 or
+// bf16.
 //
 // Replaces repro/kernels/conv2d/kernel.py::conv2d_strips_pallas (line 111;
 // its pallas_call at 163), the paper-faithful baseline: the maps'
@@ -57,15 +58,12 @@ struct StripRows {
   }
 };
 
-}  // namespace
-
-extern "C" {
-
 // a: the n_args ints conv2d/kernel.py::strips_launch_args lists, in its
-// order.
-int conv2d_strips_f32(const float* strips, const float* w, const float* bias,
-                      const float* bypass, float* out, const int* a,
-                      int n_args, void* stream) {
+// order; the operands are all of type T.
+template <typename T>
+int run(const void* strips, const void* w, const void* bias,
+        const void* bypass, void* out, const int* a, int n_args,
+        void* stream) {
   if (n_args != 21) return (int)cudaErrorInvalidValue;
   ConvParams p = {};
   p.x = strips;
@@ -94,8 +92,25 @@ int conv2d_strips_f32(const float* strips, const float* w, const float* bias,
   p.kps = a[20];
   p.M = (long long)NS * p.out_rows * p.OW;
   if ((long long)p.n_mt * bm < p.M) return (int)cudaErrorInvalidValue;
-  return conv_mma::launch<StripRows>(p, bm, va, vb, smem,
-                                     (cudaStream_t)stream);
+  return conv_mma::launch<T, StripRows>(p, bm, va, vb, smem,
+                                        (cudaStream_t)stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+int conv2d_strips_f32(const float* strips, const float* w, const float* bias,
+                      const float* bypass, float* out, const int* a,
+                      int n_args, void* stream) {
+  return run<float>(strips, w, bias, bypass, out, a, n_args, stream);
+}
+
+int conv2d_strips_bf16(const __nv_bfloat16* strips, const __nv_bfloat16* w,
+                       const __nv_bfloat16* bias,
+                       const __nv_bfloat16* bypass, __nv_bfloat16* out,
+                       const int* a, int n_args, void* stream) {
+  return run<__nv_bfloat16>(strips, w, bias, bypass, out, a, n_args, stream);
 }
 
 const char* conv2d_strips_error_string(int err) {

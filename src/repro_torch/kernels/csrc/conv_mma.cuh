@@ -1,5 +1,7 @@
 // One implicit-GEMM core for the two conv kernels, zero-copy (conv2d.cu)
-// and materialized strips (conv2d_strips.cu), on Hopper (sm_90a), f32.
+// and materialized strips (conv2d_strips.cu), on Hopper (sm_90a), f32 or
+// bf16 operands (all of one type), summed in f32 and rounded once on the
+// store.
 // Each source supplies a Rows type that maps pixel m of a CTA's pixel tile
 // to where its im2col row starts in the input, and whether a tap of it
 // lies inside the maps; everything else is here.
@@ -50,15 +52,25 @@
 //   fastest: bias -> bypass if bypass_first -> activation -> bypass; with
 //   a pool the activated region (pixels outside the conv output hold the
 //   pool's identity, -inf for max and 0 for avg) is pooled in place.
+// * bf16 operands: a bf16 value is exact in TF32 (8 of its 11 bits), so
+//   the split's low parts are zero and one product a step is exact.  The
+//   gather widens each bf16 to f32 on its way into shared memory (a plain
+//   load and store, 8 bytes for four k when Cin % 4 == 0, else one
+//   element), so the ring, the fragments and the merge are the f32 ones;
+//   bias and bypass are read as bf16 and the output rounded to bf16 once
+//   after the epilogue (or the pool).
 //
 // conv_plan in kernels/conv2d/kernel.py picks BM, the pooled tile, the
 // splits and kps from shapes alone; the launcher checks the plan's shared
 // memory against its own count and launches the plan's grid as given.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include <cooperative_groups.h>
 
@@ -76,13 +88,14 @@ constexpr int BST = BN + 4;   // B row stride (floats): 272 B
 __host__ __device__ constexpr int threads_of(int bm) { return bm * 2; }
 
 // The launch: geometry, operands and conv_plan's fields.
+// The operands are all f32 or all bf16 (the kernel's T).
 struct ConvParams {
-  const float* x;  // maps (B, H, W, Cin) or strips (NS, in_rows, Wp, Cin)
-  const float* w;
-  const float* bias;
-  const float* bypass;
+  const void* x;  // maps (B, H, W, Cin) or strips (NS, in_rows, Wp, Cin)
+  const void* w;
+  const void* bias;
+  const void* bypass;
   const int* row_starts;  // zero-copy: (n_strips,) padded-map rows or null
-  float* out;
+  void* out;
   int Cin, kw, K, Cout;
   int n_mt, n_nt, splits, kps;
   int weights_resident, act, bypass_first;
@@ -111,6 +124,28 @@ __host__ __device__ constexpr int smem_bytes(int bm) {
 // bounds the registers a thread may take.
 __host__ __device__ constexpr int resident(int bm) {
   return (228 * 1024) / (smem_bytes(bm) + 1024);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+// Four bf16 (8 bytes, the first in the low half of .x) as f32, exactly.
+__device__ __forceinline__ float4 bf16x4_to_float4(uint2 raw) {
+  return make_float4(__uint_as_float(raw.x << 16),
+                     __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16),
+                     __uint_as_float(raw.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ float activate(float v, int act) {
@@ -157,12 +192,19 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 }
 
 // One CTA: tile blockIdx.x / splits, split rank blockIdx.x % splits (its
-// rank in the cluster).  Rows::row(p, mt, m, BM) gives pixel m's row
-// start as an int4 (.w = 1 for a real conv pixel); Rows::pixel(p, r, dy,
-// dx, &pix) the input pixel of tap (dy, dx), false outside the maps.
-template <int BM, bool VA, bool VB, typename Rows>
+// rank in the cluster); T the operands' type.  Rows::row(p, mt, m, BM)
+// gives pixel m's row start as an int4 (.w = 1 for a real conv pixel);
+// Rows::pixel(p, r, dy, dx, &pix) the input pixel of tap (dy, dx), false
+// outside the maps.
+template <typename T, int BM, bool VA, bool VB, typename Rows>
 __global__ void __launch_bounds__(threads_of(BM), resident(BM))
     conv_kernel(ConvParams p) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  const T* xg = static_cast<const T*>(p.x);
+  const T* wg = static_cast<const T*>(p.w);
+  const T* bias = static_cast<const T*>(p.bias);
+  const T* bypass = static_cast<const T*>(p.bypass);
+  T* out = static_cast<T*>(p.out);
   constexpr int THREADS = threads_of(BM);
   constexpr int WARPS_N = 2;
   constexpr int WN = BN / WARPS_N;       // 32 channels a warp
@@ -219,11 +261,20 @@ __global__ void __launch_bounds__(threads_of(BM), resident(BM))
       const int4 r = rows[m];
       long long pix = 0;
       const bool ok = kv && r.w && Rows::pixel(p, r, dy, dx, &pix);
-      const float* src = ok ? p.x + pix * p.Cin + ci : p.x;
-      if (VA)
-        hopper::cp_async16(As + m * AST + 4 * kc, src, ok);
-      else
-        hopper::cp_async4(As + m * AST + kc, src, ok);
+      const T* src = ok ? xg + pix * p.Cin + ci : xg;
+      float* dst = As + m * AST + (VA ? 4 * kc : kc);
+      if constexpr (F32) {
+        if (VA)
+          hopper::cp_async16(dst, src, ok);
+        else
+          hopper::cp_async4(dst, src, ok);
+      } else if (VA) {
+        *reinterpret_cast<float4*>(dst) =
+            ok ? bf16x4_to_float4(*reinterpret_cast<const uint2*>(src))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        *dst = ok ? to_f32(*src) : 0.f;
+      }
     }
     ak += BK;
     for (ci += BK; ci >= p.Cin; ci -= p.Cin)
@@ -236,11 +287,20 @@ __global__ void __launch_bounds__(threads_of(BM), resident(BM))
       const int kr = i2 / BC, j = i2 - kr * BC;
       const int kk = k0 + kr, n = n0 + (VB ? 4 * j : j);
       const bool ok = kk < k_end && n < p.Cout;
-      const float* src = ok ? p.w + (size_t)kk * p.Cout + n : p.w;
-      if (VB)
-        hopper::cp_async16(Bs + kr * BST + 4 * j, src, ok);
-      else
-        hopper::cp_async4(Bs + kr * BST + j, src, ok);
+      const T* src = ok ? wg + (size_t)kk * p.Cout + n : wg;
+      float* dst = Bs + kr * BST + (VB ? 4 * j : j);
+      if constexpr (F32) {
+        if (VB)
+          hopper::cp_async16(dst, src, ok);
+        else
+          hopper::cp_async4(dst, src, ok);
+      } else if (VB) {
+        *reinterpret_cast<float4*>(dst) =
+            ok ? bf16x4_to_float4(*reinterpret_cast<const uint2*>(src))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        *dst = ok ? to_f32(*src) : 0.f;
+      }
     }
   };
 
@@ -269,7 +329,8 @@ __global__ void __launch_bounds__(threads_of(BM), resident(BM))
     for (int kk = 0; kk < BK; kk += 8) {
       // The mma's k slots t and t + 4 take k = kk + 2t and kk + 2t + 1
       // (the same for A and B, so the sum is unchanged): a lane's two A
-      // values of a row are one 8-byte load.
+      // values of a row are one 8-byte load.  bf16 operands have no low
+      // part (al, bl zero), and one product is exact.
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
@@ -290,8 +351,10 @@ __global__ void __launch_bounds__(threads_of(BM), resident(BM))
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           float d[4] = {0.f, 0.f, 0.f, 0.f};
-          hopper::mma_tf32_1688(d, al[mi], bh[0], bh[1]);
-          hopper::mma_tf32_1688(d, ah[mi], bl[0], bl[1]);
+          if constexpr (F32) {
+            hopper::mma_tf32_1688(d, al[mi], bh[0], bh[1]);
+            hopper::mma_tf32_1688(d, ah[mi], bl[0], bl[1]);
+          }
           hopper::mma_tf32_1688(d, ah[mi], bh[0], bh[1]);
 #pragma unroll
           for (int v = 0; v < 4; ++v) acc[mi][nj][v] += d[v];
@@ -332,11 +395,11 @@ __global__ void __launch_bounds__(threads_of(BM), resident(BM))
       float v = 0.f;
       for (int r = 0; r < p.splits; ++r) v += recv[(r * BM + m) * CS + nl];
       const size_t o = (size_t)gm * p.Cout + c;
-      if (p.bias) v += p.bias[c];
-      if (p.bypass && p.bypass_first) v += p.bypass[o];
+      if (bias) v += to_f32(bias[c]);
+      if (bypass && p.bypass_first) v += to_f32(bypass[o]);
       v = activate(v, p.act);
-      if (p.bypass && !p.bypass_first) v += p.bypass[o];
-      p.out[o] = v;
+      if (bypass && !p.bypass_first) v += to_f32(bypass[o]);
+      out[o] = from_f32<T>(v);
     }
     return;
   }
@@ -349,7 +412,7 @@ __global__ void __launch_bounds__(threads_of(BM), resident(BM))
     const int c = c_lo + nl;
     float v = 0.f;
     for (int r = 0; r < p.splits; ++r) v += recv[(r * BM + m) * CS + nl];
-    if (c < p.Cout && p.bias) v += p.bias[c];
+    if (c < p.Cout && bias) v += to_f32(bias[c]);
     recv[m * CS + nl] = rows[m].w ? activate(v, p.act) : ident;
   }
   __syncthreads();
@@ -370,13 +433,14 @@ __global__ void __launch_bounds__(threads_of(BM), resident(BM))
         v = p.pool_op == 1 ? fmaxf(v, u) : v + u;
       }
     if (p.pool_op == 2) v = v / (float)(p.pw * p.pw);
-    p.out[(((size_t)pt.b * p.OHo + prow) * p.OWo + q) * p.Cout + c] = v;
+    out[(((size_t)pt.b * p.OHo + prow) * p.OWo + q) * p.Cout + c] =
+        from_f32<T>(v);
   }
 }
 
-template <int BM, bool VA, bool VB, typename Rows>
+template <typename T, int BM, bool VA, bool VB, typename Rows>
 int launch_tile(const ConvParams& p, cudaStream_t stream) {
-  auto kernel = conv_kernel<BM, VA, VB, Rows>;
+  auto kernel = conv_kernel<T, BM, VA, VB, Rows>;
   const int smem = smem_bytes(BM);
   cudaError_t e = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -397,19 +461,20 @@ int launch_tile(const ConvParams& p, cudaStream_t stream) {
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-template <int BM, typename Rows>
+template <typename T, int BM, typename Rows>
 int launch_vec(const ConvParams& p, bool va, bool vb, cudaStream_t s) {
   if (va)
-    return vb ? launch_tile<BM, true, true, Rows>(p, s)
-              : launch_tile<BM, true, false, Rows>(p, s);
-  return vb ? launch_tile<BM, false, true, Rows>(p, s)
-            : launch_tile<BM, false, false, Rows>(p, s);
+    return vb ? launch_tile<T, BM, true, true, Rows>(p, s)
+              : launch_tile<T, BM, true, false, Rows>(p, s);
+  return vb ? launch_tile<T, BM, false, true, Rows>(p, s)
+            : launch_tile<T, BM, false, false, Rows>(p, s);
 }
 
 // Launch conv_plan's grid: BM pixels a tile, splits a cluster; smem is the
-// plan's count of shared bytes, held to this file's.  Returns a
-// cudaError_t code (cudaErrorInvalidValue for a plan this core refuses).
-template <typename Rows>
+// plan's count of shared bytes, held to this file's; T the operands' type.
+// Returns a cudaError_t code (cudaErrorInvalidValue for a plan this core
+// refuses).
+template <typename T, typename Rows>
 int launch(const ConvParams& p, int bm, int va, int vb, int smem,
            cudaStream_t s) {
   const int sp = p.splits;
@@ -418,8 +483,8 @@ int launch(const ConvParams& p, int bm, int va, int vb, int smem,
       (va && p.Cin % 4) || (vb && p.Cout % 4))
     return (int)cudaErrorInvalidValue;
   switch (bm) {
-    case 64: return launch_vec<64, Rows>(p, va, vb, s);
-    case 256: return launch_vec<256, Rows>(p, va, vb, s);
+    case 64: return launch_vec<T, 64, Rows>(p, va, vb, s);
+    case 256: return launch_vec<T, 256, Rows>(p, va, vb, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

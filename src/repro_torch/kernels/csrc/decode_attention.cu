@@ -1,5 +1,5 @@
-// Single-token decode attention over a ring KV cache for Hopper (sm_90a),
-// f32 or bf16 operands.
+// Single-token decode attention over a ring KV cache for Hopper (sm_90a):
+// f32 or bf16 q and output, the cache in q's type or in float8 e4m3.
 //
 // Replaces repro/kernels/decode_attention/kernel.py::decode_attention_pallas:
 // for each sequence b, out[b, h] = softmax(q[b, h] . K[b, h/G, :kv_len[b]]
@@ -15,13 +15,18 @@
 // splits) CTAs, each serving a pair's G q heads over its span of rows,
 // row tiles of K and V double-buffered in shared memory by 16-byte
 // cp.async, the softmax taken once per tile, and a fixed-order merge of
-// the splits (one cluster) in distributed shared memory.  This file only says where a row lies: row r of pair (b, hk)
-// is at k + b*k_sb + hk*k_sh + r*k_ss (element strides, D contiguous,
+// the splits (one cluster) in distributed shared memory.  A float8 e4m3
+// cache is read in its own bytes (one an element, half of bf16's) and
+// widened to f32 as each chunk leaves shared memory, as the TPU kernel
+// casts each K/V tile to f32 inside the kernel.  This file only says
+// where a row lies: row r of pair (b, hk) is at k + b*k_sb + hk*k_sh +
+// r*k_ss (element strides, D contiguous,
 // 16-byte aligned rows), so the executor's transposed view of its (slots,
 // rows, kv heads, D) regions is read in place.  kv_len[b] must be >= 1
 // (the ring rule gives min(pos + 1, S)).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,9 +61,10 @@ struct RingRows {
   __device__ float v_scale(int) const { return 1.f; }
 };
 
-template <typename T>
-int run(const T* q, const T* k, const T* v, const int* kv_len, T* out,
-        const int* dims, const long long* strides, float scale, void* stream) {
+template <typename TQ, typename TKV>
+int run(const TQ* q, const void* k, const void* v, const int* kv_len,
+        TQ* out, const int* dims, const long long* strides, float scale,
+        void* stream) {
   SplitArgs p;
   p.q = q;
   p.out = out;
@@ -76,17 +82,17 @@ int run(const T* q, const T* k, const T* v, const int* kv_len, T* out,
   p.o_sb = strides[8];
   p.o_sh = strides[9];
   p.scale = scale;
-  typename RingRows<T>::Params rp;
-  rp.k = k;
-  rp.v = v;
+  typename RingRows<TKV>::Params rp;
+  rp.k = (const TKV*)k;
+  rp.v = (const TKV*)v;
   rp.k_sb = strides[2];
   rp.k_sh = strides[3];
   rp.k_ss = strides[4];
   rp.v_sb = strides[5];
   rp.v_sh = strides[6];
   rp.v_ss = strides[7];
-  return decode_split::launch<T, T, RingRows<T>>(p, rp, 0,
-                                                 (cudaStream_t)stream);
+  return decode_split::launch<TQ, TKV, RingRows<TKV>>(p, rp, 0,
+                                                     (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -100,7 +106,8 @@ int decode_attention_f32(const float* q, const float* k, const float* v,
                          const int* kv_len, float* out, const int* dims,
                          const long long* strides, float scale,
                          void* stream) {
-  return run<float>(q, k, v, kv_len, out, dims, strides, scale, stream);
+  return run<float, float>(q, k, v, kv_len, out, dims, strides, scale,
+                           stream);
 }
 
 int decode_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -108,8 +115,28 @@ int decode_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                           __nv_bfloat16* out, const int* dims,
                           const long long* strides, float scale,
                           void* stream) {
-  return run<__nv_bfloat16>(q, k, v, kv_len, out, dims, strides, scale,
-                            stream);
+  return run<__nv_bfloat16, __nv_bfloat16>(q, k, v, kv_len, out, dims,
+                                           strides, scale, stream);
+}
+
+// The same with a float8 e4m3 cache under an f32 or a bf16 q.
+int decode_attention_f32_e4m3(const float* q, const __nv_fp8_e4m3* k,
+                              const __nv_fp8_e4m3* v, const int* kv_len,
+                              float* out, const int* dims,
+                              const long long* strides, float scale,
+                              void* stream) {
+  return run<float, __nv_fp8_e4m3>(q, k, v, kv_len, out, dims, strides,
+                                   scale, stream);
+}
+
+int decode_attention_bf16_e4m3(const __nv_bfloat16* q,
+                               const __nv_fp8_e4m3* k,
+                               const __nv_fp8_e4m3* v, const int* kv_len,
+                               __nv_bfloat16* out, const int* dims,
+                               const long long* strides, float scale,
+                               void* stream) {
+  return run<__nv_bfloat16, __nv_fp8_e4m3>(q, k, v, kv_len, out, dims,
+                                           strides, scale, stream);
 }
 
 const char* decode_attention_error_string(int err) {

@@ -49,11 +49,18 @@
 //   exp2f.  All sums are f32 with one rounding at the end.  Tensor cores
 //   are not used: at G <= 8 the work is bound by bytes and latency.
 //
+// The cache's rows are f32, bf16, int8 (paged pools, with a page scale)
+// or float8 e4m3 (the contiguous kernel, under an f32 or bf16 q): each
+// 16-byte chunk is widened to f32 as it leaves shared memory, so the
+// cache is read in its own bytes and never cast in device memory.
+//
 // D is any multiple of 16 bytes of the cache element (VEC elements), up
-// to 32 * VEC (f32 <= 128, bf16 <= 256, int8 <= 512).
+// to 32 * VEC (f32 <= 128, bf16 <= 256, int8 and e4m3 <= 512).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -136,6 +143,27 @@ __device__ __forceinline__ void unpack16<int8_t>(const uint4& raw,
   unpack_i8x4(raw.z, out + 8);
   unpack_i8x4(raw.w, out + 12);
 }
+// Two float8 e4m3 values (the low byte first) as floats, exactly: the
+// hardware's e4m3x2 -> f16x2 conversion, then f16 -> f32.
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t v) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(v & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_fp8_e4m3>(const uint4& raw,
+                                                        float* out) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 lo = e4m3x2_to_float2(w[i]);
+    const float2 hi = e4m3x2_to_float2(w[i] >> 16);
+    out[4 * i] = lo.x;
+    out[4 * i + 1] = lo.y;
+    out[4 * i + 2] = hi.x;
+    out[4 * i + 3] = hi.y;
+  }
+}
 
 // Two neighbouring columns of a V row (one thread's share in the P V
 // step) as floats.
@@ -159,6 +187,13 @@ __device__ __forceinline__ void load_cols<int8_t>(const char* p, float* out) {
   const uint32_t u = *(const uint16_t*)p ^ 0x8080u;
   out[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u)) - 8388736.f;
   out[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541u)) - 8388736.f;
+}
+template <>
+__device__ __forceinline__ void load_cols<__nv_fp8_e4m3>(const char* p,
+                                                         float* out) {
+  const float2 v = e4m3x2_to_float2(*(const uint16_t*)p);
+  out[0] = v.x;
+  out[1] = v.y;
 }
 
 // Dynamic shared memory of one CTA, in bytes from its start: STAGES row

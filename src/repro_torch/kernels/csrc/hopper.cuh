@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // cp.async (16 and 4 bytes) with zero-fill, ldmatrix, mma.sync m16n8k16
-// (bf16 -> f32) and m16n8k8 (tf32 -> f32), mbarriers, TMA 2D tile loads,
+// (bf16 -> f32), m16n8k8 (tf32 -> f32) and m8n8k4 (f64), mbarriers, TMA 2D tile loads,
 // and wgmma (shared-memory descriptors for 128-byte-swizzled tiles,
 // m64n128k16 bf16 -> f32).  Each is one PTX instruction or a short
 // sequence of them; no library code is called.
@@ -84,6 +84,17 @@ __device__ __forceinline__ void mma_tf32_1688(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (8x8 f64) += a (8x4 f64, row) * b (4x8 f64, col), on the FP64 tensor
+// cores, products and sums in f64.  Lane l, g = l/4, t = l%4, holds a =
+// A[g][t], b = B[t][g] and c = {C[g][2t], C[g][2t+1]}.
+__device__ __forceinline__ void mma_f64_884(double* c, double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
 }
 
 // --- mbarrier ----------------------------------------------------------------

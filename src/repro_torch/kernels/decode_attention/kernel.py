@@ -5,7 +5,10 @@ and their plain versions.
 ``repro/kernels/decode_attention/kernel.py::decode_attention_pallas``
 (its ``pallas_call`` at line 100): one query token per sequence against
 its ring KV cache, rows at or past the per-sequence ``kv_len`` unread.
-The source is ``csrc/decode_attention.cu``.
+The cache is in q's type or in float8 e4m3 (``kv_dtype="float8"``),
+read in its own bytes and widened to f32 inside the kernel, as the
+reference casts each K/V tile to f32 inside its kernel.  The source is
+``csrc/decode_attention.cu``.
 
 ``paged_decode_attention_cuda`` replaces ``paged_decode_attention_pallas``
 (its ``pallas_call`` at line 222): the same decode with each sequence's
@@ -54,9 +57,10 @@ MAX_SPLITS = 8                  # CTAs of one cluster (csrc/decode_split.cuh)
 _CONTIGUOUS = "decode_attention_cuda"
 _PAGED = "paged_decode_attention_cuda"
 # The paged kernel's operand type codes (csrc/paged_decode_attention.cu);
-# the contiguous kernel takes the q types for the cache too.
+# the contiguous kernel takes the cache in q's type or in float8 e4m3.
 _PAGED_Q = {torch.float32: 0, torch.bfloat16: 1}
 _PAGED_KV = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+E4M3 = torch.float8_e4m3fn
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -80,7 +84,8 @@ def decode_plan(B: int, Hq: int, Hkv: int, cache_len: int, D: int, dtype,
                 *, kv_dtype=None, page_size: int | None = None) -> DecodePlan:
     """The split and tile for a decode of q (B,Hq,D) in ``dtype`` against
     ``cache_len`` cache rows per sequence of ``kv_dtype`` (default
-    ``dtype``), paged when ``page_size`` is given.  From shapes alone:
+    ``dtype``; contiguous caches may also be float8 e4m3), paged when
+    ``page_size`` is given.  From shapes alone:
     the pairs B * Hkv are split until the grid has ``TARGET_CTAS`` CTAs,
     at most ``MAX_SPLITS`` ways (a shape that has them already is not
     split).  A tile is 64 rows at a group of three or more q heads (a
@@ -101,6 +106,9 @@ def decode_plan(B: int, Hq: int, Hkv: int, cache_len: int, D: int, dtype,
     if page_size is not None and kv_dtype not in _PAGED_KV:
         raise TypeError(f"{name}: pools must be float32, bfloat16 or int8, "
                         f"got {kv_dtype}")
+    if page_size is None and kv_dtype not in (dtype, E4M3):
+        raise TypeError(f"{name}: k and v must be {dtype} or "
+                        f"{E4M3}, got {kv_dtype}")
     vec = 16 // torch.tensor([], dtype=kv_dtype).element_size()
     if D < 1 or D % vec or D > 32 * vec:
         raise ValueError(f"{name}: head dim {D} must be a multiple of {vec} "
@@ -123,8 +131,10 @@ def decode_plan(B: int, Hq: int, Hkv: int, cache_len: int, D: int, dtype,
     return DecodePlan(tile, split_rows, splits, (B * Hkv, splits))
 
 
-_LAUNCHERS = {torch.float32: "decode_attention_f32",
-              torch.bfloat16: "decode_attention_bf16"}
+_LAUNCHERS = {(torch.float32, torch.float32): "decode_attention_f32",
+              (torch.bfloat16, torch.bfloat16): "decode_attention_bf16",
+              (torch.float32, E4M3): "decode_attention_f32_e4m3",
+              (torch.bfloat16, E4M3): "decode_attention_bf16_e4m3"}
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -142,12 +152,13 @@ def _check(q, k, v, kv_len) -> DecodePlan:
         raise ValueError(f"decode_attention_cuda: q {tuple(q.shape)} and "
                          f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not "
                          f"form (B,Hq,D) x (B,Hkv,S,D)")
-    plan = decode_plan(B, Hq, k.shape[1], k.shape[2], D, q.dtype)
-    vec = 16 // q.element_size()
+    plan = decode_plan(B, Hq, k.shape[1], k.shape[2], D, q.dtype,
+                       kv_dtype=k.dtype)
+    vec = 16 // k.element_size()
     for name, t in (("k", k), ("v", v)):
-        if t.dtype != q.dtype or t.device != q.device:
+        if t.dtype != k.dtype or t.device != q.device:
             raise TypeError(f"decode_attention_cuda: {name} must be "
-                            f"{q.dtype} on {q.device}")
+                            f"{k.dtype} on {q.device}")
         if (t.stride(3) != 1 or t.data_ptr() % 16
                 or any(t.stride(i) % vec for i in range(3))):
             raise ValueError(f"decode_attention_cuda: {name}'s rows must "
@@ -162,8 +173,9 @@ def _check(q, k, v, kv_len) -> DecodePlan:
 def decode_attention_cuda(q, k, v, kv_len, *, scale: float):
     """Launch the CUDA kernels: q (B,Hq,D), k and v (B,Hkv,S,D) with
     contiguous, 16-byte aligned rows (any other strides), kv_len (B,)
-    int32 with every entry >= 1, all on the card; float32 or bfloat16.
-    One launch on ``decode_plan``'s grid; ``launches`` counts it.
+    int32 with every entry >= 1, all on the card; q float32 or bfloat16,
+    k and v in q's type or float8 e4m3 (``torch.float8_e4m3fn``).  One
+    launch on ``decode_plan``'s grid; ``launches`` counts it.
     Returns (B,Hq,D) in q's type.  Raises on a CPU tensor."""
     plan = _check(q, k, v, kv_len)
     B, Hq, D = q.shape
@@ -175,7 +187,7 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale: float):
         q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(1))
     lib = load_library("decode_attention")
-    fn = getattr(lib, _LAUNCHERS[q.dtype])
+    fn = getattr(lib, _LAUNCHERS[q.dtype, k.dtype])
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

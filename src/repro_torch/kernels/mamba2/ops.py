@@ -19,8 +19,8 @@ def mamba2_scan(x, dt, A, B, C, *, D_skip=None, h0=None,
     impl: "auto" (the CUDA kernel on a CUDA tensor, the block-parallel
     ``mamba2_scan_chunked`` on a CPU one) | "cuda" | "reference" (the
     chunked form, in chunks of ``min(chunk, 256)``) | "sequential" (the
-    step-by-step oracle).  The kernel picks its own chunk (shared memory
-    bounds it; see kernel.py) and needs none to divide L.  Its branch adds
+    step-by-step oracle).  The kernels take their chunk from
+    ``kernel.ssd_plan`` and need none to divide L.  Their branch adds
     D-skip after the kernel as the reference's Pallas branch does: the
     product in f32, rounded to y's type, then added."""
     if impl == "sequential":

@@ -18,8 +18,8 @@ def wkv6(r, k, v, w, u, *, s0=None, return_state: bool = False,
     impl: "auto" (the CUDA kernel on a CUDA tensor, the block-parallel
     ``wkv6_chunked`` on a CPU one) | "cuda" | "reference" (the chunked
     form) | "sequential" (the step-by-step oracle).  The reference's
-    Pallas branch takes a VMEM chunk; the CUDA kernel walks every step
-    in order and takes none."""
+    Pallas branch takes a VMEM chunk; the CUDA kernels take theirs from
+    ``kernel.wkv_plan``."""
     if impl == "sequential":
         return wkv6_ref(r, k, v, w, u, s0=s0, return_state=return_state)
     if not use_kernel(impl, r):

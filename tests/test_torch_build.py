@@ -90,9 +90,15 @@ def test_editing_an_included_header_rebuilds(fake_toolkit, tmp_path,
         f.write("\n// an edited helper\n")
     after = common._lib_path("matmul")
     assert after != before and not after.exists()
-    assert common._lib_path("wkv6") == wkv        # includes no header
     assert common._lib_path("conv2d") != conv     # hopper.cuh, through
                                                   # conv_mma.cuh
+    assert common._lib_path("wkv6") != wkv        # through chunk_mma.cuh
+    # A header only the recurrent kernels include: the others keep theirs.
+    wkv = common._lib_path("wkv6")
+    with open(csrc / "stage.cuh", "a") as f:
+        f.write("\n// an edited stage\n")
+    assert common._lib_path("wkv6") != wkv
+    assert common._lib_path("matmul") == after
     common._LIBS.clear()
     common.build_kernels(["matmul"])
     assert after.exists()

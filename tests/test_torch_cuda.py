@@ -301,6 +301,57 @@ def _split_conv_calls(dev):
     return kern, skern
 
 
+@pytest.mark.parametrize("case", range(len(CONV)))
+def test_conv2d_kernel_takes_bf16(dev, case):
+    """Every CONV case with bf16 maps, weights, bias and bypass: the
+    products of bf16 values are exact in TF32, the sums f32, the output
+    rounded to bf16 once, against the plain version's one rounding (a
+    fused avg pool rounds the conv before pooling there): the bf16 rule."""
+    xs, k, cout, stride, pad, rows, kpt, pool, has_byp, first, act = \
+        CONV[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+    bf = torch.bfloat16
+    x = torch.randn(xs, generator=gen, device=dev).to(bf)
+    w = (torch.randn((k, k, xs[3], cout), generator=gen, device=dev)
+         * 0.3).to(bf)
+    b = torch.randn(cout, generator=gen, device=dev).to(bf)
+    g = virtual_geometry(xs, tuple(w.shape), stride=stride, pad=pad,
+                         out_rows=rows, kpt=kpt, pool=pool)
+    byp = (torch.randn((g.B, g.OH, g.OW, cout), generator=gen,
+                       device=dev).to(bf) if has_byp else None)
+    kw = dict(bias=b, activation=act, bypass=byp, bypass_first=first)
+    out = conv2d_virtual_cuda(x, w, g, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == bf
+    torch.testing.assert_close(out.float(),
+                               conv2d_virtual_plain(x, w, g, **kw).float(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("case", range(len(STRIPS_RAGGED)))
+def test_conv2d_strips_kernel_takes_bf16(dev, case):
+    xs, ws, stride, pad, rows, kpt, has_byp = STRIPS_RAGGED[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+    bf = torch.bfloat16
+    x = torch.randn(xs, generator=gen, device=dev).to(bf)
+    w = (torch.randn(ws, generator=gen, device=dev)
+         * (ws[0] * ws[1] * ws[2]) ** -0.5).to(bf)
+    b = torch.randn(ws[3], generator=gen, device=dev).to(bf)
+    g = strips_geometry(xs, ws, stride=stride, pad=pad, out_rows=rows,
+                        kpt=kpt)
+    byp = (strip_bypass(torch.randn((g.B, g.OH, g.OW, g.Cout), generator=gen,
+                                    device=dev).to(bf), g)
+           if has_byp else None)
+    strips = materialize_strips(x, g)
+    kw = dict(bias=b, activation="relu", bypass=byp, bypass_first=False)
+    out = conv2d_strips_cuda(strips, w, g, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == bf
+    torch.testing.assert_close(
+        out.float(), conv2d_strips_plain(strips, w, g, **kw).float(),
+        rtol=BF16_TOL, atol=BF16_TOL)
+
+
 def test_conv_kernels_repeat_bit_for_bit(dev):
     """The splits merge in a fixed order: repeated calls, the same bits."""
     for call in _split_conv_calls(dev):
@@ -856,6 +907,28 @@ def test_decode_kernel_matches_plain(dev, case, dt):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", range(len(DECODE)))
+def test_decode_kernel_takes_a_float8_cache(dev, case, dt):
+    """A float8 e4m3 cache (the config's kv_dtype="float8") under an f32
+    or bf16 q: the kernel widens each row to f32 in shared memory; the
+    plain version reads the same float8 values as f32."""
+    dtype, tol = DTYPES[dt]
+    B, Hq, Hkv, S, D, lens = DECODE[case]
+    gen = torch.Generator(device=dev).manual_seed(100 + case)
+    q = torch.randn((B, Hq, D), generator=gen, device=dev).to(dtype)
+    ck, cv = (torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+              .to(torch.float8_e4m3fn) for _ in range(2))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+    n0 = decode_attention_cuda.launches
+    out = decode_attention_cuda(q, k, v, kv_len, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == n0 + 1 and out.dtype == dtype
+    ref = decode_attention_plain(q, k, v, kv_len, scale=D ** -0.5)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
 # (B, Hq, Hkv, D, page_size, pages_per_slot, n_pages, kv_len per sequence)
 PAGED = [(8, 15, 5, 64, 16, 32, 257, [1, 37, 128, 256, 511, 512, 512, 384]),
          (3, 32, 8, 128, 16, 4, 13, [64, 1, 30]),
@@ -1078,10 +1151,14 @@ def test_lm_paged_prefill_and_decode_kernels_match_plain(dev, kv_quant):
 
 
 # (Bt, L, H, P, N, with h0): zamba2-7b's prefill and decode shapes, an L
-# that is not a multiple of the kernel's 64-step chunk, mamba2's N = 128.
+# that is not a multiple of the kernel's 64-step chunk, mamba2's N = 128,
+# L = 2048 (32 chunks), the longest step path and the shortest chunked
+# one, widths that are not multiples of 16.
 SSD = [(1, 512, 112, 64, 64, False), (1, 512, 112, 64, 64, True),
        (8, 1, 112, 64, 64, True), (1, 300, 112, 64, 64, True),
-       (2, 77, 40, 64, 128, True), (2, 9, 3, 16, 16, False)]
+       (2, 77, 40, 64, 128, True), (2, 9, 3, 16, 16, False),
+       (1, 2048, 112, 64, 64, True), (3, 16, 8, 64, 64, True),
+       (3, 17, 8, 64, 64, False), (2, 100, 5, 24, 40, True)]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -1114,9 +1191,12 @@ def test_mamba2_scan_kernel_matches_plain(dev, case, dt):
     assert torch.equal(got, want)
 
 
-# (B, L, H, D, with s0): rwkv6-7b's prefill and decode shapes, a short L
+# (B, L, H, D, with s0): rwkv6-7b's prefill and decode shapes, a short L,
+# L = 2048 (32 chunks), head dims that are not powers of two (48, 96, 1)
 WKV = [(1, 512, 64, 64, False), (1, 512, 64, 64, True), (8, 1, 64, 64, True),
-       (2, 33, 4, 16, True), (1, 40, 2, 128, False), (3, 7, 5, 32, True)]
+       (2, 33, 4, 16, True), (1, 40, 2, 128, False), (3, 7, 5, 32, True),
+       (1, 2048, 64, 64, True), (2, 130, 4, 48, True), (1, 70, 3, 96, False),
+       (2, 20, 2, 1, True)]
 
 
 @pytest.mark.parametrize("dt", sorted(DTYPES))
@@ -1141,6 +1221,57 @@ def test_wkv6_kernel_matches_plain(dev, case, dt):
     torch.testing.assert_close(y.float(), ref_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(s, ref_s, rtol=TOL, atol=TOL)
     assert torch.equal(wkv6(r, k, v, w, u, s0=s0), y)
+
+
+def _recurrent_calls(dev):
+    """mamba2_scan at zamba2-7b's admission (chunked) and tick (step) and
+    wkv6 at rwkv6-7b's admission, bf16, as zero-argument callables."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bf = torch.bfloat16
+    calls = []
+    for Bt, L in ((1, 512), (8, 1)):
+        H, P, N = 112, 64, 64
+        xbc = torch.randn((Bt, L, H * P + 2 * N), generator=gen,
+                          device=dev).to(bf)
+        x = xbc[..., :H * P].reshape(Bt, L, H, P)
+        B, C = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dt_ = torch.nn.functional.softplus(
+            torch.randn((Bt, L, H), generator=gen, device=dev))
+        A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.5)
+        h0 = torch.randn((Bt, H, N, P), generator=gen, device=dev)
+        calls.append(lambda x=x, dt_=dt_, A=A, B=B, C=C, h0=h0:
+                     mamba2_scan_cuda(x, dt_, A, B, C, h0=h0))
+    r, k, v = (torch.randn((1, 512, 64, 64), generator=gen, device=dev)
+               .to(bf) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((1, 512, 64, 64), generator=gen,
+                                         device=dev) * 0.5)).to(bf)
+    u = torch.randn((64, 64), generator=gen, device=dev)
+    s0 = torch.randn((1, 64, 64, 64), generator=gen, device=dev)
+    calls.append(lambda: wkv6_cuda(r, k, v, w, u, s0=s0))
+    return calls
+
+
+def test_recurrent_kernels_repeat_bit_for_bit(dev):
+    """No atomics, a fixed order: repeated calls, the same bits."""
+    for call in _recurrent_calls(dev):
+        first = call()
+        for _ in range(3):
+            again = call()
+            assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+def test_recurrent_kernels_replay_in_a_cuda_graph(dev):
+    """A captured call (workspace from the graph's pool) replays equal to
+    the eager one: the wrappers read nothing on the host."""
+    for call in _recurrent_calls(dev):
+        eager = call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
 @pytest.mark.parametrize("name", ["zamba2-7b", "mamba2", "rwkv6-7b"])
