@@ -95,7 +95,24 @@ exits non-zero before the last line is printed.  Phases:
    times are summed per smollm-360m and zamba2-7b admission, the forward
    and the backward per training step, likewise;
 5. the main paths, each with the launch counters set to 0 just before
-   it and read just after.  The matmul wrapper's per-path counters must
+   it and read just after.  Every served Program run goes through the
+   executor's CUDA-graph runners (``graphed_runner``,
+   ``graphed_prefill_runner``, ``graphed_decode_runner``,
+   ``graphed_chunk_runner``): the first call of a shape eager, the
+   second captured and replayed, later ones replayed; the counters count
+   each replay's captured launches, so the exact counts below hold.
+   Each serving phase (5a-5e, 5g-5i) must show a captured graph for its
+   decode tick (a CNN tick's run; a prefill where two or more were made)
+   and is then served again under ``executor.disable_graphs()``: the
+   greedy streams (classes) must be identical, every logits row bitwise
+   equal for smollm-360m and alexnet-owt (no cuBLAS on their paths) and
+   within the teacher-forced replay's bound for zamba2-7b and rwkv6-7b
+   (cuBLAS in the projections), with the largest difference and the
+   first op that differs (one call rerun op by op, eagerly and through a
+   captured graph, from the same state) printed; the graphed and eager
+   served ms per call (mean and median) and the capture seconds print
+   side by side, and every smollm-360m phase's graphed median tick must
+   be below its eager one.  The matmul wrapper's per-path counters must
    show every decode tick (M = 8 slots) and every CNN FC layer on the
    skinny path, every admission and chunk (M = 512 rows a prompt) on
    wgmma, and no served call on simt; the flash wrappers' must show
@@ -189,8 +206,11 @@ exits non-zero before the last line is printed.  Phases:
    its largest magnitude) and the recurrent states each block writes at
    1e-4; the weights' parameter count, the persistent state
    by kind and the peak memory are printed;
-6. a ``kernels`` JSON line: per kernel, its launches on the main paths,
-   the max error over every checked op, and the times and bound summed
+6. the served ms per Program run, graphed against eager, beside each
+   run's kernel sum and the device-busy share (kernel sum over the
+   graphed median); then a ``kernels`` JSON line: per kernel, its
+   launches on the main paths, the max error over every checked op,
+   and the times and bound summed
    over one alexnet-owt batch-8 tick (conv2d_virtual), one SNOWFLAKE
    paper-faithful alexnet-owt batch-8 tick (conv2d_strips), one smollm-360m
    admission (flash_attention), one smollm-360m decode tick
@@ -221,6 +241,9 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4
 BF16_TOL = 2.0 ** -7
 SLOTS, REQUESTS, SEED = 8, 20, 0
+# The CNN phases serve their images this many times more on each engine
+# (graphed and eager), so their tick times are read over replays.
+CNN_REPEATS = 4
 LM_ARCH, LM_MAX_LEN, LM_WINDOW = "smollm-360m", 512, 128
 LM_ARGS = ["--arch", LM_ARCH, "--slots", str(SLOTS), "--max-len",
            str(LM_MAX_LEN), "--requests", "16", "--prompt-len", "32-448",
@@ -820,11 +843,14 @@ def serve_alexnet(device):
     from repro_torch.kernels.conv2d.kernel import conv2d_virtual_cuda
     from repro_torch.kernels.matmul.kernel import matmul_cuda
     from repro_torch.launch import serve
+    def run():
+        return serve.main(["--arch", "alexnet-owt", "--slots", str(SLOTS),
+                           "--requests", str(REQUESTS), "--seed", str(SEED)])
     conv2d_virtual_cuda.launches = 0
     matmul_cuda.launches = 0
     reset_matmul_paths()
-    res = serve.main(["--arch", "alexnet-owt", "--slots", str(SLOTS),
-                      "--requests", str(REQUESTS), "--seed", str(SEED)])
+    with Recorder() as rec:
+        res = run()
     launches = {"conv2d_virtual": conv2d_virtual_cuda.launches,
                 "matmul": matmul_cuda.launches}
     eng, done = res["engine"], res["done"]
@@ -842,7 +868,45 @@ def serve_alexnet(device):
     print(f"main path: {n_cmp}/{REQUESTS} class ids compared, all equal "
           f"to the plain path; {REQUESTS / res['seconds']:.1f} img/s "
           f"({res['seconds']:.3f} s)")
-    return launches, REQUESTS / res["seconds"]
+    graphed = cnn_against_eager("5a", run, res, rec)
+    return launches, REQUESTS / res["seconds"], graphed
+
+
+def cnn_against_eager(label, run, res, rec) -> dict:
+    """A CNN main path's run off a captured CUDA graph, then served
+    again eagerly: the same classes, every tick's logits bitwise equal
+    (no cuBLAS on the path), the served ms per tick of both side by
+    side.  Each engine then serves the same images ``CNN_REPEATS`` more
+    times (recorded too), so the tick times are read over replays and
+    not over the first call and the capture alone; one more tick is
+    profiled."""
+    import torch
+    from repro_torch.runtime import executor
+    from repro_torch.serving import Request
+
+    def again(res):
+        for _ in range(CNN_REPEATS):
+            for i, img in enumerate(res["images"]):
+                res["engine"].submit(Request(uid=i, prompt=img))
+            res["engine"].run_until_drained()
+    eng = res["engine"]
+    store = eng._infer.store(eng.params)
+    if not check_captured(label, store.graphs, ()):
+        fail(f"{label}: no CUDA graph was captured")
+    again(res)
+    with executor.disable_graphs(), Recorder() as erec:
+        eres = run()
+        again(eres)
+    if ([r.out_tokens for r in eres["done"]]
+            != [r.out_tokens for r in res["done"]]):
+        fail(f"{label}: the graphed and eager classes differ")
+    out = graphed_against_eager(label, store.capture_seconds, rec, erec,
+                                None, exact=True)
+    runner = executor.graphed_runner(eng.program, impl=eng.impl)
+    x = torch.zeros((SLOTS,) + res["images"][0].shape, device=eng.device)
+    out["profile"] = profile_replays(f"{label} tick", lambda: runner(
+        eng.params, x), out["graphed_run_median_ms"])
+    return out
 
 
 def serve_paper_faithful(device, virtual_img_s: float):
@@ -865,8 +929,12 @@ def serve_paper_faithful(device, virtual_img_s: float):
     for fn in counters.values():
         fn.launches = 0
     reset_matmul_paths()
-    res = serve.serve_cnn("alexnet-owt", slots=SLOTS, requests=REQUESTS,
-                          device=device, seed=SEED, program=program)
+
+    def run():
+        return serve.serve_cnn("alexnet-owt", slots=SLOTS, requests=REQUESTS,
+                               device=device, seed=SEED, program=program)
+    with Recorder() as rec:
+        res = run()
     launches = {k: fn.launches for k, fn in counters.items()}
     eng, done = res["engine"], res["done"]
     if eng.program is not program:
@@ -884,6 +952,7 @@ def serve_paper_faithful(device, virtual_img_s: float):
         fail(f"5i: launch counts {launches} != {want}")
     check_matmul_paths("5i paper-faithful", want["matmul"], 0)
     n_cmp = check_classes(res, device, "5i")
+    graphed = cnn_against_eager("5i", run, res, rec)
     img_s = REQUESTS / res["seconds"]
     tick_ms = 1e3 * res["seconds"] / eng.n_ticks
     print(f"5i paper-faithful: {n_cmp}/{REQUESTS} class ids compared, all "
@@ -904,7 +973,7 @@ def serve_paper_faithful(device, virtual_img_s: float):
     print("5i in turns: " + ", ".join(
         f"{k} {' and '.join(f'{v:.1f}' for v in vs)} img/s"
         for k, vs in turns.items()), flush=True)
-    return launches, img_s, tick_ms
+    return launches, img_s, tick_ms, graphed
 
 
 def resnet18_forward(device, hw=None, paper_faithful=False):
@@ -1888,6 +1957,11 @@ def train_lm(device, bwd_row):
 
 
 # Device-time groups of a profiled training step, by kernel name.
+# The port's serving kernels by name (csrc/*.cu), then the training
+# step's groups for what else a served call launches.
+SERVE_KERNELS = ("conv_kernel", "flash_kernel", "flash_mma_kernel",
+                 "matmul_kernel", "skinny_", "split_kernel",
+                 "splitk_reduce", "ssd_", "wgmma_bf16", "wkv_")
 KERNEL_GROUPS = (("flash forward (CUDA)", ("flash_kernel",
                                              "flash_mma_kernel")),
                  ("flash backward (CUDA)", ("dq_kernel", "dkv_kernel",
@@ -1899,6 +1973,10 @@ KERNEL_GROUPS = (("flash forward (CUDA)", ("flash_kernel",
                                              "logsumexp")),
                  ("index / scatter / gather", ("index", "scatter",
                                                "gather")))
+
+
+SERVE_GROUPS = (("the port's kernels (CUDA)", SERVE_KERNELS),
+                ) + KERNEL_GROUPS[2:]
 
 
 def profile_step(cfg, params, opt_state, device, step_ms):
@@ -1977,14 +2055,18 @@ def lm_sums(rows, uses, pname, kind, kernel):
 
 
 class Recorder:
-    """Wraps the executor's runners and page-table hand-offs while an LM
-    main path runs: keeps each call's inputs, in order, with the logits
-    rows the engine reads and the call's wall time up to a device
-    synchronise (page-table syncs and COW copies are kept to be replayed,
-    untimed)."""
+    """Wraps the executor's graphed runners and page-table hand-offs
+    while a main path runs: every runner an engine makes inside the
+    ``with`` records each call's inputs, in order, with the logits rows
+    the engine reads (a CNN run: its whole output) and the call's wall
+    time up to a device synchronise (page-table syncs and COW copies
+    are kept to be replayed, untimed)."""
 
-    NAMES = ("run_prefill", "run_prefill_chunk", "run_decode",
-             "sync_page_table", "apply_page_copies")
+    RUNNERS = {"graphed_prefill_runner": "prefill",
+               "graphed_chunk_runner": "chunk",
+               "graphed_decode_runner": "decode",
+               "graphed_runner": "run"}
+    NAMES = tuple(RUNNERS) + ("sync_page_table", "apply_page_copies")
 
     def __init__(self):
         from repro_torch.runtime import executor
@@ -1992,47 +2074,44 @@ class Recorder:
         self.orig = {n: getattr(executor, n) for n in self.NAMES}
         self.calls = []
 
-    def __enter__(self):
+    def _record(self, kind, dt, args, out):
         import numpy as np
-        import torch
-        orig = self.orig
-
-        def timed(fn, *args, **kw):
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0
-
-        def run_prefill(program, params, tokens, state, slot, length,
-                        write_from=0, *, impl="auto"):
-            out, dt = timed(orig["run_prefill"], program, params, tokens,
-                            state, slot, length, write_from, impl=impl)
-            self.calls.append(("prefill", dt,
-                               (tokens.clone(), slot, length, write_from),
+        if kind == "prefill":
+            _, tokens, _, slot, length, write_from = args
+            self.calls.append(("prefill", dt, (tokens.clone(), slot, length,
+                                               write_from),
                                {0: out[0, length - 1].clone()}))
-            return out
-
-        def run_prefill_chunk(program, params, tokens, state, slot, start,
-                              stop, length, write_from=None, *,
-                              impl="auto"):
-            out, dt = timed(orig["run_prefill_chunk"], program, params,
-                            tokens, state, slot, start, stop, length,
-                            write_from, impl=impl)
-            args = tuple(np.array(x) for x in (slot, start, stop, length,
-                                               write_from))
-            self.calls.append(("chunk", dt, (tokens.clone(),) + args, {
+        elif kind == "chunk":
+            tokens, rest = args[1], args[3:]
+            vecs = tuple(np.array(x) for x in rest)
+            self.calls.append(("chunk", dt, (tokens.clone(),) + vecs, {
                 i: out[i, n - 1].clone() for i, (s, n) in
-                enumerate(zip(args[2], args[3])) if s == n}))
-            return out
-
-        def run_decode(program, params, tokens, state, mask=None, *,
-                       impl="auto"):
-            out, dt = timed(orig["run_decode"], program, params, tokens,
-                            state, mask, impl=impl)
+                enumerate(zip(vecs[2], vecs[3])) if s == n}))
+        elif kind == "decode":
+            tokens, mask = args[1], args[3]
             self.calls.append(("decode", dt, (tokens.clone(), mask.clone()),
                                {i: out[i].clone() for i in
                                 mask.nonzero().flatten().tolist()}))
-            return out
+        else:
+            self.calls.append(("run", dt, (), {0: out.clone()}))
+
+    def __enter__(self):
+        import torch
+        orig = self.orig
+
+        def wrap(name, kind):
+            def factory(program, impl="auto"):
+                runner = orig[name](program, impl=impl)
+
+                def call(*args):
+                    t0 = time.perf_counter()
+                    out = runner(*args)
+                    torch.cuda.synchronize()
+                    self._record(kind, time.perf_counter() - t0, args, out)
+                    return out
+                call.store = getattr(runner, "store", None)   # CNN runs
+                return call
+            return factory
 
         def sync_page_table(state, pair, pool):
             if pool.dirty:
@@ -2043,11 +2122,10 @@ class Recorder:
             if copies:
                 self.calls.append(("copies", 0.0, list(copies), {}))
             return orig["apply_page_copies"](state, pair, copies)
-        wrappers = {"run_prefill": run_prefill,
-                    "run_prefill_chunk": run_prefill_chunk,
-                    "run_decode": run_decode,
-                    "sync_page_table": sync_page_table,
-                    "apply_page_copies": apply_page_copies}
+        wrappers = {name: wrap(name, kind)
+                    for name, kind in self.RUNNERS.items()}
+        wrappers.update(sync_page_table=sync_page_table,
+                        apply_page_copies=apply_page_copies)
         for n, fn in wrappers.items():
             setattr(self.ex, n, fn)
         return self
@@ -2059,9 +2137,13 @@ class Recorder:
     def count(self, kind: str) -> int:
         return sum(c[0] == kind for c in self.calls)
 
-    def ms(self, kind: str) -> float | None:
+    def ms(self, kind: str, stat=statistics.mean) -> float | None:
         times = [c[1] for c in self.calls if c[0] == kind]
-        return 1e3 * statistics.mean(times) if times else None
+        return 1e3 * stat(times) if times else None
+
+    def rows(self) -> list:
+        return [(i, c[0], c[3]) for i, c in enumerate(self.calls)
+                if c[0] in ("prefill", "chunk", "decode", "run")]
 
     def _plain_rows(self, eng):
         """The recorded calls again, in order, through the plain path on
@@ -2080,21 +2162,22 @@ class Recorder:
             if kind == "copies":
                 orig["apply_page_copies"](state, pair, args)
                 continue
+            tokens, args = args[0].to(eng.device), args[1:]
             if kind == "prefill":
-                tokens, slot, length, write_from = args
-                out = orig["run_prefill"](pair.prefill, eng.params, tokens,
+                slot, length, write_from = args
+                out = self.ex.run_prefill(pair.prefill, eng.params, tokens,
                                           state, slot, length, write_from,
                                           impl="reference")
                 want = {0: out[0, length - 1]}
             elif kind == "chunk":
-                tokens, slot, start, stop, length, write_from = args
-                out = orig["run_prefill_chunk"](
+                slot, start, stop, length, write_from = args
+                out = self.ex.run_prefill_chunk(
                     pair.prefill, eng.params, tokens, state, slot, start,
                     stop, length, write_from, impl="reference")
                 want = {i: out[i, length[i] - 1] for i in got}
             else:
-                tokens, mask = args
-                out = orig["run_decode"](pair.decode, eng.params, tokens,
+                mask = args[0].to(eng.device)
+                out = self.ex.run_decode(pair.decode, eng.params, tokens,
                                          state, mask, impl="reference")
                 want = {i: out[i] for i in got}
             rows.append((kind, {i: want[i].float().cpu().numpy()
@@ -2171,6 +2254,216 @@ class Recorder:
         return out
 
 
+@contextlib.contextmanager
+def op_outputs(ex, outs: list):
+    """Inside, every op the executor dispatches appends (op name, its
+    output) to ``outs``; under capture the outputs are the graph's own
+    buffers, which a replay fills."""
+    names = ("_run_op", "_run_attention", "_run_attention_chunk",
+             "_run_family_op", "_run_decode_attention",
+             "_run_decode_attention_paged")
+    orig = {n: getattr(ex, n) for n in names}
+
+    def wrap(fn):
+        def recorded(op, *args, **kw):
+            out = fn(op, *args, **kw)
+            outs.append((op.name, out[0] if isinstance(out, tuple) else out))
+            return out
+        return recorded
+    for n, fn in orig.items():
+        setattr(ex, n, wrap(fn))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(ex, n, fn)
+
+
+def first_differing_op(eng, rec, idx: int):
+    """Recorded call ``idx`` once eagerly and once through a captured
+    CUDA graph, on two copies of the state that the calls before it
+    leave (replayed eagerly, teacher-forced with the recorded inputs and
+    page-table decisions), every op's output recorded on both sides.
+    Returns (op name, max |diff|) of the first op whose outputs differ,
+    or None when all agree bit for bit."""
+    import torch
+    ex, pair, params, dev = rec.ex, eng.program, eng.params, eng.device
+    state = ex.init_program_state(pair, dev)
+
+    def ints(*xs):
+        return [torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(-1)
+                for x in xs]
+
+    def call(st, c):
+        """(fn, inputs) of a recorded Program run on state ``st``; a
+        table sync or page copy is applied and gives None."""
+        kind, _, args, _ = c
+        if kind == "table":
+            st.caches[pair.page_table_region].copy_(torch.from_numpy(args))
+            return None
+        if kind == "copies":
+            ex.apply_page_copies(st, pair, args)
+            return None
+        tokens = args[0].to(dev)
+        if kind == "prefill":
+            return (lambda t, *v: ex.run_prefill(
+                pair.prefill, params, t, st, *v), [tokens, *ints(*args[1:])])
+        if kind == "chunk":
+            return (lambda t, *v: ex.run_prefill_chunk(
+                pair.prefill, params, t, st, *v), [tokens, *ints(*args[1:])])
+        return (lambda t, m: ex.run_decode(pair.decode, params, t, st, m),
+                [tokens, args[1].to(dev)])
+
+    for c in rec.calls[:idx]:
+        run = call(state, c)
+        if run is not None:
+            run[0](*run[1])
+    twin = ex.ProgramState({r: t.clone() for r, t in state.caches.items()},
+                           state.lengths.clone())
+    eager, graphed = [], []
+    fn, inputs = call(state, rec.calls[idx])
+    with op_outputs(ex, eager):
+        fn(*inputs)
+    gfn, ginputs = call(twin, rec.calls[idx])
+    with op_outputs(ex, graphed):
+        graph = ex._Graph(gfn, ginputs, twin.graphs)
+    graph(ginputs)
+    torch.cuda.synchronize()
+    for (name, a), (_, b) in zip(eager, graphed):
+        if not torch.equal(a, b):
+            return name, (a.float() - b.float()).abs().max().item()
+    return None
+
+
+def graphed_against_eager(label, capture_s: float, rec, erec, eng_eager,
+                          exact: bool, bound: float = 0.0) -> dict:
+    """The graphed main path's recorded calls against the same requests
+    served under ``executor.disable_graphs()``: the same calls in the
+    same order, each logits row bitwise equal (``exact``: no cuBLAS on
+    the path) or within ``bound`` (the teacher-forced replay's gate),
+    with the largest difference and, where a row differs, the first op
+    that differs.  Prints both runs' served ms per call and the capture
+    seconds; returns them.  ``eng_eager`` (an LM engine, or None) runs
+    the op-by-op search for the first differing op."""
+    import numpy as np
+    got, want = rec.rows(), erec.rows()
+    if [(k, sorted(r)) for _, k, r in got] != [(k, sorted(r))
+                                                for _, k, r in want]:
+        fail(f"{label}: graphed and eager serving made other calls")
+    worst, first, n_rows = 0.0, None, 0
+    for (i, kind, g), (_, _, e) in zip(got, want):
+        for r in g:
+            a, b = g[r].float().cpu().numpy(), e[r].float().cpu().numpy()
+            diff = float(np.abs(a - b).max())
+            n_rows += 1
+            if diff or not np.array_equal(a, b):
+                worst = max(worst, diff)
+                first = i if first is None else first
+    where = ""
+    if first is not None and eng_eager is not None:
+        op = first_differing_op(eng_eager, rec, first)
+        where = (f"; first at call {first} ({rec.calls[first][0]}), first "
+                 f"differing op: " + (f"{op[0]} by {op[1]:.3e}" if op else
+                                      "none (the op-by-op rerun agrees)"))
+    print(f"{label}: graphed against eager (disable_graphs) serving: "
+          f"{n_rows} logits rows, largest difference {worst:.3e}{where}",
+          flush=True)
+    if exact and first is not None:
+        fail(f"{label}: graphed logits rows are not bitwise equal to the "
+             f"eager ones")
+    if worst > bound:
+        fail(f"{label}: graphed logits rows differ from the eager ones by "
+             f"{worst:.3e} > {bound:.3e}")
+    kinds = [k for k in ("run", "prefill", "chunk", "decode")
+             if rec.count(k)]
+    out = {"capture_s": capture_s}
+    for k in kinds:
+        for side, r in (("graphed", rec), ("eager", erec)):
+            out[f"{side}_{k}_ms"] = r.ms(k)
+            out[f"{side}_{k}_median_ms"] = r.ms(k, statistics.median)
+    print(f"{label}: served ms per call, graphed / eager: " + "; ".join(
+        f"{k} mean {out[f'graphed_{k}_ms']:.3f} / {out[f'eager_{k}_ms']:.3f}"
+        f", median {out[f'graphed_{k}_median_ms']:.3f} / "
+        f"{out[f'eager_{k}_median_ms']:.3f} ({rec.count(k)} calls)"
+        for k in kinds) + f"; capture {out['capture_s']:.3f} s", flush=True)
+    return out
+
+
+def served(stats, kind: str, kernel_ms: float | None = None) -> str:
+    """The served ms per call of ``kind``, graphed and eager (medians:
+    the steady state, past the first call's build and the capture), and
+    the device-busy share of the graphed median (the kernel sum over
+    it)."""
+    g = stats[f"graphed_{kind}_median_ms"]
+    e = stats[f"eager_{kind}_median_ms"]
+    busy = (f", device busy {100 * kernel_ms / g:.1f}% of the graphed"
+            if kernel_ms else "")
+    return f"served {g:.3f} ms graphed / {e:.3f} ms eager (medians{busy})"
+
+
+def profile_replays(label, call, served_ms: float, n: int = 3):
+    """``n`` more calls of a captured graph (``call()`` replays it)
+    under ``torch.profiler``: kernels and device ms per call by group,
+    and the device-busy share of the unprofiled graphed median
+    ``served_ms``.  Prints "not measured" when the profiler sees no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    groups, launches = Counter(), 0
+    for evt in prof.key_averages():
+        if "CUDA" not in str(evt.device_type):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        name = evt.key.lower()
+        group = next((g for g, keys in SERVE_GROUPS
+                      if any(k in name for k in keys)), "other elementwise")
+        groups[group] += us / 1e3 / n
+        launches += evt.count
+    total = sum(groups.values())
+    if total <= 0:
+        print(f"{label} profile: the profiler saw no device time; "
+              f"breakdown not measured")
+        return None
+    print(f"{label} profile: {launches // n} kernels and {total:.3f} ms of "
+          f"device time a call ({wall_ms:.3f} ms a call under the "
+          f"profiler) = {100 * total / served_ms:.1f}% of the unprofiled "
+          f"graphed median {served_ms:.3f} ms (device idle "
+          f"{100 * (1 - total / served_ms):.1f}%): " + ", ".join(
+              f"{g} {ms:.3f} ms" for g, ms in groups.most_common()),
+          flush=True)
+    return {"device_ms": total, "kernels": launches // n,
+            "groups": dict(groups), "busy": total / served_ms}
+
+
+def check_captured(label, graphs: dict, kinds) -> int:
+    """The main path ran off captured CUDA graphs: each kind in
+    ``kinds`` has one.  Returns the number captured."""
+    captured = [k for k, g in graphs.items() if g is not None]
+    for kind in kinds:
+        if not any(kind in k for k in captured):
+            fail(f"{label}: no CUDA graph was captured for {kind}")
+    return len(captured)
+
+
+def serve_eager(run):
+    """``run()`` again under ``executor.disable_graphs()``, recorded."""
+    from repro_torch.runtime import executor
+    with executor.disable_graphs(), Recorder() as rec:
+        res = run()
+    return res, rec
+
+
 def lm_counters():
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda, paged_decode_attention_cuda)
@@ -2243,6 +2536,11 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
                        passes * pre["matmul"])
     # Every served flash call is bf16 on aligned views: the mma path.
     check_flash_paths(label, want["flash_attention"], 0)
+    n_graphs = check_captured(label, eng.state.graphs.graphs,
+                              ("prefill", "decode")
+                              if rec.count("prefill") > 1 else ("decode",))
+    print(f"{label}: {n_graphs} CUDA graphs captured in "
+          f"{eng.capture_seconds:.3f} s")
     worst, n_rows, n_ids, spread, bound = rec.replay_plain(eng, arch)
     n_tok = sum(len(r.out_tokens) for r in done)
     stats = {"tok_s": n_tok / res["seconds"], "seconds": res["seconds"],
@@ -2250,7 +2548,9 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
              "chunk_ms": rec.ms("chunk"), "tick_ms": rec.ms("decode"),
              "prefills": rec.count("prefill"), "chunks": rec.count("chunk"),
              "ticks": ticks, "worst_logit_diff": worst,
-             "plain_spread": spread, "logit_bound": bound}
+             "plain_spread": spread, "logit_bound": bound,
+             "streams": [r.out_tokens for r in done],
+             "capture_s": eng.capture_seconds}
     per_call = " ".join(f"{k} {stats[k + '_ms']:.2f} ms per call,"
                         for k in ("prefill", "chunk") if stats[k + "_ms"])
     floor_note = ("" if spread is None else
@@ -2262,7 +2562,56 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
           f"equal; {stats['tok_s']:.1f} tok/s ({n_tok} tokens in "
           f"{res['seconds']:.3f} s); {per_call} decode tick "
           f"{stats['tick_ms']:.2f} ms mean", flush=True)
+    if label == "5b" or arch != LM_ARCH:
+        stats["profile"] = profile_lm(label, eng, rec)
+    if arch == LM_ARCH:
+        stats.update(check_eager(label, run, stats, rec, exact=True))
+        if stats["graphed_decode_median_ms"] >= stats[
+                "eager_decode_median_ms"]:
+            fail(f"{label}: the graphed decode tick is not faster than the "
+                 f"eager one")
     return launches, stats, eng, rec
+
+
+def profile_lm(label, eng, rec) -> dict:
+    """A captured decode tick (every slot dead: the same work) and a
+    captured admission (slot 0, a full-length prompt) replayed on the
+    served engine's state under ``profile_replays``, against the
+    graphed medians of the served calls."""
+    import torch
+    from repro_torch.runtime import executor
+    pair, state, params = eng.program, eng.state, eng.params
+    dec = executor.graphed_decode_runner(pair.decode, impl=eng.impl)
+    toks = torch.zeros((eng.slots,), dtype=torch.int32)
+    dead = torch.zeros((eng.slots,), dtype=torch.bool)
+    out = {"decode": profile_replays(
+        f"{label} decode tick", lambda: dec(params, toks, state, dead),
+        rec.ms("decode", statistics.median))}
+    if rec.count("prefill") > 1:
+        pre = executor.graphed_prefill_runner(pair.prefill, impl=eng.impl)
+        tokens = torch.zeros((1, eng.max_len), dtype=torch.int32)
+        out["prefill"] = profile_replays(
+            f"{label} admission",
+            lambda: pre(params, tokens, state, 0, eng.max_len, 0),
+            rec.ms("prefill", statistics.median))
+    return out
+
+
+def check_eager(label, run, stats, rec, exact: bool, bound: float = 0.0):
+    """The main path's requests served again eagerly
+    (``serve_eager``): identical greedy streams, and the logits rows
+    held by ``graphed_against_eager``.  Frees the eager engine."""
+    import gc
+    import torch
+    res, erec = serve_eager(run)
+    if [r.out_tokens for r in res["done"]] != stats["streams"]:
+        fail(f"{label}: the graphed and eager greedy streams differ")
+    out = graphed_against_eager(label, stats["capture_s"], rec, erec,
+                                res["engine"], exact, bound)
+    del res, erec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_paged(label: str):
@@ -2396,7 +2745,7 @@ def check_family_ops(label: str, eng, rec, arch: str) -> None:
                 prog, where = pair.decode, "first tick"
                 pos = state.lengths
                 rows = live = mask.to(device=pos.device, dtype=torch.bool)
-            regions = {prog.input_region: tokens}
+            regions = {prog.input_region: tokens.to(eng.device)}
             for op in prog.ops:
                 src = regions[op.in_region]
                 if op.kernel in ex._FAMILY_KERNELS:
@@ -2446,8 +2795,9 @@ def serve_family(label: str, arch: str):
     """Phases 5g and 5h: ``repro_torch.launch.serve --arch <arch>`` at full
     width and depth in bf16 (random weights from the seed), 8 slots,
     max_len 512, 8 prompts of 32-448 tokens, 32 new tokens each, through
-    ``serve_lm``'s launch, completion and replay checks.  Frees the
-    engine's weights and state before returning (launches, stats)."""
+    ``serve_lm``'s launch, completion and replay checks, then served
+    again eagerly once the graphed engine's weights and state are freed
+    (``check_eager``).  Returns (launches, stats)."""
     import gc
     import torch
     from repro_torch.launch import serve
@@ -2455,9 +2805,10 @@ def serve_family(label: str, arch: str):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     n = int(FAMILY_ARGS[FAMILY_ARGS.index("--requests") + 1])
-    launches, stats, eng, rec = serve_lm(
-        label, lambda: serve.main(["--arch", arch] + FAMILY_ARGS), n,
-        arch=arch)
+
+    def run():
+        return serve.main(["--arch", arch] + FAMILY_ARGS)
+    launches, stats, eng, rec = serve_lm(label, run, n, arch=arch)
     check_family_ops(label, eng, rec, arch)
     pair = eng.program
     state_mb = {}
@@ -2472,9 +2823,13 @@ def serve_family(label: str, arch: str):
               f"{k} {v:.2f} MB" for k, v in state_mb.items())
           + f"), peak memory allocated {stats['peak_gb']:.2f} GB",
           flush=True)
-    del eng, rec, pair
+    del eng, pair
     gc.collect()
     torch.cuda.empty_cache()
+    # cuBLAS runs the in / out projections, so the eager rows are held
+    # to the teacher-forced replay's gate, not bit for bit.
+    stats.update(check_eager(label, run, stats, rec, exact=False,
+                             bound=stats["logit_bound"]))
     return launches, stats
 
 
@@ -2521,10 +2876,11 @@ def main() -> int:
     paged_rows = check_paged_kernel(device, peaks)
     ssm = check_ssm_kernels(device, peaks)
     bwd_row = check_flash_bwd(device, peaks)
-    cnn_launches, img_s = serve_alexnet(device)
+    cnn_launches, img_s, cnn_graphed = serve_alexnet(device)
     resnet18_forward(device)
     from repro_torch.core import SNOWFLAKE
-    pf_launches, pf_img_s, pf_tick_ms = serve_paper_faithful(device, img_s)
+    pf_launches, pf_img_s, pf_tick_ms, pf_graphed = serve_paper_faithful(
+        device, img_s)
     n_strips = resnet18_forward(device, hw=SNOWFLAKE, paper_faithful=True)
     if n_strips != 20:
         fail(f"5i resnet18: {n_strips} strip launches, want 20")
@@ -2555,9 +2911,15 @@ def main() -> int:
         tick[kname] = {k: sum(r["uses"] * r[k] for r in mine) for k in keys}
         tick[kname]["launches"] = sum(r["uses"] for r in mine)
     ts, tm = tick["conv2d_strips"], tick["matmul@snowflake"]
+    pf_sum = ts["ms"] + ts["copy_ms"] + tm["ms"]
+    zc_sum = tick["conv2d_virtual"]["ms"] + tick["matmul"]["ms"]
+    print(f"alexnet-owt ticks: zero-copy {served(cnn_graphed, 'run', zc_sum)}"
+          f"; paper-faithful {served(pf_graphed, 'run', pf_sum)}; capture "
+          f"{cnn_graphed['capture_s']:.3f} and {pf_graphed['capture_s']:.3f}"
+          f" s")
     print(f"alexnet-owt SNOWFLAKE paper-faithful tick: served "
           f"{pf_tick_ms:.3f} ms against a device sum of "
-          f"{ts['ms'] + ts['copy_ms'] + tm['ms']:.3f} ms (conv2d_strips "
+          f"{pf_sum:.3f} ms (conv2d_strips "
           f"{ts['launches']} x = {ts['ms']:.4f} ms, bound "
           f"{ts['bound_ms']:.4f}, plain {ts['plain_ms']:.4f}, cuDNN "
           f"{ts['library_ms']:.4f}; strip copies {ts['copy_ms']:.4f} ms; "
@@ -2567,12 +2929,13 @@ def main() -> int:
           for p in ("full", "window") for kind in ("prefill", "decode")
           for k in ("flash_attention", "decode_attention", "matmul")}
     for p, stats in (("full", lm_stats), ("window", win_stats)):
-        for kind, key in (("prefill", "prefill_ms"), ("decode", "tick_ms")):
+        for kind in ("prefill", "decode"):
             ks = [lm[(p, kind, k)] for k in ("flash_attention",
                                              "decode_attention", "matmul")]
-            print(f"smollm-360m {p} {kind}: served {stats[key]:.3f} ms "
+            ksum = sum(x["ms"] for x in ks)
+            print(f"smollm-360m {p} {kind}: {served(stats, kind, ksum)} "
                   f"per call against a kernel sum of "
-                  f"{sum(x['ms'] for x in ks):.3f} ms (bound "
+                  f"{ksum:.3f} ms (bound "
                   f"{sum(x['bound_ms'] for x in ks):.4f} ms; "
                   + ", ".join(f"{k} {x['launches']} x = {x['ms']:.3f} ms"
                               for k, x in zip(("flash", "decode", "matmul"),
@@ -2584,6 +2947,10 @@ def main() -> int:
         "ms", "plain_ms", "library_ms", "bound_ms", "flop_ms", "byte_ms")}
     paged_tick["launches"] = n_layers
     for label, (_, stats) in paged.items():
+        print(f"smollm-360m {label}: decode tick {served(stats, 'decode')}"
+              + "".join(f"; {k} {served(stats, k)}" for k in (
+                  "prefill", "chunk") if stats[f"{k}_ms"])
+              + f"; capture {stats['capture_s']:.3f} s")
         print(f"smollm-360m {label}: {stats['tok_s']:.1f} tok/s, decode tick "
               f"{stats['tick_ms']:.3f} ms mean, prefill "
               f"{stats['prefill_ms'] or 0:.3f} ms, chunk "
@@ -2606,10 +2973,10 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "flop_ms", "byte_ms")}
         parts["mamba2_scan"]["launches"] = n_scan
         z[kind] = parts
-        served = family["5g zamba2-7b"][1][
-            "prefill_ms" if kind == "prefill" else "tick_ms"]
-        print(f"zamba2-7b {kind}: served {served:.3f} ms per call against "
-              f"a kernel sum of {sum(x['ms'] for x in parts.values()):.3f} "
+        ksum = sum(x["ms"] for x in parts.values())
+        print(f"zamba2-7b {kind}: "
+              f"{served(family['5g zamba2-7b'][1], kind, ksum)} per call "
+              f"against a kernel sum of {ksum:.3f} "
               f"ms (bound {sum(x['bound_ms'] for x in parts.values()):.4f} "
               f"ms; " + ", ".join(
                   f"{k} {x['launches']} x = {x['ms']:.3f} ms"
@@ -2630,6 +2997,10 @@ def main() -> int:
               f"{t['ms']:.4f}, library_ms {t['library_ms']:.4f}, bound_ms "
               f"{t['bound_ms']:.4f}, plain_ms {t['plain_ms']:.4f}")
     wkv = ssm["wkv6"]["rows"]["admission"]
+    h = family["5h rwkv6-7b"][1]
+    print(f"rwkv6-7b admission: {served(h, 'prefill', n_wkv * wkv['ms'])};"
+          f" decode tick {served(h, 'decode')}; capture {h['capture_s']:.3f}"
+          f" s (zamba2-7b {family['5g zamba2-7b'][1]['capture_s']:.3f} s)")
     print(f"rwkv6-7b admission: served "
           f"{family['5h rwkv6-7b'][1]['prefill_ms']:.3f} ms, wkv6 {n_wkv} x "
           f"{wkv['ms']:.4f} = {n_wkv * wkv['ms']:.3f} ms (plain "

@@ -41,7 +41,9 @@ def ring_positions(length, cache_len: int, seq_len: int, device=None):
     ring_kv_len(length - 1, cache_len)`` and decode overwrites slot
     ``pos % cache_len`` at the exact tick ``ring_kv_len`` first admits
     it, so a duplicate is never attended.  THE ring-layout rule of the
-    prefill cache write (runtime/executor.py::_write_prefill_cache)."""
+    prefill cache write (runtime/executor.py::_write_prefill_cache).
+    ``length`` is an int or a (1,) int tensor on ``device`` (the
+    graph-safe form: no host read)."""
     j = torch.arange(cache_len, device=device)
     last = torch.as_tensor(length, device=device) - 1
     p = j + torch.div(last - j, cache_len, rounding_mode="floor") * cache_len

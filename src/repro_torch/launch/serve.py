@@ -37,10 +37,14 @@ counters, the chunk, admission and page counters where they apply, and a
 few streams.
 
 Everything runs on the card unless ``--device cpu`` is given (the plain
-PyTorch versions).  Weights and prompts are random, drawn from
-``--seed``; ``--ckpt DIR`` loads the params of the latest checkpoint in
-DIR instead (written by ``repro_torch.launch.train`` or by ``repro``'s
-trainer).  An architecture of a family not ported yet exits 2, naming
+PyTorch versions, eagerly).  On the card every Program run replays a
+CUDA graph from its second call of a shape on (``runtime/executor.py``'s
+graphed runners); the served seconds include the captures, and a line
+``graph capture: S s`` gives their sum on its own.  Weights and
+prompts are random, drawn from ``--seed``; ``--ckpt DIR`` loads the
+params of the latest checkpoint in DIR instead (written by
+``repro_torch.launch.train`` or by ``repro``'s trainer).  An
+architecture of a family not ported yet exits 2, naming
 its ROADMAP item.
 """
 from __future__ import annotations
@@ -210,6 +214,7 @@ def main(argv=None) -> dict:
         print(res["engine"].program.listing())
         print(f"served {len(done)} images in {dt:.2f}s "
               f"({len(done) / dt:.1f} img/s)")
+        print(f"graph capture: {res['engine'].capture_seconds:.3f} s")
         for r in done[:4]:
             print(f"  req {r.uid}: class {r.out_tokens[0]}")
         return res
@@ -235,6 +240,7 @@ def main(argv=None) -> dict:
     print(eng.program.listing().splitlines()[0])
     print(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s)")
+    print(f"graph capture: {eng.capture_seconds:.3f} s")
     print(f"prefills={eng.n_prefills} "
           f"prefill_recomputes={eng.n_prefill_recomputes} "
           f"decode_ticks={eng.n_decode_ticks}")

@@ -21,7 +21,7 @@ from ..core.hw import TPU_V5E, HardwareModel
 from ..core.ir import LayerKind, LayerNode, ModelGraph, conv_node, matmul_node
 from ..core.program import Program, lower_to_program
 from ..core.schedule import compile_model
-from ..runtime.executor import cached_runner
+from ..runtime.executor import graphed_runner
 from .common import ParamDef
 
 __all__ = ["param_defs", "forward", "reference_forward", "to_graph",
@@ -95,10 +95,11 @@ def forward(params, x, cfg: CNNConfig, *, impl: str = "auto",
 
     Compiles the config to a ``Program`` (cached) and executes it; the
     schedule's fusion and tiling flags drive the kernel calls — this
-    function decides nothing itself.  The kernels run where ``x`` lies.
+    function decides nothing itself.  The kernels run where ``x`` lies;
+    on the card the run replays a CUDA graph (``graphed_runner``).
     """
     program = compile_program(cfg, batch=x.shape[0], hw=hw)
-    runner = cached_runner(program, impl=impl)
+    runner = graphed_runner(program, impl=impl)
     return runner(params, x.to(cfg.tdtype))
 
 

@@ -89,10 +89,12 @@ def _lerp(x, xx, mu):
 
 def _last_row(h, length):
     """h (B, S, D) -> the last *valid* row (B, D): S-1, or length-1 on a
-    right-padded block (Program prefill pins (1, max_len))."""
+    right-padded block (Program prefill pins (1, max_len)).  ``length``
+    is an int or a (1,) int tensor (the graph-safe form: a gather, no
+    host read)."""
     if length is None:
         return h[:, -1]
-    return h[:, length - 1]
+    return h[:, length - 1].reshape(h.shape[0], h.shape[2])
 
 
 def _decay(xw, p):

@@ -46,7 +46,7 @@ from ..core.regions import (PAGE_TABLE_REGION, PersistentSpec, StateCaps,
 from ..core.schedule import compile_model
 from ..kernels.common import apply_activation
 from ..kernels.flash_attention import flash_attention
-from ..runtime.executor import cached_runner
+from ..runtime.executor import graphed_runner
 from .common import ParamDef, Rotary, apply_rope, layer_norm, rms_norm
 
 __all__ = ["param_defs", "forward", "to_graph", "to_decode_graph",
@@ -496,7 +496,8 @@ def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
 def program_forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
                     hw: HardwareModel = TPU_V5E):
     """tokens (B, S) -> logits (B, S, V) through the compiled Program;
-    the kernels run where ``tokens`` lie."""
+    the kernels run where ``tokens`` lie (on the card, a replayed CUDA
+    graph: ``graphed_runner``)."""
     program = compile_program(cfg, batch=tokens.shape[0],
                               seq=tokens.shape[1], hw=hw)
-    return cached_runner(program, impl=impl)(params, tokens)
+    return graphed_runner(program, impl=impl)(params, tokens)

@@ -121,7 +121,9 @@ def _mamba_mixer(h, p, *, impl, state=None, conv_state=None, length=None):
     softplus makes the decay exp(A*0) = 1 and the dB*x contribution 0 --
     so the returned recurrent state is exactly the state at the true
     length, and the conv taps are gathered at rows [length-K+1, length)
-    instead of the block tail."""
+    instead of the block tail.  ``length`` is an int or a (1,) int
+    tensor on h's device (the graph-safe form: gathers and masks only,
+    no host read)."""
     B, S, _ = h.shape
     di, N, H, P = _mixer_dims(p)
     z, xBC, dt = _split_proj(h @ p["in_proj"], di, N)

@@ -35,16 +35,24 @@ decisions to the state's device tensors in place.  ``run_prefill_chunk``
 prefills rows ``[start, stop)`` of several admissions at once against
 the cache rows earlier chunks wrote, bitwise-equal to a whole prefill.
 
-PyTorch runs eagerly, so the reference's ``jitted_runner`` becomes
-``cached_runner``: one closure per (Program, impl).  The kernels run on
-the device the input lies on (``impl="auto"``).  The MoE and
-cross-attention op kinds raise ``NotImplementedError`` naming their
-ROADMAP item.
+The reference's jitted runners (``jitted_runner``,
+``jitted_prefill_runner``, ``jitted_decode_runner``,
+``jitted_chunk_runner``) become CUDA-graph runners: ``graphed_runner``
+and its prefill, decode and chunk counterparts run a Program's first
+call of each input shape eagerly, capture the second into a CUDA graph
+and replay it from then on, so a call on the card costs one graph
+launch instead of one Python dispatch per op.  ``disable_graphs()`` is
+the counterpart of ``jax.disable_jit()``; on the CPU every call runs
+eagerly (the plain path).  The kernels run on the device the input lies
+on (``impl="auto"``).  The MoE and cross-attention op kinds raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import collections
-from dataclasses import dataclass
+import contextlib
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -60,9 +68,11 @@ from ..kernels.decode_attention import (decode_attention,
 from ..kernels.flash_attention import flash_attention
 from ..kernels.matmul import matmul
 
-__all__ = ["run", "walk", "cached_runner", "ProgramState",
+__all__ = ["run", "walk", "ProgramState", "GraphStore",
            "init_program_state", "run_prefill", "run_prefill_chunk",
-           "run_decode", "PagePool", "paged_pool_regions",
+           "run_decode", "graphed_runner", "graphed_prefill_runner",
+           "graphed_decode_runner", "graphed_chunk_runner",
+           "disable_graphs", "PagePool", "paged_pool_regions",
            "sync_page_table", "apply_page_copies"]
 
 # op kind -> the ROADMAP item that ports it
@@ -241,9 +251,10 @@ def walk(program: Program, params, x: torch.Tensor, *,
 
 
 def _write_state_row(caches: dict, rid: int, val: torch.Tensor,
-                     slot: int) -> None:
+                     slot) -> None:
     """Scatter a prefill op's (1, ...) final state into the (slots, ...)
-    persistent region at the admitted slot, in place."""
+    persistent region at the admitted slot (an int or a (1,) int tensor
+    on the state's device), in place."""
     buf = caches[rid]
     buf[slot] = val[0].to(buf.dtype)
 
@@ -302,10 +313,14 @@ class ProgramState:
     (n_pages,) scales when int8, and the (slots, pages_per_slot) page
     table.  ``lengths`` is the per-slot sequence length (int32),
     counting absolute tokens even once the ring has wrapped.  The
-    runners update both in place."""
+    runners update both in place, and nothing replaces a tensor of
+    either: ``graphs``, the state's captured CUDA graphs, read and
+    write them at the addresses they had when captured."""
 
     caches: dict[int, torch.Tensor]
     lengths: torch.Tensor               # (slots,) int32
+    graphs: "GraphStore" = field(default_factory=lambda: GraphStore(),
+                                 repr=False, compare=False)
 
 
 def init_program_state(pair: ProgramPair | Program,
@@ -333,13 +348,15 @@ def init_program_state(pair: ProgramPair | Program,
                                             device=dev))
 
 
-def _write_prefill_cache(caches: dict, op: ProgramOp, k, v, slot: int,
-                         length: int) -> None:
+def _write_prefill_cache(caches: dict, op: ProgramOp, k, v, slot,
+                         length) -> None:
     """Store a prefill op's per-head K/V — (1, KV, S, hd) — into the
     (slots, cache_len, KV, hd) cache regions at ``slot``, in place.  A
     window-sized region (cache_len < S) receives the ring layout through
     the shared ``ring_positions`` rule; every ring slot is written, so a
-    re-admitted slot never keeps a dead request's rows."""
+    re-admitted slot never keeps a dead request's rows.  ``slot`` and
+    ``length`` are ints or (1,) int tensors on the state's device (the
+    graph-safe form: no value is read back to the host)."""
     for rid, val in ((op.k_cache_region, k), (op.v_cache_region, v)):
         buf = caches[rid]
         row = val[0].transpose(0, 1)                          # (S, KV, hd)
@@ -349,16 +366,17 @@ def _write_prefill_cache(caches: dict, op: ProgramOp, k, v, slot: int,
         buf[slot, :row.shape[0]] = row
 
 
-def _write_prefill_cache_paged(caches: dict, op: ProgramOp, k, v, slot: int,
-                               length: int, write_from: int) -> None:
+def _write_prefill_cache_paged(caches: dict, op: ProgramOp, k, v, slot,
+                               length, write_from) -> None:
     """Paged prefill write: scatter the prompt's K/V into the slot's
     table-mapped pool pages, one whole page per row of the scatter, in
     place.  Pages covering rows ``< write_from`` (a page multiple: the
     COW-shared prefix) and the unallocated tail entries land on the null
     page 0, so the write stays dense.  Rows at ``>= length`` are zeroed
-    first, so an int8 tail page's scale is set by real rows only."""
+    first, so an int8 tail page's scale is set by real rows only.
+    ``slot`` / ``length`` / ``write_from``: ints or (1,) int tensors."""
     pg = op.attn.page_size
-    pt_row = caches[op.page_table_region][slot]
+    pt_row = caches[op.page_table_region][slot].reshape(-1)
     quant = op.k_scale_region is not None
     for rid, srid, val in ((op.k_cache_region, op.k_scale_region, k),
                           (op.v_cache_region, op.v_scale_region, v)):
@@ -381,8 +399,8 @@ def _write_prefill_cache_paged(caches: dict, op: ProgramOp, k, v, slot: int,
 
 @torch.no_grad()
 def run_prefill(program: Program, params, tokens: torch.Tensor,
-                state: ProgramState, slot: int, length: int,
-                write_from: int = 0, *, impl: str = "auto") -> torch.Tensor:
+                state: ProgramState, slot, length, write_from=0, *,
+                impl: str = "auto") -> torch.Tensor:
     """Execute the prefill Program for one admitted request.
 
     tokens: (1, max_len) int, the prompt right-padded (rows past
@@ -390,7 +408,11 @@ def run_prefill(program: Program, params, tokens: torch.Tensor,
     block's K/V into the persistent cache regions at ``slot`` -- for a
     paged plan into the slot's pages, from row ``write_from`` (the
     shared-prefix redirect) on -- and sets ``lengths[slot] = length``,
-    in place.  Returns the logits (1, max_len, vocab)."""
+    in place.  ``slot``, ``length`` and ``write_from`` are Python ints
+    or (1,) int32 tensors on the state's device -- the reference's
+    traced scalars; the tensor form reads nothing back to the host, so
+    a CUDA graph can capture the call, and gives the int form's results
+    bit for bit.  Returns the logits (1, max_len, vocab)."""
     regions: dict[int, torch.Tensor] = {program.input_region: tokens}
     for op in program.ops:
         if op.kernel == "flash_attention" and op.k_cache_region is not None:
@@ -536,7 +558,9 @@ def run_prefill_chunk(program: Program, params, tokens: torch.Tensor,
     against the full (B, max_len) padded token buffers.
 
     ``slot`` / ``start`` / ``stop`` / ``length`` / ``write_from`` are
-    (B,) int sequences or tensors: ``length`` is each prompt's row count
+    (B,) int sequences (uploaded here) or int32 tensors on the state's
+    device (as ``graphed_chunk_runner`` passes them, uploaded before its
+    replay): ``length`` is each prompt's row count
     (``stop == length`` marks the final chunk) and ``write_from`` the
     paged shared-prefix redirect.  Each flash op substitutes the slot's
     cache rows below ``start`` (``_run_attention_chunk``), then writes
@@ -697,27 +721,288 @@ def run_decode(program: Program, params, tokens: torch.Tensor,
     return regions[program.output_region]
 
 
+# --- CUDA-graph runners (the reference's jitted runners) ----------------------------
+_GRAPHS_ON = True                    # cleared inside ``disable_graphs()``
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Inside, the graphed runners run every call eagerly, op by op --
+    the counterpart of ``jax.disable_jit()``.  The eager side of a
+    graphed-against-eager comparison runs under it."""
+    global _GRAPHS_ON
+    prev, _GRAPHS_ON = _GRAPHS_ON, False
+    try:
+        yield
+    finally:
+        _GRAPHS_ON = prev
+
+
+def _graphable(device: torch.device) -> bool:
+    """Graphs on the card; the CPU (the plain path) always runs eagerly."""
+    return _GRAPHS_ON and device.type == "cuda"
+
+
+def _counted_kernels() -> tuple:
+    """Every kernel wrapper that counts its launches (``launches``, and
+    ``path_launches`` where it has paths)."""
+    from ..kernels.conv2d.kernel import (conv2d_strips_cuda,
+                                         conv2d_virtual_cuda)
+    from ..kernels.decode_attention.kernel import (
+        decode_attention_cuda, paged_decode_attention_cuda)
+    from ..kernels.flash_attention.bwd_kernel import flash_attention_bwd_cuda
+    from ..kernels.flash_attention.kernel import flash_attention_cuda
+    from ..kernels.mamba2.kernel import mamba2_scan_cuda
+    from ..kernels.matmul.kernel import matmul_cuda
+    from ..kernels.rwkv6.kernel import wkv6_cuda
+    return (conv2d_virtual_cuda, conv2d_strips_cuda, matmul_cuda,
+            flash_attention_cuda, flash_attention_bwd_cuda,
+            decode_attention_cuda, paged_decode_attention_cuda,
+            mamba2_scan_cuda, wkv6_cuda)
+
+
+def _launch_counts() -> list:
+    return [(fn, fn.launches, dict(getattr(fn, "path_launches", {})))
+            for fn in _counted_kernels()]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+class _Graph:
+    """One captured Program run: the static input buffers it reads, the
+    output it writes, and the kernel launches one replay makes.
+
+    The wrappers' launch counters are Python integers bumped as each
+    wrapper is called.  Capture runs the Python (so it bumps them) but
+    launches nothing on the card, so the bumps are rolled back and kept
+    as the graph's count; every replay adds that count, so a counter
+    still counts kernel executions on the card."""
+
+    def __init__(self, fn, inputs, store: "GraphStore"):
+        self.inputs = [torch.empty_like(x) for x in inputs]
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, pool=store.pool):
+                self.output = fn(*self.inputs)
+        finally:
+            self.launches = []
+            for kernel, n, paths in before:
+                added = kernel.launches - n
+                by_path = {k: kernel.path_launches[k] - v
+                           for k, v in paths.items()}
+                kernel.launches = n
+                if paths:
+                    kernel.path_launches.update(paths)
+                if added:
+                    self.launches.append((kernel, added, by_path))
+        store.capture_seconds += time.perf_counter() - t0
+
+    def __call__(self, inputs) -> torch.Tensor:
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+        self.graph.replay()
+        for kernel, added, by_path in self.launches:
+            kernel.launches += added
+            for k, v in by_path.items():
+                kernel.path_launches[k] += v
+        # A fresh tensor: the next replay rewrites the static output.
+        return self.output.clone()
+
+
+class GraphStore:
+    """The captured graphs of one engine -- one ``ProgramState``, or one
+    CNN parameter tree -- sharing one memory pool; they replay in turn
+    on one stream.  ``graphs`` maps a run's key to its ``_Graph``, or
+    to None after the key's first (eager) call; ``capture_seconds``
+    sums the capture times."""
+
+    def __init__(self):
+        self.graphs: dict = {}
+        self.capture_seconds = 0.0
+        self._pool = None
+
+    @property
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def run(self, key, fn, inputs, device: torch.device) -> torch.Tensor:
+        """``fn(*inputs)`` on ``device``: eagerly the first time ``key``
+        is seen (the call that builds the kernels and warms the
+        allocator and cuBLAS), captured and replayed the second time,
+        replayed from then on.  ``inputs`` may lie on the host; they are
+        copied into the graph's static buffers on every call.  A capture
+        that fails raises."""
+        if key not in self.graphs:
+            self.graphs[key] = None
+            return fn(*(x.to(device) for x in inputs))
+        graph = self.graphs[key]
+        if graph is None:
+            graph = self.graphs[key] = _Graph(
+                fn, [x.to(device) for x in inputs], self)
+        return graph(inputs)
+
+
+def _lru(cache: collections.OrderedDict, key, make):
+    value = cache.get(key)
+    if value is None:
+        value = cache[key] = make()
+        while len(cache) > _RUNNERS_CAP:
+            cache.popitem(last=False)
+    else:
+        cache.move_to_end(key)
+    return value
+
+
 _RUNNERS: "collections.OrderedDict" = collections.OrderedDict()
 _RUNNERS_CAP = 64
 
 
-def cached_runner(program: Program, impl: str = "auto"):
-    """One executor closure per (Program, impl) — the models' fast path.
+def _shapes(inputs) -> tuple:
+    return tuple((tuple(x.shape), x.dtype) for x in inputs)
 
-    Keyed by program identity (a Program holds dicts, so it is not
-    hashable); the cached closure keeps the program alive, so the id
-    cannot be recycled while the entry exists.  LRU-bounded."""
-    key = (id(program), impl)
-    fn = _RUNNERS.get(key)
-    if fn is None:
-        def fn(params, x, _program=program):
-            return run(_program, params, x, impl=impl)
-        _RUNNERS[key] = fn
-        while len(_RUNNERS) > _RUNNERS_CAP:
-            _RUNNERS.popitem(last=False)
-    else:
-        _RUNNERS.move_to_end(key)
-    return fn
+
+class _StatefulRunner:
+    """A graphed runner of a stateful Program run (``kind``: prefill,
+    decode or chunk).  Its graphs live in the state's ``GraphStore``:
+    they read and write the state's buffers where they lie and die with
+    the state.  A graph is keyed by the input shapes and the addresses
+    of the parameters it reads (another parameter tree is another
+    graph)."""
+    kind = ""
+
+    def __init__(self, program: Program, impl: str):
+        self.program, self.impl = program, impl
+
+    def _run(self, params, state: ProgramState, inputs):
+        def fn(*xs):
+            return self.eager(params, state, *xs)
+        dev = state.lengths.device
+        if not _graphable(dev):
+            return fn(*(x.to(dev) for x in inputs))
+        key = (id(self.program), self.impl, self.kind, _shapes(inputs),
+               tuple(t.data_ptr() for t in _leaves(params)))
+        return state.graphs.run(key, fn, inputs, dev)
+
+
+def _ints(*xs) -> list[torch.Tensor]:
+    """Host ints, int sequences or int tensors as (n,) int32 tensors."""
+    return [(x if isinstance(x, torch.Tensor)
+             else torch.from_numpy(np.asarray(x, np.int32)))
+            .to(torch.int32).reshape(-1) for x in xs]
+
+
+class _PrefillRunner(_StatefulRunner):
+    kind = "prefill"
+
+    def __call__(self, params, tokens, state, slot, length, write_from=0):
+        return self._run(params, state,
+                         [tokens, *_ints(slot, length, write_from)])
+
+    def eager(self, params, state, tokens, slot, length, write_from):
+        return run_prefill(self.program, params, tokens, state, slot,
+                           length, write_from, impl=self.impl)
+
+
+class _DecodeRunner(_StatefulRunner):
+    kind = "decode"
+
+    def __call__(self, params, tokens, state, mask=None):
+        if mask is None:
+            mask = torch.ones(state.lengths.shape, dtype=torch.bool)
+        return self._run(params, state, [tokens, mask.to(torch.bool)])
+
+    def eager(self, params, state, tokens, mask):
+        return run_decode(self.program, params, tokens, state, mask,
+                          impl=self.impl)
+
+
+class _ChunkRunner(_StatefulRunner):
+    kind = "chunk"
+
+    def __call__(self, params, tokens, state, slot, start, stop, length,
+                 write_from=None):
+        if write_from is None:
+            write_from = np.zeros(len(start), np.int32)
+        return self._run(params, state, [tokens, *_ints(
+            slot, start, stop, length, write_from)])
+
+    def eager(self, params, state, tokens, slot, start, stop, length,
+              write_from):
+        return run_prefill_chunk(self.program, params, tokens, state, slot,
+                                 start, stop, length, write_from,
+                                 impl=self.impl)
+
+
+def graphed_prefill_runner(program: Program, impl: str = "auto"):
+    """Graphed prefill: ``(params, tokens, state, slot, length[,
+    write_from]) -> logits``, ``run_prefill``'s work with the state
+    updated in place.  One graph per state at (1, max_len); ``slot`` /
+    ``length`` / ``write_from`` (ints or tensors) are static inputs."""
+    return _lru(_RUNNERS, (id(program), impl, "prefill"),
+                lambda: _PrefillRunner(program, impl))
+
+
+def graphed_decode_runner(program: Program, impl: str = "auto"):
+    """Graphed decode tick: ``(params, tokens, state[, mask]) ->
+    logits``, ``run_decode``'s work with the state updated in place --
+    the serving hot loop.  One graph per state at (slots,); the tokens
+    and the (slots,) occupancy mask (omitted: every slot live) are
+    static inputs."""
+    return _lru(_RUNNERS, (id(program), impl, "decode"),
+                lambda: _DecodeRunner(program, impl))
+
+
+def graphed_chunk_runner(program: Program, impl: str = "auto"):
+    """Graphed chunk prefill: ``(params, tokens, state, slot, start,
+    stop, length[, write_from]) -> logits``, ``run_prefill_chunk``'s
+    work.  One graph per state and in-flight batch width B (as XLA
+    re-specializes on the leading shape); the (B,) vectors, host or
+    device, are uploaded into the static inputs before the replay."""
+    return _lru(_RUNNERS, (id(program), impl, "chunk"),
+                lambda: _ChunkRunner(program, impl))
+
+
+class _Runner:
+    """The graphed stateless run (the CNN Programs): one ``GraphStore``
+    per parameter tree, keyed by its leaves' addresses, LRU-bounded."""
+
+    def __init__(self, program: Program, impl: str):
+        self.program, self.impl = program, impl
+        self.stores: "collections.OrderedDict" = collections.OrderedDict()
+
+    def store(self, params) -> GraphStore:
+        """The graphs this runner captured against ``params``."""
+        return _lru(self.stores,
+                    tuple(t.data_ptr() for t in _leaves(params)), GraphStore)
+
+    def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
+        def fn(x):
+            return run(self.program, params, x, impl=self.impl)
+        if not _graphable(x.device):
+            return fn(x)
+        return self.store(params).run(_shapes([x]), fn, [x], x.device)
+
+
+def graphed_runner(program: Program, impl: str = "auto"):
+    """One graphed executor per (Program, impl) -- the models' fast
+    path, ``(params, x) -> output``: the first call of an input shape
+    runs eagerly, the second is captured into a CUDA graph and replayed,
+    later ones replay; on the CPU every call runs eagerly.  Keyed by
+    program identity (a Program holds dicts, so it is not hashable); the
+    cached runner keeps the program alive, so the id cannot be recycled
+    while the entry exists.  LRU-bounded."""
+    return _lru(_RUNNERS, (id(program), impl, "run"),
+                lambda: _Runner(program, impl))
 
 
 # --- paged KV runtime (host-side page allocator, §5.1 paged plan) ------------------

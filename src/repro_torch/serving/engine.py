@@ -31,13 +31,23 @@ decided host-side by an ``executor.PagePool`` between executor calls
 stores int8 pages).  A request the pool cannot hold waits at the head
 of the queue (``pages_exhausted``).  ``chunk_size`` makes admission only
 assign the slot; the prompt then prefills ``chunk_size`` rows per tick
-in one batched ``run_prefill_chunk`` call shared by every in-flight
+in one batched chunk call shared by every in-flight
 admission, bitwise-equal to a whole prefill, while live slots keep
 decoding every tick (``n_starved_ticks`` stays 0).
 
+Every Program run goes through the executor's graphed runners
+(``graphed_runner``, ``graphed_prefill_runner``,
+``graphed_decode_runner``, ``graphed_chunk_runner``), the counterparts
+of the reference's jitted runners: on the card a run's first call of
+each shape runs eagerly, the second is captured into a CUDA graph, and
+later calls replay it.  Host work stays between calls: admission,
+``PagePool`` decisions, page-table syncs, COW copies and sampling, each
+call's logits read before the next call.  ``capture_seconds`` sums the
+time spent capturing.
+
 The engine runs on the card unless the caller passes ``device="cpu"``
-(then every op runs its plain PyTorch version); with no card and no
-device named it raises.  Speculative decode (ROADMAP A.7) and the
+(then every op runs its plain PyTorch version, eagerly); with no card
+and no device named it raises.  Speculative decode (ROADMAP A.7) and the
 ``obs`` metrics plane (A.8) are not ported; asking for them raises.
 """
 from __future__ import annotations
@@ -121,7 +131,7 @@ class ServingEngine:
             self.n_ticks = 0
             self.program = (program if program is not None
                             else compile_program(cfg, batch=slots))
-            self._infer = executor.cached_runner(self.program, impl=impl)
+            self._infer = executor.graphed_runner(self.program, impl=impl)
             return
         self.max_len = max_len
         self.eos = eos_id
@@ -135,6 +145,10 @@ class ServingEngine:
             _check_geometry(program, cfg, slots, max_len)
         self.program = program
         self.state = executor.init_program_state(program, self.device)
+        self._prefill = executor.graphed_prefill_runner(program.prefill,
+                                                        impl=impl)
+        self._decode = executor.graphed_decode_runner(program.decode,
+                                                      impl=impl)
         self.admission = AdmissionQueue(queue_capacity)
         self.live: dict[int, Request] = {}           # slot -> request
         # Host-side page allocator of a paged pair: admission, on-demand
@@ -152,6 +166,9 @@ class ServingEngine:
                 raise ValueError(f"pair is not chunkable: "
                                  f"{program.chunk_blocker}")
         self.chunk_size = chunk_size
+        self._chunk = (executor.graphed_chunk_runner(program.prefill,
+                                                     impl=impl)
+                       if chunk_size is not None else None)
         self._prefilling: dict[int, _InFlightPrefill] = {}
         self.n_prefills = 0
         self.n_prefill_recomputes = 0
@@ -164,6 +181,14 @@ class ServingEngine:
     @property
     def lm(self) -> bool:
         return isinstance(self.cfg, ArchConfig)
+
+    @property
+    def capture_seconds(self) -> float:
+        """Seconds spent capturing CUDA graphs, summed over this
+        engine's graphs (0 on the CPU)."""
+        if self.lm:
+            return self.state.graphs.capture_seconds
+        return self._infer.store(self.params).capture_seconds
 
     def submit(self, req: Request) -> AdmissionTicket:
         """Enqueue a request.  LM requests go through the bounded
@@ -286,10 +311,8 @@ class ServingEngine:
                 continue
             padded = np.zeros((1, self.max_len), np.int32)
             padded[0, :len(win)] = win
-            logits = executor.run_prefill(
-                self.program.prefill, self.params,
-                torch.from_numpy(padded).to(self.device), self.state, slot,
-                len(win), write_from, impl=self.impl)
+            logits = self._prefill(self.params, torch.from_numpy(padded),
+                                   self.state, slot, len(win), write_from)
             self._finish_prefill(
                 slot, req, logits[0, len(win) - 1].float().cpu().numpy(),
                 finished)
@@ -339,7 +362,7 @@ class ServingEngine:
 
     def _advance_prefills(self, finished: list) -> None:
         """Advance every in-flight chunked prefill by one chunk in one
-        batched ``run_prefill_chunk`` call.  An admission that reaches
+        batched chunk-runner call.  An admission that reaches
         its prompt length emits its first token and goes live, within
         ``ceil(length / chunk_size)`` ticks of its slot assignment."""
         if not self._prefilling:
@@ -348,12 +371,11 @@ class ServingEngine:
         lengths = np.array([p.length for _, p in items], np.int32)
         starts = np.array([p.done for _, p in items], np.int32)
         stops = np.minimum(starts + self.chunk_size, lengths)
-        logits = executor.run_prefill_chunk(
-            self.program.prefill, self.params,
-            torch.from_numpy(np.stack([p.tokens for _, p in items]))
-            .to(self.device), self.state,
-            [s for s, _ in items], starts, stops, lengths,
-            [p.write_from for _, p in items], impl=self.impl)
+        logits = self._chunk(
+            self.params, torch.from_numpy(np.stack([p.tokens for _, p in
+                                                    items])),
+            self.state, [s for s, _ in items], starts, stops, lengths,
+            [p.write_from for _, p in items])
         self.n_prefill_chunks += len(items)
         for i, (slot, p) in enumerate(items):
             p.done = int(stops[i])
@@ -398,10 +420,8 @@ class ServingEngine:
             self._prepare_pages()
         # The occupancy mask keeps dead slots inert inside run_decode: no
         # length advance, no cache-row write.
-        logits = executor.run_decode(
-            self.program.decode, self.params,
-            torch.from_numpy(toks).to(self.device), self.state,
-            torch.from_numpy(occupied).to(self.device), impl=self.impl)
+        logits = self._decode(self.params, torch.from_numpy(toks),
+                              self.state, torch.from_numpy(occupied))
         if self._pool is not None:
             for slot in self.live:
                 self._slot_len[slot] += 1

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import importlib  # noqa: E402
 
@@ -1313,3 +1314,226 @@ def test_family_prefill_and_decode_kernels_match_plain(dev, name):
     for rid, buf in states["cuda"].caches.items():
         torch.testing.assert_close(buf, states["reference"].caches[rid],
                                    rtol=TOL, atol=TOL)
+
+
+# --- the CUDA-graph runners (executor.graphed_*runner) ----------------------------
+def _twin(state):
+    return executor.ProgramState(
+        {r: t.clone() for r, t in state.caches.items()}, state.lengths.clone())
+
+
+def _same(a, b, pair):
+    """Bitwise equal states; a paged plan's null page 0 (the sink of
+    masked writes, whose last writer is not defined) left out."""
+    assert torch.equal(a.lengths, b.lengths)
+    n = pair.paged.n_pages if pair.paged is not None else None
+    for rid in a.caches:
+        x, y = a.caches[rid], b.caches[rid]
+        if n is not None and x.shape[0] == n:
+            x, y = x[1:], y[1:]
+        assert torch.equal(x, y), rid
+
+
+def _counts():
+    return {fn: (fn.launches, dict(getattr(fn, "path_launches", {})))
+            for fn in executor._counted_kernels()}
+
+
+def _added(before):
+    return {fn.__name__: fn.launches - n for fn, (n, _) in before.items()
+            if fn.launches != n}
+
+
+# (config, overrides, pair kw, chunkable)
+GRAPH_PLANS = {
+    "contiguous": ("smollm-360m", {"dtype": "bfloat16"}, {}, True),
+    "windowed": ("smollm-360m", {"dtype": "bfloat16", "attn_window": 48},
+                 {}, True),
+    "paged": ("smollm-360m", {"dtype": "bfloat16"},
+              {"paged": True, "page_size": 16}, True),
+    "int8": ("smollm-360m", {"dtype": "bfloat16"},
+             {"paged": True, "page_size": 16, "kv_quant": "int8"}, False),
+    "zamba2-7b": ("zamba2-7b", {}, {}, False),
+    "rwkv6-7b": ("rwkv6-7b", {}, {}, False),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(GRAPH_PLANS))
+def test_graphed_runs_equal_the_eager_runs_bit_for_bit(dev, plan):
+    """Three admissions, seven decode ticks and (where the plan is
+    chunkable) chunk runs at B = 1 and B = 3 through the graphed
+    runners, each call's logits and the state after it bitwise equal to
+    the eager call's on a twin state; over the last five ticks (pure
+    replays) each kernel's launches are exactly five times its ops per
+    tick."""
+    name, over, kw, chunkable = GRAPH_PLANS[plan]
+    cfg = dataclasses.replace(REGISTRY[name].smoke(), **over)
+    slots, max_len = 4, 128
+    pair = transformer.compile_program_pair(cfg, slots=slots,
+                                            max_len=max_len, **kw)
+    params = init_params(param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    state = executor.init_program_state(pair, dev)
+    eager = executor.init_program_state(pair, dev)
+    pool = executor.PagePool(pair.paged, slots) if pair.paged else None
+    pre = executor.graphed_prefill_runner(pair.prefill)
+    dec = executor.graphed_decode_runner(pair.decode)
+    chunk = executor.graphed_chunk_runner(pair.prefill)
+    rng = np.random.default_rng(0)
+
+    def both(runner, *args):
+        """The graphed call (and the launches it added), then the eager
+        one on the twin state."""
+        before = _counts()
+        out = runner(params, args[0], state, *args[1:])
+        added = _added(before)
+        with executor.disable_graphs():
+            want = runner(params, args[0], eager, *args[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        _same(state, eager, pair)
+        return out, added
+
+    def sync():
+        for st in (state, eager):
+            st.caches[pair.page_table_region].copy_(
+                torch.from_numpy(pool.table))
+
+    last = torch.zeros((slots,), dtype=torch.int32)
+    for slot, n in enumerate((40, 100, 7)):
+        prompt = rng.integers(0, cfg.vocab, n)
+        if pool is not None:
+            pool.admit(slot, n)
+            sync()
+        padded = torch.zeros((1, max_len), dtype=torch.int32)
+        padded[0, :n] = torch.from_numpy(prompt)
+        out, _ = both(pre, padded, slot, n, 0)
+        last[slot] = int(out[0, n - 1].argmax())
+    mask = torch.tensor([True, True, True, False])
+    lens = [40, 100, 7]
+    replays = {}
+    for step in range(7):
+        if pool is not None:
+            for s in range(3):
+                pool.prepare_decode(s, lens[s])
+            sync()
+        out, added = both(dec, last, mask)
+        if step == 1:
+            captured = dict(state.graphs.graphs)
+        for k, v in added.items():
+            replays[k] = replays.get(k, 0) + v * (step >= 2)
+        last = out.argmax(-1).to(torch.int32).cpu()
+        lens = [n + 1 for n in lens]
+    ops = {"matmul": "matmul_cuda", "decode_attention": (
+        "paged_decode_attention_cuda" if pool is not None
+        else "decode_attention_cuda"), "ssm_scan": "mamba2_scan_cuda"}
+    want = {}
+    for op in pair.decode.ops:
+        if op.kernel in ops:
+            want[ops[op.kernel]] = want.get(ops[op.kernel], 0) + 5
+    assert replays == want
+    assert state.graphs.graphs == captured
+    if chunkable:
+        for width, first in ((1, 3), (3, 0)):
+            slots_b = list(range(first, first + width))
+            tokens = torch.zeros((width, max_len), dtype=torch.int32)
+            tokens[:, :50] = torch.from_numpy(
+                rng.integers(0, cfg.vocab, (width, 50)))
+            if pool is not None:
+                for s in slots_b:
+                    pool.release(s)
+                    pool.admit(s, 50)
+                sync()
+            for start in range(0, 50, 16):
+                stop = min(start + 16, 50)
+                both(chunk, tokens, slots_b, [start] * width,
+                     [stop] * width, [50] * width)
+        widths = {k[3][0][0][0] for k, g in state.graphs.graphs.items()
+                  if k[2] == "chunk" and g is not None}
+        assert widths == {1, 3}
+
+
+def test_a_graphed_paged_tick_reads_a_new_table_without_recapture(dev):
+    """A captured paged decode tick, then a COW fork (a shared page
+    copied to a fresh one) and a table change synced in place: the next
+    replay writes and reads through the new table, bitwise equal to the
+    eager tick, and no graph is captured anew."""
+    cfg = dataclasses.replace(SMOLLM_360M.smoke(), dtype="bfloat16")
+    pair = transformer.compile_program_pair(cfg, slots=2, max_len=64,
+                                            paged=True, page_size=8)
+    params = init_params(param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(1), dev)
+    state = executor.init_program_state(pair, dev)
+    eager = executor.init_program_state(pair, dev)
+    pool = executor.PagePool(pair.paged, 2)
+    pre = executor.graphed_prefill_runner(pair.prefill)
+    dec = executor.graphed_decode_runner(pair.decode)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab, 20)
+    lens = [20, 20]
+    for slot in range(2):            # slot 1 shares slot 0's two pages
+        shared = pool.shared_prefix_pages(0, tuple(prompt), tuple(prompt)) \
+            if slot else ()
+        wf = pool.admit(slot, 20, shared)
+        padded = torch.zeros((1, 64), dtype=torch.int32)
+        padded[0, :20] = torch.from_numpy(prompt)
+        for st in (state, eager):
+            st.caches[pair.page_table_region].copy_(
+                torch.from_numpy(pool.table))
+            with executor.disable_graphs() if st is eager else \
+                    contextlib.nullcontext():
+                pre(params, padded, st, slot, 20, wf)
+    toks = torch.tensor([3, 4], dtype=torch.int32)
+
+    def tick():
+        copies = [c for s in range(2)
+                  if (c := pool.prepare_decode(s, lens[s])) is not None]
+        for st in (state, eager):
+            st.caches[pair.page_table_region].copy_(
+                torch.from_numpy(pool.table))
+            executor.apply_page_copies(st, pair, copies)
+        out = dec(params, toks, state)
+        with executor.disable_graphs():
+            want = dec(params, toks, eager)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        _same(state, eager, pair)
+        for s in range(2):
+            lens[s] += 1
+        return copies
+    tick()
+    tick()                            # captured here
+    graphs = dict(state.graphs.graphs)
+    # Rewind slot 1 into its shared pages: its next write forks one.
+    lens[1] = 9
+    for st in (state, eager):
+        st.lengths[1] = 9
+    assert tick()                     # a COW fork, a new table row
+    assert state.graphs.graphs == graphs
+
+
+def test_graphed_cnn_run_equals_the_eager_run(dev):
+    """``cnn.forward`` (alexnet-owt, batch 2) through ``graphed_runner``:
+    the replays bitwise equal to the eager run on the same input, and 5
+    replays add exactly 5 x its conv and matmul launches."""
+    cfg = CNN_REGISTRY["alexnet-owt"]
+    params = init_params(cnn.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(2), dev)
+    program = cnn.compile_program(cfg, batch=2)
+    x = torch.randn((2, 224, 224, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    with executor.disable_graphs():
+        want = cnn.forward(params, x, cfg)
+    for _ in range(2):                # eager, then captured + replayed
+        assert torch.equal(cnn.forward(params, x, cfg), want)
+    inputs = [x if i % 2 == 0 else x.flip(0) for i in range(5)]
+    before = _counts()
+    outs = [cnn.forward(params, y, cfg) for y in inputs]
+    torch.cuda.synchronize()
+    kinds = [op.kernel for op in program.ops]
+    assert _added(before) == {
+        "conv2d_virtual_cuda": 5 * kinds.count("conv2d"),
+        "matmul_cuda": 5 * kinds.count("matmul")}
+    with executor.disable_graphs():
+        for y, out in zip(inputs, outs):
+            assert torch.equal(out, cnn.forward(params, y, cfg))
