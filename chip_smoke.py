@@ -90,7 +90,12 @@ exits non-zero before the last line is printed.  Phases:
    M <= 64, wgmma for bf16 above, simt for the f32 checks at M = 512),
    and the bf16 matmul rows are summed per smollm-360m and zamba2-7b
    admission and decode tick, the f32 ones per alexnet-owt tick, with
-   their launches, ``library_ms`` and ``bound_ms``.  Each flash row must
+   their launches, ``library_ms`` and ``bound_ms``.  The same flash,
+   decode and matmul ops of the granite-moe-1b-a400m pair (16 q / 8 kv
+   heads of 64, d_model 1024; its 49155-wide head, whose N is no whole
+   number of 16-byte vectors, on simt), and the flash backward and
+   forward at granite's training shape (8, 16 / 8 heads of 64, 512),
+   causal bf16, checked and timed;  Each flash row must
    run f32 on simt and bf16 on mma (``flash_plan``), and the bf16 flash
    times are summed per smollm-360m and zamba2-7b admission, the forward
    and the backward per training step, likewise;
@@ -101,13 +106,13 @@ exits non-zero before the last line is printed.  Phases:
    ``graphed_chunk_runner``): the first call of a shape eager, the
    second captured and replayed, later ones replayed; the counters count
    each replay's captured launches, so the exact counts below hold.
-   Each serving phase (5a-5e, 5g-5i) must show a captured graph for its
+   Each serving phase (5a-5e, 5g-5j) must show a captured graph for its
    decode tick (a CNN tick's run; a prefill where two or more were made)
    and is then served again under ``executor.disable_graphs()``: the
    greedy streams (classes) must be identical, every logits row bitwise
    equal for smollm-360m and alexnet-owt (no cuBLAS on their paths) and
-   within the teacher-forced replay's bound for zamba2-7b and rwkv6-7b
-   (cuBLAS in the projections), with the largest difference and the
+   granite-moe-1b-a400m, and within the teacher-forced replay's bound
+   for zamba2-7b and rwkv6-7b (cuBLAS in the projections), with the largest difference and the
    first op that differs (one call rerun op by op, eagerly and through a
    captured graph, from the same state) printed; the graphed and eager
    served ms per call (mean and median) and the capture seconds print
@@ -115,8 +120,9 @@ exits non-zero before the last line is printed.  Phases:
    be below its eager one.  The matmul wrapper's per-path counters must
    show every decode tick (M = 8 slots) and every CNN FC layer on the
    skinny path, every admission and chunk (M = 512 rows a prompt) on
-   wgmma, and no served call on simt; the flash wrappers' must show
-   every flash launch of 5b-5e, 5g and the bf16 training steps of 5f,
+   wgmma, and no served call on simt but granite's head (``matmul_plan``
+   of each op's shape); the flash wrappers' must show every flash
+   launch of 5b-5e, 5g, 5j and the bf16 training steps of 5f and 5k,
    forward and backward, on mma, and the f32 smoke step's on simt:
    a. ``repro_torch.launch.serve`` serves 20 alexnet-owt images at full
       width with 8 slots; every class must equal the plain path's on
@@ -162,7 +168,8 @@ exits non-zero before the last line is printed.  Phases:
       the plain path; then ``repro_torch.launch.train`` trains
       full-width smollm-360m in bf16
       (batch 8, seq 512, SyntheticLM seed 0, AdamW with the CLI's cosine
-      schedule) for one warm-up and five timed steps into a temporary
+      schedule) through the compiled step (step 0 eager, step 1
+      captured into a CUDA graph, steps 2-5 replayed) into a temporary
       checkpoint directory: per step exactly 64 flash forward launches
       (32 layers, each recomputed under remat) and 32 backward ones, no
       matmul or decode launch, every loss finite; the step-0 params and
@@ -170,8 +177,13 @@ exits non-zero before the last line is printed.  Phases:
       relative, global gradient norm within 2%, each leaf's largest
       gradient difference within 10% of that leaf's largest gradient); a
       fresh trainer resumed from the last checkpoint at the saved step
-      with params and optimizer state equal bit for bit; tokens/s, step ms, the flash kernels' share of
-      the step and the peak memory allocated are printed;
+      with params and optimizer state equal bit for bit; then four
+      steps through the compiled step against four under
+      ``executor.disable_graphs()`` from the same params and batches:
+      every metric, the params and the optimizer state bit for bit;
+      tokens/s, the graphed and eager step ms side by side, each
+      with one more step under the profiler (device time by group, the
+      device-busy share), and the peak memory allocated are printed;
    g. ``repro_torch.launch.serve --arch zamba2-7b`` at full width and
       depth in bf16 (81 mamba layers, d_model 3584, 112 SSM heads of 64,
       N = 64; 14 applications of the shared block, 32 heads of 112), 8
@@ -186,6 +198,25 @@ exits non-zero before the last line is printed.  Phases:
       path's as in 5a; img/s beside 5a's; then one resnet18 SNOWFLAKE
       paper-faithful batch-8 forward, kernels against plain, with exactly
       20 strip launches.
+   j. ``repro_torch.launch.serve --arch granite-moe-1b-a400m`` at full
+      width and depth in bf16 (24 layers, each an MoE layer of 32
+      experts, top-8; 1.385 B parameters), 8 slots, max_len 512, 8
+      prompts of 32-448 tokens, 32 new tokens each, as 5g: 97 matmul
+      (96 projections, skinny in a tick and wgmma in an admission, and
+      the head on simt) and 24 attention launches a call; the replay's
+      bound from two plain replays that sum in other orders
+      (``reordered_plain``) and its mean gate at twice their mean; the
+      rows whose routing differs from the plain path's at some layer
+      counted (an eager kernel-path replay records the served routing);
+      every op held to its plain version on the same input, the expert
+      dispatch bit for bit; the eager re-serve bitwise equal;
+   k. ``repro_torch.launch.train --arch granite-moe-1b-a400m`` at full
+      width and depth (bf16, batch 8 x 512, 8-bit AdamW moments)
+      through the compiled step for three steps: 48 flash forward and
+      24 backward launches a step, finite losses (each with 0.01 x the
+      load-balance loss) and expert imbalance, step 0's loss and
+      gradients against the plain path as 5f, and four compiled steps
+      against four eager ones bit for bit.
    In 5g and 5h the counters must be exactly the Program's kernel ops per
    call (``PAIR_OPS``: zamba2-7b 81 mamba2_scan and 99 matmul per
    admission and per tick, 14 flash per admission, 14 decode per tick;
@@ -216,7 +247,9 @@ exits non-zero before the last line is printed.  Phases:
    admission (flash_attention), one smollm-360m decode tick
    (decode_attention, paged_decode_attention, matmul), one smollm-360m
    training step (flash_attention_bwd), one zamba2-7b admission
-   (mamba2_scan) or one rwkv6-7b admission (wkv6);
+   (mamba2_scan) or one rwkv6-7b admission (wkv6); the granite rows
+   (per tick, per admission, the head, per training step) print before
+   it;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN and cuBLAS, so the plain versions and
@@ -276,6 +309,18 @@ FAMILY_ARGS = ["--slots", str(SLOTS), "--max-len", str(LM_MAX_LEN),
 FAMILY_FLOOR = {"zamba2-7b": ("zamba2", "mamba2_scan"),
                 "rwkv6-7b": ("rwkv", "wkv6")}
 FAMILY_MEAN_TOL = {"zamba2-7b": 0.28, "rwkv6-7b": 0.08}
+# granite-moe-1b-a400m (hf:ibm-granite/granite-3.0-1b-a400m-base) at full
+# width and depth in bf16: 5j serves it off the graphed pair (FAMILY_ARGS),
+# 5k trains it through the compiled step for MOE_STEPS steps.  A bf16
+# difference of one ulp can flip a near-tie of its top-8 routing between
+# two paths, which moves a token to another expert, so its replay gate is
+# built like the recurrent families': the max bound is max(LOGIT_TOL, twice
+# the largest difference between two plain replays that differ only in
+# summation order, ``reordered_plain``), the mean |logit diff|
+# is held to twice those two replays' mean, the same run's, and every op
+# is held to its plain version on the same input (``check_family_ops``;
+# the dispatch, plain torch on both sides, bit for bit).
+MOE_ARCH, MOE_STEPS = "granite-moe-1b-a400m", 3
 # Kernel-launching ops per (prefill, decode) Program of each served pair,
 # read off the Program listings; the exact launch counts multiply them.
 # rwkv6's decode step is plain torch (no wkv6 launch), as in the reference.
@@ -284,7 +329,9 @@ PAIR_OPS = {
               {"matmul": 225, "decode_attention": 32}),
     "zamba2-7b": ({"matmul": 99, "flash_attention": 14, "ssm_scan": 81},
                   {"matmul": 99, "decode_attention": 14, "ssm_scan": 81}),
-    "rwkv6-7b": ({"matmul": 1, "wkv": 32}, {"matmul": 1, "wkv": 32})}
+    "rwkv6-7b": ({"matmul": 1, "wkv": 32}, {"matmul": 1, "wkv": 32}),
+    MOE_ARCH: ({"matmul": 97, "flash_attention": 24},
+               {"matmul": 97, "decode_attention": 24})}
 KERNEL_OPS = ("matmul", "flash_attention", "decode_attention", "ssm_scan",
               "wkv")
 # Peak operation rates by operand type and the HBM rate, by card name:
@@ -338,6 +385,9 @@ PAGED_5D = dict(paged=True, shared_prefix=PREFIX, prompt_len=(224, 256),
 # checked at the same attention shape (B, 15 q / 5 kv heads of 64, 512),
 # causal, windowed and kv_len-masked; the autograd comparison at batch 2.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 6
+# The compiled step against the eager one (5f, 5k): this many steps each
+# way from the same params and batches, two of them replays.
+COMPARE_STEPS = 4
 # Step-0 agreement of the kernel path with the plain path on the card,
 # both bf16: attention outputs and gradients are each rounded once to
 # bf16 on both sides but summed in other orders, so they differ by about
@@ -372,16 +422,29 @@ def reset_matmul_paths() -> None:
         matmul_cuda.path_launches[path] = 0
 
 
-def check_matmul_paths(label: str, skinny: int, wgmma: int) -> None:
+def check_matmul_paths(label: str, skinny: int, wgmma: int,
+                       simt: int = 0) -> None:
     """The matmul launches since the last reset went exactly ``skinny``
-    times through the skinny path, ``wgmma`` times through wgmma, and
-    never through simt."""
+    times through the skinny path, ``wgmma`` times through wgmma and
+    ``simt`` times through simt."""
     from repro_torch.kernels.matmul.kernel import matmul_cuda
     got = dict(matmul_cuda.path_launches)
-    want = {"skinny": skinny, "wgmma": wgmma, "simt": 0}
+    want = {"skinny": skinny, "wgmma": wgmma, "simt": simt}
     print(f"{label}: matmul paths {got}, want {want}")
     if got != want:
         fail(f"{label}: matmul paths {got} != {want}")
+
+
+def matmul_paths(cfg, prog, M: int) -> Counter:
+    """``matmul_plan``'s path of each matmul op of ``prog`` at M rows, in
+    the config's type, counted."""
+    from repro_torch.kernels.matmul.kernel import matmul_plan
+    from repro_torch.models import param_defs
+    defs = param_defs(cfg)
+    return Counter(matmul_plan(M, *_weight_shape(defs, op.param_key)
+                               [::-1 if op.transpose_w else 1],
+                               cfg.tdtype).path
+                   for op in prog.ops if op.kernel == "matmul")
 
 
 def reset_flash_paths() -> None:
@@ -1605,7 +1668,7 @@ def bwd_magnitudes(q, k, v, out, lse, do, *, scale, causal, window,
                 B, Hkv, G, Skv, D).sum(2))
 
 
-def check_flash_bwd(device, peaks):
+def check_flash_bwd(device, peaks, arch=LM_ARCH):
     """Phase 4, the flash-attention backward at the training shape (B = 8,
     15 q / 5 kv heads of 64, S = 512): causal, window 128 and a
     kv_len = 450 mask (non-causal), in f32 (atol = rtol = 1e-4) and bf16
@@ -1619,8 +1682,9 @@ def check_flash_bwd(device, peaks):
     Each bf16 case also prints, of the kernel and of the plain version
     with its key chunk cut from 512 to 64 (the same f32 sums in another
     order), how many elements lie past one ulp and the largest share of
-    the f32 bound an element uses past that ulp.  Returns the timed
-    row."""
+    the f32 bound an element uses past that ulp.  For another ``arch``
+    (granite's 16 q / 8 kv heads of 64) only the causal bf16 case runs,
+    checked and timed.  Returns the timed row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_ref
@@ -1630,16 +1694,17 @@ def check_flash_bwd(device, peaks):
         flash_attention_cuda, flash_attention_plain)
     from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
     from repro_torch.configs import get_config
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    full = arch == LM_ARCH
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     B, S = TRAIN_BATCH, TRAIN_SEQ
     scale = D ** -0.5
     errs, row = [], None
     cases = (("causal", True, None, None), ("window 128", True, 128, None),
-             ("kv_len 450", False, None, 450))
+             ("kv_len 450", False, None, 450))[:3 if full else 1]
     for i, (label, causal, window, kv_len) in enumerate(cases):
         kw = dict(scale=scale, causal=causal, window=window, kv_len=kv_len)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16)[0 if full else 1:]:
             gen = torch.Generator(device=device).manual_seed(SEED + 200 + i)
             q, do = (_train_heads(B, S, Hq, dtype, device, gen, D)
                      for _ in range(2))
@@ -1672,7 +1737,7 @@ def check_flash_bwd(device, peaks):
                         f"kernel {past(got)}; plain version with 64-key "
                         f"chunks {past(reorder)}")
                 del mags, reorder
-                if label == "causal":
+                if label == "causal" and full:
                     # simt in bf16 too: operands off a 16-byte boundary.
                     simt = flash_attention_bwd_cuda.path_launches["simt"]
                     got_simt = flash_attention_bwd_cuda(
@@ -1732,6 +1797,16 @@ def check_flash_bwd(device, peaks):
                        "flops": flops, "bytes": nbytes}
                 row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
             del got, want, kern, plain
+    if not full:
+        row["max_abs_err"] = max(errs)
+        print(f"  flash_attention_bwd bf16 causal {arch} B={B} S={S} "
+              f"{Hq}/{Hkv}x{D}: ms={row['ms']:.4f} plain="
+              f"{row['plain_ms']:.4f} library={row['library_ms']:.4f} "
+              f"bound={row['bound_ms']:.4f}; forward kernel "
+              f"{row['fwd_ms']:.4f} ms (plain {row['fwd_plain_ms']:.4f}, "
+              f"SDPA {row['fwd_library_ms']:.4f}, bound "
+              f"{row['fwd_bound_ms']:.4f})", flush=True)
+        return row
     # The trainable wrapper (forward kernel + backward kernel under
     # autograd) against flash_ref's own autograd, f32, batch 2.
     gen = torch.Generator(device=device).manual_seed(SEED + 210)
@@ -1829,27 +1904,147 @@ def train_smoke(device):
     return launches
 
 
+def step0_against_plain(label, cfg, device, batch):
+    """Step 0 of a training run again, its loss and gradients through the
+    kernels against the plain path on the card (remat on, as the step):
+    loss within LOSS_RTOL, global gradient norm within GNORM_RTOL, each
+    leaf's largest gradient difference within LEAF_RTOL of that leaf's
+    largest gradient.  Returns the kernel path's step-0 loss."""
+    import torch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import init_params, param_defs
+    from repro_torch.optim import global_norm
+    params = init_params(param_defs(cfg),
+                         torch.Generator(device).manual_seed(SEED))
+    got = loss_and_grads(cfg, params, batch, impl="auto", remat=True)
+    ref = loss_and_grads(cfg, params, batch, impl="reference", remat=True)
+    (loss_k, grads_k), (loss_r, grads_r) = got, ref
+    gn_k, gn_r = float(global_norm(grads_k)), float(global_norm(grads_r))
+    d_loss = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
+    d_norm = abs(gn_k - gn_r) / gn_r
+    print(f"{label} step 0: loss kernels {float(loss_k):.6f} plain "
+          f"{float(loss_r):.6f} (rel diff {d_loss:.2e}, bound {LOSS_RTOL}); "
+          f"grad norm kernels {gn_k:.6f} plain {gn_r:.6f} (rel diff "
+          f"{d_norm:.2e}, bound {GNORM_RTOL})")
+    named_r = _named_leaves(grads_r)
+    leaf_diffs = {}
+    for name, gk in _named_leaves(grads_k).items():
+        gr = named_r[name]
+        leaf_diffs[name] = ((gk.float() - gr.float()).abs().max().item(),
+                            gr.float().abs().max().item())
+    leaf_rel = {k: d / m for k, (d, m) in leaf_diffs.items()}
+    print(f"{label} step 0 per-leaf max |grad diff| (max |grad|; ratio, "
+          f"bound {LEAF_RTOL}): " + ", ".join(
+              f"{k} {d:.3e} ({m:.3e}; {leaf_rel[k]:.4f})"
+              for k, (d, m) in leaf_diffs.items()))
+    bad = [k for k, r in leaf_rel.items() if not r <= LEAF_RTOL]
+    if not (d_loss <= LOSS_RTOL and d_norm <= GNORM_RTOL) or bad:
+        fail(f"{label} step 0: kernel path disagrees with the plain path "
+             f"(leaves over {LEAF_RTOL}: {bad})")
+    return float(loss_k)
+
+
+def graphed_against_eager_steps(label, cfg, device, optimizer,
+                                n: int = COMPARE_STEPS):
+    """``n`` training steps through the compiled step (step 0 eager,
+    step 1 captured and replayed, replays after) and ``n`` under
+    ``executor.disable_graphs()``, each from the seed's params on the
+    SyntheticLM batches 0..n-1: every metric of every step, the params
+    and the optimizer state bit for bit.  Each step is timed to a device
+    synchronise; then one more replay and one more eager step run under
+    the profiler (``profile_train``).  Returns the step ms (medians of
+    the replays and of the eager steps past the first) and the
+    profiles."""
+    import gc
+    import torch
+    from repro_torch.checkpoint import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import init_params, param_defs
+    from repro_torch.runtime import executor
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in data.batch_at(i).items()} for i in range(n + 1)]
+    out, runs = {}, {}
+    for side in ("graphed", "eager"):
+        ctx = (executor.disable_graphs() if side == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            params = init_params(param_defs(cfg),
+                                 torch.Generator(device).manual_seed(SEED))
+            state = optimizer.init(params)
+            step = build_train_step(cfg, optimizer)
+            metrics, times = [], []
+            for b in batches[:n]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics.append(step(params, state, b)[2])
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            # The steady state: the replays (from step 2), eager past 0.
+            ms = statistics.median(times[2:] if side == "graphed"
+                                   else times[1:])
+            out[f"{side}_ms"], out[f"{side}_times"] = ms, times
+            # The comparison is taken before the profiled step moves the
+            # state on.
+            runs[side] = ([t.clone() for t in tree_leaves((params, state))],
+                          metrics)
+            out[f"{side}_profile"] = profile_train(
+                f"{label} {side} step",
+                lambda: step(params, state, batches[n]), ms)
+            if side == "graphed":
+                captured = [g for g in step.graphs.graphs.values()
+                            if g is not None]
+                if len(captured) != 1:
+                    fail(f"{label}: {len(captured)} graphs captured for "
+                         f"the train step, want 1")
+            del params, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    (lg, mg), (le, me) = runs["graphed"], runs["eager"]
+    same_metrics = all(sorted(a) == sorted(b) and all(
+        torch.equal(a[k], b[k]) for k in a) for a, b in zip(mg, me))
+    same_state = _tree_equal(lg, le)
+    losses = [[round(float(m["loss"]), 6) for m in ms] for ms in (mg, me)]
+    print(f"{label}: {n} steps graphed against {n} under disable_graphs(): "
+          f"losses {losses[0]} / {losses[1]}; every metric bit-equal: "
+          f"{same_metrics}; params and optimizer state bit-equal: "
+          f"{same_state}; step ms graphed {out['graphed_ms']:.2f} (median "
+          f"of the replays; {[round(t, 2) for t in out['graphed_times']]})"
+          f" / eager {out['eager_ms']:.2f} (median past step 0; "
+          f"{[round(t, 2) for t in out['eager_times']]})", flush=True)
+    if not (same_metrics and same_state):
+        fail(f"{label}: the graphed steps are not bitwise equal to the "
+             f"eager ones")
+    del runs, lg, le, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_lm(device, bwd_row):
     """Phase 5f: ``repro_torch.launch.train`` in process on full-width
     smollm-360m (bf16, batch 8, seq 512, SyntheticLM seed 0, AdamW with
-    the CLI's cosine schedule), counters set to 0 just before it and read
-    just after: per step exactly 64 flash forward launches (32 layers,
-    each recomputed under remat) and 32 backward, no matmul or decode
-    launch; every loss finite.  Then the same params and step-0 batch
-    through the plain path on the card (loss within LOSS_RTOL, global
-    gradient norm within GNORM_RTOL, each leaf's largest gradient
-    difference within LEAF_RTOL of its largest gradient), and a fresh
-    trainer resumed from the last checkpoint: at the saved step, with
-    params and optimizer state equal bit for bit.  Returns (launches, stats)."""
+    the CLI's cosine schedule) through the compiled step (step 0 eager,
+    step 1 captured, replays after), counters set to 0 just before it
+    and read just after: per step exactly 64 flash forward launches (32
+    layers, each recomputed under remat) and 32 backward, no matmul or
+    decode launch; every loss finite.  Then the same params and step-0
+    batch through the plain path on the card (``step0_against_plain``),
+    a fresh trainer resumed from the last checkpoint (at the saved step,
+    params and optimizer state equal bit for bit), and the compiled step
+    against the eager one (``graphed_against_eager_steps``).  Returns
+    (launches, stats)."""
     import math
     import shutil
     import tempfile
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import train
-    from repro_torch.launch.steps import build_train_step, loss_and_grads
+    from repro_torch.launch.steps import build_train_step
     from repro_torch.models import init_params, transformer
-    from repro_torch.optim import AdamW, global_norm
+    from repro_torch.optim import AdamW
     from repro_torch.runtime import Trainer, TrainerConfig
     counters = lm_counters()
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -1881,40 +2076,10 @@ def train_lm(device, bwd_row):
         if not all(math.isfinite(x) for x in losses):
             fail(f"5f train: non-finite loss in {losses}")
 
-        # Step 0 again, kernels against the plain path on the card.
-        params = init_params(transformer.param_defs(cfg),
-                             torch.Generator(device).manual_seed(SEED))
         batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
             vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
             seed=0).batch_at(0).items()}
-        got = loss_and_grads(cfg, params, batch, impl="auto", remat=True)
-        ref = loss_and_grads(cfg, params, batch, impl="reference",
-                             remat=True)
-        (loss_k, grads_k), (loss_r, grads_r) = got, ref
-        gn_k, gn_r = float(global_norm(grads_k)), float(global_norm(grads_r))
-        d_loss = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
-        d_norm = abs(gn_k - gn_r) / gn_r
-        print(f"5f step 0: loss kernels {float(loss_k):.6f} plain "
-              f"{float(loss_r):.6f} (trainer {losses[0]:.6f}; rel diff "
-              f"{d_loss:.2e}, bound {LOSS_RTOL}); grad norm kernels "
-              f"{gn_k:.6f} plain {gn_r:.6f} (rel diff {d_norm:.2e}, bound "
-              f"{GNORM_RTOL})")
-        named_r = _named_leaves(grads_r)
-        leaf_diffs = {}
-        for name, gk in _named_leaves(grads_k).items():
-            gr = named_r[name]
-            leaf_diffs[name] = ((gk.float() - gr.float()).abs().max().item(),
-                                gr.float().abs().max().item())
-        leaf_rel = {k: d / m for k, (d, m) in leaf_diffs.items()}
-        print("5f step 0 per-leaf max |grad diff| (max |grad|; ratio, bound "
-              f"{LEAF_RTOL}): " + ", ".join(
-                  f"{k} {d:.3e} ({m:.3e}; {leaf_rel[k]:.4f})"
-                  for k, (d, m) in leaf_diffs.items()))
-        bad = [k for k, r in leaf_rel.items() if not r <= LEAF_RTOL]
-        if not (d_loss <= LOSS_RTOL and d_norm <= GNORM_RTOL) or bad:
-            fail(f"5f step 0: kernel path disagrees with the plain path "
-                 f"(leaves over {LEAF_RTOL}: {bad})")
-        del got, ref, grads_k, grads_r
+        step0_against_plain("5f", cfg, device, batch)
 
         # A fresh trainer resumes from the last checkpoint.
         optimizer = AdamW()
@@ -1935,24 +2100,113 @@ def train_lm(device, bwd_row):
               f"(checkpoint {size / 1e9:.2f} GB)")
         if step2 != TRAIN_STEPS or resumed.metrics_history or not same:
             fail("5f resume: the checkpoint did not restore the trained state")
-        del fresh, p2, o2
+        del fresh, p2, o2, res
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    dts = [r["dt_s"] for r in hist[1:]]
-    step_ms = 1e3 * sum(dts) / len(dts)
-    profile_step(cfg, res["params"], res["opt_state"], device, step_ms)
+    # The CLI's step 1 holds the capture; steps 2 on are replays.
+    step_ms = 1e3 * statistics.mean(r["dt_s"] for r in hist[2:])
+    compare = graphed_against_eager_steps("5f", cfg, device, AdamW())
     tokens = TRAIN_BATCH * TRAIN_SEQ
     stats = {"step_ms": step_ms, "tok_s": tokens / (step_ms / 1e3),
-             "warmup_ms": 1e3 * hist[0]["dt_s"], "losses": losses,
+             "warmup_ms": 1e3 * hist[0]["dt_s"],
+             "capture_ms": 1e3 * hist[1]["dt_s"], "losses": losses,
              "fwd_ms": 2 * L * bwd_row["fwd_ms"], "bwd_ms": L * bwd_row["ms"],
-             "peak_gb": peak / 1e9}
+             "peak_gb": peak / 1e9, **compare}
     print(f"5f train: {stats['tok_s']:.0f} tokens/s trained, step "
-          f"{step_ms:.2f} ms mean over steps 1-{n - 1} (step 0 "
-          f"{stats['warmup_ms']:.1f} ms); flash forward {2 * L} x "
-          f"{bwd_row['fwd_ms']:.4f} = {stats['fwd_ms']:.2f} ms and backward "
-          f"{L} x {bwd_row['ms']:.4f} = {stats['bwd_ms']:.2f} ms of kernel "
-          f"time per step; peak memory allocated {stats['peak_gb']:.2f} GB; "
-          f"losses {[round(x, 4) for x in losses]}", flush=True)
+          f"{step_ms:.2f} ms mean over the replayed steps 2-{n - 1} (step 0 "
+          f"eager {stats['warmup_ms']:.1f} ms, step 1 with the capture "
+          f"{stats['capture_ms']:.1f} ms); graphed {compare['graphed_ms']:.2f}"
+          f" / eager {compare['eager_ms']:.2f} ms a step; flash forward "
+          f"{2 * L} x {bwd_row['fwd_ms']:.4f} = {stats['fwd_ms']:.2f} ms and "
+          f"backward {L} x {bwd_row['ms']:.4f} = {stats['bwd_ms']:.2f} ms of "
+          f"kernel time per step; peak memory allocated "
+          f"{stats['peak_gb']:.2f} GB; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    return launches, stats
+
+
+def train_moe(device, bwd_row):
+    """Phase 5k: ``repro_torch.launch.train --arch granite-moe-1b-a400m``
+    at full width and depth in bf16 (24 layers, 32 experts top-8; batch
+    8, seq 512, 8-bit AdamW moments) through the compiled step, counters
+    set to 0 just before it and read just after: per step 48 flash
+    forward launches (remat) and 24 backward, no matmul or decode
+    launch; every loss (the load-balance term included) and expert
+    imbalance finite.  Then step 0 through the plain path
+    (``step0_against_plain``) and the compiled step against the eager
+    one (``graphed_against_eager_steps``).  ``bwd_row``: phase 4's flash
+    rows at granite's training shape.  Returns (launches, stats)."""
+    import gc
+    import math
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import AUX_LOSS_WEIGHT
+    from repro_torch.optim import AdamW
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = lm_counters()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        reset_flash_paths()
+        torch.cuda.reset_peak_memory_stats()
+        res = train.main(["--arch", MOE_ARCH, "--steps", str(MOE_STEPS),
+                          "--batch", str(TRAIN_BATCH), "--seq",
+                          str(TRAIN_SEQ), "--ckpt-dir", ckpt_dir,
+                          "--ckpt-every", str(MOE_STEPS), "--opt-bits", "8",
+                          "--seed", str(SEED)])
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg, hist = res["cfg"], res["trainer"].metrics_history
+    del res
+    L, n = cfg.n_layers, len(hist)
+    fwd = (2 if L >= 16 else 1) * L          # remat from 16 layers on
+    want = {"flash_attention": fwd * n, "flash_attention_bwd": L * n,
+            "decode_attention": 0, "paged_decode_attention": 0,
+            "matmul": 0, "mamba2_scan": 0, "wkv6": 0}
+    print(f"5k train: {n} steps, launches {launches}, want {want}")
+    if n != MOE_STEPS or launches != want:
+        fail(f"5k train: {n} steps, launch counts {launches} != {want}")
+    check_flash_paths("5k train", fwd * n, L * n)
+    losses = [r["loss"] for r in hist]
+    imb = [r["moe_imbalance_pct"] for r in hist]
+    if not all(math.isfinite(x) for x in losses + imb):
+        fail(f"5k train: non-finite loss or imbalance in {losses}, {imb}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0).batch_at(0).items()}
+    loss0 = step0_against_plain("5k", cfg, device, batch)
+    del batch
+    compare = graphed_against_eager_steps("5k", cfg, device,
+                                          AdamW(state_bits=8))
+    step_ms = 1e3 * statistics.mean(r["dt_s"] for r in hist[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    stats = {"step_ms": step_ms, "tok_s": tokens / (step_ms / 1e3),
+             "warmup_ms": 1e3 * hist[0]["dt_s"],
+             "capture_ms": 1e3 * hist[1]["dt_s"], "losses": losses,
+             "imbalance": imb, "peak_gb": peak / 1e9,
+             "fwd_ms": fwd * bwd_row["fwd_ms"], "bwd_ms": L * bwd_row["ms"],
+             **compare}
+    print(f"5k train: {stats['tok_s']:.0f} tokens/s trained, step "
+          f"{step_ms:.2f} ms (the replayed steps 2-{n - 1}; step 0 eager "
+          f"{stats['warmup_ms']:.1f} ms, step 1 with the capture "
+          f"{stats['capture_ms']:.1f} ms); graphed {compare['graphed_ms']:.2f}"
+          f" / eager {compare['eager_ms']:.2f} ms a step; losses "
+          f"{[round(x, 4) for x in losses]}, each with {AUX_LOSS_WEIGHT} x "
+          f"the load-balance loss (step 0 through the kernels again "
+          f"{loss0:.4f}); expert imbalance {[round(x, 1) for x in imb]}%; "
+          f"flash forward {fwd} x {bwd_row['fwd_ms']:.4f} = "
+          f"{stats['fwd_ms']:.2f} ms and backward {L} x {bwd_row['ms']:.4f} "
+          f"= {stats['bwd_ms']:.2f} ms of kernel time per step; peak memory "
+          f"allocated {stats['peak_gb']:.2f} GB", flush=True)
     return launches, stats
 
 
@@ -1979,28 +2233,20 @@ SERVE_GROUPS = (("the port's kernels (CUDA)", SERVE_KERNELS),
                 ) + KERNEL_GROUPS[2:]
 
 
-def profile_step(cfg, params, opt_state, device, step_ms):
-    """One more training step under ``torch.profiler``: device time by
-    kernel group, the kernel sum against the unprofiled mean step
-    (``step_ms``), and the launches.  Prints "not measured" when the
+def profile_train(label, call, step_ms):
+    """One more training step (``call()``) under ``torch.profiler``:
+    device time by kernel group, the device-busy share of the unprofiled
+    step ``step_ms``, and the launches.  Prints "not measured" when the
     profiler sees no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.data import SyntheticLM
-    from repro_torch.launch.steps import build_train_step
-    from repro_torch.optim import AdamW
-    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
-        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-        seed=0).batch_at(TRAIN_STEPS).items()}
-    step_fn = build_train_step(cfg, AdamW())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = step_fn(params, opt_state, batch)
+        call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    del out
     groups, kernels, launches = Counter(), Counter(), 0
     for evt in prof.key_averages():
         if "CUDA" not in str(evt.device_type):
@@ -2016,18 +2262,18 @@ def profile_step(cfg, params, opt_state, device, step_ms):
         launches += evt.count
     total = sum(groups.values())
     if total <= 0:
-        print("5f profile: the profiler saw no device time; breakdown not "
-              "measured")
+        print(f"{label} profile: the profiler saw no device time; "
+              f"breakdown not measured")
         return None
-    print(f"5f profile: one step {wall_ms:.1f} ms under the profiler; "
+    print(f"{label} profile: {wall_ms:.1f} ms under the profiler; "
           f"{launches} kernel launches, {total:.1f} ms of device time = "
-          f"{100 * total / step_ms:.0f}% of the unprofiled {step_ms:.1f} ms "
-          f"step (device idle {100 * (1 - total / step_ms):.0f}%): " +
+          f"{100 * total / step_ms:.1f}% of the unprofiled {step_ms:.1f} ms "
+          f"step (device idle {100 * (1 - total / step_ms):.1f}%): " +
           ", ".join(f"{g} {ms:.2f} ms" for g, ms in groups.most_common()))
-    print("5f profile, the ten largest kernels: " + "; ".join(
+    print(f"{label} profile, the ten largest kernels: " + "; ".join(
         f"{k} {ms:.2f} ms" for k, ms in kernels.most_common(10)))
     return {"device_ms": total, "launches": launches, "groups": dict(groups),
-            "wall_ms": wall_ms}
+            "wall_ms": wall_ms, "busy": total / step_ms}
 
 
 def _named_leaves(tree, prefix=""):
@@ -2145,11 +2391,15 @@ class Recorder:
         return [(i, c[0], c[3]) for i, c in enumerate(self.calls)
                 if c[0] in ("prefill", "chunk", "decode", "run")]
 
-    def _plain_rows(self, eng):
-        """The recorded calls again, in order, through the plain path on
-        a fresh state, teacher-forced with the kernel path's inputs and
-        page-table decisions.  Returns, per recorded call that produced
-        logits, (kind, {row: the plain path's logits row})."""
+    def _plain_rows(self, eng, impl: str = "reference",
+                    routes: list | None = None):
+        """The recorded calls again, in order, through the plain path
+        (``impl``: "auto" for the kernel path, eagerly) on a fresh state,
+        teacher-forced with the kernel path's inputs and page-table
+        decisions.  Returns, per recorded call that produced logits,
+        (kind, {row: the replay's logits row}).  ``routes``, a list,
+        gets each such call's MoE routing (``routing``): per MoE op, each
+        token's sorted top-k expert ids."""
         import torch
         orig, pair = self.orig, eng.program
         state = self.ex.init_program_state(pair, eng.device)
@@ -2163,23 +2413,28 @@ class Recorder:
                 orig["apply_page_copies"](state, pair, args)
                 continue
             tokens, args = args[0].to(eng.device), args[1:]
-            if kind == "prefill":
-                slot, length, write_from = args
-                out = self.ex.run_prefill(pair.prefill, eng.params, tokens,
-                                          state, slot, length, write_from,
-                                          impl="reference")
-                want = {0: out[0, length - 1]}
-            elif kind == "chunk":
-                slot, start, stop, length, write_from = args
-                out = self.ex.run_prefill_chunk(
-                    pair.prefill, eng.params, tokens, state, slot, start,
-                    stop, length, write_from, impl="reference")
-                want = {i: out[i, length[i] - 1] for i in got}
-            else:
-                mask = args[0].to(eng.device)
-                out = self.ex.run_decode(pair.decode, eng.params, tokens,
-                                         state, mask, impl="reference")
-                want = {i: out[i] for i in got}
+            log = []
+            with routing(log) if routes is not None else \
+                    contextlib.nullcontext():
+                if kind == "prefill":
+                    slot, length, write_from = args
+                    out = self.ex.run_prefill(pair.prefill, eng.params,
+                                              tokens, state, slot, length,
+                                              write_from, impl=impl)
+                    want = {0: out[0, length - 1]}
+                elif kind == "chunk":
+                    slot, start, stop, length, write_from = args
+                    out = self.ex.run_prefill_chunk(
+                        pair.prefill, eng.params, tokens, state, slot,
+                        start, stop, length, write_from, impl=impl)
+                    want = {i: out[i, length[i] - 1] for i in got}
+                else:
+                    mask = args[0].to(eng.device)
+                    out = self.ex.run_decode(pair.decode, eng.params,
+                                             tokens, state, mask, impl=impl)
+                    want = {i: out[i] for i in got}
+            if routes is not None:
+                routes.append(log)
             rows.append((kind, {i: want[i].float().cpu().numpy()
                                 for i in got}))
         return rows
@@ -2199,19 +2454,25 @@ class Recorder:
         the two plain replays' largest difference or None, the bound) and
         prints the mean |logit diff| of each comparison."""
         import numpy as np
-        plain = self._plain_rows(eng)
-        spread, bound, note = None, LOGIT_TOL, ""
-        if arch in FAMILY_FLOOR:
-            with sequential_plain(*FAMILY_FLOOR[arch]):
+        moe = arch == MOE_ARCH
+        routes = [] if moe else None
+        plain = self._plain_rows(eng, routes=routes)
+        spread, bound, note, mean_tol = None, LOGIT_TOL, "", None
+        if arch in FAMILY_FLOOR or moe:
+            with (reordered_plain() if moe
+                  else sequential_plain(*FAMILY_FLOOR[arch])):
                 alt = self._plain_rows(eng)
             d = [np.abs(a[i] - b[i]) for (_, a), (_, b) in zip(plain, alt)
                  for i in a]
             spread = max(float(x.max()) for x in d)
             bound = max(LOGIT_TOL, 2 * spread)
-            note = (f"; between the two plain replays "
-                    f"{float(np.mean([x.mean() for x in d])):.4f}")
+            plain_mean = float(np.mean([x.mean() for x in d]))
+            mean_tol = FAMILY_MEAN_TOL.get(arch, 2 * plain_mean)
+            note = f"; between the two plain replays {plain_mean:.4f}"
         served = [c for c in self.calls
                   if c[0] in ("prefill", "chunk", "decode")]
+        if moe:
+            self.routing_report(eng, served, plain, routes)
         worst, n_rows, n_ids, means = 0.0, 0, 0, []
         for (kind, want), (_, _, _, got) in zip(plain, served):
             for i, g in got.items():
@@ -2232,11 +2493,43 @@ class Recorder:
                              f"of {top2[1] - top2[0]:.3f}")
         mean = float(np.mean(means))
         print(f"  mean |logit diff| per row: served against plain "
-              f"{mean:.4f} (largest row {max(means):.4f}){note}")
-        if arch in FAMILY_MEAN_TOL and mean > FAMILY_MEAN_TOL[arch]:
+              f"{mean:.4f} (largest row {max(means):.4f}){note}"
+              + (f"; limit {mean_tol:.4f}" if mean_tol else ""))
+        if mean_tol is not None and mean > mean_tol:
             fail(f"served logits differ from the plain path by {mean:.4f} "
-                 f"per row on the mean > {FAMILY_MEAN_TOL[arch]}")
+                 f"per row on the mean > {mean_tol:.4f}")
         return worst, n_rows, n_ids, spread, bound
+
+    def routing_report(self, eng, served, plain, routes) -> None:
+        """The recorded calls replayed once more through the kernel path,
+        eagerly, recording its routing: its rows against the served ones
+        (the graphs replay what the eager calls compute), and the rows
+        whose routing differs from the plain replay's at some MoE layer
+        (a decode row: its own token; an admission's row: any prompt
+        token), with the largest and mean |logit diff| of the rows routed
+        alike and of those routed otherwise, printed."""
+        import numpy as np
+        k_routes = []
+        kern = self._plain_rows(eng, impl="auto", routes=k_routes)
+        eager_diff = max(float(np.abs(
+            g[i].float().cpu().numpy() - k[i]).max())
+            for (_, _, _, g), (_, k) in zip(served, kern) for i in g)
+        same, other = [], []
+        for (kind, _, args, got), (_, want), a, b in zip(
+                served, plain, k_routes, routes):
+            for i in got:
+                tok = slice(0, int(args[2])) if kind == "prefill" else i
+                flip = any(not np.array_equal(x[tok], y[tok])
+                           for x, y in zip(a, b))
+                diff = np.abs(got[i].float().cpu().numpy() - want[i])
+                (other if flip else same).append(diff)
+        stat = lambda ds: (f"{len(ds)} rows, largest {max(d.max() for d in ds):.4f}, "
+                           f"mean {np.mean([d.mean() for d in ds]):.4f}"
+                           if ds else "0 rows")
+        print(f"  routing: served rows against an eager kernel-path replay "
+              f"{eager_diff:.3e}; rows whose routing differs from the plain "
+              f"path's at some MoE layer: {stat(other)}; routed alike: "
+              f"{stat(same)}", flush=True)
 
     def prefill_tenures(self) -> list[tuple[int, int, int]]:
         """(slot, prompt length, chunk calls from its first chunk to its
@@ -2260,7 +2553,7 @@ def op_outputs(ex, outs: list):
     output) to ``outs``; under capture the outputs are the graph's own
     buffers, which a replay fills."""
     names = ("_run_op", "_run_attention", "_run_attention_chunk",
-             "_run_family_op", "_run_decode_attention",
+             "_run_family_op", "_run_moe", "_run_decode_attention",
              "_run_decode_attention_paged")
     orig = {n: getattr(ex, n) for n in names}
 
@@ -2531,9 +2824,15 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
         fail(f"{label}: launch counts {launches} != {want}, or ops per "
              f"call not {PAIR_OPS[arch]}")
     # Decode ticks (M = slots) on skinny, admissions and chunks (M =
-    # max_len rows per prompt) on wgmma.
-    check_matmul_paths(label, ticks * dec["matmul"],
-                       passes * pre["matmul"])
+    # max_len rows per prompt) on wgmma; a product whose K or N is not a
+    # whole number of 16-byte vectors (granite's 49155-wide head) on simt.
+    paths = Counter()
+    for n_calls, prog, M in ((passes, eng.program.prefill, eng.max_len),
+                             (ticks, eng.program.decode, eng.slots)):
+        for path, k in matmul_paths(eng.cfg, prog, M).items():
+            paths[path] += n_calls * k
+    check_matmul_paths(label, paths["skinny"], paths["wgmma"],
+                       paths["simt"])
     # Every served flash call is bf16 on aligned views: the mma path.
     check_flash_paths(label, want["flash_attention"], 0)
     n_graphs = check_captured(label, eng.state.graphs.graphs,
@@ -2657,6 +2956,58 @@ def serve_paged(label: str):
 
 
 @contextlib.contextmanager
+def reordered_plain():
+    """Inside, the plain path sums in another order: the matmul's K
+    products in two halves, each in f32, then added; the flash forward's
+    keys in chunks of 64 (its online softmax over 8 chunks of a 512-row
+    prompt instead of one).  A second plain version of the same
+    functions."""
+    import functools
+    import torch
+    from repro_torch.kernels.common import apply_activation
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.matmul import ops
+    orig = ops.matmul_ref, flash_ops.flash_ref
+
+    def halves(a, b, *, bias=None, activation=None, bypass=None):
+        h = a.shape[-1] // 2
+        acc = (torch.matmul(a[..., :h].float(), b[:h].float())
+               + torch.matmul(a[..., h:].float(), b[h:].float()))
+        if bias is not None:
+            acc = acc + bias.float()
+        acc = apply_activation(acc, activation)
+        if bypass is not None:
+            acc = acc + bypass.float()
+        return acc.to(a.dtype)
+    ops.matmul_ref = halves
+    flash_ops.flash_ref = functools.partial(orig[1], chunk=64)
+    try:
+        yield
+    finally:
+        ops.matmul_ref, flash_ops.flash_ref = orig
+
+
+@contextlib.contextmanager
+def routing(log: list):
+    """Inside, each MoE dispatch appends its tokens' top-k expert ids
+    (sorted; host tensors) to ``log``."""
+    import torch
+    from repro_torch.models import moe
+    orig = moe.moe_mlp
+
+    def recorded(x, router_w, *args, top_k, **kw):
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        log.append(torch.topk(probs, top_k, dim=-1).indices.sort(-1)
+                   .values.cpu().numpy())
+        return orig(x, router_w, *args, top_k=top_k, **kw)
+    moe.moe_mlp = recorded
+    try:
+        yield
+    finally:
+        moe.moe_mlp = orig
+
+
+@contextlib.contextmanager
 def sequential_plain(module: str, fn: str):
     """Inside, the plain path of ``repro_torch.models.<module>`` runs its
     recurrence ``fn`` as the sequential f32 oracle (``impl="sequential"``)
@@ -2704,7 +3055,7 @@ def _held(got, want, what: str, errs: dict, kernel: str,
 
 
 def check_family_ops(label: str, eng, rec, arch: str) -> None:
-    """Phases 5g and 5h, op by op: every admission the engine made before
+    """Phases 5g, 5h and 5j, op by op: every admission the engine made before
     its first decode tick, then that tick, replayed from the recorded
     calls.  Each op whose kernel the kernel path launches (matmul,
     attention, the coarse recurrent block) runs once through the kernel
@@ -2714,7 +3065,9 @@ def check_family_ops(label: str, eng, rec, arch: str) -> None:
     the regions it reads), live slots only at a tick.  The plain path's
     output and state go on to the next op.  The recurrence's plain
     version is its sequential f32 oracle, the function its kernel
-    computes (the chunked form rounds its decay tile to bf16)."""
+    computes (the chunked form rounds its decay tile to bf16).  An MoE
+    dispatch (5j) runs twice on the plain path's input (it is plain torch
+    on both paths) and must agree bit for bit."""
     import torch
     ex, pair, params = rec.ex, eng.program, eng.params
     state = ex.init_program_state(pair, eng.device)
@@ -2733,7 +3086,8 @@ def check_family_ops(label: str, eng, rec, arch: str) -> None:
         return got, out
 
     n_adm = 0
-    with sequential_plain(*FAMILY_FLOOR[arch]):
+    with (sequential_plain(*FAMILY_FLOOR[arch]) if arch in FAMILY_FLOOR
+          else contextlib.nullcontext()):
         for kind, _, args, _ in rec.calls:
             if kind == "prefill":
                 tokens, slot, length, _ = args
@@ -2767,6 +3121,16 @@ def check_family_ops(label: str, eng, rec, arch: str) -> None:
                         impl="cuda")
                     out = ex._run_decode_attention(op, *kv, ck, cv, pos,
                                                    live, impl="reference")
+                elif op.kernel == "moe_dispatch":
+                    # plain torch on both paths: the same input gives the
+                    # same bits
+                    n = length if kind == "prefill" else None
+                    got = ex._run_moe(op, src, regions, params, n)
+                    out = ex._run_moe(op, src, regions, params, n)
+                    if not torch.equal(got, out):
+                        fail(f"{where} {op.name}: the dispatch is not "
+                             f"deterministic on the same input")
+                    n_ops["moe_dispatch"] += 1
                 elif op.kernel in KERNEL_OPS:
                     got = ex._run_op(op, src, regions, params, impl="cuda")
                     out = ex._run_op(op, src, regions, params,
@@ -2792,23 +3156,25 @@ def check_family_ops(label: str, eng, rec, arch: str) -> None:
 
 
 def serve_family(label: str, arch: str):
-    """Phases 5g and 5h: ``repro_torch.launch.serve --arch <arch>`` at full
-    width and depth in bf16 (random weights from the seed), 8 slots,
+    """Phases 5g, 5h and 5j: ``repro_torch.launch.serve --arch <arch>`` at
+    full width and depth in bf16 (random weights from the seed), 8 slots,
     max_len 512, 8 prompts of 32-448 tokens, 32 new tokens each, through
     ``serve_lm``'s launch, completion and replay checks, then served
     again eagerly once the graphed engine's weights and state are freed
-    (``check_eager``).  Returns (launches, stats)."""
+    (``check_eager``): granite's rows bit for bit, the recurrent
+    families' within the replay's bound.  Returns (launches, stats)."""
     import gc
     import torch
     from repro_torch.launch import serve
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    n = int(FAMILY_ARGS[FAMILY_ARGS.index("--requests") + 1])
+    n, new = (int(FAMILY_ARGS[FAMILY_ARGS.index(f) + 1])
+              for f in ("--requests", "--max-new"))
 
     def run():
         return serve.main(["--arch", arch] + FAMILY_ARGS)
-    launches, stats, eng, rec = serve_lm(label, run, n, arch=arch)
+    launches, stats, eng, rec = serve_lm(label, run, n, new, arch=arch)
     check_family_ops(label, eng, rec, arch)
     pair = eng.program
     state_mb = {}
@@ -2826,9 +3192,12 @@ def serve_family(label: str, arch: str):
     del eng, pair
     gc.collect()
     torch.cuda.empty_cache()
-    # cuBLAS runs the in / out projections, so the eager rows are held
-    # to the teacher-forced replay's gate, not bit for bit.
-    stats.update(check_eager(label, run, stats, rec, exact=False,
+    # cuBLAS runs zamba2's and rwkv6's in / out projections, so their
+    # eager rows are held to the teacher-forced replay's gate; granite's
+    # bit for bit (cuBLAS runs its experts' products, and keeps its
+    # algorithms on the capture stream, as it does for those
+    # projections).
+    stats.update(check_eager(label, run, stats, rec, exact=arch == MOE_ARCH,
                              bound=stats["logit_bound"]))
     return launches, stats
 
@@ -2876,6 +3245,8 @@ def main() -> int:
     paged_rows = check_paged_kernel(device, peaks)
     ssm = check_ssm_kernels(device, peaks)
     bwd_row = check_flash_bwd(device, peaks)
+    g_rows, g_uses = check_lm_kernels(device, peaks, MOE_ARCH)
+    g_bwd_row = check_flash_bwd(device, peaks, MOE_ARCH)
     cnn_launches, img_s, cnn_graphed = serve_alexnet(device)
     resnet18_forward(device)
     from repro_torch.core import SNOWFLAKE
@@ -2897,6 +3268,8 @@ def main() -> int:
     train_launches, train_stats = train_lm(device, bwd_row)
     family = {label: serve_family(label, arch) for label, arch in (
         ("5g zamba2-7b", "zamba2-7b"), ("5h rwkv6-7b", "rwkv6-7b"))}
+    moe_launches, moe_stats = serve_family(f"5j {MOE_ARCH}", MOE_ARCH)
+    moe_train_launches, moe_train = train_moe(device, g_bwd_row)
 
     tick = {}
     for kname, label in (("conv2d_virtual", "alexnet-owt"),
@@ -3008,8 +3381,45 @@ def main() -> int:
           f"{n_wkv * wkv['bound_ms']:.4f}); "
           f"decode tick {family['5h rwkv6-7b'][1]['tick_ms']:.3f} ms")
 
+    # granite-moe-1b-a400m per admission and per tick: phase 4's rows of
+    # its flash, decode and matmul ops; its expert dispatch is plain torch
+    # (the reference's einsums), not in the sum.
+    gm = {}
+    for kind in ("prefill", "decode"):
+        parts = {k: lm_sums(g_rows, g_uses, "full", kind, k) for k in (
+            "flash_attention", "decode_attention", "matmul")}
+        gm[kind] = parts
+        ksum = sum(x["ms"] for x in parts.values())
+        print(f"{MOE_ARCH} {kind}: {served(moe_stats, kind, ksum)} per call "
+              f"against a kernel sum of {ksum:.3f} ms (bound "
+              f"{sum(x['bound_ms'] for x in parts.values()):.4f} ms; "
+              + ", ".join(f"{k} {x['launches']} x = {x['ms']:.3f} ms "
+                          f"(plain {x['plain_ms']:.3f}, library "
+                          f"{x['library_ms']:.3f}, bound {x['bound_ms']:.4f})"
+                          for k, x in parts.items())
+              + "); the expert dispatch, plain torch, not in the sum")
+    for desc, row in sorted(g_rows.items()):
+        if row["kernel"] == "matmul":
+            print(f"{MOE_ARCH} matmul/{row['path']}: ms {row['ms']:.4f}, "
+                  f"bound_ms {row['bound_ms']:.4f}, plain_ms "
+                  f"{row['plain_ms']:.4f}, library_ms (torch.addmm) "
+                  f"{row['library_ms']:.4f} | {desc}")
+    L_moe = moe_train_launches["flash_attention_bwd"] // MOE_STEPS
+    print(f"{MOE_ARCH} training step: flash forward {2 * L_moe} x "
+          f"{g_bwd_row['fwd_ms']:.4f} = {2 * L_moe * g_bwd_row['fwd_ms']:.3f}"
+          f" ms (plain {2 * L_moe * g_bwd_row['fwd_plain_ms']:.3f}, SDPA "
+          f"{2 * L_moe * g_bwd_row['fwd_library_ms']:.3f}, bound "
+          f"{2 * L_moe * g_bwd_row['fwd_bound_ms']:.4f}); backward {L_moe} x "
+          f"{g_bwd_row['ms']:.4f} = {L_moe * g_bwd_row['ms']:.3f} ms (plain "
+          f"{L_moe * g_bwd_row['plain_ms']:.3f}, SDPA "
+          f"{L_moe * g_bwd_row['library_ms']:.3f}, bound "
+          f"{L_moe * g_bwd_row['bound_ms']:.4f}); step graphed "
+          f"{moe_train['graphed_ms']:.2f} / eager {moe_train['eager_ms']:.2f}"
+          f" ms; smollm-360m step graphed {train_stats['graphed_ms']:.2f} / "
+          f"eager {train_stats['eager_ms']:.2f} ms")
     per_path = [cnn_launches, pf_launches, lm_launches, win_launches,
-                smoke_launches, train_launches] + [
+                smoke_launches, train_launches, moe_launches,
+                moe_train_launches] + [
         launch for launch, _ in list(paged.values()) + list(family.values())]
     launches = {k: sum(p.get(k, 0) for p in per_path) for k in SOURCES}
     errs = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k]
@@ -3017,8 +3427,10 @@ def main() -> int:
                       if r["kernel"] == k]
                    + ([r["max_abs_err"] for r in paged_rows.values()]
                       if k == "paged_decode_attention" else [])
-                   + ([bwd_row["max_abs_err"]]
+                   + ([bwd_row["max_abs_err"], g_bwd_row["max_abs_err"]]
                       if k == "flash_attention_bwd" else [])
+                   + [r["max_abs_err"] for r in g_rows.values()
+                      if r["kernel"] == k]
                    + [r["max_abs_err"] for r in z_rows.values()
                       if r["kernel"] == k]
                    + ([ssm[k]["max_abs_err"]] if k in ssm else []))
@@ -3102,7 +3514,10 @@ def main() -> int:
           + f"; smollm-360m training: {train_stats['tok_s']:.0f} tokens/s, "
           f"step {train_stats['step_ms']:.1f} ms; "
           + ", ".join(f"{label}: {stats['tok_s']:.1f} tok/s"
-                      for label, (_, stats) in family.items()))
+                      for label, (_, stats) in family.items())
+          + f"; {MOE_ARCH}: {moe_stats['tok_s']:.1f} tok/s served, "
+          f"{moe_train['tok_s']:.0f} tokens/s trained (step "
+          f"{moe_train['step_ms']:.1f} ms)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

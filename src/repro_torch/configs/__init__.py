@@ -1,6 +1,7 @@
 """Config registry: --arch <id> -> ArchConfig (LMs) / CNNConfig."""
-from .archs import (ALL_ARCHS, DEEPSEEK_7B, LLAMA3_8B, MAMBA2, OLMO_1B,
-                    RWKV6_7B, SMOLLM_360M, UNPORTED_ARCHS, ZAMBA2_7B)
+from .archs import (ALL_ARCHS, DEEPSEEK_7B, GRANITE_MOE_1B, LLAMA3_8B,
+                    LLAMA4_MAVERICK, MAMBA2, OLMO_1B, RWKV6_7B, SMOLLM_360M,
+                    UNPORTED_ARCHS, ZAMBA2_7B)
 from .base import ArchConfig, CNNConfig, CNNLayer, ShapeSpec
 from .cnns import ALEXNET_OWT, ALL_CNNS, RESNET18, RESNET50
 
@@ -30,4 +31,5 @@ def get_config(name: str):
 __all__ = ["ArchConfig", "CNNConfig", "CNNLayer", "ShapeSpec", "REGISTRY",
            "CNN_REGISTRY", "get_config", "ALL_ARCHS", "ALL_CNNS",
            "ALEXNET_OWT", "RESNET18", "RESNET50", "DEEPSEEK_7B", "LLAMA3_8B",
-           "OLMO_1B", "SMOLLM_360M", "ZAMBA2_7B", "MAMBA2", "RWKV6_7B"]
+           "OLMO_1B", "SMOLLM_360M", "ZAMBA2_7B", "MAMBA2", "RWKV6_7B",
+           "GRANITE_MOE_1B", "LLAMA4_MAVERICK"]

@@ -1,8 +1,8 @@
 """The LM architectures of ``repro.configs.archs``, same numbers.
 
-The dense, hybrid (zamba2, mamba2) and ssm (rwkv6) families are carried;
-the others (MoE, audio, VLM) wait for their model modules (ROADMAP A.9)
-and are listed so ``get_config`` can say so.
+The dense, MoE (granite, llama4), hybrid (zamba2, mamba2) and ssm
+(rwkv6) families are carried; audio and VLM wait for their model
+modules (ROADMAP A.9) and are listed so ``get_config`` can say so.
 """
 from __future__ import annotations
 
@@ -61,11 +61,22 @@ RWKV6_7B = ArchConfig(
     vocab=65536, head_dim=64, norm="layernorm",
     sub_quadratic=True, source="arXiv:2404.05892")
 
+GRANITE_MOE_1B = ArchConfig(
+    # [hf:ibm-granite/granite-3.0-1b-a400m-base; hf] — 32 experts top-8.
+    name="granite-moe-1b-a400m", family="moe",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=8, d_ff=512,
+    vocab=49155, n_experts=32, top_k=8,
+    source="hf:ibm-granite/granite-3.0-1b-a400m-base")
+
+LLAMA4_MAVERICK = ArchConfig(
+    # [hf:meta-llama/Llama-4-Scout-17B-16E; unverified] — MoE 128e top-1.
+    name="llama4-maverick-400b-a17b", family="moe",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, d_ff=8192,
+    vocab=202048, head_dim=128, n_experts=128, top_k=1, moe_every=2,
+    rope_theta=500000.0, source="hf:meta-llama/Llama-4-Scout-17B-16E")
+
 ALL_ARCHS = (ZAMBA2_7B, MAMBA2, DEEPSEEK_7B, OLMO_1B, SMOLLM_360M,
-             LLAMA3_8B, RWKV6_7B)
+             LLAMA3_8B, RWKV6_7B, GRANITE_MOE_1B, LLAMA4_MAVERICK)
 
 # The reference's other architectures and their families (not ported).
-UNPORTED_ARCHS = {
-    "whisper-base": "audio", "granite-moe-1b-a400m": "moe",
-    "llama4-maverick-400b-a17b": "moe", "llama-3.2-vision-11b": "vlm",
-}
+UNPORTED_ARCHS = {"whisper-base": "audio", "llama-3.2-vision-11b": "vlm"}

@@ -12,13 +12,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --slots 8 --max-len 512 --requests 8 --prompt-len 32-448 \
         --max-new 32 [--smoke --device cpu]       # also mamba2, rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m --slots 8 --max-len 512 --requests 8 \
+        --prompt-len 32-448 --max-new 32 [--smoke --device cpu]
 
 CNN archs (alexnet-owt / resnet18 / resnet50) serve image-classify
 requests through the compiled Program; it prints the Program listing,
 then ``served N images in T s (X img/s)`` and a few class ids.
 
-LM archs -- dense (smollm-360m, llama3-8b, olmo-1b, deepseek-7b), hybrid
-(zamba2-7b, mamba2) and ssm (rwkv6-7b) -- serve token requests
+LM archs -- dense (smollm-360m, llama3-8b, olmo-1b, deepseek-7b), MoE
+(granite-moe-1b-a400m, llama4-maverick-400b-a17b), hybrid (zamba2-7b,
+mamba2) and ssm (rwkv6-7b) -- serve token requests
 statefully through the compiled (prefill, decode) Program pair: each
 request is prefilled once into the persistent regions (KV caches, or the
 recurrent family's state), then every tick runs the decode Program.
@@ -26,8 +30,9 @@ recurrent family's state), then every tick runs the decode Program.
 attention window (the KV regions then hold ``min(max_len, window)``
 rows), prompt lengths are drawn from ``--prompt-len LO-HI``.
 ``--paged`` serves off the paged KV plan (``--page-size`` rows per page,
-``--kv-quant int8`` pages) with copy-on-write prefix sharing (dense
-archs only: recurrent state is not pageable, nor chunkable);
+``--kv-quant int8`` pages) with copy-on-write prefix sharing (dense and
+MoE archs: recurrent state is not pageable; only dense archs are
+chunkable, since MoE routing buckets the whole prompt);
 ``--shared-prefix N`` opens every prompt with the same N tokens, so
 admission shares pages.  ``--chunk-size N`` prefills N prompt rows per
 tick; ``--long-prompt N`` injects one prompt of N tokens two ticks into

@@ -1,12 +1,24 @@
 """The training step (counterpart of the single-device body of
-``repro/launch/steps.py::build_step``, lines 199-225).
+``repro/launch/steps.py::build_step``, lines 213-248).
 
 One step: the legacy forward with ``return_hidden`` (remat by default
 from 16 layers on, as the reference), the chunked cross-entropy against
-the head (``embed.T`` when the embeddings are tied), gradients by
-autograd, then ``AdamW.update``.  The mesh, the sharding trees and the
-prefill / decode builders are multi-device work (ROADMAP A.12); the MoE
-load-balance term comes with the MoE family (A.9).
+the head (``embed.T`` when the embeddings are tied) plus
+``AUX_LOSS_WEIGHT`` times the MoE layers' load-balance loss, gradients
+by autograd, then the AdamW update.  The mesh, the sharding trees and
+the prefill / decode builders are multi-device work (ROADMAP A.12).
+
+The reference jits the step and donates the params and the optimizer
+state.  Here the step updates both in place (``AdamW.update``), and on
+the card it runs off a CUDA graph through the executor's ``GraphStore``:
+the first call runs eagerly and is the real first step, the second is
+captured and replayed, later ones replay.  The batch is copied into the
+graph's static inputs, the gradients live in its memory pool, and the
+metrics are cloned out after each replay.  The graph is keyed on the
+batch shapes and the addresses of the params and state it was captured
+on, so state that comes back from a checkpoint as new tensors gets a
+graph of its own (the step keeps one).  On the CPU, and inside
+``executor.disable_graphs()``, every call runs eagerly.
 """
 from __future__ import annotations
 
@@ -17,14 +29,17 @@ from ..configs.base import ArchConfig
 from ..models import transformer
 from ..models.losses import chunked_cross_entropy
 from ..optim import AdamW
+from ..runtime import executor
 
-__all__ = ["loss_and_grads", "build_train_step"]
+__all__ = ["AUX_LOSS_WEIGHT", "loss_and_grads", "build_train_step"]
+
+AUX_LOSS_WEIGHT = 0.01
 
 
-def loss_and_grads(cfg: ArchConfig, params, batch, *, impl: str = "auto",
-                   remat: bool = False):
-    """(loss, grads): the mean token CE of one batch and its gradient in
-    every parameter, a tree like ``params``."""
+def _loss_aux_grads(cfg: ArchConfig, params, batch, *, impl: str,
+                    remat: bool):
+    """(loss, aux, grads): the training loss of one batch, the forward's
+    MoE statistics and the loss's gradient in every parameter."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
     p = tree_unflatten(params, leaves)
     with torch.enable_grad():
@@ -32,22 +47,58 @@ def loss_and_grads(cfg: ArchConfig, params, batch, *, impl: str = "auto",
                                   remat=remat, return_hidden=True)
         head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
         loss = chunked_cross_entropy(out["hidden"], head, batch["labels"])
+        aux = out["aux"]
+        if "lb_loss" in aux:
+            loss = loss + AUX_LOSS_WEIGHT * aux["lb_loss"]
         grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), tree_unflatten(params, list(grads))
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            tree_unflatten(params, list(grads)))
+
+
+def loss_and_grads(cfg: ArchConfig, params, batch, *, impl: str = "auto",
+                   remat: bool = False):
+    """(loss, grads): the mean token CE of one batch (with the MoE
+    load-balance term) and its gradient in every parameter, a tree like
+    ``params``."""
+    loss, _, grads = _loss_aux_grads(cfg, params, batch, impl=impl,
+                                     remat=remat)
+    return loss, grads
 
 
 def build_train_step(cfg: ArchConfig, optimizer: AdamW | None = None, *,
                      impl: str = "auto", remat: bool | None = None):
     """The step (params, opt_state, batch) -> (params, opt_state,
-    metrics); ``batch`` holds "tokens" and "labels" (B, S) on the
-    parameters' device."""
+    metrics), the params and state updated in place and returned;
+    ``batch`` holds "tokens" and "labels" (B, S).  ``metrics``: "loss",
+    "grad_norm", "lr" and, for an MoE config, "moe_imbalance_pct".  The
+    step's graphs are its ``graphs`` attribute (a ``GraphStore``)."""
     optimizer = optimizer or AdamW()
     if remat is None:
         remat = cfg.n_layers >= 16
+    store = executor.GraphStore()
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(cfg, params, batch, impl=impl,
-                                     remat=remat)
-        params, opt_state, om = optimizer.update(grads, opt_state, params)
-        return params, opt_state, {"loss": loss, **om}
+        inputs = [batch["tokens"], batch["labels"]]
+        dev = tree_leaves(params)[0].device
+
+        def step(tokens, labels):
+            loss, aux, grads = _loss_aux_grads(
+                cfg, params, {"tokens": tokens, "labels": labels},
+                impl=impl, remat=remat)
+            metrics = {"loss": loss,
+                       **optimizer.update(grads, opt_state, params)[2]}
+            if "imbalance_pct" in aux:
+                metrics["moe_imbalance_pct"] = aux["imbalance_pct"]
+            return metrics
+
+        if not executor._graphable(dev):
+            return params, opt_state, step(*(x.to(dev) for x in inputs))
+        key = (executor._shapes(inputs),
+               tuple((t.data_ptr(), t.shape, t.dtype)
+                     for t in tree_leaves((params, opt_state))))
+        if key not in store.graphs:
+            store.graphs.clear()        # another state: drop its graph
+        return params, opt_state, store.run(key, step, inputs, dev)
+
+    train_step.graphs = store
     return train_step

@@ -4,8 +4,11 @@
         --arch smollm-360m --smoke --steps 3 --device cpu
 
 On the card (the default) every attention forward and backward runs the
-hand-written CUDA flash kernels; with ``--device cpu`` the plain PyTorch
-versions.  Parameters are initialised from ``--seed``; the data is the
+hand-written CUDA flash kernels, and the step runs off a CUDA graph
+(``launch/steps.py``: step 0 eager, step 1 captured, replays after);
+with ``--device cpu`` the plain PyTorch versions, eagerly.  An MoE arch
+(``--arch granite-moe-1b-a400m``) adds the load-balance term to the
+loss and prints each step's expert imbalance.  Parameters are initialised from ``--seed``; the data is the
 seeded ``SyntheticLM`` stream or a packed token file.  Fault tolerance
 (auto-resume from ``--ckpt-dir``, preemption checkpoint, straggler log)
 comes from ``runtime.Trainer``.  Prints each step's loss, time and
@@ -84,9 +87,11 @@ def main(argv=None) -> dict:
     seconds = time.perf_counter() - t0
     tokens = shape.global_batch * shape.seq_len
     for rec in trainer.metrics_history:
+        moe = (f", moe imbalance {rec['moe_imbalance_pct']:.1f}%"
+               if "moe_imbalance_pct" in rec else "")
         print(f"step {rec['step']}: loss {rec['loss']:.4f}, "
               f"{1e3 * rec['dt_s']:.1f} ms, "
-              f"{tokens / rec['dt_s']:.0f} tokens/s")
+              f"{tokens / rec['dt_s']:.0f} tokens/s{moe}")
     print(f"finished at step {step}; " + (
         f"last loss {trainer.metrics_history[-1]['loss']:.4f}"
         if trainer.metrics_history else "no steps ran"))

@@ -85,13 +85,15 @@ def params_from_numpy(tree: dict, device="cpu") -> dict:
     after ``np.asarray``) as the same tree of tensors on ``device``.
     Keys, shapes and layouts are kept; float32/bfloat16 keep their
     dtype (bfloat16 arrays arrive as ml_dtypes and are widened through
-    float32 on the way)."""
+    float32 on the way).  Every leaf is a copy: the training step
+    updates its params in place, which must not write into the
+    caller's arrays."""
     def leaf(a) -> torch.Tensor:
         arr = np.asarray(a)
         if arr.dtype.name == "bfloat16":
             return torch.from_numpy(arr.astype(np.float32)).to(
                 device=device, dtype=torch.bfloat16)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+        return torch.from_numpy(np.array(arr)).to(device)
 
     return {k: params_from_numpy(v, device) if isinstance(v, dict)
             else leaf(v) for k, v in tree.items()}

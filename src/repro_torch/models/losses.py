@@ -3,7 +3,8 @@
 ``chunked_cross_entropy`` never materialises the full (B, S, V) logits:
 the head product and log-softmax run per sequence chunk under
 ``torch.utils.checkpoint``, so the backward pass recomputes each chunk's
-logits instead of saving them.  At smollm-360m's vocab (49152) and the
+logits instead of saving them (without saving the RNG state: nothing
+here draws random numbers, and a CUDA graph cannot read it).  At smollm-360m's vocab (49152) and the
 training shape (B = 8, S = 512, one 512-row chunk) a chunk's f32 logits
 are 0.8 GB, which the backward recomputes instead of keeping.
 """
@@ -41,5 +42,6 @@ def chunked_cross_entropy(h: torch.Tensor, head_w: torch.Tensor,
     for s0 in range(0, S, c):
         total = total + checkpoint(
             _chunk_nll, h[:, s0:s0 + c], head_w, labels[:, s0:s0 + c],
-            mask[:, s0:s0 + c], use_reentrant=False)
+            mask[:, s0:s0 + c], use_reentrant=False,
+            preserve_rng_state=False)
     return total / torch.clamp(mask.sum(), min=1.0)

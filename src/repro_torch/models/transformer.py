@@ -1,12 +1,14 @@
-"""Decoder-only transformer LM, dense family, on the Program path
-(counterpart of the dense half of ``repro/models/transformer.py``), and
-the Program-pair entry point of every ported LM family.
+"""Decoder-only transformer LM, dense and MoE families, on the Program
+path (counterpart of the dense and MoE parts of
+``repro/models/transformer.py``), and the Program-pair entry point of
+every ported LM family.
 
 ``to_graph`` emits the layer graph (embed -> N x {norm, qkv matmuls,
-flash attention, o-proj, MLP matmul chain} -> final norm -> lm head)
-with the residual adds fused into the o-/down-projection writebacks;
-``compile_program`` runs it through graph -> schedule -> regions ->
-Program, and ``program_forward`` executes the instruction stream through
+flash attention, o-proj, MLP matmul chain or one ``moe_dispatch`` op}
+-> final norm -> lm head) with the residual adds fused into the
+o-/down-projection (or dispatch) writebacks; ``compile_program`` runs
+it through graph -> schedule -> regions -> Program, and
+``program_forward`` executes the instruction stream through
 runtime/executor.py.  ``compile_program_pair`` compiles the stateful
 serving pair (batch-1 prefill writing the KV cache, per-token decode)
 sharing one persistent region table -- contiguous, rolling-window or
@@ -15,15 +17,22 @@ optionally in int8 pages.  The recurrent families lower through their
 own modules' graph builders (``ssm`` through models/rwkv.py, ``hybrid``
 through models/zamba2.py), dispatched by ``compile_program_pair``.
 
+MoE configs put their experts in every layer (granite,
+``moe_every=1``: the experts stacked in "blocks") or interleave
+(llama4, ``moe_every=2``: ``moe_every - 1`` dense layers, then one MoE
+layer, whose parameters live in "moe_blocks"); ``_block_path`` maps a
+global layer to its group for the forward and the graph alike.
+
 ``forward`` is the reference's legacy forward, the training path: the
 stacked ``(L, ...)`` block parameters run as a Python loop (the
 reference's ``jax.lax.scan``), each block optionally under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
-``nothing_saveable``), every projection a plain ``@`` and attention the
-differentiable ``flash_attention``.
+``nothing_saveable``), every projection a plain ``@``, attention the
+differentiable ``flash_attention`` and an MoE layer ``models/moe.py``;
+its ``aux`` holds the MoE layers' mean load-balance statistics.
 
 Not carried yet: ``init_cache`` / ``decode_step`` and ``forward``'s
-``return_cache`` (ROADMAP A.6.4), the MoE, audio and cross-attention
+``return_cache`` (ROADMAP A.6.4), the audio and cross-attention
 variants (A.9) and the autotune hook of the compile entry points.
 """
 from __future__ import annotations
@@ -37,7 +46,8 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from ..core.hw import TPU_V5E, HardwareModel
 from ..core.ir import (ModelGraph, attention_node, decode_attention_node,
-                       elementwise_node, embed_node, matmul_node, norm_node)
+                       elementwise_node, embed_node, matmul_node, moe_node,
+                       norm_node)
 from ..core.program import Program, ProgramPair, lower_to_program
 from ..core.regions import (PAGE_TABLE_REGION, PersistentSpec, StateCaps,
                             allocate_regions, extend_with_persistent,
@@ -48,6 +58,7 @@ from ..kernels.common import apply_activation
 from ..kernels.flash_attention import flash_attention
 from ..runtime.executor import graphed_runner
 from .common import ParamDef, Rotary, apply_rope, layer_norm, rms_norm
+from .moe import moe_mlp
 
 __all__ = ["param_defs", "forward", "to_graph", "to_decode_graph",
            "compile_program", "compile_program_pair", "program_forward",
@@ -87,9 +98,18 @@ def _attn_defs(cfg: ArchConfig, L: int | None) -> dict:
     }
 
 
-def _mlp_defs(cfg: ArchConfig, L: int | None) -> dict:
+def _mlp_defs(cfg: ArchConfig, L: int | None, moe: bool | None = None) -> dict:
     D, F = cfg.d_model, cfg.d_ff
     p = _stacked(cfg, L)
+    use_moe = cfg.n_experts > 0 if moe is None else moe
+    if use_moe:
+        E = cfg.n_experts
+        d = {"router": p((D, E), ("embed", None)),
+             "w_gate": p((E, D, F), ("experts", "embed", "ff")),
+             "w_down": p((E, F, D), ("experts", "ff", "embed"))}
+        if cfg.gated_mlp:
+            d["w_up"] = p((E, D, F), ("experts", "embed", "ff"))
+        return d
     d = {"w_gate": p((D, F), ("embed", "ff")),
          "w_down": p((F, D), ("ff", "embed"))}
     if cfg.gated_mlp:
@@ -97,22 +117,32 @@ def _mlp_defs(cfg: ArchConfig, L: int | None) -> dict:
     return d
 
 
-def _block_defs(cfg: ArchConfig, L: int) -> dict:
+def _block_defs(cfg: ArchConfig, L: int, moe: bool | None = None) -> dict:
     blocks = {}
     blocks.update(_norm_defs(cfg, L, "attn_norm"))
     blocks.update(_attn_defs(cfg, L))
     blocks.update(_norm_defs(cfg, L, "mlp_norm"))
-    blocks.update(_mlp_defs(cfg, L))
+    blocks.update(_mlp_defs(cfg, L, moe))
     return blocks
+
+
+def _interleaved(cfg: ArchConfig) -> bool:
+    """MoE layers every ``moe_every`` layers, in their own group."""
+    return cfg.n_experts > 0 and cfg.moe_every > 1
 
 
 def param_defs(cfg: ArchConfig) -> dict:
     _require_dense(cfg)
-    defs = {
-        "embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
-                          cfg.tdtype, "embed"),
-        "blocks": _block_defs(cfg, cfg.n_layers),
-    }
+    L = cfg.n_layers
+    defs = {"embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                              cfg.tdtype, "embed")}
+    if _interleaved(cfg):
+        assert L % cfg.moe_every == 0, (L, cfg.moe_every)
+        G = L // cfg.moe_every
+        defs["blocks"] = _block_defs(cfg, L - G, moe=False)
+        defs["moe_blocks"] = _block_defs(cfg, G, moe=True)
+    else:
+        defs["blocks"] = _block_defs(cfg, L)
     defs.update(_norm_defs(cfg, None, "final_norm"))
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab),
@@ -146,25 +176,37 @@ def _attention(h, p, cfg, cos, sin, *, impl, window=None):
 
 
 def _mlp(h, p, cfg):
+    """The block's MLP: (output, aux) -- the MoE dispatch's statistics
+    for an MoE layer, {} for a dense one."""
+    if "router" in p:
+        B, S, D = h.shape
+        out, aux = moe_mlp(h.reshape(B * S, D), p["router"], p["w_gate"],
+                           p.get("w_up", p["w_gate"]), p["w_down"],
+                           top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           activation=cfg.activation, gated=cfg.gated_mlp)
+        return out.reshape(B, S, D), aux
     g = apply_activation(h @ p["w_gate"], cfg.activation)
     if cfg.gated_mlp:
         g = g * (h @ p["w_up"])
-    return g @ p["w_down"]
+    return g @ p["w_down"], {}
 
 
 def _block(h, p, cos, sin, *, cfg, impl, window):
     h = h + _attention(_norm(h, p, cfg, "attn_norm"), p, cfg, cos, sin,
                        impl=impl, window=window)
-    return h + _mlp(_norm(h, p, cfg, "mlp_norm"), p, cfg)
+    m, aux = _mlp(_norm(h, p, cfg, "mlp_norm"), p, cfg)
+    return h + m, aux
 
 
 def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
             remat: bool = False, return_hidden: bool = False) -> dict:
-    """tokens (B, S) -> {"logits": (B, S, V)}, or with ``return_hidden``
-    {"logits": None, "hidden": the final-norm output (B, S, D)}.
-    ``remat`` recomputes each block in the backward pass instead of
-    keeping its activations, so the flash forward runs twice per layer
-    per training step."""
+    """tokens (B, S) -> {"logits": (B, S, V), "aux": {...}}, or with
+    ``return_hidden`` {"logits": None, "hidden": the final-norm output
+    (B, S, D), "aux": {...}}.  ``aux`` holds each MoE statistic averaged
+    over the MoE layers ({} for a dense config).  ``remat`` recomputes
+    each block in the backward pass instead of keeping its activations,
+    so the flash forward runs twice per layer per training step."""
     _require_dense(cfg)
     B, S = tokens.shape
     h = params["embed"][tokens.long()].to(cfg.tdtype)
@@ -172,15 +214,25 @@ def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
         torch.arange(S, device=tokens.device))
     block = functools.partial(_block, cfg=cfg, impl=impl,
                               window=cfg.attn_window)
-    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    groups = {g: {k: v.unbind(0) for k, v in params[g].items()}
+              for g in ("blocks", "moe_blocks") if g in params}
+    auxs = []
     for i in range(cfg.n_layers):
-        p_i = {k: v[i] for k, v in layers.items()}
+        grp, gi, is_moe = _block_path(cfg, i)
+        p_i = {k: v[gi] for k, v in groups[grp].items()}
         if remat:
-            h = checkpoint(block, h, p_i, cos, sin, use_reentrant=False)
+            # No forward draws random numbers, and jax.checkpoint keeps
+            # no RNG state: not saving it keeps the step capturable.
+            h, aux = checkpoint(block, h, p_i, cos, sin, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            h = block(h, p_i, cos, sin)
+            h, aux = block(h, p_i, cos, sin)
+        if is_moe:
+            auxs.append(aux)
     h = _norm(h, params, cfg, "final_norm")
-    out = {"logits": None}
+    out = {"logits": None,
+           "aux": {k: torch.stack([a[k] for a in auxs]).mean()
+                   for k in auxs[0]} if auxs else {}}
     if return_hidden:
         out["hidden"] = h
     else:
@@ -193,14 +245,12 @@ def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
 # --- compile-to-Program lowering --------------------------------------------------
 def _require_dense(cfg: ArchConfig) -> None:
     """Gate what the *transformer-graph* lowering cannot express.  Dense
-    decoder-only configs lower here; the hybrid and ssm families lower
-    through their own modules (``compile_program_pair`` dispatches
-    them); MoE, audio and VLM are not ported and name ROADMAP A.9."""
+    and MoE decoder-only configs lower here; the hybrid and ssm families
+    lower through their own modules (``compile_program_pair`` dispatches
+    them); audio and VLM are not ported and name ROADMAP A.9."""
     blockers = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         blockers.append(f"family={cfg.family}")
-    if cfg.n_experts:
-        blockers.append("MoE layers")
     if cfg.cross_attn_every or cfg.n_vision_tokens:
         blockers.append("cross-attention (vision bridge)")
     if cfg.n_encoder_layers:
@@ -209,9 +259,9 @@ def _require_dense(cfg: ArchConfig) -> None:
         blockers.append("shared attention blocks")
     if blockers:
         raise NotImplementedError(
-            f"{cfg.name}: the transformer lowering takes the dense "
-            f"decoder-only family (hybrid and ssm pairs lower through "
-            f"their own modules; moe, audio and vlm are not ported, "
+            f"{cfg.name}: the transformer lowering takes the dense and "
+            f"MoE decoder-only families (hybrid and ssm pairs lower "
+            f"through their own modules; audio and vlm are not ported, "
             f"ROADMAP A.9); blocked by {', '.join(blockers)}")
 
 
@@ -222,6 +272,19 @@ def kv_cache_len(cfg: ArchConfig, max_len: int) -> int:
     if cfg.attn_window:
         return min(max_len, cfg.attn_window)
     return max_len
+
+
+def _block_path(cfg: ArchConfig, i: int) -> tuple[str, int, bool]:
+    """(param group, index within it, is_moe) of global layer ``i``:
+    the interleaved layout ((moe_every - 1) dense layers, then one MoE
+    layer, split across "blocks" / "moe_blocks") or every layer in
+    "blocks" (an MoE layer each when the config has experts)."""
+    if _interleaved(cfg):
+        g, r = divmod(i, cfg.moe_every)
+        if r == cfg.moe_every - 1:
+            return "moe_blocks", g, True
+        return "blocks", g * (cfg.moe_every - 1) + r, False
+    return "blocks", i, cfg.n_experts > 0
 
 
 def _build_lm_graph(cfg: ArchConfig, name: str, M: int, by: int,
@@ -246,8 +309,10 @@ def _build_lm_graph(cfg: ArchConfig, name: str, M: int, by: int,
                      param="embed"))
     resid = "embed"
     for i in range(cfg.n_layers):
-        def bp(k: str, i=i) -> str:         # stacked params: layer i
-            return f"blocks/{k}:{i}"
+        grp, gi, is_moe = _block_path(cfg, i)
+
+        def bp(k: str, grp=grp, gi=gi) -> str:   # stacked params
+            return f"{grp}/{k}:{gi}"
         an = f"l{i}.attn_norm"
         g.add(norm_node(an, M * D, dtype_bytes=by, inputs=[resid],
                         **norm_meta(bp("attn_norm"))))
@@ -265,6 +330,19 @@ def _build_lm_graph(cfg: ArchConfig, name: str, M: int, by: int,
         mn = f"l{i}.mlp_norm"
         g.add(norm_node(mn, M * D, dtype_bytes=by, inputs=[wo],
                         **norm_meta(bp("mlp_norm"))))
+        if is_moe:
+            # One capacity-bucketed dispatch op for the MLP chain; it
+            # takes the whole block's params ("blocks:3") and its
+            # routing config rides the node into the op's op_cfg.
+            g.add(moe_node(f"l{i}.moe", tokens=M, d_model=D, d_ff=F,
+                           experts=cfg.n_experts, top_k=cfg.top_k,
+                           dtype_bytes=by, inputs=[mn], bypass_of=wo,
+                           param=f"{grp}:{gi}",
+                           capacity_factor=cfg.capacity_factor,
+                           activation=cfg.activation,
+                           gated=cfg.gated_mlp))
+            resid = f"l{i}.moe"
+            continue
         g.add(matmul_node(f"l{i}.w_gate", M, D, F, dtype_bytes=by,
                           inputs=[mn], fused_activation=cfg.activation,
                           param=bp("w_gate")))
@@ -404,6 +482,14 @@ register_state_family(
         _kv_cache_specs(cfg, slots, max_len),
         StateCaps(paged=True, windowed=True, chunkable=True,
                   speculatable=True)))
+# MoE state is the dense KV, but a chunk boundary would re-bucket the
+# routing (capacity is a whole-sequence decision) and a speculative
+# rollback re-routes the rolled-back tokens: neither is allowed.
+register_state_family(
+    "moe", lambda cfg, slots, max_len: (
+        _kv_cache_specs(cfg, slots, max_len),
+        StateCaps(paged=True, windowed=True, chunkable=False,
+                  speculatable=False)))
 
 
 def compile_program_pair(cfg: ArchConfig, slots: int = 8,

@@ -5,8 +5,11 @@ arithmetic).
 Params, gradients and moments are nested dicts of tensors with the same
 keys.  The 8-bit mode stores both moments as int8 with per-row f32 scales
 (``Q8State``), v in the sqrt domain.  ``update`` runs under
-``torch.no_grad()`` and returns new tensors: the step is one function of
-(grads, state, params), as in the reference.
+``torch.no_grad()`` and computes the reference's arithmetic in its
+order, then writes the new values into the params' and the state's own
+storage (the moments' ``q`` and ``scale`` tensors when 8-bit): the
+counterpart of the reference's step with donated params and state, and
+what lets a captured CUDA graph replay the update.
 """
 from __future__ import annotations
 
@@ -99,11 +102,14 @@ class AdamW:
     def _lr(self, step):
         if callable(self.lr):
             return self.lr(step)
-        return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
+        # A fill on the device, not a copy from the host: capturable.
+        return torch.full((), self.lr, dtype=torch.float32,
+                          device=step.device)
 
     @torch.no_grad()
     def update(self, grads, state, params):
-        """Returns (new_params, new_state, metrics)."""
+        """Updates ``params`` and ``state`` in place; returns (params,
+        state, metrics)."""
         step = state["step"] + 1
         gnorm = global_norm(grads)
         clip = None
@@ -138,11 +144,16 @@ class AdamW:
                 delta = delta + self.weight_decay * p.float()
             p_new = (p.float() - lr * delta).to(p.dtype)
             if self.state_bits == 8:
-                return (p_new, quantize_state(m_new),
-                        quantize_state(torch.sqrt(v_new)))
-            return p_new, m_new, v_new
+                m_new = quantize_state(m_new)
+                v_new = quantize_state(torch.sqrt(v_new))
+            p.copy_(p_new)
+            for old, new in ((m, m_new), (v, v_new)):
+                if self.state_bits == 8:
+                    old.q.copy_(new.q)
+                    old.scale.copy_(new.scale)
+                else:
+                    old.copy_(new)
 
-        out = _map(upd, grads, state["m"], state["v"], params)
-        pick = lambda i: _map(lambda o: o[i], out)  # noqa: E731
-        new_state = {"m": pick(1), "v": pick(2), "step": step}
-        return pick(0), new_state, {"grad_norm": gnorm, "lr": lr}
+        _map(upd, grads, state["m"], state["v"], params)
+        state["step"].copy_(step)
+        return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -1,7 +1,7 @@
 """Program executor — runs the compiler's instruction stream (§5.2).
 
-Counterpart of ``repro/runtime/executor.py`` for the CNN, dense-LM and
-recurrent-family (rwkv6, zamba2 / mamba2) Program paths: ``run`` walks a
+Counterpart of ``repro/runtime/executor.py`` for the CNN, dense-LM, MoE
+and recurrent-family (rwkv6, zamba2 / mamba2) Program paths: ``run`` walks a
 ``core/program.py::Program`` and dispatches each op to the kernels with
 the schedule's *pre-resolved* decisions — conv strip tiling, strip
 storage, loop order, matmul block, attention (block_q, block_kv) and the
@@ -44,8 +44,14 @@ and replay it from then on, so a call on the card costs one graph
 launch instead of one Python dispatch per op.  ``disable_graphs()`` is
 the counterpart of ``jax.disable_jit()``; on the CPU every call runs
 eagerly (the plain path).  The kernels run on the device the input lies
-on (``impl="auto"``).  The MoE and cross-attention op kinds raise
-``NotImplementedError`` naming their ROADMAP item.
+on (``impl="auto"``).  The training step (``launch/steps.py``) runs off
+the same graphs (``_Graph``, ``GraphStore``).
+
+A ``moe_dispatch`` op runs ``models/moe.py::moe_mlp`` on its block's
+expert weights and adds the residual on the writeback; a prefill hands
+it the prompt's length as ``valid_count``, so the padded rows claim no
+expert capacity.  The cross-attention op kind raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -76,7 +82,7 @@ __all__ = ["run", "walk", "ProgramState", "GraphStore",
            "sync_page_table", "apply_page_copies"]
 
 # op kind -> the ROADMAP item that ports it
-_NOT_PORTED = {"moe_dispatch": "A.9", "cross_attention": "A.9"}
+_NOT_PORTED = {"cross_attention": "A.9"}
 # coarse recurrent block ops, dispatched by ``_run_family_op``
 _FAMILY_KERNELS = ("wkv", "ssm_scan")
 
@@ -152,6 +158,28 @@ def _run_norm(op: ProgramOp, src: torch.Tensor, params) -> torch.Tensor:
     return rms_norm(src, w)
 
 
+def _run_moe(op: ProgramOp, src: torch.Tensor, regions: dict, params,
+             length=None) -> torch.Tensor:
+    """One ``moe_dispatch`` op: ``moe_mlp`` over the (tokens, D) rows of
+    ``src`` with the routing config the op carries, the residual added
+    on the writeback.  A prefill passes the prompt's ``length`` (an int
+    or a (1,) int tensor on the device): the right-padded rows past it
+    route to the sentinel expert and claim no capacity."""
+    from ..models.moe import moe_mlp
+    c = dict(op.op_cfg)
+    p = _param(params, op.param_key)
+    shp = src.shape
+    vc = length if src.ndim == 3 else None
+    out, _ = moe_mlp(src.reshape(-1, shp[-1]), p["router"], p["w_gate"],
+                     p.get("w_up", p["w_gate"]), p["w_down"],
+                     top_k=c["top_k"], capacity_factor=c["capacity_factor"],
+                     activation=c["activation"], gated=c["gated"],
+                     valid_count=vc)
+    out = out.reshape(shp).to(src.dtype)
+    bypass = _bypass(op, regions)
+    return out if bypass is None else out + bypass
+
+
 def _run_op(op: ProgramOp, src: torch.Tensor, regions: dict, params, *,
             impl: str) -> torch.Tensor:
     """Dispatch one (stateless) op with its pre-resolved schedule."""
@@ -198,6 +226,8 @@ def _run_op(op: ProgramOp, src: torch.Tensor, regions: dict, params, *,
     if op.kernel == "avgpool":
         return avgpool2d_ref(src, window=op.window, stride=op.stride,
                              pad=op.pad)
+    if op.kernel == "moe_dispatch":
+        return _run_moe(op, src, regions, params)
     if op.kernel in _FAMILY_KERNELS:
         raise ValueError(
             f"op {op.name}: the recurrent {op.kernel!r} block runs through "
@@ -429,6 +459,10 @@ def run_prefill(program: Program, params, tokens: torch.Tensor,
             regions[op.out_region] = _run_family_op(
                 op, regions[op.in_region], params, state.caches, slot=slot,
                 length=length, impl=impl)
+            continue
+        if op.kernel == "moe_dispatch":
+            regions[op.out_region] = _run_moe(op, regions[op.in_region],
+                                              regions, params, length)
             continue
         regions[op.out_region] = _run_op(op, regions[op.in_region], regions,
                                          params, impl=impl)
@@ -774,9 +808,22 @@ def _leaves(tree):
         yield tree
 
 
+def _clone(out):
+    """A fresh copy of a tensor, or of a dict or tuple of them."""
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(_clone(v) for v in out)
+    return out.clone()
+
+
 class _Graph:
-    """One captured Program run: the static input buffers it reads, the
-    output it writes, and the kernel launches one replay makes.
+    """One captured call: the static input buffers it reads, the output
+    it writes (a tensor, or a dict or tuple of them), and the kernel
+    launches one replay makes.  State the call reads and writes in
+    place (a ``ProgramState``, a training step's parameters and
+    optimizer state) is not the graph's: it stays where it was when
+    captured, and the caller keys the graph on its addresses.
 
     The wrappers' launch counters are Python integers bumped as each
     wrapper is called.  Capture runs the Python (so it bumps them) but
@@ -805,7 +852,7 @@ class _Graph:
                     self.launches.append((kernel, added, by_path))
         store.capture_seconds += time.perf_counter() - t0
 
-    def __call__(self, inputs) -> torch.Tensor:
+    def __call__(self, inputs):
         for buf, x in zip(self.inputs, inputs):
             buf.copy_(x)
         self.graph.replay()
@@ -813,14 +860,14 @@ class _Graph:
             kernel.launches += added
             for k, v in by_path.items():
                 kernel.path_launches[k] += v
-        # A fresh tensor: the next replay rewrites the static output.
-        return self.output.clone()
+        # Fresh tensors: the next replay rewrites the static output.
+        return _clone(self.output)
 
 
 class GraphStore:
-    """The captured graphs of one engine -- one ``ProgramState``, or one
-    CNN parameter tree -- sharing one memory pool; they replay in turn
-    on one stream.  ``graphs`` maps a run's key to its ``_Graph``, or
+    """The captured graphs of one engine -- one ``ProgramState``, one
+    CNN parameter tree, or one training step -- sharing one memory pool;
+    they replay in turn on one stream.  ``graphs`` maps a run's key to its ``_Graph``, or
     to None after the key's first (eager) call; ``capture_seconds``
     sums the capture times."""
 
@@ -835,7 +882,7 @@ class GraphStore:
             self._pool = torch.cuda.graph_pool_handle()
         return self._pool
 
-    def run(self, key, fn, inputs, device: torch.device) -> torch.Tensor:
+    def run(self, key, fn, inputs, device: torch.device):
         """``fn(*inputs)`` on ``device``: eagerly the first time ``key``
         is seen (the call that builds the kernels and warms the
         allocator and cuBLAS), captured and replayed the second time,

@@ -7,7 +7,7 @@ batch, executes the compiled ``core/program.py::Program`` once through
 ``runtime/executor.py``, and retires every request with its argmax
 class id.
 
-An ``ArchConfig`` (an LM of the dense, hybrid or ssm family) is served
+An ``ArchConfig`` (an LM of the dense, MoE, hybrid or ssm family) is served
 statefully: the engine compiles the (prefill, decode) Program pair
 (``models/transformer.py::compile_program_pair``) whose persistent
 regions -- KV caches, or a recurrent family's named state -- are owned

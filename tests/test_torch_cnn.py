@@ -194,7 +194,7 @@ def test_params_from_numpy_round_trips_keys_shapes_dtypes():
 def test_non_cnn_op_kinds_name_their_roadmap_item():
     import dataclasses
     prog = cnn.compile_program(TINY, batch=1)
-    op = dataclasses.replace(prog.ops[0], kernel="moe_dispatch")
+    op = dataclasses.replace(prog.ops[0], kernel="cross_attention")
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
         executor._run_op(op, None, {}, {}, impl="reference")
 

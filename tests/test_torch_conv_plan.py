@@ -15,7 +15,10 @@ the im2col rows each tile gathers, each operand split into two TF32
 parts by rounding its bits, three products per 8-deep step summed in a
 fresh f32 fragment and added to the accumulator, each split's partial
 added in split order, the epilogue and the pool -- is held at 1e-5 in f32
-to the port's plain versions and to ``repro``'s reference.
+to the port's plain versions and to ``repro``'s reference.  The
+emulation sums with elementwise f32 ops in a fixed order, never through
+the CPU's matmul library, so its bits do not depend on the process
+(thread count, the library's kernel or alignment path, precision mode).
 """
 import dataclasses
 import importlib
@@ -288,21 +291,32 @@ def test_tf32_split_is_exact_to_2_pow_22():
     assert ((hi - t).abs() <= t.abs() * 2.0 ** -11).all()
 
 
+def _step(A, B):
+    """A (..., m, j) @ B (j, N) for one step of j <= 8 products, summed
+    in k order by elementwise f32 ops: the same bits in any process
+    (no BLAS kernel choice, alignment path or precision mode, no
+    thread-count-dependent split)."""
+    d = A[..., :, 0, None] * B[0]
+    for j in range(1, A.shape[-1]):
+        d = d + A[..., :, j, None] * B[j]
+    return d
+
+
 def gemm_3xtf32(A, B, plan):
     """A (tiles, bm, K) @ B (K, N) as the kernel sums it: per split, each
     8-deep step's lo.hi + hi.lo + hi.hi in a fresh f32 fragment added to
     the accumulator; the partials added in split order."""
     K = A.shape[-1]
     (Ah, Al), (Bh, Bl) = split_tf32(A), split_tf32(B)
-    out = torch.zeros(A.shape[:-1] + (B.shape[1],))
+    out = torch.zeros(A.shape[:-1] + (B.shape[1],), dtype=torch.float32)
     for r in range(plan.splits):
         acc = torch.zeros_like(out)
         lo, hi = r * plan.kps * BK, min(K, (r + 1) * plan.kps * BK)
         for k in range(lo, hi, 8):
             s = slice(k, min(k + 8, hi))
-            d = Al[..., s] @ Bh[s]
-            d = d + Ah[..., s] @ Bl[s]
-            d = d + Ah[..., s] @ Bh[s]
+            d = _step(Al[..., s], Bh[s])
+            d = d + _step(Ah[..., s], Bl[s])
+            d = d + _step(Ah[..., s], Bh[s])
             acc = acc + d
         out = out + acc
     return out
@@ -371,7 +385,8 @@ def emulate_virtual(x, w, g, plan, *, bias, act, bypass, first,
     ident = -math.inf if op == "max" else 0.0
     stage = torch.where(valid[..., None], apply_activation(C, act),
                         torch.full_like(C, ident))
-    out = torch.full((g.B, g.OHo, g.OWo, g.Cout), math.nan)
+    out = torch.full((g.B, g.OHo, g.OWo, g.Cout), math.nan,
+                     dtype=torch.float32)
     for mt in range(plan.n_mt):
         bb, s, tr, tc = _pool_tile(g, plan, mt)
         region = stage[mt, :plan.conv_r * plan.conv_c].reshape(
@@ -384,8 +399,13 @@ def emulate_virtual(x, w, g, plan, *, bias, act, bypass, first,
                 if pl >= g.SR or prow >= g.OHo or q >= g.OWo:
                     continue
                 win = region[r * ps:r * ps + pw, cc * ps:cc * ps + pw]
-                out[bb, prow, q] = (win.amax((0, 1)) if op == "max"
-                                    else win.sum((0, 1)) / (pw * pw))
+                if op == "max":
+                    out[bb, prow, q] = win.amax((0, 1))
+                else:                       # the window summed in order
+                    acc = win[0, 0]
+                    for i in range(1, pw * pw):
+                        acc = acc + win[i // pw, i % pw]
+                    out[bb, prow, q] = acc / (pw * pw)
     return out
 
 

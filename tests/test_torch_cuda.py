@@ -1537,3 +1537,68 @@ def test_graphed_cnn_run_equals_the_eager_run(dev):
     with executor.disable_graphs():
         for y, out in zip(inputs, outs):
             assert torch.equal(out, cnn.forward(params, y, cfg))
+
+
+# --- the compiled train step and the MoE dispatch on the card ----------------------
+@pytest.mark.parametrize("name", ["smollm-360m", "granite-moe-1b-a400m"])
+def test_graphed_train_step_equals_eager_bit_for_bit(dev, name):
+    """Three steps of the smoke config in bf16 through the compiled step
+    (eager, captured and replayed, replayed) and three under
+    ``disable_graphs()``: metrics, params and moments bit for bit, the
+    state at its old addresses, one graph captured."""
+    from repro_torch.checkpoint import tree_leaves
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(REGISTRY[name].smoke(), dtype="bfloat16")
+    gen = torch.Generator(dev).manual_seed(0)
+    batches = [{k: torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                                 device=dev) for k in ("tokens", "labels")}
+               for _ in range(3)]
+    runs = []
+    for graphed in (True, False):
+        opt = AdamW(state_bits=8)
+        params = init_params(param_defs(cfg),
+                             torch.Generator(dev).manual_seed(1))
+        state = opt.init(params)
+        ptrs = [t.data_ptr() for t in tree_leaves((params, state))]
+        step = build_train_step(cfg, opt)
+        with (contextlib.nullcontext() if graphed
+              else executor.disable_graphs()):
+            metrics = [step(params, state, b)[2] for b in batches]
+        assert [t.data_ptr() for t in tree_leaves((params, state))] == ptrs
+        assert len([g for g in step.graphs.graphs.values()
+                    if g is not None]) == (1 if graphed else 0)
+        runs.append((metrics, tree_leaves((params, state))))
+    (mg, lg), (me, le) = runs
+    for a, b in zip(mg, me):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(x.view(torch.int16) if x.dtype == torch.bfloat16
+                           else x, y.view(torch.int16)
+                           if y.dtype == torch.bfloat16 else y)
+               for x, y in zip(lg, le))
+
+
+def test_moe_dispatch_replays_in_a_cuda_graph(dev):
+    """``moe_mlp`` at granite's width (32 experts, top-8, a 512-row
+    right-padded prefill block with ``valid_count`` a device tensor)
+    captured in a CUDA graph: each replay equals the eager call bit for
+    bit on new inputs."""
+    from repro_torch.models.moe import moe_mlp
+    gen = torch.Generator(dev).manual_seed(2)
+    T, D, E, F = 512, 1024, 32, 512
+    rnd = lambda *s: (torch.randn(s, generator=gen, device=dev)  # noqa
+                      * s[-2] ** -0.5).to(torch.bfloat16)
+    x, ws = rnd(T, D), [rnd(D, E), rnd(E, D, F), rnd(E, D, F), rnd(E, F, D)]
+    vc = torch.tensor([300], dtype=torch.int32, device=dev)
+    fn = lambda: moe_mlp(x, *ws, top_k=8, valid_count=vc)  # noqa: E731
+    fn()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out, aux = fn()
+    for n in (300, 17, 512):
+        x.copy_(rnd(T, D))
+        vc.fill_(n)
+        g.replay()
+        want, waux = fn()
+        assert torch.equal(out, want)
+        assert all(torch.equal(aux[k], waux[k]) for k in aux)

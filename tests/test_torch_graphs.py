@@ -94,13 +94,16 @@ class _Capture(TorchDispatchMode):
 
 class FakeGraph:
     """``torch.cuda.CUDAGraph`` on the CPU: ``replay`` re-runs the ops
-    the capture recorded, in order, against the tensors they named."""
+    the capture recorded, in order, against the tensors they named --
+    with autograd off, as a graph replays kernels, not autograd's
+    record (a captured backward is among the recorded ops)."""
     made = []
 
     def __init__(self):
         self.ops, self.replays = None, 0
         FakeGraph.made.append(self)
 
+    @torch.no_grad()
     def replay(self):
         self.replays += 1
         for func, args, kwargs, out in self.ops:

@@ -151,15 +151,16 @@ def test_stateless_program_listing_matches_reference(name):
 
 def test_unported_plans_and_families_name_their_roadmap_items():
     """The paged plan is ported; paging a windowed config is refused as
-    in ``repro``, and the MoE family still names its ROADMAP item."""
+    in ``repro``, and the VLM family still names its ROADMAP item."""
     cfg, _ = _pair_cfgs("smollm-360m")
     assert transformer.compile_program_pair(cfg, paged=True).paged
     with pytest.raises(NotImplementedError, match="mutually exclusive"):
         transformer.compile_program_pair(
             dataclasses.replace(cfg, attn_window=8), paged=True)
-    moe = dataclasses.replace(cfg, family="moe", n_experts=4, top_k=2)
+    vlm = dataclasses.replace(cfg, family="vlm", cross_attn_every=2,
+                              n_vision_tokens=8)
     with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        transformer.compile_program_pair(moe)
+        transformer.compile_program_pair(vlm)
 
 
 # --- norms and rotary ---------------------------------------------------------------

@@ -115,7 +115,7 @@ def test_serve_cli_runs_on_cpu():
     assert "prefill_recomputes=0" in lm.stdout
     other = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "granite-moe-1b-a400m", "--device", "cpu"], capture_output=True,
+         "whisper-base", "--device", "cpu"], capture_output=True,
         text=True, env=env, timeout=300)
     assert other.returncode == 2 and "ROADMAP A.9" in other.stderr
 
