@@ -95,8 +95,20 @@ exits non-zero before the last line is printed.  Phases:
    heads of 64, d_model 1024; its 49155-wide head, whose N is no whole
    number of 16-byte vectors, on simt), and the flash backward and
    forward at granite's training shape (8, 16 / 8 heads of 64, 512),
-   causal bf16, checked and timed;  Each flash row must
-   run f32 on simt and bf16 on mma (``flash_plan``), and the bf16 flash
+   causal bf16, checked and timed.  The same ops of the whisper-base pair
+   (8 slots, max_len 448): its projections (M = 448 / 8, K and N 512 or
+   2048), its tied head read transposed (448 / 8 x 512 x 51,865: the
+   (51,865, 512) embedding handed as it lies, on wgmma / skinny, beside
+   ``torch.addmm`` with the ``embed.T`` view), its causal self-attention
+   at 448 rows, the cross op's flash at prefill (448 q rows over the
+   1500 memory rows, non-causal, the memory padded to the kv block and
+   masked by kv_len in the wrapper) and decode at each tick (8 slots over
+   all 1500 rows of a transposed view of the (slots, 1500, 8, 64)
+   region), and the encoder's non-causal flash at 1500 x 1500 (per
+   admission; its projections are cuBLAS, as ``@`` in the reference);
+   where the wrapper pads q, k and v to its blocks, no unaligned view
+   reaches the kernel and the bf16 simt check is skipped.  Each flash row
+   must run f32 on simt and bf16 on mma (``flash_plan``), and the bf16 flash
    times are summed per smollm-360m and zamba2-7b admission, the forward
    and the backward per training step, likewise;
 5. the main paths, each with the launch counters set to 0 just before
@@ -217,6 +229,24 @@ exits non-zero before the last line is printed.  Phases:
       load-balance loss) and expert imbalance, step 0's loss and
       gradients against the plain path as 5f, and four compiled steps
       against four eager ones bit for bit.
+   l. ``repro_torch.launch.serve --arch whisper-base`` at full width and
+      depth in bf16 (6 encoder and 6 decoder layers, d_model 512, 8
+      heads of 64, vocab 51,865, the head tied to the embedding,
+      learned decoder positions), 8 slots, max_len 448 (Whisper's
+      decoder context), 16 requests of 4-224 prompt tokens and 32 new
+      tokens each, so every slot is re-admitted once, each request with
+      its (1500, 512) stub encoder frames from the seed: the encoder
+      runs once per admission and writes the slot's read-only memory
+      regions in place; exactly 6 + 6 flash launches per admission
+      (self, cross) plus 6 for the encoder, 6 + 6 decode launches per
+      tick (self, cross) and 49 matmul launches per call, the head on
+      skinny in a tick and wgmma in an admission, none on simt, and one
+      matmul launch per call reading B transposed; the encoder's time
+      per admission printed beside the tick and admission; the
+      teacher-forced plain replay re-encodes every request's frames
+      through the plain path into a fresh state (a slot that read
+      another request's memory fails it) and holds each row to
+      ``LOGIT_TOL``; the eager re-serve identical and bitwise equal;
    In 5g and 5h the counters must be exactly the Program's kernel ops per
    call (``PAIR_OPS``: zamba2-7b 81 mamba2_scan and 99 matmul per
    admission and per tick, 14 flash per admission, 14 decode per tick;
@@ -321,6 +351,17 @@ FAMILY_MEAN_TOL = {"zamba2-7b": 0.28, "rwkv6-7b": 0.08}
 # is held to its plain version on the same input (``check_family_ops``;
 # the dispatch, plain torch on both sides, bit for bit).
 MOE_ARCH, MOE_STEPS = "granite-moe-1b-a400m", 3
+# whisper-base (arXiv:2212.04356) at full width and depth in bf16 (6
+# encoder and 6 decoder layers, d_model 512, 8 heads of 64, vocab 51,865,
+# the head tied to the embedding): 5l serves 16 requests on 8 slots at
+# Whisper's own decoder context of 448 tokens, so every slot is
+# re-admitted once, each request with its (1500, 512) stub encoder
+# frames drawn from the seed (the audio frontend is a stub, as in the
+# reference).
+WHISPER, WHISPER_MAX_LEN = "whisper-base", 448
+WHISPER_ARGS = ["--arch", WHISPER, "--slots", str(SLOTS), "--max-len",
+                str(WHISPER_MAX_LEN), "--requests", "16", "--prompt-len",
+                "4-224", "--max-new", "32", "--seed", str(SEED)]
 # Kernel-launching ops per (prefill, decode) Program of each served pair,
 # read off the Program listings; the exact launch counts multiply them.
 # rwkv6's decode step is plain torch (no wkv6 launch), as in the reference.
@@ -331,9 +372,11 @@ PAIR_OPS = {
                   {"matmul": 99, "decode_attention": 14, "ssm_scan": 81}),
     "rwkv6-7b": ({"matmul": 1, "wkv": 32}, {"matmul": 1, "wkv": 32}),
     MOE_ARCH: ({"matmul": 97, "flash_attention": 24},
-               {"matmul": 97, "decode_attention": 24})}
+               {"matmul": 97, "decode_attention": 24}),
+    WHISPER: ({"matmul": 49, "flash_attention": 6, "cross_attention": 6},
+              {"matmul": 49, "decode_attention": 6, "cross_attention": 6})}
 KERNEL_OPS = ("matmul", "flash_attention", "decode_attention", "ssm_scan",
-              "wkv")
+              "wkv", "cross_attention")
 # Peak operation rates by operand type and the HBM rate, by card name:
 # NVIDIA's data sheet for the H100 SXM part at 700 W (f32 outside the
 # tensor cores, bf16 dense tensor cores).  Another card has no entry
@@ -437,13 +480,17 @@ def check_matmul_paths(label: str, skinny: int, wgmma: int,
 
 def matmul_paths(cfg, prog, M: int) -> Counter:
     """``matmul_plan``'s path of each matmul op of ``prog`` at M rows, in
-    the config's type, counted."""
+    the config's type, counted; a tied bf16 head reads its weight
+    transposed (``ops.matmul`` copies an f32 one)."""
+    import torch
     from repro_torch.kernels.matmul.kernel import matmul_plan
     from repro_torch.models import param_defs
     defs = param_defs(cfg)
+    bf16 = cfg.tdtype == torch.bfloat16
     return Counter(matmul_plan(M, *_weight_shape(defs, op.param_key)
                                [::-1 if op.transpose_w else 1],
-                               cfg.tdtype).path
+                               cfg.tdtype,
+                               b_transposed=op.transpose_w and bf16).path
                    for op in prog.ops if op.kernel == "matmul")
 
 
@@ -1069,6 +1116,12 @@ def resnet18_forward(device, hw=None, paper_faithful=False):
 
 
 # --- the smollm-360m serving path ------------------------------------------------
+def max_len_of(arch: str) -> int:
+    """The served max_len of ``arch``'s pair: whisper-base's 448-token
+    decoder context, 512 for the others."""
+    return WHISPER_MAX_LEN if arch == WHISPER else LM_MAX_LEN
+
+
 def lm_pairs(arch=LM_ARCH):
     """An LM config and its (prefill, decode) pairs at the main path's
     geometry: smollm-360m plain and windowed, another arch as it is."""
@@ -1080,7 +1133,7 @@ def lm_pairs(arch=LM_ARCH):
         cfgs.append(("window", dataclasses.replace(cfg,
                                                    attn_window=LM_WINDOW)))
     return cfg, {name: transformer.compile_program_pair(
-        c, slots=SLOTS, max_len=LM_MAX_LEN) for name, c in cfgs}
+        c, slots=SLOTS, max_len=max_len_of(arch)) for name, c in cfgs}
 
 
 def _weight_shape(defs, key):
@@ -1092,81 +1145,120 @@ def _weight_shape(defs, key):
 
 
 def lm_op_descs(cfg, pairs):
-    """(distinct ops by description, per (pair, program) op counts)."""
+    """(distinct ops by description, per (pair, program) op counts).  A
+    cross-attention op (whisper) runs the flash kernel over the slot's
+    T_enc memory rows at prefill and the decode kernel over them at
+    decode; an audio config also gets its encoder's attention (the flash
+    kernel, non-causal, T_enc rows; the projections are plain ``@``),
+    counted under ("full", "encoder") per admission."""
     from repro_torch.models import param_defs
     defs = param_defs(cfg)
+    S = max_len_of(cfg.name)
     ops, uses = {}, {}
     for pname, pair in pairs.items():
-        for kind, prog, M in (("prefill", pair.prefill, LM_MAX_LEN),
+        for kind, prog, M in (("prefill", pair.prefill, S),
                               ("decode", pair.decode, SLOTS)):
             count = Counter()
             for op in prog.ops:
                 if op.kernel == "matmul":
-                    K, N = _weight_shape(defs, op.param_key)
+                    K, N = _weight_shape(defs, op.param_key)[
+                        ::-1 if op.transpose_w else 1]
                     desc = (f"matmul {M}x{K}x{N} {op.dataflow.name} "
                             f"block={op.block} act={op.fuse_activation} "
-                            f"bypass={op.fuse_bypass}")
+                            f"bypass={op.fuse_bypass}"
+                            + (" b_transposed" if op.transpose_w else ""))
                     ops[desc] = ("matmul", op, (M, K, N))
+                elif op.kernel == "cross_attention":
+                    a, Te = op.attn, cfg.encoder_seq
+                    name = ("flash_attention" if kind == "prefill"
+                            else "decode_attention")
+                    desc = (f"{name} cross h={a.heads}/{a.kv_heads}x"
+                            f"{a.head_dim} memory={Te} "
+                            + (f"S={S} bq={a.block_q} bkv={a.block_kv}"
+                               if kind == "prefill" else f"slots={SLOTS}"))
+                    ops[desc] = (name, op, (S, Te) if kind == "prefill"
+                                 else (Te,))
                 elif op.kernel in ("flash_attention", "decode_attention"):
                     a = op.attn
-                    cache = min(LM_MAX_LEN, a.window or LM_MAX_LEN)
+                    cache = min(S, a.window or S)
                     desc = (f"{op.kernel} h={a.heads}/{a.kv_heads}x"
                             f"{a.head_dim} window={a.window} "
-                            + (f"S={LM_MAX_LEN} bq={a.block_q} "
+                            + (f"S={S} bq={a.block_q} "
                                f"bkv={a.block_kv}" if kind == "prefill"
                                else f"cache={cache} slots={SLOTS}"))
-                    ops[desc] = (op.kernel, op, (cache,))
+                    ops[desc] = (op.kernel, op, (S, S) if kind == "prefill"
+                                 else (cache,))
                 else:
                     continue
                 count[desc] += 1
             uses[(pname, kind)] = count
+    if cfg.n_encoder_layers:
+        from types import SimpleNamespace
+        Te = cfg.encoder_seq
+        enc = SimpleNamespace(kernel="encoder", attn=SimpleNamespace(
+            heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+            causal=False, window=None, block_q=None, block_kv=None))
+        desc = (f"flash_attention encoder h={cfg.n_heads}/{cfg.n_kv_heads}"
+                f"x{cfg.hd} S={Te}")
+        ops[desc] = ("flash_attention", enc, (Te, Te))
+        uses[("full", "encoder")] = Counter({desc: cfg.n_encoder_layers})
     return ops, uses
 
 
 def lm_matmul_case(op, shape, dtype, device, gen):
+    """One matmul op; a tied head (``transpose_w``) reads the (N, K)
+    embedding transposed, and its library yardstick is ``torch.addmm``
+    with the ``embed.T`` view."""
     import torch
     from repro_torch.kernels.common import apply_activation
     from repro_torch.kernels.matmul.kernel import matmul_cuda, matmul_plain
     M, K, N = shape
+    bt = op.transpose_w
     a = torch.randn((M, K), generator=gen, device=device).to(dtype)
-    w = (torch.randn((K, N), generator=gen, device=device)
+    w = (torch.randn((N, K) if bt else (K, N), generator=gen, device=device)
          * K ** -0.5).to(dtype)
+    wk = w.T if bt else w                     # the (K, N) operand, a view
     byp = (torch.randn((M, N), generator=gen, device=device).to(dtype)
            if op.fuse_bypass else None)
     kw = dict(activation=op.fuse_activation, bypass=byp)
     block = tuple(min(v, -(-d // 128) * 128) for v, d in
                   zip(op.block, (M, K, N)))
-    kern = lambda: matmul_cuda(a, w, dataflow=op.dataflow, block=block, **kw)
-    plain = lambda: matmul_plain(a, w, **kw)
+    kern = lambda: matmul_cuda(a, w, dataflow=op.dataflow, block=block,
+                               b_transposed=bt, **kw)
+    plain = lambda: matmul_plain(a, w, b_transposed=bt, **kw)
 
     def library():
-        out = torch.addmm(byp, a, w) if byp is not None else a @ w
+        out = torch.addmm(byp, a, wk) if byp is not None else a @ wk
         return apply_activation(out, op.fuse_activation)
     by = a.element_size()
     return (kern, plain, library, 2 * M * K * N,
             by * (M * K + K * N + M * N * (2 if byp is not None else 1)))
 
 
-def lm_flash_case(op, dtype, device, gen, offset=False):
+def lm_flash_case(op, dtype, device, gen, offset=False, shape=None):
     """The kernel, plain and library callables of one flash op at the
     served width, with its FLOPs and bytes; ``offset``: the operands in
-    buffers off a 16-byte boundary (``unaligned``)."""
+    buffers off a 16-byte boundary (``unaligned``).  ``shape``: (Sq, Skv),
+    the rows of q and of k / v (default max_len both); a non-causal op
+    (whisper's encoder and cross) attends every pair."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_plain)
-    a, S = op.attn, LM_MAX_LEN
+    a = op.attn
+    Sq, Skv = shape or (LM_MAX_LEN, LM_MAX_LEN)
 
-    def heads(H):                    # the executor's (B, S, H, D) layout
+    def heads(H, S):                 # the executor's (B, S, H, D) layout
         t = torch.randn((1, S, H, a.head_dim), generator=gen,
                         device=device).to(dtype).transpose(1, 2)
         return unaligned(t) if offset else t
-    q, k, v = heads(a.heads), heads(a.kv_heads), heads(a.kv_heads)
+    q = heads(a.heads, Sq)
+    k, v = heads(a.kv_heads, Skv), heads(a.kv_heads, Skv)
     scale = a.head_dim ** -0.5
-    qi = torch.arange(S, device=device)[:, None]
-    ki = torch.arange(S, device=device)[None, :]
-    allowed = ki <= qi
+    qi = torch.arange(Sq, device=device)[:, None]
+    ki = torch.arange(Skv, device=device)[None, :]
+    allowed = ki <= qi if a.causal else torch.ones_like(qi == ki)
     if a.window:
         allowed &= ki > qi - a.window
     kern = lambda: flash_attention(q, k, v, causal=a.causal, window=a.window,
@@ -1177,13 +1269,13 @@ def lm_flash_case(op, dtype, device, gen, offset=False):
                                           kv_len=None)[0]
     mask = None if not a.window else allowed
     library = lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=mask is None, scale=scale,
-        enable_gqa=True)
+        q, k, v, attn_mask=mask, is_causal=mask is None and a.causal,
+        scale=scale, enable_gqa=True)
     by = q.element_size()
     pairs = int(allowed.sum())
     return (kern, plain, library, 4 * a.head_dim * a.heads * pairs,
-            by * S * a.head_dim * (2 * a.heads + 2 * a.kv_heads)
-            + 4 * a.heads * S)
+            by * a.head_dim * (2 * a.heads * Sq + 2 * a.kv_heads * Skv)
+            + 4 * a.heads * Sq)
 
 
 def _kv_lens(cache: int):
@@ -1194,9 +1286,11 @@ def _kv_lens(cache: int):
     return lens[:SLOTS]
 
 
-def lm_decode_case(op, cache, dtype, device, gen, kv_dtype=None):
+def lm_decode_case(op, cache, dtype, device, gen, kv_dtype=None,
+                   full=False):
     """One decode op: q in ``dtype``, the cache in ``kv_dtype`` (default
-    ``dtype``; ``torch.float8_e4m3fn`` for the config's float8 caches)."""
+    ``dtype``; ``torch.float8_e4m3fn`` for the config's float8 caches).
+    ``full``: every row live (a cross op over its encoder memory)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1210,7 +1304,7 @@ def lm_decode_case(op, cache, dtype, device, gen, kv_dtype=None):
                           generator=gen, device=device).to(kv_dtype or dtype)
               for _ in range(2))
     k, v = ck.transpose(1, 2), cv.transpose(1, 2)
-    lens = _kv_lens(cache)
+    lens = [cache] * SLOTS if full else _kv_lens(cache)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
     scale = a.head_dim ** -0.5
     kern = lambda: decode_attention(q, k, v, kv_len=kv_len, impl="cuda")
@@ -1224,6 +1318,19 @@ def lm_decode_case(op, cache, dtype, device, gen, kv_dtype=None):
     return (kern, plain, library, 4 * a.head_dim * a.heads * live,
             by * (2 * q.numel() + 2 * a.kv_heads * a.head_dim * live)
             + 4 * SLOTS)
+
+
+def flash_pads(op, Sq: int, Skv: int) -> bool:
+    """The flash wrapper copies q, k and v into padded buffers at this op
+    (``kernels/flash_attention/ops.py``'s rule: q to its block, or 128
+    rows, k and v to the kv block)."""
+    from repro_torch.kernels.flash_attention.ops import attention_block_sizes
+    a = op.attn
+    bq, bkv = a.block_q, a.block_kv
+    if bq is None or bkv is None:
+        bq, bkv = attention_block_sizes(Sq, Skv, a.head_dim, 2)
+    bq = min(bq, Sq) if Sq % min(bq, Sq) == 0 else 128
+    return bool(Sq % bq and Skv % bkv)
 
 
 def check_lm_kernels(device, peaks, arch=LM_ARCH):
@@ -1241,12 +1348,14 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
         errs = []
         for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
             gen = torch.Generator(device=device).manual_seed(SEED + i)
+            full = op.kernel == "cross_attention"
             if kernel == "matmul":
                 case = lm_matmul_case(op, shape, dtype, device, gen)
             elif kernel == "flash_attention":
-                case = lm_flash_case(op, dtype, device, gen)
+                case = lm_flash_case(op, dtype, device, gen, shape=shape)
             else:
-                case = lm_decode_case(op, shape[0], dtype, device, gen)
+                case = lm_decode_case(op, shape[0], dtype, device, gen,
+                                      full=full)
             kern, plain, library, flops, nbytes = case
             before = dict(fwd_paths)
             errs.append(max_err(kern(), plain(), tol))
@@ -1265,13 +1374,17 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
                                (torch.float32, TOL)):
                 gen = torch.Generator(device=device).manual_seed(SEED + i)
                 fp8 = lm_decode_case(op, shape[0], dtype, device, gen,
-                                     kv_dtype=torch.float8_e4m3fn)
+                                     kv_dtype=torch.float8_e4m3fn, full=full)
                 errs.append(max_err(fp8[0](), fp8[1](), tol))
             del fp8
-        if kernel == "flash_attention":
-            # bf16 on simt too, through operands off a 16-byte boundary.
+        padded = kernel == "flash_attention" and flash_pads(op, *shape)
+        if kernel == "flash_attention" and not padded:
+            # bf16 on simt too, through operands off a 16-byte boundary
+            # (where the wrapper pads q, k and v to its blocks, its
+            # copies are aligned and no view reaches the kernel).
             gen = torch.Generator(device=device).manual_seed(SEED + i)
-            case = lm_flash_case(op, torch.bfloat16, device, gen, offset=True)
+            case = lm_flash_case(op, torch.bfloat16, device, gen, offset=True,
+                                 shape=shape)
             before = fwd_paths["simt"]
             errs.append(max_err(case[0](), case[1](), BF16_TOL))
             if fwd_paths["simt"] != before + 1:
@@ -1286,11 +1399,13 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
         row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
         extra = ""
         if kernel == "matmul":
-            row["path"] = matmul_plan(*shape, torch.bfloat16).path
+            row["path"] = matmul_plan(*shape, torch.bfloat16,
+                                      b_transposed=op.transpose_w).path
             name = f"matmul/{row['path']}"
         elif kernel == "flash_attention":
             name = "flash/mma"
-            extra = f" bf16 simt={errs[2]:.2e}"
+            extra = (" bf16 simt: not reached (padded copies)" if padded
+                     else f" bf16 simt={errs[2]:.2e}")
         else:
             a = op.attn
             extra = (f" float8 cache: bf16 q {errs[2]:.2e}, f32 q "
@@ -2306,7 +2421,10 @@ class Recorder:
     ``with`` records each call's inputs, in order, with the logits rows
     the engine reads (a CNN run: its whole output) and the call's wall
     time up to a device synchronise (page-table syncs and COW copies
-    are kept to be replayed, untimed)."""
+    are kept to be replayed, untimed).  An audio engine's admission-time
+    encoder memory writes are recorded too ("memory": the slot and the
+    request's frames, timed to a device synchronise) and replayed, the
+    encoder through the replay's own path."""
 
     RUNNERS = {"graphed_prefill_runner": "prefill",
                "graphed_chunk_runner": "chunk",
@@ -2343,7 +2461,19 @@ class Recorder:
 
     def __enter__(self):
         import torch
+        from repro_torch.serving.engine import ServingEngine
         orig = self.orig
+        self.engine_cls = ServingEngine
+        self.orig_memory = ServingEngine._write_encoder_memory
+        rec = self
+
+        def write_memory(eng, slot, req):
+            t0 = time.perf_counter()
+            rec.orig_memory(eng, slot, req)
+            torch.cuda.synchronize()
+            rec.calls.append(("memory", time.perf_counter() - t0,
+                              (slot, torch.from_numpy(req.extra)), {}))
+        ServingEngine._write_encoder_memory = write_memory
 
         def wrap(name, kind):
             def factory(program, impl="auto"):
@@ -2379,6 +2509,7 @@ class Recorder:
     def __exit__(self, *exc):
         for n, fn in self.orig.items():
             setattr(self.ex, n, fn)
+        self.engine_cls._write_encoder_memory = self.orig_memory
 
     def count(self, kind: str) -> int:
         return sum(c[0] == kind for c in self.calls)
@@ -2411,6 +2542,9 @@ class Recorder:
                 continue
             if kind == "copies":
                 orig["apply_page_copies"](state, pair, args)
+                continue
+            if kind == "memory":
+                write_memory(eng, state, *args, impl=impl)
                 continue
             tokens, args = args[0].to(eng.device), args[1:]
             log = []
@@ -2547,6 +2681,19 @@ class Recorder:
         return out
 
 
+def write_memory(eng, state, slot: int, frames, impl: str) -> None:
+    """An audio admission's memory write on ``state``: the encoder and
+    cross K/V projection of ``frames`` through ``impl`` ("reference": the
+    plain path), the rows copied into the read-only regions at
+    ``slot``."""
+    from repro_torch.models import MEMORY_WRITERS
+    _, writer = MEMORY_WRITERS[eng.cfg.family]
+    rows = writer(eng.params, frames.to(eng.device, eng.cfg.tdtype),
+                  eng.cfg, impl=impl)
+    for name, row in rows.items():
+        state.caches[eng.program.persistent[name]][slot].copy_(row)
+
+
 @contextlib.contextmanager
 def op_outputs(ex, outs: list):
     """Inside, every op the executor dispatches appends (op name, its
@@ -2554,7 +2701,7 @@ def op_outputs(ex, outs: list):
     buffers, which a replay fills."""
     names = ("_run_op", "_run_attention", "_run_attention_chunk",
              "_run_family_op", "_run_moe", "_run_decode_attention",
-             "_run_decode_attention_paged")
+             "_run_decode_attention_paged", "_run_cross_attention")
     orig = {n: getattr(ex, n) for n in names}
 
     def wrap(fn):
@@ -2596,6 +2743,9 @@ def first_differing_op(eng, rec, idx: int):
             return None
         if kind == "copies":
             ex.apply_page_copies(st, pair, args)
+            return None
+        if kind == "memory":
+            write_memory(eng, st, *args, impl="auto")
             return None
         tokens = args[0].to(dev)
         if kind == "prefill":
@@ -2789,9 +2939,11 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
         fn.launches = 0
     reset_matmul_paths()
     reset_flash_paths()
+    counters["matmul"].b_transposed_launches = 0
     with Recorder() as rec:
         res = run()
     launches = {k: fn.launches for k, fn in counters.items()}
+    bt_launches = counters["matmul"].b_transposed_launches
     eng, done = res["engine"], res["done"]
     if len(done) != n_requests or not all(
             r.done and len(r.out_tokens) == max_new for r in done):
@@ -2807,9 +2959,19 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
     paged = eng.program.paged is not None
     if rec.count("decode") != ticks:
         fail(f"{label}: {rec.count('decode')} decode calls, {ticks} ticks")
-    want = {"flash_attention": passes * pre["flash_attention"],
+    # A cross op runs the flash kernel in a prefill and the decode kernel
+    # in a tick; an audio admission runs the encoder once (one flash
+    # launch a layer) before its prefill.
+    encodes = rec.count("memory")
+    if encodes != (n_requests if eng.cfg.n_encoder_layers else 0):
+        fail(f"{label}: {encodes} encoder memory writes for {n_requests} "
+             f"requests")
+    want = {"flash_attention": passes * (pre["flash_attention"]
+                                         + pre["cross_attention"])
+            + encodes * eng.cfg.n_encoder_layers,
             "flash_attention_bwd": 0,
-            "decode_attention": 0 if paged else ticks * dec["decode_attention"],
+            "decode_attention": 0 if paged else ticks * (
+                dec["decode_attention"] + dec["cross_attention"]),
             "paged_decode_attention": (ticks * dec["decode_attention"]
                                        if paged else 0),
             "matmul": passes * pre["matmul"] + ticks * dec["matmul"],
@@ -2833,6 +2995,13 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
             paths[path] += n_calls * k
     check_matmul_paths(label, paths["skinny"], paths["wgmma"],
                        paths["simt"])
+    # A tied bf16 head reads the embedding transposed, once per Program
+    # run.
+    n_tied = sum(op.transpose_w for op in eng.program.decode.ops
+                 if eng.cfg.dtype == "bfloat16")
+    if bt_launches != n_tied * (passes + ticks):
+        fail(f"{label}: {bt_launches} matmul launches read B transposed, "
+             f"want {n_tied * (passes + ticks)}")
     # Every served flash call is bf16 on aligned views: the mma path.
     check_flash_paths(label, want["flash_attention"], 0)
     n_graphs = check_captured(label, eng.state.graphs.graphs,
@@ -2863,6 +3032,9 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
           f"{stats['tick_ms']:.2f} ms mean", flush=True)
     if label == "5b" or arch != LM_ARCH:
         stats["profile"] = profile_lm(label, eng, rec)
+    if encodes:
+        stats["encoder_ms"] = rec.ms("memory")
+        stats["encoder_median_ms"] = rec.ms("memory", statistics.median)
     if arch == LM_ARCH:
         stats.update(check_eager(label, run, stats, rec, exact=True))
         if stats["graphed_decode_median_ms"] >= stats[
@@ -3202,6 +3374,55 @@ def serve_family(label: str, arch: str):
     return launches, stats
 
 
+def serve_whisper(label: str):
+    """Phase 5l: ``repro_torch.launch.serve --arch whisper-base`` at full
+    width and depth in bf16 (WHISPER_ARGS: 16 requests on 8 slots, so
+    every slot is re-admitted once, prompts of 4-224 tokens, 32 new
+    tokens each, each request's (1500, 512) stub frames from the seed),
+    through ``serve_lm``'s launch, path, completion and replay checks:
+    the teacher-forced plain replay re-encodes each request's frames
+    through the plain path, so a re-admitted slot that read another
+    request's memory would fail it.  Then served again eagerly
+    (``check_eager``): identical streams, logits rows bit for bit.
+    Returns (launches, stats)."""
+    import gc
+    import torch
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, new = (int(WHISPER_ARGS[WHISPER_ARGS.index(f) + 1])
+              for f in ("--requests", "--max-new"))
+
+    def run():
+        return serve.main(WHISPER_ARGS)
+    launches, stats, eng, rec = serve_lm(label, run, n, new, arch=WHISPER)
+    slots_used = Counter(c[2][0] for c in rec.calls if c[0] == "memory")
+    if sorted(slots_used.values()) != [n // SLOTS] * SLOTS:
+        fail(f"{label}: admissions per slot {dict(slots_used)}, want "
+             f"{n // SLOTS} on each of {SLOTS}")
+    pair = eng.program
+    state_mb = {}
+    for r in pair.decode.plan.persistent_regions():
+        kind = r.name.split(".")[-1]
+        state_mb[kind] = state_mb.get(kind, 0.0) + r.size_bytes / 1e6
+    n_params = sum(t.numel() for t in _named_leaves(eng.params).values())
+    stats.update(state_mb=state_mb, n_params=n_params,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{label}: {n_params / 1e6:.1f} M parameters, persistent state "
+          f"{pair.persistent_bytes / 1e6:.2f} MB (" + ", ".join(
+              f"{k} {v:.2f} MB" for k, v in state_mb.items())
+          + f"), peak memory allocated {stats['peak_gb']:.2f} GB; encoder "
+          f"and memory write per admission {stats['encoder_ms']:.3f} ms "
+          f"mean, {stats['encoder_median_ms']:.3f} median ({n} admissions, "
+          f"{dict(slots_used)} per slot)", flush=True)
+    del eng, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats.update(check_eager(label, run, stats, rec, exact=True))
+    return launches, stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3247,6 +3468,7 @@ def main() -> int:
     bwd_row = check_flash_bwd(device, peaks)
     g_rows, g_uses = check_lm_kernels(device, peaks, MOE_ARCH)
     g_bwd_row = check_flash_bwd(device, peaks, MOE_ARCH)
+    w_rows, w_uses = check_lm_kernels(device, peaks, WHISPER)
     cnn_launches, img_s, cnn_graphed = serve_alexnet(device)
     resnet18_forward(device)
     from repro_torch.core import SNOWFLAKE
@@ -3270,6 +3492,7 @@ def main() -> int:
         ("5g zamba2-7b", "zamba2-7b"), ("5h rwkv6-7b", "rwkv6-7b"))}
     moe_launches, moe_stats = serve_family(f"5j {MOE_ARCH}", MOE_ARCH)
     moe_train_launches, moe_train = train_moe(device, g_bwd_row)
+    w_launches, w_stats = serve_whisper(f"5l {WHISPER}")
 
     tick = {}
     for kname, label in (("conv2d_virtual", "alexnet-owt"),
@@ -3404,6 +3627,35 @@ def main() -> int:
                   f"bound_ms {row['bound_ms']:.4f}, plain_ms "
                   f"{row['plain_ms']:.4f}, library_ms (torch.addmm) "
                   f"{row['library_ms']:.4f} | {desc}")
+    # whisper-base per admission (the encoder, then the prefill Program)
+    # and per tick: phase 4's rows of its flash, decode and matmul ops.
+    for kind in ("encoder", "prefill", "decode"):
+        parts = {k: lm_sums(w_rows, w_uses, "full", kind, k) for k in (
+            "flash_attention", "decode_attention", "matmul")}
+        parts = {k: x for k, x in parts.items() if x["launches"]}
+        ksum = sum(x["ms"] for x in parts.values())
+        if kind == "encoder":
+            head = (f"{WHISPER} encoder: served {w_stats['encoder_median_ms']:.3f}"
+                    f" ms per admission (median, eager: the projections "
+                    f"are cuBLAS and the glue plain torch)")
+        else:
+            head = f"{WHISPER} {kind}: {served(w_stats, kind, ksum)} per call"
+        print(f"{head} against a kernel sum of {ksum:.3f} ms (bound "
+              f"{sum(x['bound_ms'] for x in parts.values()):.4f} ms; "
+              + ", ".join(f"{k} {x['launches']} x = {x['ms']:.3f} ms "
+                          f"(plain {x['plain_ms']:.3f}, library "
+                          f"{x['library_ms']:.3f}, bound {x['bound_ms']:.4f})"
+                          for k, x in parts.items()) + ")")
+    for desc, row in sorted(w_rows.items()):
+        if "b_transposed" in desc or "cross" in desc or "encoder" in desc:
+            print(f"{WHISPER} {row['kernel']}"
+                  + (f"/{row['path']}" if "path" in row else "")
+                  + f": ms {row['ms']:.4f}, bound_ms {row['bound_ms']:.4f}, "
+                  f"plain_ms {row['plain_ms']:.4f}, library_ms "
+                  f"{row['library_ms']:.4f}"
+                  + (" (torch.addmm with the embed.T view)"
+                     if "b_transposed" in desc else " (SDPA)")
+                  + f" | {desc}")
     L_moe = moe_train_launches["flash_attention_bwd"] // MOE_STEPS
     print(f"{MOE_ARCH} training step: flash forward {2 * L_moe} x "
           f"{g_bwd_row['fwd_ms']:.4f} = {2 * L_moe * g_bwd_row['fwd_ms']:.3f}"
@@ -3419,7 +3671,7 @@ def main() -> int:
           f"eager {train_stats['eager_ms']:.2f} ms")
     per_path = [cnn_launches, pf_launches, lm_launches, win_launches,
                 smoke_launches, train_launches, moe_launches,
-                moe_train_launches] + [
+                moe_train_launches, w_launches] + [
         launch for launch, _ in list(paged.values()) + list(family.values())]
     launches = {k: sum(p.get(k, 0) for p in per_path) for k in SOURCES}
     errs = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k]
@@ -3430,6 +3682,8 @@ def main() -> int:
                    + ([bwd_row["max_abs_err"], g_bwd_row["max_abs_err"]]
                       if k == "flash_attention_bwd" else [])
                    + [r["max_abs_err"] for r in g_rows.values()
+                      if r["kernel"] == k]
+                   + [r["max_abs_err"] for r in w_rows.values()
                       if r["kernel"] == k]
                    + [r["max_abs_err"] for r in z_rows.values()
                       if r["kernel"] == k]
@@ -3517,7 +3771,8 @@ def main() -> int:
                       for label, (_, stats) in family.items())
           + f"; {MOE_ARCH}: {moe_stats['tok_s']:.1f} tok/s served, "
           f"{moe_train['tok_s']:.0f} tokens/s trained (step "
-          f"{moe_train['step_ms']:.1f} ms)")
+          f"{moe_train['step_ms']:.1f} ms); {WHISPER}: "
+          f"{w_stats['tok_s']:.1f} tok/s served")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

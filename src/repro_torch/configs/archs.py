@@ -1,8 +1,9 @@
 """The LM architectures of ``repro.configs.archs``, same numbers.
 
-The dense, MoE (granite, llama4), hybrid (zamba2, mamba2) and ssm
-(rwkv6) families are carried; audio and VLM wait for their model
-modules (ROADMAP A.9) and are listed so ``get_config`` can say so.
+The dense, MoE (granite, llama4), hybrid (zamba2, mamba2), ssm (rwkv6)
+and audio (whisper) families are carried; the VLM config waits for the
+legacy decode loop the reference serves it on (ROADMAP A.6.4) and is
+listed so ``get_config`` can say so.
 """
 from __future__ import annotations
 
@@ -61,6 +62,14 @@ RWKV6_7B = ArchConfig(
     vocab=65536, head_dim=64, norm="layernorm",
     sub_quadratic=True, source="arXiv:2404.05892")
 
+WHISPER_BASE = ArchConfig(
+    # [arXiv:2212.04356; unverified] — enc-dec; conv frontend is a stub.
+    name="whisper-base", family="audio",
+    n_layers=6, n_encoder_layers=6, encoder_seq=1500,
+    d_model=512, n_heads=8, n_kv_heads=8, d_ff=2048, vocab=51865,
+    norm="layernorm", gated_mlp=False, activation="gelu",
+    tie_embeddings=True, max_pos=32768, source="arXiv:2212.04356")
+
 GRANITE_MOE_1B = ArchConfig(
     # [hf:ibm-granite/granite-3.0-1b-a400m-base; hf] — 32 experts top-8.
     name="granite-moe-1b-a400m", family="moe",
@@ -76,7 +85,18 @@ LLAMA4_MAVERICK = ArchConfig(
     rope_theta=500000.0, source="hf:meta-llama/Llama-4-Scout-17B-16E")
 
 ALL_ARCHS = (ZAMBA2_7B, MAMBA2, DEEPSEEK_7B, OLMO_1B, SMOLLM_360M,
-             LLAMA3_8B, RWKV6_7B, GRANITE_MOE_1B, LLAMA4_MAVERICK)
+             LLAMA3_8B, RWKV6_7B, WHISPER_BASE, GRANITE_MOE_1B,
+             LLAMA4_MAVERICK)
 
-# The reference's other architectures and their families (not ported).
-UNPORTED_ARCHS = {"whisper-base": "audio", "llama-3.2-vision-11b": "vlm"}
+# The reference's other architectures, by family, and the ROADMAP item
+# that ports each family.
+UNPORTED_ARCHS = {"llama-3.2-vision-11b": "vlm"}
+UNPORTED_FAMILIES = {"vlm": "A.6.4"}
+
+
+def not_ported(name: str, family: str) -> NotImplementedError:
+    """The refusal of a config of a family the port does not carry yet,
+    naming the ROADMAP item that ports it."""
+    return NotImplementedError(
+        f"{name}: the {family} family is not ported to repro_torch yet "
+        f"(ROADMAP {UNPORTED_FAMILIES[family]})")

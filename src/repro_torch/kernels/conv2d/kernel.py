@@ -402,6 +402,7 @@ def conv2d_virtual_cuda(x, w, g: VirtualGeometry, *, bias=None,
 
 
 conv2d_virtual_cuda.launches = 0
+conv2d_virtual_cuda.counters = ("launches",)
 
 
 # --- materialized strips (the paper-faithful baseline) -------------------------
@@ -553,3 +554,4 @@ def conv2d_strips_cuda(strips, w, g: StripsGeometry, *, bias=None,
 
 
 conv2d_strips_cuda.launches = 0
+conv2d_strips_cuda.counters = ("launches",)

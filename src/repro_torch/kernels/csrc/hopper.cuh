@@ -2,7 +2,7 @@
 // cp.async (16 and 4 bytes) with zero-fill, ldmatrix, mma.sync m16n8k16
 // (bf16 -> f32), m16n8k8 (tf32 -> f32) and m8n8k4 (f64), mbarriers, TMA 2D tile loads,
 // and wgmma (shared-memory descriptors for 128-byte-swizzled tiles,
-// m64n128k16 bf16 -> f32).  Each is one PTX instruction or a short
+// m64n128k16 bf16 -> f32, B MN-major or K-major).  Each is one PTX instruction or a short
 // sequence of them; no library code is called.
 #pragma once
 
@@ -186,13 +186,15 @@ __device__ __forceinline__ void fence_operands(float* d) {
 }
 
 // d (64x128 f32 over the warpgroup, 64 a thread) += A (64x16 bf16, K-major
-// in shared memory) * B (16x128 bf16, MN-major: N contiguous, as a (K, N)
-// row-major matrix is).  Thread t of the warpgroup holds, for j < 16,
-// d[4j + v0 + 2 v1] at row 16 (t / 32) + (t % 32) / 4 + 8 v1, column
-// 8 j + 2 (t % 4) + v0.
-__device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float* d,
-                                                         uint64_t desc_a,
-                                                         uint64_t desc_b) {
+// in shared memory) * B (16x128 bf16): MN-major (TransB = 1: N contiguous,
+// as a (K, N) row-major matrix is) or K-major (TransB = 0: K contiguous,
+// as an (N, K) row-major matrix is, laid out as A is).  Thread t of the
+// warpgroup holds, for j < 16, d[4j + v0 + 2 v1] at row 16 (t / 32) +
+// (t % 32) / 4 + 8 v1, column 8 j + 2 (t % 4) + v0.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float* d,
+                                                      uint64_t desc_a,
+                                                      uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -203,7 +205,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float* d,
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
+      "%64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -218,7 +220,13 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float* d,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TransB));
+}
+// The MN-major form: B as a (K, N) row-major tile.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_tb(float* d,
+                                                         uint64_t desc_a,
+                                                         uint64_t desc_b) {
+  wgmma_m64n128k16_bf16<1>(d, desc_a, desc_b);
 }
 
 // --- host: cuTensorMapEncodeTiled through the runtime ------------------------

@@ -40,6 +40,19 @@
 //   MN-major (the (K, N) weight as it lies, never transposed).  The
 //   epilogue is fused in registers and the ragged edge masked on the
 //   store.  The dataflow sets the CTA raster as in simt.
+// B read transposed (bf16, the skinny and wgmma paths): B given as the
+//   (N, K) row-major tensor whose transpose the product takes -- a tied
+//   LM head, the (vocab, d_model) embedding -- read as it lies, never
+//   copied.  Its rows are K whole 16-byte vectors, so N may be ragged
+//   (whisper-base's 51,865): B rows past N load as zeros.  skinny: the B
+//   tile is [64 n rows][64 k] (cp.async along K, the same XOR swizzle),
+//   fed to mma.sync by ldmatrix without .trans.  wgmma: a TMA map over
+//   the (N, K) tensor (boxes of 128 n rows x 64 k, clipped at N) and a
+//   K-major B descriptor, laid out as A is.  With N odd, an output row
+//   starts on an odd element, so every store that pairs two columns
+//   (bf16x2 out and bypass, the f32x2 split-K partials, the f32x4 merge)
+//   falls back to single elements, and the second column is bounded by
+//   N.
 // simt (everything else: f32 at M > 64, bf16 with K or N not a multiple
 //   of 8): 16 rows x 32 columns per CTA over all of K, f32 FMAs from
 //   shared memory with a register prefetch of the next 128-deep K slice.
@@ -235,24 +248,33 @@ struct SkinnyArgs {
 
 // One f32 pair (m, n), (m, n + 1) of a CTA's sum: the output through the
 // epilogue with one split, else the split's partial into the workspace.
+// n < N is even; with N odd the pair may end past N and a row starts on
+// an odd element, so the workspace takes single floats.
 template <typename T>
 __device__ __forceinline__ void skinny_store(const SkinnyArgs<T>& p, int m,
                                              int n, float v0, float v1) {
+  const bool second = n + 1 < p.N;
   if (p.splits == 1) {
     const size_t o = (size_t)m * p.N + n;
     p.out[o] = from_f32<T>(epilogue(v0, p.bias, p.bypass, m, n, p.N, p.act));
-    p.out[o + 1] =
-        from_f32<T>(epilogue(v1, p.bias, p.bypass, m, n + 1, p.N, p.act));
+    if (second)
+      p.out[o + 1] =
+          from_f32<T>(epilogue(v1, p.bias, p.bypass, m, n + 1, p.N, p.act));
   } else {
-    *reinterpret_cast<float2*>(
-        p.ws + ((size_t)blockIdx.z * p.M + m) * p.N + n) =
-        make_float2(v0, v1);
+    float* w = p.ws + ((size_t)blockIdx.z * p.M + m) * p.N + n;
+    if ((p.N & 1) == 0) {
+      *reinterpret_cast<float2*>(w) = make_float2(v0, v1);
+    } else {
+      w[0] = v0;
+      if (second) w[1] = v1;
+    }
   }
 }
 
 // bf16: grid (1, ceil(N / 64), splits); MT = 16 x MTILES >= M rows.  Warp
 // w owns columns [16 w, 16 w + 16) of the CTA's 64 as two n8 mma tiles.
-template <int MTILES>
+// BT: B is the (N, K) tensor, its tile [64 n rows][64 k].
+template <int MTILES, bool BT>
 __global__ void __launch_bounds__(SK_THREADS)
     skinny_bf16_kernel(SkinnyArgs<bf16> p) {
   constexpr int MT = 16 * MTILES;
@@ -273,10 +295,17 @@ __global__ void __launch_bounds__(SK_THREADS)
     for (int i = 0; i < SK_BK16 * SK_BN / 8 / SK_THREADS; ++i) {
       const int q = tid + i * SK_THREADS;
       const int r = q >> 3, c = q & 7;
-      const int k = k0 + r, n = n0 + c * 8;
-      const bool ok = k < kend && n < p.N;
-      cp_async16(dB + r * SK_BN + ((c ^ (r & 7)) << 3),
-                 ok ? p.b + (size_t)k * p.N + n : p.b, ok);
+      if (BT) {  // row r: column n0 + r of the product, K along the row
+        const int k = k0 + c * 8, n = n0 + r;
+        const bool ok = k < kend && n < p.N;
+        cp_async16(dB + r * SK_BK16 + ((c ^ (r & 7)) << 3),
+                   ok ? p.b + (size_t)n * p.K + k : p.b, ok);
+      } else {
+        const int k = k0 + r, n = n0 + c * 8;
+        const bool ok = k < kend && n < p.N;
+        cp_async16(dB + r * SK_BN + ((c ^ (r & 7)) << 3),
+                   ok ? p.b + (size_t)k * p.N + n : p.b, ok);
+      }
     }
     bf16* dA = sA + stage * A_EL;
 #pragma unroll
@@ -316,7 +345,14 @@ __global__ void __launch_bounds__(SK_THREADS)
       // B: matrices (k lo, n lo), (k hi, n lo), (k lo, n hi), (k hi, n hi)
       // of the warp's 16 x 16 block, transposed into mma col fragments.
       uint32_t bfr[4];
-      {
+      if (BT) {
+        // The same four matrices from the [n][k] tile: rows are n, so
+        // ldmatrix without .trans gives the col fragments.
+        const int mi = lane >> 3, r = lane & 7;
+        const int nrow = warp * 16 + ((mi >> 1) << 3) + r;
+        const int ch = kk * 2 + (mi & 1);
+        ldmatrix_x4(bfr, cB + nrow * SK_BK16 + ((ch ^ (nrow & 7)) << 3));
+      } else {
         const int mi = lane >> 3, r = lane & 7;
         const int krow = kk * 16 + ((mi & 1) << 3) + r;
         const int ch = warp * 2 + (mi >> 1);
@@ -477,6 +513,22 @@ __global__ void __launch_bounds__(256)
     out[e + j] = from_f32<T>(epilogue(v[j], bias, bypass, m, n + j, N, act));
 }
 
+// The same merge one element a thread, for N not a multiple of 4 (a
+// ragged N read transposed): the slices summed in the same order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    splitk_reduce_scalar_kernel(const float* ws, const T* bias,
+                                const T* bypass, T* out, int M, int N,
+                                int splits, int act) {
+  const size_t total = (size_t)M * N;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  float s = ws[e];
+  for (int sp = 1; sp < splits; ++sp) s += ws[(size_t)sp * total + e];
+  const int m = (int)(e / N), n = (int)(e % N);
+  out[e] = from_f32<T>(epilogue(s, bias, bypass, m, n, N, act));
+}
+
 // --- wgmma: bf16, M > 64 -----------------------------------------------------
 constexpr int WG_BM = 128, WG_BN = 128, WG_BK = 64, WG_STAGES = 4;
 constexpr int WG_CONSUMERS = 2;                       // warpgroups, 64 rows each
@@ -495,6 +547,9 @@ struct WgmmaArgs {
   int act;
 };
 
+// BT: tma_b maps the (N, K) tensor; a stage's B tile is [128 n rows][64 k]
+// and K-major, laid out as A's.
+template <bool BT>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     wgmma_bf16_kernel(const __grid_constant__ CUtensorMap tma_a,
                       const __grid_constant__ CUtensorMap tma_b,
@@ -536,9 +591,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         bf16* b_dst = sB + s * (WG_BK * WG_BN);
         tma_load_2d(sA + s * (WG_BM * WG_BK), &tma_a, &full[s], it * WG_BK,
                     m0);
-        tma_load_2d(b_dst, &tma_b, &full[s], n0, it * WG_BK);
-        tma_load_2d(b_dst + WG_BK * 64, &tma_b, &full[s], n0 + 64,
-                    it * WG_BK);
+        if (BT) {
+          tma_load_2d(b_dst, &tma_b, &full[s], it * WG_BK, n0);
+        } else {
+          tma_load_2d(b_dst, &tma_b, &full[s], n0, it * WG_BK);
+          tma_load_2d(b_dst + WG_BK * 64, &tma_b, &full[s], n0 + 64,
+                      it * WG_BK);
+        }
       }
     }
     return;
@@ -559,10 +618,16 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       // A: K-major, the k step 32 bytes into each swizzled 128-byte row.
       // B: MN-major, the k step 16 rows on; its two 64-column halves lie
       // WG_BK x 128 bytes apart.
+      // BT: B K-major as A, its 128 n rows 128 bytes each.
       const uint64_t da = wgmma_desc_sw128(a_t + kk * 16, 16, 1024);
-      const uint64_t db = wgmma_desc_sw128(b_t + kk * 16 * 64,
-                                           WG_BK * 128, 1024);
-      wgmma_m64n128k16_bf16_tb(acc, da, db);
+      if (BT) {
+        const uint64_t db = wgmma_desc_sw128(b_t + kk * 16, 16, 1024);
+        wgmma_m64n128k16_bf16<0>(acc, da, db);
+      } else {
+        const uint64_t db = wgmma_desc_sw128(b_t + kk * 16 * 64,
+                                             WG_BK * 128, 1024);
+        wgmma_m64n128k16_bf16_tb(acc, da, db);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -573,6 +638,29 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
   const int row0 = m0 + wg * 64 + warp * 16 + (lane >> 2);
   const int col0 = n0 + 2 * (lane & 3);
+  if (p.N & 1) {
+    // A ragged odd N (read transposed): rows start on odd elements, so
+    // single-element loads and stores, the second column bounded by N.
+#pragma unroll
+    for (int j = 0; j < WG_BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = col0 + 8 * j + e;
+        if (n >= p.N) continue;
+        const float b = p.bias ? __bfloat162float(p.bias[n]) : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = row0 + 8 * h;
+          if (m >= p.M) continue;
+          float v = activate(acc[4 * j + 2 * h + e] + b, p.act);
+          const size_t o = (size_t)m * p.N + n;
+          if (p.bypass) v += __bfloat162float(p.bypass[o]);
+          p.out[o] = __float2bfloat16(v);
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < WG_BN / 8; ++j) {
     const int n = col0 + 8 * j;
@@ -650,20 +738,27 @@ int set_smem(Kernel kernel, int bytes) {
 template <typename T>
 int launch_reduce(const SkinnyArgs<T>& p, cudaStream_t st) {
   if (p.splits == 1) return 0;
+  if (p.N % 4) {
+    const long long total = (long long)p.M * p.N;
+    splitk_reduce_scalar_kernel<T>
+        <<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+            p.ws, p.bias, p.bypass, p.out, p.M, p.N, p.splits, p.act);
+    return (int)cudaGetLastError();
+  }
   const long long quads = (long long)p.M * p.N / 4;
   splitk_reduce_kernel<T><<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(
       p.ws, p.bias, p.bypass, p.out, p.M, p.N, p.splits, p.act);
   return (int)cudaGetLastError();
 }
 
-template <int MTILES>
+template <int MTILES, bool BT>
 int launch_skinny_bf16(const SkinnyArgs<bf16>& p, cudaStream_t st) {
   constexpr int smem =
       SK_STAGES * (16 * MTILES * SK_BK16 + SK_BK16 * SK_BN) * 2;
-  static int attr = set_smem(skinny_bf16_kernel<MTILES>, smem);
+  static int attr = set_smem(skinny_bf16_kernel<MTILES, BT>, smem);
   if (attr) return attr;
   const dim3 grid(1, (p.N + SK_BN - 1) / SK_BN, p.splits);
-  skinny_bf16_kernel<MTILES><<<grid, SK_THREADS, smem, st>>>(p);
+  skinny_bf16_kernel<MTILES, BT><<<grid, SK_THREADS, smem, st>>>(p);
   const int err = (int)cudaGetLastError();
   return err ? err : launch_reduce(p, st);
 }
@@ -697,6 +792,54 @@ SkinnyArgs<T> skinny_args(const T* a, const T* b, const T* bias,
   p.splits = splits;
   p.act = act;
   return p;
+}
+
+template <bool BT>
+int skinny_bf16(const bf16* a, const bf16* b, const bf16* bias,
+                const bf16* bypass, bf16* out, float* ws, int M, int K, int N,
+                int kchunk, int splits, int act, void* stream) {
+  const SkinnyArgs<bf16> p =
+      skinny_args(a, b, bias, bypass, out, ws, M, K, N, kchunk, splits, act);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch ((M + 15) / 16) {
+    case 0:
+    case 1:
+      return launch_skinny_bf16<1, BT>(p, st);
+    case 2:
+      return launch_skinny_bf16<2, BT>(p, st);
+    case 3:
+      return launch_skinny_bf16<3, BT>(p, st);
+    default:
+      return launch_skinny_bf16<4, BT>(p, st);
+  }
+}
+
+template <bool BT>
+int wgmma_bf16(const bf16* a, const bf16* b, const bf16* bias,
+               const bf16* bypass, bf16* out, int M, int K, int N,
+               int dataflow, int bm, int bn, int act, void* stream) {
+  static int attr = set_smem(wgmma_bf16_kernel<BT>, WG_SMEM);
+  if (attr) return attr;
+  if (tensor_map_encoder() == nullptr) return ERR_NO_ENCODER;
+  CUtensorMap ta, tb;
+  const bool mapped =
+      encode_bf16_2d(&ta, a, M, K, WG_BM, WG_BK) &&
+      (BT ? encode_bf16_2d(&tb, b, N, K, WG_BN, WG_BK)
+          : encode_bf16_2d(&tb, b, K, N, WG_BK, 64));
+  if (!mapped) return ERR_ENCODE;
+  WgmmaArgs p;
+  p.bias = bias;
+  p.bypass = bypass;
+  p.out = out;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.act = act;
+  const long long n_cta =
+      raster_args(p, M, N, WG_BM, WG_BN, dataflow, bm, bn);
+  wgmma_bf16_kernel<BT><<<(unsigned)n_cta, WG_THREADS, WG_SMEM,
+                          (cudaStream_t)stream>>>(ta, tb, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -733,46 +876,36 @@ int matmul_skinny_f32(const float* a, const float* b, const float* bias,
 int matmul_skinny_bf16(const bf16* a, const bf16* b, const bf16* bias,
                        const bf16* bypass, bf16* out, float* ws, int M, int K,
                        int N, int kchunk, int splits, int act, void* stream) {
-  const SkinnyArgs<bf16> p =
-      skinny_args(a, b, bias, bypass, out, ws, M, K, N, kchunk, splits, act);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch ((M + 15) / 16) {
-    case 0:
-    case 1:
-      return launch_skinny_bf16<1>(p, st);
-    case 2:
-      return launch_skinny_bf16<2>(p, st);
-    case 3:
-      return launch_skinny_bf16<3>(p, st);
-    default:
-      return launch_skinny_bf16<4>(p, st);
-  }
+  return skinny_bf16<false>(a, b, bias, bypass, out, ws, M, K, N, kchunk,
+                            splits, act, stream);
+}
+
+// b is the (N, K) tensor whose transpose the product takes: K a multiple
+// of 8, any N, every pointer 16-byte aligned.
+int matmul_skinny_bt_bf16(const bf16* a, const bf16* b, const bf16* bias,
+                          const bf16* bypass, bf16* out, float* ws, int M,
+                          int K, int N, int kchunk, int splits, int act,
+                          void* stream) {
+  return skinny_bf16<true>(a, b, bias, bypass, out, ws, M, K, N, kchunk,
+                           splits, act, stream);
 }
 
 // wgmma: bf16, K and N multiples of 8, every pointer 16-byte aligned.
 int matmul_wgmma_bf16(const bf16* a, const bf16* b, const bf16* bias,
                       const bf16* bypass, bf16* out, int M, int K, int N,
                       int dataflow, int bm, int bn, int act, void* stream) {
-  static int attr = set_smem(wgmma_bf16_kernel, WG_SMEM);
-  if (attr) return attr;
-  if (tensor_map_encoder() == nullptr) return ERR_NO_ENCODER;
-  CUtensorMap ta, tb;
-  if (!encode_bf16_2d(&ta, a, M, K, WG_BM, WG_BK) ||
-      !encode_bf16_2d(&tb, b, K, N, WG_BK, 64))
-    return ERR_ENCODE;
-  WgmmaArgs p;
-  p.bias = bias;
-  p.bypass = bypass;
-  p.out = out;
-  p.M = M;
-  p.K = K;
-  p.N = N;
-  p.act = act;
-  const long long n_cta =
-      raster_args(p, M, N, WG_BM, WG_BN, dataflow, bm, bn);
-  wgmma_bf16_kernel<<<(unsigned)n_cta, WG_THREADS, WG_SMEM,
-                      (cudaStream_t)stream>>>(ta, tb, p);
-  return (int)cudaGetLastError();
+  return wgmma_bf16<false>(a, b, bias, bypass, out, M, K, N, dataflow, bm,
+                           bn, act, stream);
+}
+
+// b is the (N, K) tensor whose transpose the product takes: K a multiple
+// of 8, any N, every pointer 16-byte aligned.
+int matmul_wgmma_bt_bf16(const bf16* a, const bf16* b, const bf16* bias,
+                         const bf16* bypass, bf16* out, int M, int K, int N,
+                         int dataflow, int bm, int bn, int act,
+                         void* stream) {
+  return wgmma_bf16<true>(a, b, bias, bypass, out, M, K, N, dataflow, bm, bn,
+                          act, stream);
 }
 
 const char* matmul_error_string(int err) {

@@ -199,6 +199,7 @@ def decode_attention_cuda(q, k, v, kv_len, *, scale: float):
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.counters = ("launches",)
 
 
 _PAGED_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
@@ -295,3 +296,4 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table, kv_len, *,
 
 
 paged_decode_attention_cuda.launches = 0
+paged_decode_attention_cuda.counters = ("launches",)

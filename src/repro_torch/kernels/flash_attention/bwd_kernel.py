@@ -132,3 +132,4 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, do, *, scale: float,
 
 flash_attention_bwd_cuda.launches = 0
 flash_attention_bwd_cuda.path_launches = {"mma": 0, "simt": 0}
+flash_attention_bwd_cuda.counters = ("launches", "path_launches")

@@ -176,3 +176,4 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool,
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.path_launches = {"mma": 0, "simt": 0}
+flash_attention_cuda.counters = ("launches", "path_launches")

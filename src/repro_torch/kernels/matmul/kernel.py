@@ -22,6 +22,15 @@ the type and the operands' 16-byte alignment, in plain Python:
 - ``simt``: everything else (f32 at M > 64, bf16 with K or N not a
   multiple of 8, unaligned operands).
 
+``b_transposed``: B is given as the contiguous (N, K) tensor whose
+transpose the product takes (a tied LM head reads its (vocab, d_model)
+embedding so), and the bf16 skinny and wgmma paths read it as it lies:
+its rows are K whole 16-byte vectors, so N may be ragged (whisper-base's
+51,865), and a store that pairs two columns falls back to single
+elements where a row starts on an odd one.  ``b_transposed_launches``
+counts those launches.  Anything else read transposed goes to simt on a
+copy of B in (K, N) order.
+
 The schedule's ``dataflow`` and ``block`` set the CTA raster of the
 wgmma and simt paths (see the source); the skinny path reads each weight
 byte once whatever the order and takes neither.  ``matmul_plain``
@@ -45,26 +54,29 @@ _DATAFLOW_CODES = {Dataflow.MAPS_RESIDENT: 0, Dataflow.WEIGHTS_RESIDENT: 1,
 
 
 def matmul_plain(a, b, *, bias=None, activation: str | None = None,
-                 bypass=None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch ops (a: (M,K), b: (K,N));
-    the schedule's dataflow and block change the order of work, not the
-    result, so it takes neither."""
-    return matmul_ref(a, b, bias=bias, activation=activation, bypass=bypass)
+                 bypass=None, b_transposed: bool = False) -> torch.Tensor:
+    """The kernel's function in plain PyTorch ops (a: (M,K), b: (K,N), or
+    (N,K) with ``b_transposed``); the schedule's dataflow and block
+    change the order of work, not the result, so it takes neither."""
+    return matmul_ref(a, b.T if b_transposed else b, bias=bias,
+                      activation=activation, bypass=bypass)
 
 
 def launch_args(a, b, out, *, dataflow: Dataflow,
                 block: tuple[int, int, int], bias=None,
-                activation: str | None = None, bypass=None) -> list:
+                activation: str | None = None, bypass=None,
+                b_transposed: bool = False) -> list:
     """Checks the operands and returns the simt and wgmma launchers'
     arguments after the five pointers' tensors and before the stream:
     M, K, N, the dataflow's code, the block's bm and bn, the activation's
-    code."""
+    code.  ``b_transposed``: b is (N, K)."""
     if a.dtype not in _LAUNCHERS:
         raise TypeError(f"matmul_cuda: a must be float32 or bfloat16, got "
                         f"{a.dtype}")
     M, K = a.shape
-    N = b.shape[1]
-    want = {"a": (a, (M, K)), "b": (b, (K, N)), "out": (out, (M, N))}
+    N = b.shape[0] if b_transposed else b.shape[1]
+    want = {"a": (a, (M, K)), "b": (b, (N, K) if b_transposed else (K, N)),
+            "out": (out, (M, N))}
     if bias is not None:
         want["bias"] = (bias, (N,))
     if bypass is not None:
@@ -120,17 +132,22 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def matmul_plan(M: int, K: int, N: int, dtype, *,
-                aligned: bool = True) -> MatmulPlan:
+def matmul_plan(M: int, K: int, N: int, dtype, *, aligned: bool = True,
+                b_transposed: bool = False) -> MatmulPlan:
     """The path, tile, split count and grid for an (M,K) x (K,N) product
     in ``dtype``.  ``aligned``: every operand starts on 16 bytes.  The
     skinny and wgmma paths load 16-byte vectors (TMA rows for wgmma), so
-    they need K and N whole vectors (multiples of 4 in f32, 8 in bf16)."""
+    they need K and N whole vectors (multiples of 4 in f32, 8 in bf16).
+    ``b_transposed``: B lies as (N, K), whose rows are K long, so the
+    bf16 paths need K whole vectors and take any N; f32 goes to simt."""
     if dtype not in _LAUNCHERS:
         raise TypeError(f"matmul_cuda: a must be float32 or bfloat16, got "
                         f"{dtype}")
     vec = 16 // (4 if dtype == torch.float32 else 2)
-    fits = aligned and K % vec == 0 and N % vec == 0
+    if b_transposed:
+        fits = aligned and K % vec == 0 and dtype == torch.bfloat16
+    else:
+        fits = aligned and K % vec == 0 and N % vec == 0
     if fits and M <= SKINNY_MAX_M:
         if dtype == torch.float32:
             rows, bk = (8 if M <= 8 else 16), 32
@@ -152,14 +169,16 @@ def matmul_plan(M: int, K: int, N: int, dtype, *,
 
 
 # The C launchers: matmul_<f32|bf16> (simt), matmul_skinny_<f32|bf16>,
-# matmul_wgmma_bf16.
+# matmul_wgmma_bf16, and B read transposed matmul_<skinny|wgmma>_bt_bf16.
 _LAUNCHERS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _launcher(path: str, dtype):
+def _launcher(path: str, dtype, b_transposed: bool = False):
     lib = load_library("matmul")
     kind = "" if path == "simt" else f"{path}_"
+    if b_transposed:
+        kind += "bt_"
     fn = getattr(lib, f"matmul_{kind}{_LAUNCHERS[dtype]}")
     # Five operand pointers, then the skinny path's workspace and M, K, N,
     # kchunk, splits, act, or the others' M, K, N, dataflow, bm, bn, act;
@@ -180,22 +199,29 @@ def _aligned(*tensors) -> bool:
 
 def matmul_cuda(a, b, *, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY,
                 block: tuple[int, int, int] = (128, 128, 128), bias=None,
-                activation: str | None = None, bypass=None) -> torch.Tensor:
-    """Launch the planned CUDA path on CUDA tensors: a (M,K), b (K,N),
+                activation: str | None = None, bypass=None,
+                b_transposed: bool = False) -> torch.Tensor:
+    """Launch the planned CUDA path on CUDA tensors: a (M,K), b (K,N) --
+    or (N,K) with ``b_transposed``, the product then ``a @ b.T`` --
     bias (N,), bypass (M,N), all float32 or all bfloat16, and contiguous;
     ragged shapes are fine.  Raises on a CPU tensor.  Counts one launch
-    in ``launches`` and one in ``path_launches[plan.path]``."""
+    in ``launches``, one in ``path_launches[plan.path]`` and, where the
+    kernel reads b transposed, one in ``b_transposed_launches``."""
     if not a.is_cuda:
         raise RuntimeError(f"matmul_cuda needs CUDA tensors, got one on "
                            f"{a.device}")
-    out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype,
-                      device=a.device)
+    N = b.shape[0] if b_transposed else b.shape[1]
+    out = torch.empty((a.shape[0], N), dtype=a.dtype, device=a.device)
     args = launch_args(a, b, out, dataflow=dataflow, block=block, bias=bias,
-                       activation=activation, bypass=bypass)
+                       activation=activation, bypass=bypass,
+                       b_transposed=b_transposed)
     M, K, N, df, bm, bn, act = args
     plan = matmul_plan(M, K, N, a.dtype,
-                       aligned=_aligned(a, b, bias, bypass, out))
-    lib, fn = _launcher(plan.path, a.dtype)
+                       aligned=_aligned(a, b, bias, bypass, out),
+                       b_transposed=b_transposed)
+    if b_transposed and plan.path == "simt":
+        b, b_transposed = b.T.contiguous(), False   # simt reads (K, N)
+    lib, fn = _launcher(plan.path, a.dtype, b_transposed)
     ptrs = [_ptr(a), _ptr(b), _ptr(bias), _ptr(bypass), _ptr(out)]
     if plan.path == "skinny":
         ws = (torch.empty(plan.splits * M * N, dtype=torch.float32,
@@ -209,8 +235,12 @@ def matmul_cuda(a, b, *, dataflow: Dataflow = Dataflow.OUTPUT_STATIONARY,
     check_launch(lib, "matmul", err)
     matmul_cuda.launches += 1
     matmul_cuda.path_launches[plan.path] += 1
+    matmul_cuda.b_transposed_launches += b_transposed
     return out
 
 
 matmul_cuda.launches = 0
 matmul_cuda.path_launches = {"skinny": 0, "wgmma": 0, "simt": 0}
+matmul_cuda.b_transposed_launches = 0
+matmul_cuda.counters = ("launches", "path_launches",
+                        "b_transposed_launches")

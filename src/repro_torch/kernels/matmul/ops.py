@@ -32,7 +32,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     "cuda" | "reference".  Without the schedule's ``dataflow`` and
     ``block`` they are chosen for ``TPU_V5E``, the hardware the port's
     Programs are compiled for.  The kernel takes float32 or bfloat16,
-    with b, bias and bypass in ``a``'s type, the output's.
+    with b, bias and bypass in ``a``'s type, the output's.  A bf16 ``b``
+    that is the transpose of a contiguous (N, K) tensor (a tied head's
+    ``embed.T``) reaches the kernel as that tensor, read transposed,
+    never copied.
     """
     if not use_kernel(impl, a):
         return matmul_ref(a, b, bias=bias, activation=activation,
@@ -51,8 +54,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     byp = None
     if bypass is not None:
         byp = bypass.reshape(-1, N).expand(M, N).contiguous()
-    out = matmul_cuda(a2.contiguous(), b.contiguous(), dataflow=dataflow,
-                      block=block, bias=bias, activation=activation,
-                      bypass=byp)
+    bt = (a.dtype == torch.bfloat16 and not b.is_contiguous()
+          and b.T.is_contiguous())
+    out = matmul_cuda(a2.contiguous(), b.T if bt else b.contiguous(),
+                      dataflow=dataflow, block=block, bias=bias,
+                      activation=activation, bypass=byp, b_transposed=bt)
     return out.reshape(*lead, N)
 

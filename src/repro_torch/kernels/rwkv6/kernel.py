@@ -167,3 +167,4 @@ def wkv6_cuda(r, k, v, w, u, *, s0=None):
 
 
 wkv6_cuda.launches = 0
+wkv6_cuda.counters = ("launches",)

@@ -15,6 +15,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-1b-a400m --slots 8 --max-len 512 --requests 8 \
         --prompt-len 32-448 --max-new 32 [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --slots 8 --max-len 448 --requests 16 --prompt-len 4-224 \
+        --max-new 32 [--smoke --device cpu]
 
 CNN archs (alexnet-owt / resnet18 / resnet50) serve image-classify
 requests through the compiled Program; it prints the Program listing,
@@ -22,10 +25,14 @@ then ``served N images in T s (X img/s)`` and a few class ids.
 
 LM archs -- dense (smollm-360m, llama3-8b, olmo-1b, deepseek-7b), MoE
 (granite-moe-1b-a400m, llama4-maverick-400b-a17b), hybrid (zamba2-7b,
-mamba2) and ssm (rwkv6-7b) -- serve token requests
+mamba2), ssm (rwkv6-7b) and audio (whisper-base) -- serve token requests
 statefully through the compiled (prefill, decode) Program pair: each
 request is prefilled once into the persistent regions (KV caches, or the
-recurrent family's state), then every tick runs the decode Program.
+recurrent family's state), then every tick runs the decode Program.  An
+audio request also carries stub encoder frames ((encoder_seq, d_model)
+float32, drawn from ``--seed``; the audio frontend is a stub, as in the
+reference), which admission encodes once into the slot's read-only
+encoder memory.
 ``--smoke`` takes the reduced config, ``--window`` sets a sliding
 attention window (the KV regions then hold ``min(max_len, window)``
 rows), prompt lengths are drawn from ``--prompt-len LO-HI``.
@@ -65,7 +72,7 @@ import torch
 from ..checkpoint import restore_checkpoint
 from ..configs import CNN_REGISTRY, get_config
 from ..kernels.common import resolve_device
-from ..models import cnn, init_params, param_defs
+from ..models import MEMORY_WRITERS, cnn, init_params, param_defs
 from ..serving import Request, ServingEngine
 
 
@@ -120,6 +127,17 @@ def serve_cnn(arch: str, *, slots: int, requests: int, device=None,
             "images": images, "seconds": seconds}
 
 
+def make_frames(cfg, n: int, seed: int) -> list[np.ndarray] | None:
+    """``n`` (encoder_seq, d_model) float32 stub encoder inputs drawn
+    from ``seed`` for a family whose requests carry one (audio), else
+    None."""
+    if cfg.family not in MEMORY_WRITERS:
+        return None
+    rng = np.random.default_rng([seed, 2])
+    return [rng.standard_normal((cfg.encoder_seq, cfg.d_model))
+            .astype(np.float32) for _ in range(n)]
+
+
 def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
              prompt_len: tuple[int, int], device=None, seed: int = 0,
              shared_prefix: int = 0, long_prompt: int = 0,
@@ -130,9 +148,10 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
     ``page_size``, ``page_pool``, ``kv_quant``, ``chunk_size``) goes to
     the engine.  With ``shared_prefix`` every prompt opens with the same
     tokens; ``long_prompt`` injects one prompt of that length after two
-    ticks.  Returns the engine, the finished requests (by uid), the
-    prompts and the wall seconds of the serving loop (the kernels'
-    first-use build and the weight init stay outside it)."""
+    ticks.  An audio request carries its stub encoder frames
+    (``make_frames``).  Returns the engine, the finished requests (by
+    uid), the prompts and the wall seconds of the serving loop (the
+    kernels' first-use build and the weight init stay outside it)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = _restore_params(
@@ -146,11 +165,13 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
     if long_prompt:
         prompts.append(rng.integers(0, cfg.vocab, size=long_prompt)
                        .astype(np.int32))
+    frames = make_frames(cfg, len(prompts), seed) or [None] * len(prompts)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     for i, prompt in enumerate(prompts[:requests]):
-        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
+        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=max_new,
+                           extra=frames[i]))
     done = []
     if long_prompt:
         # Two ticks of steady decode, then the long prompt lands
@@ -159,7 +180,7 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
         for _ in range(2):
             done += eng.step()
         eng.submit(Request(uid=requests, prompt=prompts[requests],
-                           max_new_tokens=max_new))
+                           max_new_tokens=max_new, extra=frames[requests]))
     done += eng.run_until_drained()
     seconds = time.perf_counter() - t0
     return {"engine": eng, "done": sorted(done, key=lambda r: r.uid),

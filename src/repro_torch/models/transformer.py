@@ -32,8 +32,10 @@ differentiable ``flash_attention`` and an MoE layer ``models/moe.py``;
 its ``aux`` holds the MoE layers' mean load-balance statistics.
 
 Not carried yet: ``init_cache`` / ``decode_step`` and ``forward``'s
-``return_cache`` (ROADMAP A.6.4), the audio and cross-attention
-variants (A.9) and the autotune hook of the compile entry points.
+``return_cache``, and the VLM cross-attention variant the reference
+serves on that legacy loop (ROADMAP A.6.4), and the autotune hook of
+the compile entry points.  The audio family (whisper) lowers through
+models/whisper.py, dispatched by ``compile_program_pair``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..configs.archs import UNPORTED_FAMILIES
 from ..configs.base import ArchConfig
 from ..core.hw import TPU_V5E, HardwareModel
 from ..core.ir import (ModelGraph, attention_node, decode_attention_node,
@@ -164,14 +167,16 @@ def _heads(x, n, hd):
     return x.reshape(B, S, n, hd).transpose(1, 2)          # (B, n, S, hd)
 
 
-def _attention(h, p, cfg, cos, sin, *, impl, window=None):
-    """Causal self-attention on (B, S, D)."""
+def _attention(h, p, cfg, cos, sin, *, impl, causal=True, window=None):
+    """Self-attention on (B, S, D); RoPE only where ``cos`` is given."""
     B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = apply_rope(_heads(h @ p["wq"], H, hd), cos, sin)
-    k = apply_rope(_heads(h @ p["wk"], KV, hd), cos, sin)
+    q = _heads(h @ p["wq"], H, hd)
+    k = _heads(h @ p["wk"], KV, hd)
     v = _heads(h @ p["wv"], KV, hd)
-    out = flash_attention(q, k, v, causal=True, window=window, impl=impl)
+    if cos is not None:
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    out = flash_attention(q, k, v, causal=causal, window=window, impl=impl)
     return out.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
 
 
@@ -247,7 +252,7 @@ def _require_dense(cfg: ArchConfig) -> None:
     """Gate what the *transformer-graph* lowering cannot express.  Dense
     and MoE decoder-only configs lower here; the hybrid and ssm families
     lower through their own modules (``compile_program_pair`` dispatches
-    them); audio and VLM are not ported and name ROADMAP A.9."""
+    them, audio too); VLM is not ported and names its ROADMAP item."""
     blockers = []
     if cfg.family not in ("dense", "moe"):
         blockers.append(f"family={cfg.family}")
@@ -260,9 +265,10 @@ def _require_dense(cfg: ArchConfig) -> None:
     if blockers:
         raise NotImplementedError(
             f"{cfg.name}: the transformer lowering takes the dense and "
-            f"MoE decoder-only families (hybrid and ssm pairs lower "
-            f"through their own modules; audio and vlm are not ported, "
-            f"ROADMAP A.9); blocked by {', '.join(blockers)}")
+            f"MoE decoder-only families (hybrid, ssm and audio pairs "
+            f"lower through their own modules; vlm is not ported, "
+            f"ROADMAP {UNPORTED_FAMILIES['vlm']}); blocked by "
+            f"{', '.join(blockers)}")
 
 
 def kv_cache_len(cfg: ArchConfig, max_len: int) -> int:
@@ -513,10 +519,12 @@ def compile_program_pair(cfg: ArchConfig, slots: int = 8,
     Paged and a sliding window are mutually exclusive (the window plan
     already bounds the resident rows).
 
-    Family dispatch: ``ssm`` (rwkv6) lowers through models/rwkv.py and
+    Family dispatch: ``ssm`` (rwkv6) lowers through models/rwkv.py,
     ``hybrid`` (zamba2, mamba2) through models/zamba2.py, whose coarse
-    recurrent ops carry their state in the family's named regions; that
-    state is not pageable (``paged`` raises) and not chunkable
+    recurrent ops carry their state in the family's named regions, and
+    ``audio`` (whisper) through models/whisper.py, whose cross ops read
+    the read-only encoder memory written at admission; that state is
+    not pageable (``paged`` raises) and not chunkable
     (``ProgramPair.chunk_blocker``)."""
     if paged and cfg.attn_window:
         raise NotImplementedError(
@@ -536,6 +544,8 @@ def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
         from . import rwkv as gmod
     elif cfg.family == "hybrid":
         from . import zamba2 as gmod
+    elif cfg.family == "audio":
+        from . import whisper as gmod
     else:
         gmod = None
         _require_dense(cfg)

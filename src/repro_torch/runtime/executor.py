@@ -1,7 +1,8 @@
 """Program executor — runs the compiler's instruction stream (§5.2).
 
-Counterpart of ``repro/runtime/executor.py`` for the CNN, dense-LM, MoE
-and recurrent-family (rwkv6, zamba2 / mamba2) Program paths: ``run`` walks a
+Counterpart of ``repro/runtime/executor.py`` for the CNN, dense-LM, MoE,
+recurrent-family (rwkv6, zamba2 / mamba2) and audio (whisper) Program
+paths: ``run`` walks a
 ``core/program.py::Program`` and dispatches each op to the kernels with
 the schedule's *pre-resolved* decisions — conv strip tiling, strip
 storage, loop order, matmul block, attention (block_q, block_kv) and the
@@ -50,8 +51,16 @@ the same graphs (``_Graph``, ``GraphStore``).
 A ``moe_dispatch`` op runs ``models/moe.py::moe_mlp`` on its block's
 expert weights and adds the residual on the writeback; a prefill hands
 it the prompt's length as ``valid_count``, so the padded rows claim no
-expert capacity.  The cross-attention op kind raises
-``NotImplementedError`` naming its ROADMAP item.
+expert capacity.
+
+A ``cross_attention`` op (whisper's decoder) reads the slot's read-only
+encoder memory regions, which the serving engine writes at admission
+before the prefill runs: a prefill takes the admitted slot's rows
+(``index_select`` with the (1,) device slot, no host read) through the
+non-causal flash kernel, a decode tick runs the decode kernel over every
+slot's whole memory through a transposed view of the region.  An
+``embed`` op with a second table (``param_key_b``, learned positions)
+adds rows ``[0, S)`` at prefill and each slot's position row at decode.
 """
 from __future__ import annotations
 
@@ -81,8 +90,6 @@ __all__ = ["run", "walk", "ProgramState", "GraphStore",
            "disable_graphs", "PagePool", "paged_pool_regions",
            "sync_page_table", "apply_page_copies"]
 
-# op kind -> the ROADMAP item that ports it
-_NOT_PORTED = {"cross_attention": "A.9"}
 # coarse recurrent block ops, dispatched by ``_run_family_op``
 _FAMILY_KERNELS = ("wkv", "ssm_scan")
 
@@ -148,6 +155,48 @@ def _run_attention(op: ProgramOp, regions: dict, *, impl: str,
     return out
 
 
+def _run_embed(op: ProgramOp, src: torch.Tensor, params,
+               pos=None) -> torch.Tensor:
+    """The token gather, plus the learned position table when the op
+    names one: rows ``[0, S)`` for (B, S) tokens, each slot's row at
+    ``pos`` (the state's lengths, on the device) for a decode tick."""
+    out = _param(params, op.param_key)[src]
+    if op.param_key_b is not None:
+        pe = _param(params, op.param_key_b)
+        if src.ndim >= 2:
+            out = out + pe[:src.shape[1]][None].to(out.dtype)
+        else:
+            out = out + pe[pos].to(out.dtype)
+    return out
+
+
+def _run_cross_attention(op: ProgramOp, src: torch.Tensor, caches: dict,
+                         *, slot=None, impl: str) -> torch.Tensor:
+    """One cross-attention op against the read-only (slots, T_enc, KV,
+    hd) encoder memory regions.  Prefill (B, S, H*hd): the admitted
+    slot's memory (an int, or a (1,) int tensor on the device taken by
+    ``index_select``), non-causal flash over all T_enc rows.  Decode
+    (slots, H*hd): one query row a slot over its whole memory, read
+    through a transposed view of the region."""
+    a = op.attn
+    ck, cv = caches[op.k_cache_region], caches[op.v_cache_region]
+    if src.ndim == 3:                             # prefill: one slot
+        B, S = src.shape[:2]
+        q = src.reshape(B, S, a.heads, a.head_dim).transpose(1, 2)
+        idx = torch.as_tensor(slot, device=ck.device).reshape(-1).long()
+        km, vm = ck.index_select(0, idx), cv.index_select(0, idx)
+        out = flash_attention(q, km.transpose(1, 2).to(q.dtype),
+                              vm.transpose(1, 2).to(q.dtype), causal=False,
+                              block_q=a.block_q, block_kv=a.block_kv,
+                              impl=impl)
+        return out.transpose(1, 2).reshape(B, S, a.heads * a.head_dim)
+    B = src.shape[0]                              # decode: all slots
+    q = src.reshape(B, a.heads, a.head_dim)
+    out = decode_attention(q, ck.transpose(1, 2).to(q.dtype),
+                           cv.transpose(1, 2).to(q.dtype), impl=impl)
+    return out.reshape(B, a.heads * a.head_dim)
+
+
 def _run_norm(op: ProgramOp, src: torch.Tensor, params) -> torch.Tensor:
     from ..models.common import layer_norm, rms_norm
     w = _param(params, op.param_key)
@@ -181,8 +230,10 @@ def _run_moe(op: ProgramOp, src: torch.Tensor, regions: dict, params,
 
 
 def _run_op(op: ProgramOp, src: torch.Tensor, regions: dict, params, *,
-            impl: str) -> torch.Tensor:
-    """Dispatch one (stateless) op with its pre-resolved schedule."""
+            impl: str, pos=None) -> torch.Tensor:
+    """Dispatch one (stateless) op with its pre-resolved schedule; a
+    decode tick passes the slots' positions (``pos``) for a learned
+    position table."""
     if op.kernel == "conv2d":
         p = _param(params, op.param_key)
         bypass = _bypass(op, regions)
@@ -213,7 +264,7 @@ def _run_op(op: ProgramOp, src: torch.Tensor, regions: dict, params, *,
     if op.kernel == "flash_attention":
         return _run_attention(op, regions, impl=impl)
     if op.kernel == "embed":
-        return _param(params, op.param_key)[src]
+        return _run_embed(op, src, params, pos)
     if op.kernel == "norm":
         return _run_norm(op, src, params)
     if op.kernel == "mul":
@@ -233,10 +284,10 @@ def _run_op(op: ProgramOp, src: torch.Tensor, regions: dict, params, *,
             f"op {op.name}: the recurrent {op.kernel!r} block runs through "
             f"run, run_prefill or run_decode; chunked prefill is refused "
             f"for its family (ProgramPair.chunk_blocker)")
-    if op.kernel in _NOT_PORTED:
-        raise NotImplementedError(
-            f"op {op.name}: program kernel {op.kernel!r} is not ported to "
-            f"repro_torch yet (ROADMAP {_NOT_PORTED[op.kernel]})")
+    if op.kernel == "cross_attention":
+        raise ValueError(
+            f"op {op.name} reads persistent encoder memory; use "
+            f"run_prefill/run_decode with a ProgramState")
     raise NotImplementedError(f"unknown program kernel {op.kernel}")
 
 
@@ -463,6 +514,11 @@ def run_prefill(program: Program, params, tokens: torch.Tensor,
         if op.kernel == "moe_dispatch":
             regions[op.out_region] = _run_moe(op, regions[op.in_region],
                                               regions, params, length)
+            continue
+        if op.kernel == "cross_attention":
+            regions[op.out_region] = _run_cross_attention(
+                op, regions[op.in_region], state.caches, slot=slot,
+                impl=impl)
             continue
         regions[op.out_region] = _run_op(op, regions[op.in_region], regions,
                                          params, impl=impl)
@@ -750,7 +806,12 @@ def run_decode(program: Program, params, tokens: torch.Tensor,
             regions[op.out_region] = _run_family_op(
                 op, src, params, state.caches, live=live, impl=impl)
             continue
-        regions[op.out_region] = _run_op(op, src, regions, params, impl=impl)
+        if op.kernel == "cross_attention":
+            regions[op.out_region] = _run_cross_attention(
+                op, src, state.caches, impl=impl)
+            continue
+        regions[op.out_region] = _run_op(op, src, regions, params, impl=impl,
+                                         pos=pos)
     state.lengths += live.to(torch.int32)
     return regions[program.output_region]
 
@@ -778,8 +839,8 @@ def _graphable(device: torch.device) -> bool:
 
 
 def _counted_kernels() -> tuple:
-    """Every kernel wrapper that counts its launches (``launches``, and
-    ``path_launches`` where it has paths)."""
+    """Every kernel wrapper that counts its launches, in the attributes
+    its ``counters`` names: integers, or dicts of them by path."""
     from ..kernels.conv2d.kernel import (conv2d_strips_cuda,
                                          conv2d_virtual_cuda)
     from ..kernels.decode_attention.kernel import (
@@ -795,9 +856,25 @@ def _counted_kernels() -> tuple:
             mamba2_scan_cuda, wkv6_cuda)
 
 
-def _launch_counts() -> list:
-    return [(fn, fn.launches, dict(getattr(fn, "path_launches", {})))
-            for fn in _counted_kernels()]
+def _counts(fn) -> dict:
+    """A copy of one wrapper's counters, by name."""
+    return {name: dict(c) if isinstance(c := getattr(fn, name), dict) else c
+            for name in fn.counters}
+
+
+def _combine(a: dict, b: dict, sign: int) -> dict:
+    """Counters ``a + sign * b``, name by name and path by path."""
+    return {name: {k: v + sign * b[name][k] for k, v in x.items()}
+            if isinstance(x, dict) else x + sign * b[name]
+            for name, x in a.items()}
+
+
+def _set_counts(fn, counts: dict):
+    for name, c in counts.items():
+        if isinstance(c, dict):
+            getattr(fn, name).update(c)
+        else:
+            setattr(fn, name, c)
 
 
 def _leaves(tree):
@@ -833,33 +910,28 @@ class _Graph:
 
     def __init__(self, fn, inputs, store: "GraphStore"):
         self.inputs = [torch.empty_like(x) for x in inputs]
-        before = _launch_counts()
+        before = [(kernel, _counts(kernel)) for kernel in _counted_kernels()]
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph, pool=store.pool):
                 self.output = fn(*self.inputs)
         finally:
+            # (kernel, the counters one replay adds)
             self.launches = []
-            for kernel, n, paths in before:
-                added = kernel.launches - n
-                by_path = {k: kernel.path_launches[k] - v
-                           for k, v in paths.items()}
-                kernel.launches = n
-                if paths:
-                    kernel.path_launches.update(paths)
-                if added:
-                    self.launches.append((kernel, added, by_path))
+            for kernel, then in before:
+                added = _combine(_counts(kernel), then, -1)
+                _set_counts(kernel, then)
+                if added["launches"]:
+                    self.launches.append((kernel, added))
         store.capture_seconds += time.perf_counter() - t0
 
     def __call__(self, inputs):
         for buf, x in zip(self.inputs, inputs):
             buf.copy_(x)
         self.graph.replay()
-        for kernel, added, by_path in self.launches:
-            kernel.launches += added
-            for k, v in by_path.items():
-                kernel.path_launches[k] += v
+        for kernel, added in self.launches:
+            _set_counts(kernel, _combine(_counts(kernel), added, 1))
         # Fresh tensors: the next replay rewrites the static output.
         return _clone(self.output)
 

@@ -7,8 +7,8 @@ batch, executes the compiled ``core/program.py::Program`` once through
 ``runtime/executor.py``, and retires every request with its argmax
 class id.
 
-An ``ArchConfig`` (an LM of the dense, MoE, hybrid or ssm family) is served
-statefully: the engine compiles the (prefill, decode) Program pair
+An ``ArchConfig`` (an LM of the dense, MoE, hybrid, ssm or audio family)
+is served statefully: the engine compiles the (prefill, decode) Program pair
 (``models/transformer.py::compile_program_pair``) whose persistent
 regions -- KV caches, or a recurrent family's named state -- are owned
 by the §5.1 allocator, and keeps one
@@ -20,7 +20,11 @@ Nothing is prefilled twice (``n_prefill_recomputes`` stays 0).  Windowed
 configs serve on the same path with window-sized regions and rolling
 eviction.  A recurrent family's prefill restarts its slot's state from
 zero and overwrites it, so a slot reused in the same tick carries
-nothing over.  The paged plan and chunked prefill are gated by the
+nothing over.  An audio (whisper) request carries its encoder input in
+``Request.extra``: admission runs the encoder once
+(``models.MEMORY_WRITERS``) and copies its cross K/V rows into the
+pair's read-only memory regions at the slot, in place, before the
+prefill Program's cross ops read them.  The paged plan and chunked prefill are gated by the
 pair's ``caps`` (``chunk_blocker``), never by assuming KV-shaped
 regions.  Requests enter through a bounded ``AdmissionQueue``.
 
@@ -60,6 +64,7 @@ import torch
 from ..configs.base import ArchConfig, CNNConfig
 from ..core.regions import state_specs
 from ..kernels.common import resolve_device
+from ..models import MEMORY_WRITERS
 from ..models.cnn import compile_program
 from ..models.transformer import compile_program_pair
 from ..runtime import executor
@@ -76,6 +81,8 @@ class Request:
     max_new_tokens: int = 16
     out_tokens: list = field(default_factory=list)
     done: bool = False
+    extra: np.ndarray | None = None  # the family's extra input (audio:
+    #                                  (T_enc, D) stub encoder frames)
 
 
 @dataclass
@@ -145,6 +152,10 @@ class ServingEngine:
             _check_geometry(program, cfg, slots, max_len)
         self.program = program
         self.state = executor.init_program_state(program, self.device)
+        # Families whose decode Program reads read-only persistent memory
+        # (audio: encoder cross K/V) fill it once per admission.
+        self._memory_input, self._memory_writer = MEMORY_WRITERS.get(
+            cfg.family, (None, None))
         self._prefill = executor.graphed_prefill_runner(program.prefill,
                                                         impl=impl)
         self._decode = executor.graphed_decode_runner(program.decode,
@@ -297,6 +308,8 @@ class ServingEngine:
                 if write_from is None:
                     self.admission.requeue_front(req, PAGES_EXHAUSTED)
                     break
+            if self._memory_writer is not None:
+                self._write_encoder_memory(slot, req)
             if self.chunk_size is not None:
                 padded = np.zeros((self.max_len,), np.int32)
                 padded[:len(win)] = win
@@ -316,6 +329,26 @@ class ServingEngine:
             self._finish_prefill(
                 slot, req, logits[0, len(win) - 1].float().cpu().numpy(),
                 finished)
+
+    def _write_encoder_memory(self, slot: int, req: Request) -> None:
+        """Run the family's admission-time memory writer (the whisper
+        encoder and cross K/V projection) over the request's ``extra``
+        input and copy the rows into the pair's read-only persistent
+        regions at ``slot``, in place: the captured graphs read those
+        buffers at their addresses, so they are written, never rebound.
+        Runs before the prefill Program, once per admission."""
+        if req.extra is None:
+            raise ValueError(
+                f"request {req.uid}: {self.cfg.family} serving needs "
+                f"Request.extra ({self._memory_input}) to fill the "
+                f"persistent encoder memory at admission")
+        frames = torch.from_numpy(np.asarray(req.extra, np.float32)).to(
+            self.device, self.cfg.tdtype)
+        rows = self._memory_writer(self.params, frames, self.cfg,
+                                   impl=self.impl)
+        persistent = self.program.persistent
+        for name, row in rows.items():
+            self.state.caches[persistent[name]][slot].copy_(row)
 
     def _paged_admit(self, slot: int, win: np.ndarray) -> int | None:
         """Map an admitted prompt onto pool pages: refcount-share the

@@ -192,10 +192,17 @@ def test_params_from_numpy_round_trips_keys_shapes_dtypes():
 
 
 def test_non_cnn_op_kinds_name_their_roadmap_item():
+    """The stateless runner refuses what it cannot run: a cross-attention
+    op (it reads persistent encoder memory, so only the stateful runs
+    take it) and an unknown kernel.  Every op kind is ported now, so no
+    ROADMAP item is left to name."""
     import dataclasses
     prog = cnn.compile_program(TINY, batch=1)
     op = dataclasses.replace(prog.ops[0], kernel="cross_attention")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    with pytest.raises(ValueError, match="persistent encoder memory"):
+        executor._run_op(op, None, {}, {}, impl="reference")
+    op = dataclasses.replace(prog.ops[0], kernel="no_such_kernel")
+    with pytest.raises(NotImplementedError, match="no_such_kernel"):
         executor._run_op(op, None, {}, {}, impl="reference")
 
 

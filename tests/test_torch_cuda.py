@@ -513,6 +513,95 @@ def test_skinny_split_k_repeats_bit_for_bit(dev):
         assert torch.equal(matmul_cuda(a, b, activation="silu"), first)
 
 
+# B read transposed (a tied head: the (N, K) embedding as it lies): odd N
+# on skinny (M <= 64; one split at whisper-base's head, split-K at the
+# narrow N) and on wgmma (M > 64), whisper-base's head shapes first.
+MATMUL_BT = [(8, 512, 51865), (448, 512, 51865), (8, 960, 321),
+             (37, 1000, 1001), (64, 264, 129), (65, 264, 129),
+             (130, 72, 8193), (512, 1000, 1000)]
+
+
+@pytest.mark.parametrize("shape", MATMUL_BT, ids=str)
+def test_matmul_reads_b_transposed(dev, shape):
+    """matmul_cuda on the (N, K) tensor against the plain product with
+    its transpose, on the path the plan names and counted as read
+    transposed; ``ops.matmul`` hands the kernel a ``w.T`` view so, with
+    the same bits and no copy."""
+    M, K, N = shape
+    i = MATMUL_BT.index(shape)
+    epi = MATMUL_EPILOGUES[i % len(MATMUL_EPILOGUES)]
+    gen = torch.Generator(device=dev).manual_seed(M + K + N)
+    a = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+    w = (torch.randn((N, K), generator=gen, device=dev)
+         * K ** -0.5).bfloat16()
+    kw = dict(
+        bias=(torch.randn(N, generator=gen, device=dev).bfloat16()
+              if epi["bias"] else None),
+        activation=epi["activation"],
+        bypass=(torch.randn((M, N), generator=gen, device=dev).bfloat16()
+                if epi["bypass"] else None))
+    plan = matmul_plan(M, K, N, torch.bfloat16, b_transposed=True)
+    assert plan.path == ("skinny" if M <= 64 else "wgmma")
+    before = dict(matmul_cuda.path_launches)
+    n_bt = matmul_cuda.b_transposed_launches
+    out = matmul_cuda(a, w, b_transposed=True, **kw)
+    torch.cuda.synchronize()
+    assert matmul_cuda.path_launches[plan.path] == before[plan.path] + 1
+    assert matmul_cuda.b_transposed_launches == n_bt + 1
+    torch.testing.assert_close(
+        out.float(), matmul_plain(a, w, b_transposed=True, **kw).float(),
+        rtol=BF16_TOL, atol=BF16_TOL)
+    via = matmul(a, w.T, **kw)
+    assert matmul_cuda.b_transposed_launches == n_bt + 2
+    assert torch.equal(via, out)
+    if plan.splits > 1:
+        for _ in range(2):
+            assert torch.equal(matmul_cuda(a, w, b_transposed=True, **kw),
+                               out)
+
+
+def test_flash_non_causal_over_whisper_memory(dev):
+    """The non-causal flash kernel at whisper-base's encoder (1500 x 1500)
+    and cross (448 x 1500) shapes with the Program's blocks: the memory
+    padded to the kv block and masked by kv_len in the wrapper, on the
+    mma path, against the plain version."""
+    pair = transformer.compile_program_pair(REGISTRY["whisper-base"],
+                                            slots=8, max_len=448)
+    cross = next(op for op in pair.prefill.ops
+                 if op.kernel == "cross_attention").attn
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for Sq, Skv, blocks in ((448, 1500, (cross.block_q, cross.block_kv)),
+                            (1500, 1500, (None, None))):
+        q, k, v = (torch.randn((1, S, 8, 64), generator=gen, device=dev)
+                   .bfloat16().transpose(1, 2) for S in (Sq, Skv, Skv))
+        before = flash_attention_cuda.path_launches["mma"]
+        out = flash_attention(q, k, v, causal=False, block_q=blocks[0],
+                              block_kv=blocks[1], impl="cuda")
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.path_launches["mma"] == before + 1
+        ref = flash_attention(q, k, v, causal=False, impl="reference")
+        torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+
+
+def test_decode_over_a_transposed_memory_view(dev):
+    """The decode kernel over whisper-base's (slots, 1500, KV, hd) encoder
+    memory read through a transposed view (no copy), every row live."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ck, cv = (torch.randn((8, 1500, 8, 64), generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    q = torch.randn((8, 8, 64), generator=gen, device=dev).bfloat16()
+    k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+    assert k.data_ptr() == ck.data_ptr()
+    n = decode_attention_cuda.launches
+    out = decode_attention(q, k, v, impl="cuda")
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == n + 1
+    ref = decode_attention(q, k, v, impl="reference")
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
 def test_matmul_path_counters_of_a_smoke_lm_tick_and_admission(dev):
     """The bf16 smoke LM: every matmul of an admission (M = max_len = 128)
     runs on wgmma, every matmul of a decode tick (M = 8 slots) on skinny,

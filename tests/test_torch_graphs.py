@@ -430,9 +430,9 @@ def test_launch_counts_are_calls_times_ops_per_call(graphs, counting):
                                               n * n_att)
     assert sum(mm.path_launches.values()) == mm.launches
     captured = {k[2]: g for k, g in state.graphs.graphs.items()}
-    (k1, n1, paths), (k2, n2, _) = captured["decode"].launches
-    assert (k1, n1, k2, n2) == (mm, n_dec, da, n_att)
-    assert sum(paths.values()) == n_dec
+    (k1, a1), (k2, a2) = captured["decode"].launches
+    assert (k1, a1["launches"], k2, a2["launches"]) == (mm, n_dec, da, n_att)
+    assert sum(a1["path_launches"].values()) == n_dec
     with executor.disable_graphs():
         dec(params, toks, state)
     assert (mm.launches, da.launches) == (3 * n_pre + 6 * n_dec, 6 * n_att)

@@ -4,8 +4,12 @@ zamba2-7b and rwkv6-7b admissions, chunks and decode ticks at 8 slots
 and max_len 512; the alexnet-owt and resnet18 FC layers at batch 8) maps
 to its path, split-K slices partition K exactly, every served skinny
 shape launches at least one CTA per SM, and the paths' alignment rules
-send the rest to simt.  The dispatch refusing CPU tensors is checked
-beside it."""
+send the rest to simt.  B read transposed (a tied head's (N, K)
+embedding) takes skinny or wgmma at any N, never simt, and a torch
+emulation of those paths' operand order and stores at N = 1 mod 8 holds
+the product to the plain version with every store aligned and every
+output element written once.  The dispatch refusing CPU tensors is
+checked beside it."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -13,7 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import CNN_REGISTRY, get_config  # noqa: E402
 from repro_torch.kernels import matmul  # noqa: E402
 from repro_torch.kernels.matmul.kernel import (  # noqa: E402
-    SM_COUNT, matmul_cuda, matmul_plan)
+    SKINNY_BN, SM_COUNT, WGMMA_TILE, matmul_cuda, matmul_plain, matmul_plan)
 from repro_torch.models import cnn, param_defs, transformer  # noqa: E402
 
 SLOTS, MAX_LEN = 8, 512
@@ -155,3 +159,110 @@ def test_cuda_impl_on_a_cpu_tensor_still_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         matmul_cuda(a, b)
     assert set(matmul_cuda.path_launches) == {"skinny", "wgmma", "simt"}
+
+
+# --- B read transposed: a tied head ---------------------------------------------
+def test_whisper_tied_head_reads_b_transposed():
+    """whisper-base's head (K = 512, N = 51,865, odd): skinny in a tick
+    (M = 8 slots), wgmma in an admission (M = 448 rows), never simt; the
+    same product with B in (K, N) order goes to simt (its rows are no
+    whole 16-byte vectors)."""
+    cfg = get_config("whisper-base")
+    pair = transformer.compile_program_pair(cfg, slots=SLOTS, max_len=448)
+    heads = [op for prog in (pair.prefill, pair.decode) for op in prog.ops
+             if op.kernel == "matmul" and op.transpose_w]
+    assert [op.param_key for op in heads] == ["embed", "embed"]
+    K, N = cfg.d_model, cfg.vocab
+    tick = matmul_plan(SLOTS, K, N, torch.bfloat16, b_transposed=True)
+    admit = matmul_plan(448, K, N, torch.bfloat16, b_transposed=True)
+    assert tick.path == "skinny" and tick.grid[1] == -(-N // SKINNY_BN)
+    assert tick.ctas >= SM_COUNT
+    assert admit.path == "wgmma"
+    assert admit.grid == (-(-448 // 128), -(-N // 128), 1)
+    assert matmul_plan(SLOTS, K, N, torch.bfloat16).path == "simt"
+    assert matmul_plan(448, K, N, torch.bfloat16).path == "simt"
+
+
+@pytest.mark.parametrize("shape,dtype,path", [
+    ((8, 512, 51865), torch.float32, "simt"),    # f32: copied to (K, N)
+    ((8, 300, 51865), torch.bfloat16, "simt"),   # K % 8
+    ((8, 512, 7), torch.bfloat16, "skinny"),
+    ((65, 512, 7), torch.bfloat16, "wgmma"),
+], ids=str)
+def test_b_transposed_paths_by_type_and_alignment(shape, dtype, path):
+    assert matmul_plan(*shape, dtype, b_transposed=True).path == path
+    assert matmul_plan(*shape, dtype, b_transposed=True,
+                       aligned=False).path == "simt"
+
+
+def _emulate_b_transposed(a, w, plan):
+    """The skinny or wgmma path's work on the (N, K) tensor ``w`` in
+    torch, tile by tile: B rows past N and K past a split's end load as
+    zeros, each split's f32 partial is stored as the kernel stores it
+    (column pairs (n, n + 1) from even n; paired f32 / bf16 stores only
+    where N is even, single elements otherwise; the second column bounded
+    by N) and the split-K merge sums the splits in order, four columns a
+    thread where N % 4 == 0, else one.  Returns (out, stores): the f32
+    result and every store as (buffer, flat index, elements)."""
+    M, K = a.shape
+    N = w.shape[0]
+    af, wf = a.float(), w.float()
+    bn = SKINNY_BN if plan.path == "skinny" else WGMMA_TILE[1]
+    flat = torch.zeros(plan.splits * M * N)
+    stores = []
+    for s, (k0, k1) in enumerate(plan.k_slices(K)):
+        for n0 in range(0, N, bn):
+            tile = torch.zeros((bn, K))
+            rows = wf[n0:min(N, n0 + bn)]
+            tile[:rows.shape[0], k0:k1] = rows[:, k0:k1]
+            part = af @ tile.T                         # (M, bn) f32
+            for m in range(M):
+                for n in range(n0, min(N, n0 + bn), 2):
+                    cols = [n] + ([n + 1] if n + 1 < N else [])
+                    base = s * M * N + m * N + n
+                    buf = "ws" if plan.splits > 1 else "out"
+                    if N % 2 == 0:
+                        stores.append((buf, base, 2))
+                    else:
+                        stores += [(buf, base + i, 1) for i in
+                                   range(len(cols))]
+                    for i, c in enumerate(cols):
+                        flat[base + i] = part[m, c - n0]
+    if plan.splits == 1:
+        return flat.reshape(M, N), stores
+    total = M * N
+    out = flat[:total].clone()
+    for sp in range(1, plan.splits):
+        out += flat[sp * total:(sp + 1) * total]
+    width = 4 if N % 4 == 0 else 1
+    stores += [("merge", e, width) for e in range(0, total, width)]
+    return out.reshape(M, N), stores
+
+
+@pytest.mark.parametrize("shape", [(8, 96, 57), (5, 1024, 129),
+                                   (37, 64, 65), (130, 72, 9)], ids=str)
+def test_b_transposed_emulation_matches_plain_with_aligned_stores(shape):
+    """N = 1 mod 8 on skinny (one split and split-K) and wgmma: the
+    emulated kernel against ``matmul_plain`` on the same bf16 operands;
+    every paired store starts on a whole pair (f32x2 on 8 bytes, bf16x2
+    on 4) and every output element is written exactly once a split."""
+    M, K, N = shape
+    assert N % 8 == 1
+    gen = torch.Generator().manual_seed(M + K + N)
+    a = torch.randn((M, K), generator=gen).bfloat16()
+    w = (torch.randn((N, K), generator=gen) * K ** -0.5).bfloat16()
+    plan = matmul_plan(M, K, N, torch.bfloat16, b_transposed=True)
+    assert plan.path == ("skinny" if M <= 64 else "wgmma")
+    out, stores = _emulate_b_transposed(a, w, plan)
+    want = matmul_plain(a.float(), w.float(), b_transposed=True)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    for buf, e, width in stores:
+        assert e % width == 0, (buf, e, width)
+    for buf in ("out", "ws"):
+        idx = sorted(i for b, e, width in stores if b == buf
+                     for i in range(e, e + width))
+        if idx:
+            assert idx == list(range(plan.splits * M * N
+                                     if buf == "ws" else M * N))
+    if M <= 64 and K >= 1024:
+        assert plan.splits > 1

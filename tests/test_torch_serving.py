@@ -115,9 +115,16 @@ def test_serve_cli_runs_on_cpu():
     assert "prefill_recomputes=0" in lm.stdout
     other = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "whisper-base", "--device", "cpu"], capture_output=True,
+         "llama-3.2-vision-11b", "--device", "cpu"], capture_output=True,
         text=True, env=env, timeout=300)
-    assert other.returncode == 2 and "ROADMAP A.9" in other.stderr
+    assert other.returncode == 2 and "ROADMAP A.6.4" in other.stderr
+    audio = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "whisper-base", "--smoke", "--device", "cpu"], capture_output=True,
+        text=True, env=env, timeout=300)
+    assert audio.returncode == 0, audio.stderr
+    assert "served 16 requests, 256 tokens in" in audio.stdout
+    assert "prefill_recomputes=0" in audio.stdout
 
 
 def test_engine_defaults_to_the_card_and_raises_without_one():

@@ -131,7 +131,7 @@ def test_cross_entropy_losses_match_repro(masked):
 
 def test_forward_refuses_unported_families(smoke):
     cfg = dataclasses.replace(smoke[3], cross_attn_every=2, n_vision_tokens=8)
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(NotImplementedError, match="A.6.4"):
         transformer.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)
 
 

@@ -207,7 +207,8 @@ def test_launch_counts_are_exact_through_replays(graphs, counting,
     assert mm_kernel.matmul_cuda.launches == 0
     assert dec_kernel.decode_attention_cuda.launches == 0
     (graph,) = [g for g in step.graphs.graphs.values() if g is not None]
-    assert {k: n for k, n, _ in graph.launches} == {fwd: per_fwd, bwd: L}
+    assert {k: added["launches"] for k, added in graph.launches} == {
+        fwd: per_fwd, bwd: L}
     with executor.disable_graphs():
         step(params, state, _batches(cfg, 1)[0])
     assert (fwd.launches, bwd.launches) == (5 * per_fwd, 5 * L)
