@@ -247,6 +247,32 @@ exits non-zero before the last line is printed.  Phases:
       through the plain path into a fresh state (a slot that read
       another request's memory fails it) and holds each row to
       ``LOGIT_TOL``; the eager re-serve identical and bitwise equal;
+   m. speculative decode on the observability plane: 5b's command
+      (smollm-360m, bf16, 8 slots, max_len 512, the same 16 prompts, 32
+      new tokens) with ``--spec-decode 4`` (self-draft, also
+      ``--sample-ops 8 --dash-every 16``), ``--spec-decode 4 --draft
+      smollm-360m`` (weights from seed 1: every burst rolls back) and
+      ``--chunk-size 128 --spec-decode 3``, each with ``--metrics-out``
+      and ``--flight-out`` in a temporary directory: n_spec_accepted >
+      0, n_spec_rollbacks > 0, and chunks with no starved tick
+      respectively; exact launches and paths from the recorded calls,
+      cross-checked against the engine's counters (a draft and a
+      target prefill per admission, one verify chunk call a tick over
+      the live slots' whole 512-row buffers, max_k draft decode rounds,
+      a sampled tick's decode Program twice, eagerly); every token a
+      verify emitted the argmax of its row, each such row within
+      ``LOGIT_TOL`` of a plain prefill of the request's prompt and
+      stream, and each stream's first divergence from 5b's at a plain
+      top-2 gap within ``LOGIT_TOL``; the JSON snapshot's counters equal
+      to the engine's, every counter in the ``.prom`` text, the flight
+      record replaying every stream, ``op_time_us`` for matmul and
+      decode_attention; the self-draft run's streams and state hashes
+      equal an unsampled run's; an eager re-serve identical, its
+      verify, draft and prefill rows bitwise equal; spec tick, draft
+      round and verify ms by width B, graphed and eager, acceptance,
+      capture seconds, sampled op times and tok/s beside 5b's; then 5b's
+      plain serve twice with a flight recorder and twice without,
+      alternated (the plane's cost, as the mean tick ms);
    In 5g and 5h the counters must be exactly the Program's kernel ops per
    call (``PAIR_OPS``: zamba2-7b 81 mamba2_scan and 99 matmul per
    admission and per tick, 14 flash per admission, 14 decode per tick;
@@ -3423,6 +3449,573 @@ def serve_whisper(label: str):
     return launches, stats
 
 
+# Phase 5m: speculative decode on the observability plane.  The flags
+# after LM_ARGS of each engine; the self-draft engine also samples one
+# tick in SPEC_SAMPLE op by op and prints a dashboard every SPEC_DASH
+# ticks.  A speculative tick's sampled walk is its first draft round's
+# decode Program: each op once untimed, then OpTimingSampler.REPEATS
+# timed calls, all eager.
+SPEC_RUNS = {"self-draft": ["--spec-decode", "4"],
+             "disagreeing draft": ["--spec-decode", "4", "--draft", LM_ARCH],
+             "chunked": ["--chunk-size", "128", "--spec-decode", "3"]}
+SPEC_SAMPLE, SPEC_DASH = 8, 16
+
+
+class SpecRecorder(Recorder):
+    """``Recorder`` for phase 5m: each call also keeps the state it ran
+    on (``states``: the target's or the draft's); a verify (a chunk call
+    whose length is pinned past the token buffer) keeps rows ``[start,
+    stop)`` of each slot; each speculative tick of the engine is timed
+    to a device synchronise (``spec_ticks``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.states, self.spec_ticks = [], []
+
+    def _record(self, kind, dt, args, out):
+        import numpy as np
+        if kind == "chunk" and int(np.asarray(args[6])[0]) > args[1].shape[1]:
+            slots, starts, stops = (np.array(x) for x in args[3:6])
+            self.calls.append(("verify", dt, (slots, starts, stops), {
+                i: out[i, a:b].clone()
+                for i, (a, b) in enumerate(zip(starts, stops))}))
+        else:
+            super()._record(kind, dt, args, out)
+        self.states.append(args[2])
+
+    def __enter__(self):
+        import torch
+        super().__enter__()
+        self.orig_tick = tick = self.engine_cls._spec_tick
+        rec = self
+
+        def spec_tick(eng, *args):
+            t0 = time.perf_counter()
+            out = tick(eng, *args)
+            torch.cuda.synchronize()
+            rec.spec_ticks.append(time.perf_counter() - t0)
+            return out
+        self.engine_cls._spec_tick = spec_tick
+        return self
+
+    def __exit__(self, *exc):
+        self.engine_cls._spec_tick = self.orig_tick
+        super().__exit__(*exc)
+
+    def tagged(self, eng) -> list:
+        """(kind, role, dt, args, rows) of every Program run, ``role``
+        "target" or "draft" by the state it ran on."""
+        return [(c[0], "draft" if s is eng._draft_state else "target",
+                 c[1], c[2], c[3]) for c, s in zip(self.calls, self.states)
+                if c[0] in ("prefill", "chunk", "decode", "verify")]
+
+    def median_ms(self, eng, kind: str, role: str, width=None,
+                  skip: int = 0) -> tuple:
+        """(median ms, calls) of the ``role``'s ``kind`` calls (a
+        verify's of ``width`` B), past the first ``skip`` of them."""
+        times = [dt for k, r, dt, args, _ in self.tagged(eng)
+                 if (k, r) == (kind, role)
+                 and (width is None or len(args[0]) == width)][skip:]
+        return (1e3 * statistics.median(times) if times else None,
+                len(times))
+
+
+def state_hash(state) -> str:
+    """sha256 over every persistent buffer's bytes and the lengths."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for rid in sorted(state.caches):
+        h.update(state.caches[rid].contiguous().view(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    h.update(state.lengths.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def spec_groups(events) -> list:
+    """(uid, slot, accepted, tokens emitted before, tokens kept) of each
+    ``spec`` flight event, in order: the tokens the engine emitted off
+    that slot's verify rows."""
+    groups, emitted, cur = [], Counter(), None
+    for e in events:
+        if e["ev"] == "spec":
+            cur = [e["uid"], e["slot"], e["accepted"], emitted[e["uid"]], []]
+            groups.append(cur)
+        elif e["ev"] == "tick":
+            cur = None
+        elif e["ev"] in ("first_token", "token"):
+            if cur is not None and e["uid"] == cur[0]:
+                cur[4].append(e["token"])
+            emitted[e["uid"]] += 1
+    return groups
+
+
+def spec_launch_check(label, eng, rec, launches, bt_launches) -> dict:
+    """Exact launches of a speculative run, computed from its recorded
+    calls and cross-checked against the engine's counters: every
+    admission prefills target and draft (a chunked one: the target in
+    chunk calls), every tick runs max_k draft decode rounds and one
+    verify chunk call; a sampled tick (one in SPEC_SAMPLE of the ticks
+    with a draft round) walks the draft's decode Program eagerly, each
+    op 1 + ``OpTimingSampler.REPEATS`` times.  Decode calls and walks on
+    skinny, prefills, chunks and verifies on wgmma, every flash launch
+    on mma."""
+    from repro_torch.runtime.executor import OpTimingSampler
+    sampled_calls = 1 + OpTimingSampler.REPEATS
+    calls = rec.tagged(eng)
+    n = Counter((k, r) for k, r, *_ in calls)
+    verify = [args for k, _, _, args, _ in calls if k == "verify"]
+    samples = eng._op_sampler.n_samples if eng._op_sampler else 0
+    prefill_rows = sum(len(args[0]) if k == "chunk" else 1
+                       for k, r, _, args, _ in calls
+                       if r == "target" and k in ("prefill", "chunk"))
+    checks = {
+        "draft prefills = admissions": (n[("prefill", "draft")],
+                                        eng.n_prefills),
+        "verify calls = ticks": (len(verify), eng.n_decode_ticks),
+        "target decode calls (wrapped slots)": (n[("decode", "target")], 0),
+        "draft rounds = sum of max_k": (
+            n[("decode", "draft")],
+            sum(int((b - a).max()) - 1 for _, a, b in verify)),
+        "proposed = sum of k_s": (
+            sum(int((b - a - 1).sum()) for _, a, b in verify),
+            eng.n_spec_proposed),
+        "target prefill rows = admissions or chunk rows": (
+            prefill_rows, (eng.n_prefill_chunks if eng.chunk_size
+                           else eng.n_prefills)),
+        "sampled walks": (samples, (
+            sum(int((b - a).max()) > 1 for _, a, b in verify)
+            // SPEC_SAMPLE if eng._op_sampler else 0))}
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad:
+        fail(f"{label}: recorded calls disagree with the engine: {bad}")
+    pre, dec = PAIR_OPS[LM_ARCH]
+    passes = (n[("prefill", "target")] + n[("prefill", "draft")]
+              + n[("chunk", "target")] + len(verify))
+    decodes = (n[("decode", "draft")] + n[("decode", "target")]
+               + sampled_calls * samples)
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=passes * pre["flash_attention"],
+                decode_attention=decodes * dec["decode_attention"],
+                matmul=passes * pre["matmul"] + decodes * dec["matmul"])
+    print(f"{label}: {n[('prefill', 'target')]} + {n[('prefill', 'draft')]}"
+          f" prefills (target + draft), {n[('chunk', 'target')]} chunk "
+          f"calls, {len(verify)} verify calls, {n[('decode', 'draft')]} "
+          f"draft rounds, {samples} sampled walks; launches {launches}, "
+          f"want {want}", flush=True)
+    if launches != want:
+        fail(f"{label}: launch counts {launches} != {want}")
+    paths = Counter()
+    for n_calls, prog, M in ((passes, eng.program.prefill, eng.max_len),
+                             (decodes, eng.program.decode, eng.slots)):
+        for path, k in matmul_paths(eng.cfg, prog, M).items():
+            paths[path] += n_calls * k
+    check_matmul_paths(label, paths["skinny"], paths["wgmma"],
+                       paths["simt"])
+    check_flash_paths(label, want["flash_attention"], 0)
+    n_tied = sum(op.transpose_w for op in eng.program.decode.ops)
+    if bt_launches != n_tied * (passes + decodes):
+        fail(f"{label}: {bt_launches} matmul launches read B transposed, "
+             f"want {n_tied * (passes + decodes)}")
+    return {"passes": passes, "decodes": decodes, "verify": len(verify),
+            "rounds": n[("decode", "draft")], "samples": samples}
+
+
+def spec_oracle(label, eng, rec, res, events, base_streams) -> dict:
+    """Point 6's oracle on the card: (a) every token a verify emitted is
+    the argmax of the verify row that emitted it, exactly; every such
+    row within ``LOGIT_TOL`` of the plain path's row at the same
+    position (one plain prefill of the request's prompt and stream,
+    teacher-forced) and its token the plain one wherever the plain
+    top-2 gap exceeds twice the row's difference; (b) at each request's
+    first divergence from 5b's plain greedy stream, the plain row's
+    top-2 gap within ``LOGIT_TOL``: a near-tie, which two bf16 paths
+    (the verify's flash and wgmma, decode's kernel and skinny) may break
+    either way."""
+    import numpy as np
+    import torch
+    ex, pair, dev = rec.ex, eng.program, eng.device
+    done = {r.uid: r for r in res["done"]}
+    prompts = res["prompts"]
+    pstate = ex.init_program_state(pair, dev)
+    plain = {}
+    for uid, r in done.items():
+        seq = np.concatenate([prompts[uid], r.out_tokens[:-1]])
+        tok = torch.zeros((1, eng.max_len), dtype=torch.int32)
+        tok[0, :len(seq)] = torch.from_numpy(seq.astype(np.int32))
+        out = ex.run_prefill(pair.prefill, eng.params, tok.to(dev), pstate,
+                             0, len(seq), 0, impl="reference")
+        plain[uid] = out[0, len(prompts[uid]) - 1:len(seq)].float().cpu()
+    rows = [(args[0][i], got[i]) for k, _, _, args, got in rec.tagged(eng)
+            if k == "verify" for i in range(len(args[0]))]
+    groups = spec_groups(events)
+    if len(rows) != len(groups):
+        fail(f"{label}: {len(rows)} verify rows, {len(groups)} spec events")
+    worst, n_rows, n_ids = 0.0, 0, 0
+    for (slot, got), (uid, gslot, a, before, kept) in zip(rows, groups):
+        if slot != gslot or len(kept) > a + 1:
+            fail(f"{label}: verify slot {slot} against spec event {gslot}")
+        for j, token in enumerate(kept):
+            g = got[j].float().cpu()
+            if int(g.argmax()) != token:
+                fail(f"{label}: uid {uid} emitted {token}, its verify row's "
+                     f"argmax is {int(g.argmax())}")
+            w = plain[uid][before + j]
+            diff = float((g - w).abs().max())
+            worst, n_rows = max(worst, diff), n_rows + 1
+            if not torch.isfinite(g).all() or diff > LOGIT_TOL:
+                fail(f"{label}: verify row differs from the plain path by "
+                     f"{diff:.3e} > {LOGIT_TOL}")
+            top2 = w.topk(2).values
+            if float(top2[0] - top2[1]) > 2 * diff:
+                n_ids += 1
+                if token != int(w.argmax()):
+                    fail(f"{label}: token {token} != plain "
+                         f"{int(w.argmax())}, top-2 gap "
+                         f"{float(top2[0] - top2[1]):.3f}")
+    diverged, ties = 0, []
+    for uid, r in done.items():
+        base = base_streams[uid]
+        j = next((i for i, (x, y) in enumerate(zip(r.out_tokens, base))
+                  if x != y), None)
+        if j is None:
+            continue
+        diverged += 1
+        top2 = plain[uid][j].topk(2).values
+        ties.append(round(float(top2[0] - top2[1]), 4))
+        if ties[-1] > LOGIT_TOL:
+            fail(f"{label}: uid {uid} leaves 5b's stream at token {j} with "
+                 f"a plain top-2 gap of {ties[-1]:.3f} > {LOGIT_TOL}")
+    print(f"{label}: {n_rows} verify rows emitted their tokens (argmax, "
+          f"exact), within {worst:.3e} of the plain path (bound "
+          f"{LOGIT_TOL}); {n_ids} token ids compared, all equal; "
+          f"{diverged} of {len(done)} streams leave 5b's plain greedy "
+          f"stream, each at a near-tie (plain top-2 gaps {ties})",
+          flush=True)
+    return {"verify_rows": n_rows, "worst": worst, "diverged": diverged}
+
+
+def spec_against_eager(label, eng, rec, erec, eres, res) -> dict:
+    """The graphed speculative run against the same requests served
+    under ``executor.disable_graphs()``: identical streams, the same
+    calls in the same order, every recorded verify, draft and prefill
+    row bitwise equal.  Returns the graphed and eager medians of a spec
+    tick, a draft round and a verify call by width B."""
+    import torch
+    if ([r.out_tokens for r in eres["done"]]
+            != [r.out_tokens for r in res["done"]]):
+        fail(f"{label}: the graphed and eager speculative streams differ")
+    eeng = eres["engine"]
+    got, want = rec.tagged(eng), erec.tagged(eeng)
+    if [(k, r, sorted(g)) for k, r, _, _, g in got] != [
+            (k, r, sorted(g)) for k, r, _, _, g in want]:
+        fail(f"{label}: graphed and eager serving made other calls")
+    n_rows = 0
+    for (k, r, _, _, g), (_, _, _, _, e) in zip(got, want):
+        for i in g:
+            n_rows += 1
+            if not torch.equal(g[i], e[i]):
+                diff = (g[i].float() - e[i].float()).abs().max().item()
+                fail(f"{label}: graphed {r} {k} rows differ from the eager "
+                     f"ones by {diff:.3e}")
+    # A graphed shape's first call runs eagerly and its second captures:
+    # the graphed medians are over the replays after them.
+    out = {}
+    for side, rr, ee, skip in (("graphed", rec, eng, 2),
+                               ("eager", erec, eeng, 0)):
+        out[f"{side}_tick"] = 1e3 * statistics.median(rr.spec_ticks)
+        out[f"{side}_round"] = rr.median_ms(ee, "decode", "draft",
+                                            skip=skip)[0]
+        out[f"{side}_verify"] = {
+            B: rr.median_ms(ee, "verify", "target", B, skip)
+            for B in sorted({len(a[0]) for k, _, _, a, _ in rr.tagged(ee)
+                             if k == "verify"})}
+
+    def ms(x):
+        return "-" if x is None else f"{x:.3f}"
+    print(f"{label}: graphed against eager (disable_graphs) serving: "
+          f"streams identical, {n_rows} verify / draft / prefill rows "
+          f"bitwise equal; median ms graphed (replays) / eager: spec tick "
+          f"{out['graphed_tick']:.3f} / {out['eager_tick']:.3f} (every "
+          f"tick), draft round {ms(out['graphed_round'])} / "
+          f"{ms(out['eager_round'])}, verify by width B: " + ", ".join(
+              f"B={B} {ms(g)} ({n} replays) / "
+              f"{ms(out['eager_verify'][B][0])}"
+              for B, (g, n) in out["graphed_verify"].items()), flush=True)
+    return out
+
+
+def check_plane(label, eng, res, metrics: str, flight: str) -> list:
+    """The artifacts of a run: the JSON snapshot's counters equal the
+    engine's ``n_*``, the ``.prom`` text holds every counter, and the
+    flight file replays every request's stream exactly.  Returns the
+    flight events."""
+    from repro_torch.obs import read_events, replay_summary
+    counters = json.loads(Path(metrics).read_text())["counters"]
+    for key in ("prefills", "prefill_recomputes", "decode_ticks",
+                "prefill_chunks", "starved_ticks", "spec_proposed",
+                "spec_accepted", "spec_rollbacks", "shared_pages",
+                "cow_forks"):
+        if counters[f"serving_{key}_total"] != getattr(eng, f"n_{key}"):
+            fail(f"{label}: snapshot serving_{key}_total "
+                 f"{counters[f'serving_{key}_total']} != n_{key}")
+    prom = Path(metrics + ".prom").read_text().splitlines()
+    missing = [k for k, v in counters.items()
+               if not any(line.startswith(f"{k} ") for line in prom)]
+    if missing:
+        fail(f"{label}: the .prom text lacks {missing}")
+    events = read_events(flight)
+    summ = replay_summary(events)
+    for r in res["done"]:
+        if summ["requests"][r.uid]["tokens"] != r.out_tokens:
+            fail(f"{label}: the flight record replays uid {r.uid} otherwise")
+    print(f"{label}: snapshot counters equal the engine's n_*, "
+          f"{len(counters)} counters in the .prom text, the flight record "
+          f"({len(events)} events) replays all {len(res['done'])} streams",
+          flush=True)
+    return events
+
+
+def profile_sampled_walk(label, eng) -> dict:
+    """One sampled walk (the draft's decode Program over all slots, on a
+    copy of the draft's state) under ``torch.profiler``, each op's call
+    inside a ``record_function`` range named by its kind.  Prints, per
+    kind, the walk's measured op time beside the range's host time and
+    the host ops that make it up, and the device kernels' time over the
+    whole walk.  A diagnostic: a profiler that does not start is
+    printed, not failed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.runtime import executor
+    prog, params, state = (eng._draft_pair.decode, eng._draft_params,
+                           eng._draft_state)
+    toks = torch.zeros((eng.slots,), dtype=torch.int32, device=eng.device)
+    mask = torch.ones((eng.slots,), dtype=torch.bool, device=eng.device)
+    walk = executor._run_decode_op
+
+    def ranged(op, *args, **kw):
+        with record_function(f"op:{op.kernel}"):
+            return walk(op, *args, **kw)
+    executor._run_decode_op = ranged
+    try:
+        executor.trace_program(prog, params, toks, state=state, mask=mask,
+                               repeats=executor.OpTimingSampler.REPEATS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trace = executor.trace_program(
+                prog, params, toks, state=state, mask=mask,
+                repeats=executor.OpTimingSampler.REPEATS)
+        events = prof.events()
+    except RuntimeError as e:
+        print(f"{label}: profiler did not run: {e}", flush=True)
+        return {}
+    finally:
+        executor._run_decode_op = walk
+    measured = {}
+    for r in trace.records:
+        measured.setdefault(r.kind, []).append(1e6 * r.measured_time_s)
+    cpu, cuda = (torch.autograd.DeviceType.CPU,
+                 torch.autograd.DeviceType.CUDA)
+
+    def kernels(e) -> list:
+        """The device kernels ``e`` and its descendants launched (not
+        the ranges' own spans on the device timeline)."""
+        return ([k for k in e.kernels if not k.name.startswith("op:")]
+                + [k for c in e.cpu_children for k in kernels(c)])
+    out = {}
+    for kind in ("decode_attention", "matmul"):
+        name = f"op:{kind}"
+        ranges = [e for e in events
+                  if e.name == name and e.device_type == cpu]
+        if not ranges:
+            continue
+        host, stack = Counter(), [c for e in ranges for c in e.cpu_children]
+        while stack:
+            e = stack.pop()
+            host[e.name] += e.self_cpu_time_total
+            stack += e.cpu_children
+        n = len(ranges)
+        top = [(k, v / n) for k, v in host.most_common(8)]
+        out[kind] = {
+            "measured_us": statistics.median(measured[kind]),
+            "range_host_us": sum(e.cpu_time_total for e in ranges) / n,
+            "kernel_us": sum(k.duration for e in ranges
+                             for k in kernels(e)) / n,
+            "kernels": sum(len(kernels(e)) for e in ranges) / n,
+            "device_span_us": sum(e.device_time_total for e in events
+                                  if e.name == name
+                                  and e.device_type == cuda) / n,
+            "host_ops": sum(len(e.cpu_children) for e in ranges) / n,
+            "top_host_us": top}
+        o = out[kind]
+        print(f"{label} profile, {kind} ({n} calls): measured "
+              f"{o['measured_us']:.1f} us median under the profiler; the "
+              f"call's host range {o['range_host_us']:.1f} us, "
+              f"{o['host_ops']:.1f} top-level host ops; its kernels "
+              f"{o['kernels']:.1f}, {o['kernel_us']:.1f} us of device "
+              f"time, spread over {o['device_span_us']:.1f} us of the "
+              f"device timeline; self host us a call: " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in top), flush=True)
+    dev = Counter()
+    for e in events:
+        if e.device_type == cuda and not e.name.startswith("op:"):
+            dev[e.name] += e.device_time_total
+    walk_us = sum(sum(v) for v in measured.values())
+    print(f"{label} profile, whole walk: measured {walk_us:.1f} us over "
+          f"{len(trace.records)} ops (each once timed), device kernels "
+          f"{sum(dev.values()):.1f} us over both calls of each op; top "
+          f"kernels: " + ", ".join(f"{k[:48]} {v:.1f}"
+                                   for k, v in dev.most_common(6)),
+          flush=True)
+    out["walk_us"], out["device_us"] = walk_us, sum(dev.values())
+    return out
+
+
+def serve_spec(base_stats) -> tuple[dict, dict]:
+    """Phase 5m: smollm-360m served with a draft pair off the graphed
+    runners (``SPEC_RUNS``), each engine on the observability plane
+    (metrics snapshot, Prometheus text and flight record in a temporary
+    directory), the counters set to 0 just before each run and read
+    just after; held by ``spec_launch_check``, ``spec_oracle``,
+    ``check_plane`` and ``spec_against_eager``; the self-draft engine
+    also samples op times, and its streams and state hashes must equal
+    an unsampled run's.  Then the plane's own cost: 5b's plain serve
+    with a real flight recorder against the default bundle, alternated.
+    Returns (launches summed over the graphed runs, stats)."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.runtime import executor
+    n = int(LM_ARGS[LM_ARGS.index("--requests") + 1])
+    base_streams = dict(enumerate(base_stats["streams"]))
+    counters = lm_counters()
+    total, stats = Counter(), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags in SPEC_RUNS.items():
+            label = f"5m {name}"
+            stem = f"{tmp}/{name.replace(' ', '_')}"
+            plane = ["--metrics-out", stem + ".json", "--flight-out",
+                     stem + ".jsonl"]
+            if name == "self-draft":
+                plane += ["--sample-ops", str(SPEC_SAMPLE), "--dash-every",
+                          str(SPEC_DASH)]
+            for fn in counters.values():
+                fn.launches = 0
+            reset_matmul_paths()
+            reset_flash_paths()
+            counters["matmul"].b_transposed_launches = 0
+            with SpecRecorder() as rec:
+                res = serve.main(LM_ARGS + flags + plane)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            bt = counters["matmul"].b_transposed_launches
+            total.update(launches)
+            eng, done = res["engine"], res["done"]
+            if len(done) != n or not all(len(r.out_tokens) == 32
+                                         for r in done):
+                fail(f"{label}: served {len(done)} of {n} requests in full")
+            if eng.n_prefill_recomputes or eng.n_prefills != n:
+                fail(f"{label}: prefills {eng.n_prefills}, recomputes "
+                     f"{eng.n_prefill_recomputes}")
+            want = {"self-draft": eng.n_spec_accepted > 0,
+                    "disagreeing draft": eng.n_spec_rollbacks > 0,
+                    "chunked": (eng.n_prefill_chunks > 0
+                                and eng.n_starved_ticks == 0)}[name]
+            if not want:
+                fail(f"{label}: accepted {eng.n_spec_accepted}, rollbacks "
+                     f"{eng.n_spec_rollbacks}, chunks "
+                     f"{eng.n_prefill_chunks}, starved "
+                     f"{eng.n_starved_ticks}")
+            calls = spec_launch_check(label, eng, rec, launches, bt)
+            check_captured(label, eng.state.graphs.graphs, ("chunk",))
+            check_captured(label, eng._draft_state.graphs.graphs,
+                           ("decode",))
+            events = check_plane(label, eng, res, stem + ".json",
+                                 stem + ".jsonl")
+            st = spec_oracle(label, eng, rec, res, events, base_streams)
+            st.update(calls, tok_s=sum(len(r.out_tokens) for r in done)
+                      / res["seconds"], capture_s=eng.capture_seconds,
+                      accept=eng.n_spec_accepted / eng.n_spec_proposed,
+                      proposed=eng.n_spec_proposed,
+                      accepted=eng.n_spec_accepted,
+                      rollbacks=eng.n_spec_rollbacks,
+                      ticks=eng.n_decode_ticks)
+            if name == "self-draft":
+                hist = json.loads(Path(stem + ".json").read_text())[
+                    "histograms"]
+                for kind in ("matmul", "decode_attention"):
+                    if f'op_time_us{{kind="{kind}"}}' not in hist:
+                        fail(f"{label}: no op_time_us histogram for {kind}")
+                by_kind = {}
+                for e in events:
+                    if e["ev"] == "op_sample":
+                        if e["role"] != "draft":
+                            fail(f"{label}: an op_sample of role "
+                                 f"{e['role']}, want the draft round's")
+                        by_kind.setdefault(e["kind"], []).append(
+                            1e6 * e["measured_time_s"])
+                st["op_us"] = {k: statistics.median(v)
+                               for k, v in by_kind.items()}
+                print(f"{label}: {st['samples']} sampled ticks; median "
+                      f"sampled op time (us, one call between two "
+                      f"synchronises) by kind: " + ", ".join(
+                          f"{k} {v:.1f} ({len(by_kind[k])} ops)"
+                          for k, v in sorted(st["op_us"].items())),
+                      flush=True)
+                st["profile"] = profile_sampled_walk(label, eng)
+            with executor.disable_graphs(), SpecRecorder() as erec:
+                eres = serve.main(LM_ARGS + flags)
+            st.update(spec_against_eager(label, eng, rec, erec, eres, res))
+            if name == "self-draft":
+                hashes = [state_hash(eng.state),
+                          state_hash(eng._draft_state)]
+                streams = [r.out_tokens for r in done]
+                res = eres = eng = rec = erec = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                res = serve.main(LM_ARGS + flags)
+                eng = res["engine"]
+                if ([r.out_tokens for r in res["done"]] != streams
+                        or [state_hash(eng.state),
+                            state_hash(eng._draft_state)] != hashes):
+                    fail(f"{label}: the sampled run's streams or state "
+                         f"hashes differ from the unsampled run's")
+                print(f"{label}: the unsampled run's streams and state "
+                      f"hashes (target {hashes[0][:12]}, draft "
+                      f"{hashes[1][:12]}) equal the sampled run's",
+                      flush=True)
+            print(f"{label}: {st['tok_s']:.1f} tok/s (5b plain "
+                  f"{base_stats['tok_s']:.1f}); acceptance "
+                  f"{eng.n_spec_accepted} / {eng.n_spec_proposed} = "
+                  f"{100 * st['accept']:.1f}% ({eng.n_spec_rollbacks} "
+                  f"rollbacks, {eng.n_decode_ticks} ticks); capture "
+                  f"{st['capture_s']:.3f} s", flush=True)
+            stats[name] = st
+            res = eres = eng = rec = erec = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        cost = {"default": [], "flight": []}
+        for kind in ("default", "flight", "flight", "default"):
+            res = serve.main(LM_ARGS + (["--flight-out", f"{tmp}/cost.jsonl"]
+                                        if kind == "flight" else []))
+            bundle = res["engine"].obs
+            h = bundle.registry.snapshot()["histograms"]["tick_ms"]
+            cost[kind].append((h["sum"] / h["count"],
+                               32 * n / res["seconds"],
+                               len(bundle.flight.events)))
+            res = bundle = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    print("5m plane cost (5b's plain serve, alternated): mean tick ms and "
+          "tok/s, default bundle " + ", ".join(
+              f"{t:.3f} / {s:.1f}" for t, s, _ in cost["default"])
+          + "; with a flight recorder " + ", ".join(
+              f"{t:.3f} / {s:.1f} ({e} events)" for t, s, e in
+              cost["flight"]), flush=True)
+    stats["plane_cost"] = cost
+    return dict(total), stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3493,6 +4086,7 @@ def main() -> int:
     moe_launches, moe_stats = serve_family(f"5j {MOE_ARCH}", MOE_ARCH)
     moe_train_launches, moe_train = train_moe(device, g_bwd_row)
     w_launches, w_stats = serve_whisper(f"5l {WHISPER}")
+    spec_launches, spec_stats = serve_spec(lm_stats)
 
     tick = {}
     for kname, label in (("conv2d_virtual", "alexnet-owt"),
@@ -3671,7 +4265,7 @@ def main() -> int:
           f"eager {train_stats['eager_ms']:.2f} ms")
     per_path = [cnn_launches, pf_launches, lm_launches, win_launches,
                 smoke_launches, train_launches, moe_launches,
-                moe_train_launches, w_launches] + [
+                moe_train_launches, w_launches, spec_launches] + [
         launch for launch, _ in list(paged.values()) + list(family.values())]
     launches = {k: sum(p.get(k, 0) for p in per_path) for k in SOURCES}
     errs = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k]
@@ -3772,7 +4366,10 @@ def main() -> int:
           + f"; {MOE_ARCH}: {moe_stats['tok_s']:.1f} tok/s served, "
           f"{moe_train['tok_s']:.0f} tokens/s trained (step "
           f"{moe_train['step_ms']:.1f} ms); {WHISPER}: "
-          f"{w_stats['tok_s']:.1f} tok/s served")
+          f"{w_stats['tok_s']:.1f} tok/s served; 5m speculative: "
+          + ", ".join(f"{name} {st['tok_s']:.1f} tok/s"
+                      for name, st in spec_stats.items()
+                      if name in SPEC_RUNS))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

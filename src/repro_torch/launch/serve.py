@@ -18,6 +18,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
         --slots 8 --max-len 448 --requests 16 --prompt-len 4-224 \
         --max-new 32 [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --slots 8 --max-len 512 --requests 16 --prompt-len 32-448 \
+        --max-new 32 --spec-decode 4 [--draft smollm-360m] \
+        [--chunk-size 128] [--metrics-out m.json --flight-out f.jsonl \
+        --sample-ops 8 --dash-every 16]
 
 CNN archs (alexnet-owt / resnet18 / resnet50) serve image-classify
 requests through the compiled Program; it prints the Program listing,
@@ -43,10 +48,22 @@ chunkable, since MoE routing buckets the whole prompt);
 ``--shared-prefix N`` opens every prompt with the same N tokens, so
 admission shares pages.  ``--chunk-size N`` prefills N prompt rows per
 tick; ``--long-prompt N`` injects one prompt of N tokens two ticks into
-the run.  It prints the pair's first listing line, ``served N requests,
-T tokens in S s (X tok/s)``, the prefill / recompute / decode-tick
-counters, the chunk, admission and page counters where they apply, and a
-few streams.
+the run.  ``--spec-decode K`` serves greedy speculative decode: a draft
+pair proposes K tokens a slot per tick and the target verifies them in
+one chunk call (dense archs, not paged, not windowed); ``--draft ARCH``
+names the draft (same vocab, weights from ``--seed`` + 1; default: the
+target itself).  It prints the pair's first listing line, ``served N
+requests, T tokens in S s (X tok/s)``, the prefill / recompute /
+decode-tick counters, the chunk, speculation, admission and page
+counters where they apply, and a few streams.
+
+The observability plane: ``--metrics-out PATH`` writes the metrics
+registry's JSON snapshot to PATH and its Prometheus text to PATH.prom,
+``--flight-out PATH`` the JSONL flight record (replay it with
+``repro_torch.obs.replay_summary``), ``--sample-ops N`` times one decode
+tick in N op by op (``op_time_us{kind}`` histograms, ``op_sample``
+events) and ``--dash-every N`` prints a one-line dashboard every N
+ticks.
 
 Everything runs on the card unless ``--device cpu`` is given (the plain
 PyTorch versions, eagerly).  On the card every Program run replays a
@@ -73,6 +90,7 @@ from ..checkpoint import restore_checkpoint
 from ..configs import CNN_REGISTRY, get_config
 from ..kernels.common import resolve_device
 from ..models import MEMORY_WRITERS, cnn, init_params, param_defs
+from ..obs import Observability
 from ..serving import Request, ServingEngine
 
 
@@ -103,25 +121,42 @@ def _restore_params(params, ckpt: str | None):
     return params
 
 
+def drain(eng, dash_every: int = 0) -> list:
+    """``eng.run_until_drained()``, printing ``eng.dashboard_line()``
+    every ``dash_every`` ticks (0: never); the same 10,000-tick cap."""
+    if not dash_every:
+        return eng.run_until_drained()
+    done = []
+    for _ in range(0, 10_000, dash_every):
+        ticks = eng.tick_no
+        done += eng.run_until_drained(max_ticks=dash_every)
+        if eng.tick_no - ticks < dash_every:
+            break
+        print(eng.dashboard_line())
+    return done
+
+
 def serve_cnn(arch: str, *, slots: int, requests: int, device=None,
-              seed: int = 0, ckpt: str | None = None, program=None) -> dict:
+              seed: int = 0, ckpt: str | None = None, program=None,
+              obs: Observability | None = None,
+              dash_every: int = 0) -> dict:
     """Serve ``requests`` random images of ``arch`` with random weights
     drawn from ``seed`` (or the params of the checkpoint in ``ckpt``),
     off ``program`` when one is given (a paper-faithful or SNOWFLAKE
-    Program) or the engine's default Program; returns the engine, the
-    finished requests (by uid), the images and the wall seconds of the
-    serving loop."""
+    Program) or the engine's default Program, reporting through ``obs``;
+    returns the engine, the finished requests (by uid), the images and
+    the wall seconds of the serving loop."""
     cfg = CNN_REGISTRY[arch]
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = _restore_params(init_params(cnn.param_defs(cfg), gen, dev), ckpt)
     eng = ServingEngine(cfg, params, slots=slots, device=dev,
-                        program=program)
+                        program=program, obs=obs)
     images = make_images(cfg, requests, seed)
     t0 = time.perf_counter()
     for i, img in enumerate(images):
         eng.submit(Request(uid=i, prompt=img))
-    done = eng.run_until_drained()
+    done = drain(eng, dash_every)
     seconds = time.perf_counter() - t0
     return {"engine": eng, "done": sorted(done, key=lambda r: r.uid),
             "images": images, "seconds": seconds}
@@ -141,21 +176,28 @@ def make_frames(cfg, n: int, seed: int) -> list[np.ndarray] | None:
 def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
              prompt_len: tuple[int, int], device=None, seed: int = 0,
              shared_prefix: int = 0, long_prompt: int = 0,
-             ckpt: str | None = None, **engine_kw) -> dict:
+             ckpt: str | None = None, draft_cfg=None, dash_every: int = 0,
+             **engine_kw) -> dict:
     """Serve ``requests`` random prompts of the LM ``cfg`` with
     random weights drawn from ``seed`` (or the params of the checkpoint
-    in ``ckpt``); ``engine_kw`` (``paged``,
-    ``page_size``, ``page_pool``, ``kv_quant``, ``chunk_size``) goes to
-    the engine.  With ``shared_prefix`` every prompt opens with the same
-    tokens; ``long_prompt`` injects one prompt of that length after two
-    ticks.  An audio request carries its stub encoder frames
-    (``make_frames``).  Returns the engine, the finished requests (by
-    uid), the prompts and the wall seconds of the serving loop (the
-    kernels' first-use build and the weight init stay outside it)."""
+    in ``ckpt``); ``engine_kw`` (``paged``, ``page_size``,
+    ``page_pool``, ``kv_quant``, ``chunk_size``, ``spec_k``, ``obs``)
+    goes to the engine.  ``draft_cfg`` names a speculative draft, its
+    weights drawn from ``seed + 1``.  With ``shared_prefix`` every prompt
+    opens with the same tokens; ``long_prompt`` injects one prompt of
+    that length after two ticks.  An audio request carries its stub
+    encoder frames (``make_frames``).  Returns the engine, the finished
+    requests (by uid), the prompts and the wall seconds of the serving
+    loop (the kernels' first-use build and the weight init stay outside
+    it)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = _restore_params(
         init_params(param_defs(cfg), gen, dev), ckpt)
+    if draft_cfg is not None:
+        engine_kw.update(draft_cfg=draft_cfg, draft_params=init_params(
+            param_defs(draft_cfg),
+            torch.Generator(device=dev).manual_seed(seed + 1), dev))
     eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
                         device=dev, **engine_kw)
     prompts = make_prompts(cfg.vocab, requests, *prompt_len, seed)
@@ -181,10 +223,27 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
             done += eng.step()
         eng.submit(Request(uid=requests, prompt=prompts[requests],
                            max_new_tokens=max_new, extra=frames[requests]))
-    done += eng.run_until_drained()
+    done += drain(eng, dash_every)
     seconds = time.perf_counter() - t0
     return {"engine": eng, "done": sorted(done, key=lambda r: r.uid),
             "prompts": prompts, "seconds": seconds}
+
+
+def _write_artifacts(args, obs: Observability) -> None:
+    """Close the flight recorder (flushing its file) and write the
+    metrics registry: the JSON snapshot at ``--metrics-out`` and the
+    Prometheus text beside it (``.prom``)."""
+    obs.close()
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(obs.registry.to_json(arch=args.arch,
+                                         argv=sys.argv[1:]))
+        prom = args.metrics_out + ".prom"
+        with open(prom, "w") as f:
+            f.write(obs.registry.prometheus_text())
+        print(f"metrics snapshot -> {args.metrics_out} (+ {prom})")
+    if args.flight_out:
+        print(f"flight record -> {args.flight_out}")
 
 
 def _span(text: str) -> tuple[int, int]:
@@ -226,6 +285,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--long-prompt", type=int, default=0, metavar="N",
                     help="inject one prompt of N tokens two ticks into "
                          "the run")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="speculative decode: a draft pair proposes K "
+                         "tokens a slot per tick, the target verifies "
+                         "the bursts in one chunk call (greedy)")
+    ap.add_argument("--draft", default=None, metavar="ARCH",
+                    help="draft arch for --spec-decode (same vocab, "
+                         "weights from --seed + 1; default: the target)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics registry's JSON snapshot to "
+                         "PATH and its Prometheus text to PATH.prom")
+    ap.add_argument("--flight-out", default=None, metavar="PATH",
+                    help="record the JSONL flight record (per-request "
+                         "lifecycle events and per-tick snapshots)")
+    ap.add_argument("--sample-ops", type=int, default=0, metavar="N",
+                    help="time one decode tick in N op by op "
+                         "(op_time_us{kind} histograms); 0 = off")
+    ap.add_argument("--dash-every", type=int, default=0, metavar="N",
+                    help="print a one-line dashboard every N ticks; "
+                         "0 = off")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs "
                          "the plain PyTorch versions)")
@@ -233,9 +311,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint dir to load params from")
     args = ap.parse_args(argv)
+    obs = Observability(flight_path=args.flight_out,
+                        sample_ops_every=args.sample_ops)
     if args.arch in CNN_REGISTRY:
         res = serve_cnn(args.arch, slots=args.slots, requests=args.requests,
-                        device=args.device, seed=args.seed, ckpt=args.ckpt)
+                        device=args.device, seed=args.seed, ckpt=args.ckpt,
+                        obs=obs, dash_every=args.dash_every)
         done, dt = res["done"], res["seconds"]
         print(res["engine"].program.listing())
         print(f"served {len(done)} images in {dt:.2f}s "
@@ -243,14 +324,17 @@ def main(argv=None) -> dict:
         print(f"graph capture: {res['engine'].capture_seconds:.3f} s")
         for r in done[:4]:
             print(f"  req {r.uid}: class {r.out_tokens[0]}")
+        _write_artifacts(args, obs)
         return res
     try:
         cfg = get_config(args.arch)
+        draft_cfg = get_config(args.draft) if args.draft else None
     except (KeyError, NotImplementedError) as e:
         print(f"error: --arch {args.arch}: {e}", file=sys.stderr)
         raise SystemExit(2)
     if args.smoke:
         cfg = cfg.smoke()
+        draft_cfg = draft_cfg and draft_cfg.smoke()
     if args.window:
         cfg = dataclasses.replace(cfg, attn_window=args.window)
     res = serve_lm(cfg, slots=args.slots, max_len=args.max_len,
@@ -258,9 +342,10 @@ def main(argv=None) -> dict:
                    prompt_len=args.prompt_len, device=args.device,
                    seed=args.seed, shared_prefix=args.shared_prefix,
                    long_prompt=args.long_prompt, ckpt=args.ckpt,
-                   paged=args.paged,
-                   page_size=args.page_size,
-                   kv_quant=args.kv_quant, chunk_size=args.chunk_size)
+                   draft_cfg=draft_cfg, dash_every=args.dash_every,
+                   paged=args.paged, page_size=args.page_size,
+                   kv_quant=args.kv_quant, chunk_size=args.chunk_size,
+                   spec_k=args.spec_decode, obs=obs)
     eng, done, dt = res["engine"], res["done"], res["seconds"]
     n_tok = sum(len(r.out_tokens) for r in done)
     print(eng.program.listing().splitlines()[0])
@@ -273,6 +358,10 @@ def main(argv=None) -> dict:
     if eng.chunk_size is not None:
         print(f"prefill_chunks={eng.n_prefill_chunks} "
               f"starved_ticks={eng.n_starved_ticks}")
+    if eng.spec_k:
+        print(f"spec_proposed={eng.n_spec_proposed} "
+              f"spec_accepted={eng.n_spec_accepted} "
+              f"spec_rollbacks={eng.n_spec_rollbacks}")
     adm = eng.admission
     if adm.n_rejected or adm.n_requeued:
         print(f"rejected={adm.n_rejected} requeued={adm.n_requeued} "
@@ -285,6 +374,7 @@ def main(argv=None) -> dict:
     for r in done[:4]:
         print(f"  req {r.uid}: {len(r.prompt)} prompt tokens -> "
               f"{r.out_tokens}")
+    _write_artifacts(args, obs)
     return res
 
 

@@ -16,6 +16,8 @@ sharing one persistent region table -- contiguous, rolling-window or
 optionally in int8 pages.  The recurrent families lower through their
 own modules' graph builders (``ssm`` through models/rwkv.py, ``hybrid``
 through models/zamba2.py), dispatched by ``compile_program_pair``.
+``compile_draft_pair`` compiles the speculative-decode draft's pair at
+the target's geometry, after its vocab, window and family gates.
 
 MoE configs put their experts in every layer (granite,
 ``moe_every=1``: the experts stacked in "blocks") or interleave
@@ -64,8 +66,8 @@ from .common import ParamDef, Rotary, apply_rope, layer_norm, rms_norm
 from .moe import moe_mlp
 
 __all__ = ["param_defs", "forward", "to_graph", "to_decode_graph",
-           "compile_program", "compile_program_pair", "program_forward",
-           "kv_cache_len"]
+           "compile_program", "compile_program_pair", "compile_draft_pair",
+           "program_forward", "kv_cache_len"]
 
 
 # --- parameter declaration -------------------------------------------------------
@@ -587,6 +589,45 @@ def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
         prefill=lower_to_program(pre_graph, pre_sched, pre_plan),
         decode=lower_to_program(dec_graph, dec_sched, dec_plan),
         slots=slots, max_len=max_len, paged=paged_plan, caps=caps)
+
+
+def compile_draft_pair(target_cfg: ArchConfig, draft_cfg: ArchConfig,
+                       slots: int = 8, max_len: int = 256,
+                       hw: HardwareModel = TPU_V5E) -> ProgramPair:
+    """Compile the speculative-decode *draft* (prefill, decode) pair --
+    ``compile_program_pair`` verbatim on the draft config, the target's
+    (slots, max_len) geometry -- after checking the draft can propose
+    for ``target_cfg``.
+
+    The draft proposes token ids the target verifies, so the
+    vocabularies must be identical.  Sliding windows are refused on
+    either side: rollback truncates each slot's length, which is only
+    sound while every cache row below the truncated length is still
+    resident, and a ring that wrapped during the burst has overwritten
+    rows the truncation re-exposes.  The target must be dense (its state
+    caps: rollback of recurrent or capacity-routed state is not a length
+    truncation).  A self-draft (``draft_cfg == target_cfg``) gets the
+    target's own memoized pair; its ``ProgramState`` is the engine's
+    second one."""
+    if draft_cfg.vocab != target_cfg.vocab:
+        raise ValueError(
+            f"draft/target vocab mismatch ({draft_cfg.vocab} vs "
+            f"{target_cfg.vocab}): speculative decode exchanges token "
+            f"ids, the vocabularies must be identical")
+    if target_cfg.attn_window or draft_cfg.attn_window:
+        raise NotImplementedError(
+            "speculative decode over windowed attention: rollback "
+            "truncates lengths, but a wrapped ring has already "
+            "overwritten the rows the truncation re-exposes")
+    if target_cfg.family != "dense":
+        raise NotImplementedError(
+            f"speculative decode requires a speculatable target "
+            f"(family state caps): {target_cfg.name} is "
+            f"family={target_cfg.family}, whose state rollback is not "
+            f"length-truncation")
+    _require_dense(draft_cfg)
+    return compile_program_pair(draft_cfg, slots=slots, max_len=max_len,
+                                hw=hw)
 
 
 def program_forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",

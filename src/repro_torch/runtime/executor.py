@@ -53,6 +53,13 @@ expert weights and adds the residual on the writeback; a prefill hands
 it the prompt's length as ``valid_count``, so the padded rows claim no
 expert capacity.
 
+``trace_program`` walks a Program op by op, eagerly, timing each op on
+the card and recording the reference's ``TraceRecord`` schema (shapes
+with numpy's dtype names, so the JSONL of either package reads in the
+other); it works on a copy of the state it is given.
+``OpTimingSampler`` runs it on one serving tick in N and files the
+times on the metrics plane.
+
 A ``cross_attention`` op (whisper's decoder) reads the slot's read-only
 encoder memory regions, which the serving engine writes at admission
 before the prefill runs: a prefill takes the admitted slot's rows
@@ -66,6 +73,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import json
 import time
 from dataclasses import dataclass, field
 
@@ -88,7 +97,8 @@ __all__ = ["run", "walk", "ProgramState", "GraphStore",
            "run_decode", "graphed_runner", "graphed_prefill_runner",
            "graphed_decode_runner", "graphed_chunk_runner",
            "disable_graphs", "PagePool", "paged_pool_regions",
-           "sync_page_table", "apply_page_copies"]
+           "sync_page_table", "apply_page_copies", "TraceRecord",
+           "ExecutorTrace", "trace_program", "OpTimingSampler"]
 
 # coarse recurrent block ops, dispatched by ``_run_family_op``
 _FAMILY_KERNELS = ("wkv", "ssm_scan")
@@ -306,12 +316,9 @@ def run(program: Program, params, x: torch.Tensor, *,
             raise ValueError(
                 f"op {op.name} needs a ProgramState (persistent KV "
                 f"regions); use run_decode for decode Programs")
-        if op.kernel in _FAMILY_KERNELS:
-            regions[op.out_region] = _run_family_op(
-                op, regions[op.in_region], params, None, impl=impl)
-            continue
-        regions[op.out_region] = _run_op(op, regions[op.in_region], regions,
-                                         params, impl=impl)
+        regions[op.out_region] = _run_decode_op(
+            op, regions[op.in_region], regions, params, None, None, None,
+            impl=impl)
     return regions[program.output_region]
 
 
@@ -790,30 +797,33 @@ def run_decode(program: Program, params, tokens: torch.Tensor,
     live = (torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
             if mask is None else mask.to(device=pos.device, dtype=torch.bool))
     for op in program.ops:
-        src = regions[op.in_region]
-        if op.kernel == "decode_attention" and op.page_table_region is None:
-            regions[op.out_region] = _run_decode_attention(
-                op, src, regions[op.k_region], regions[op.v_region],
-                state.caches[op.k_cache_region],
-                state.caches[op.v_cache_region], pos, live, impl=impl)
-            continue
-        if op.kernel == "decode_attention":
-            regions[op.out_region] = _run_decode_attention_paged(
-                op, src, regions[op.k_region], regions[op.v_region],
-                state.caches, pos, live, impl=impl)
-            continue
-        if op.kernel in _FAMILY_KERNELS:
-            regions[op.out_region] = _run_family_op(
-                op, src, params, state.caches, live=live, impl=impl)
-            continue
-        if op.kernel == "cross_attention":
-            regions[op.out_region] = _run_cross_attention(
-                op, src, state.caches, impl=impl)
-            continue
-        regions[op.out_region] = _run_op(op, src, regions, params, impl=impl,
-                                         pos=pos)
+        regions[op.out_region] = _run_decode_op(
+            op, regions[op.in_region], regions, params, state.caches, pos,
+            live, impl=impl)
     state.lengths += live.to(torch.int32)
     return regions[program.output_region]
+
+
+def _run_decode_op(op: ProgramOp, src, regions: dict, params,
+                   caches: dict | None, pos, live, *, impl: str):
+    """One op of a decode tick against the state's ``caches`` (written in
+    place) at the slots' positions ``pos``; with ``caches=None``, one op
+    of a stateless Program.  The one per-op dispatcher of ``run``,
+    ``run_decode`` and ``trace_program``."""
+    if op.kernel == "decode_attention" and op.page_table_region is None:
+        return _run_decode_attention(
+            op, src, regions[op.k_region], regions[op.v_region],
+            caches[op.k_cache_region], caches[op.v_cache_region], pos, live,
+            impl=impl)
+    if op.kernel == "decode_attention":
+        return _run_decode_attention_paged(
+            op, src, regions[op.k_region], regions[op.v_region], caches,
+            pos, live, impl=impl)
+    if op.kernel in _FAMILY_KERNELS:
+        return _run_family_op(op, src, params, caches, live=live, impl=impl)
+    if op.kernel == "cross_attention" and caches is not None:
+        return _run_cross_attention(op, src, caches, impl=impl)
+    return _run_op(op, src, regions, params, impl=impl, pos=pos)
 
 
 # --- CUDA-graph runners (the reference's jitted runners) ----------------------------
@@ -1289,3 +1299,313 @@ def apply_page_copies(state: ProgramState, pair: ProgramPair,
     for rid in rids:
         buf = state.caches[rid]
         buf[dst.to(buf.device)] = buf[src.to(buf.device)]
+
+
+# --- trace recorder and sampled op timing ------------------------------------------
+def _shape_dtype(x: torch.Tensor) -> list:
+    """[shape, dtype] with numpy's dtype names, as the reference records."""
+    return [list(x.shape), str(x.dtype).removeprefix("torch.")]
+
+
+def _op_operands(op: ProgramOp, regions: dict, params,
+                 caches: dict | None = None) -> dict:
+    """role -> [shape, dtype] for everything the op touches."""
+    out: dict[str, list] = {"in": _shape_dtype(regions[op.in_region])}
+    for role, rid in (("k", op.k_region), ("v", op.v_region),
+                      ("in2", op.in2_region)):
+        if rid is not None:
+            out[role] = _shape_dtype(regions[rid])
+    if op.fuse_bypass and op.bypass_region is not None:
+        out["bypass"] = _shape_dtype(regions[op.bypass_region])
+    if op.param_key is not None:
+        p = _param(params, op.param_key)
+        if isinstance(p, dict) and "w" not in p:
+            # Family ops (wkv / ssm_scan / moe_dispatch) carry a whole
+            # block subtree, not a w/b pair: record its leaf count.
+            out["param_dict"] = [[sum(1 for _ in _leaves(p))], "tree"]
+        elif isinstance(p, dict):
+            out["w"] = _shape_dtype(p["w"])
+            if "b" in p:
+                out["b"] = _shape_dtype(p["b"])
+            out["param_dict"] = [[], "dict"]
+        else:
+            out["w"] = _shape_dtype(p)
+            out["param_dict"] = [[], "array"]
+    if op.param_key_b is not None:
+        out["b"] = _shape_dtype(_param(params, op.param_key_b))
+    if caches is not None and op.k_cache_region is not None:
+        out["k_cache"] = _shape_dtype(caches[op.k_cache_region])
+        out["v_cache"] = _shape_dtype(caches[op.v_cache_region])
+    if caches is not None and op.state_regions:
+        for j, rid in enumerate(op.state_regions):
+            out[f"state{j}"] = _shape_dtype(caches[rid])
+    return out
+
+
+def _op_schedule(op: ProgramOp) -> dict:
+    """The op's resolved schedule decisions, JSON-shaped: every field
+    the kernels receive verbatim."""
+    d: dict = {
+        "strip_storage": op.strip_storage,
+        "dataflow": op.dataflow.value if op.dataflow else None,
+        "block": list(op.block) if op.block else None,
+        "stride": op.stride, "pad": op.pad, "window": op.window,
+        "fuse_bias": op.fuse_bias, "fuse_activation": op.fuse_activation,
+        "fuse_bypass": op.fuse_bypass, "bypass_first": op.bypass_first,
+        "fuse_pool": list(op.fuse_pool) if op.fuse_pool else None,
+        "norm_kind": op.norm_kind, "flatten_input": op.flatten_input,
+        "transpose_w": op.transpose_w,
+    }
+    if op.conv_tiling is not None:
+        d["conv_tiling"] = dataclasses.asdict(op.conv_tiling)
+    if op.attn is not None:
+        a = op.attn
+        d["attn"] = {"heads": a.heads, "kv_heads": a.kv_heads,
+                     "head_dim": a.head_dim, "causal": a.causal,
+                     "window": a.window, "rope_theta": a.rope_theta,
+                     "block_q": a.block_q, "block_kv": a.block_kv,
+                     "page_size": a.page_size}
+    return d
+
+
+@dataclass
+class TraceRecord:
+    """One executed ProgramOp: identity, resolved schedule, operand
+    shapes, modeled cost and measured time.  ``measured_time_s`` (and
+    ``repeats``) are the only run-to-run varying fields (``static_dict``
+    drops them); the rest is a function of the Program and its inputs,
+    equal to the reference's record of the same op."""
+    index: int
+    name: str
+    kind: str                        # ProgramOp.kernel
+    operands: dict
+    schedule: dict
+    flops: float
+    traffic_bytes: float
+    modeled_time_s: float
+    measured_time_s: float | None = None
+    repeats: int = 0
+    # runtime operand values a replay needs beyond shapes: the decode
+    # slots' positions and occupancy (kv_len drives the attention work).
+    extras: dict = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TraceRecord":
+        return cls(**d)
+
+    def static_dict(self) -> dict:
+        d = self.to_dict()
+        d.pop("measured_time_s")
+        d.pop("repeats")
+        return d
+
+
+@dataclass
+class ExecutorTrace:
+    """A traced Program execution: one TraceRecord per op and what is
+    needed to read the timings.  Serializes to JSONL (a meta header
+    line, then one record per line), the reference's interchange
+    format.  ``state`` (not serialized) is the copy of the
+    ``ProgramState`` the walk advanced; the caller's state is left as it
+    was."""
+    program: str
+    hw: str
+    impl: str
+    interpret: bool | None
+    repeats: int
+    records: list = field(default_factory=list)
+    state: "ProgramState | None" = field(default=None, repr=False,
+                                         compare=False)
+
+    def record_dicts(self) -> list[dict]:
+        return [r.to_dict() for r in self.records]
+
+    def to_jsonl(self) -> str:
+        meta = {"trace_meta": {"program": self.program, "hw": self.hw,
+                               "impl": self.impl, "interpret": self.interpret,
+                               "repeats": self.repeats}}
+        lines = [json.dumps(meta)]
+        lines += [json.dumps(d, sort_keys=True) for d in self.record_dicts()]
+        return "\n".join(lines) + "\n"
+
+    @classmethod
+    def from_jsonl(cls, text: str) -> "ExecutorTrace":
+        lines = [ln for ln in text.splitlines() if ln.strip()]
+        meta = json.loads(lines[0])["trace_meta"]
+        recs = [TraceRecord.from_dict(json.loads(ln)) for ln in lines[1:]]
+        return cls(records=recs, **meta)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _time_thunk(thunk, repeats: int, device: torch.device,
+                reset=None) -> float:
+    """Min-of-``repeats`` seconds of ``thunk()``, each call between two
+    device synchronises, so the time is the device's work plus the
+    launch, not the launch alone; ``reset()`` (untimed) puts back the
+    state an op writes before each call.  The caller's first call was
+    the warm-up."""
+    best = float("inf")
+    for _ in range(repeats):
+        if reset is not None:
+            reset()
+        _sync(device)
+        t0 = time.perf_counter()
+        thunk()
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _written_regions(op: ProgramOp) -> tuple:
+    """The persistent regions a decode-side op writes in place."""
+    if op.kernel == "decode_attention":
+        return tuple(r for r in (op.k_cache_region, op.v_cache_region,
+                                 op.k_scale_region, op.v_scale_region)
+                     if r is not None)
+    if op.kernel in _FAMILY_KERNELS:
+        return tuple(op.state_regions)
+    return ()
+
+
+@torch.no_grad()
+def trace_program(program: Program, params, x: torch.Tensor, *,
+                  impl: str = "auto", repeats: int = 3,
+                  state: ProgramState | None = None,
+                  mask: torch.Tensor | None = None) -> ExecutorTrace:
+    """Execute ``program`` op by op, eagerly, recording each op's
+    resolved schedule, operand shapes, modeled cost and measured time.
+
+    Opt-in (the fast path is the graphed runners).  Stateless Programs
+    take (params, x); decode Programs also need ``state`` (and an
+    optional occupancy ``mask``), and a ``decode_attention`` op's cache
+    write is timed as part of it.  The walk runs on a copy of ``state``
+    (returned advanced as ``run_decode`` would leave it, in
+    ``trace.state``): the caller's tensors, which captured CUDA graphs
+    read, are never touched.  Each op runs once, then ``repeats`` timed
+    times (``repeats >= 1``), every timed call from the
+    pre-op copy of the state it writes, and the first call's result is
+    what the walk keeps -- so a repeat never advances a cache row or a
+    recurrent state twice.  On the card each call is timed between two
+    device synchronises.  Never called while a CUDA graph is captured.
+    """
+    if repeats < 1:
+        raise ValueError(f"repeats must be >= 1, got {repeats}")
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("trace_program runs eagerly; it cannot run "
+                           "inside a CUDA graph capture")
+    is_decode = (any(op.kernel == "decode_attention" for op in program.ops)
+                 or program.name.endswith(".decode"))
+    if is_decode and state is None:
+        raise ValueError("decode Programs need state=; see run_decode")
+    regions: dict[int, torch.Tensor] = {program.input_region: x}
+    work = caches = pos = live = None
+    if state is not None:
+        work = ProgramState({r: t.clone() for r, t in state.caches.items()},
+                            state.lengths.clone())
+        caches, pos = work.caches, work.lengths
+        live = (torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
+                if mask is None
+                else mask.to(device=pos.device, dtype=torch.bool))
+    trace = ExecutorTrace(program=program.name, hw=program.hw_name,
+                          impl=impl, interpret=None, repeats=repeats,
+                          state=work)
+    for op in program.ops:
+        src = regions[op.in_region]
+        written = _written_regions(op) if caches is not None else ()
+        before = {r: caches[r].clone() for r in written}
+
+        def thunk(op=op, src=src):
+            return _run_decode_op(op, src, regions, params, caches,
+                                  pos if is_decode else None, live,
+                                  impl=impl)
+
+        def reset(before=before):
+            for r, t in before.items():
+                caches[r].copy_(t)
+
+        out = thunk()
+        after = {r: caches[r].clone() for r in written}
+        measured = _time_thunk(thunk, repeats, x.device, reset)
+        for r, t in after.items():
+            caches[r].copy_(t)
+        regions[op.out_region] = out
+        operands = _op_operands(op, regions, params, caches)
+        operands["out"] = _shape_dtype(out)
+        extras = {}
+        if op.kernel == "decode_attention":
+            extras = {"pos": [int(p) for p in pos.tolist()],
+                      "live": [bool(b) for b in live.tolist()]}
+        trace.records.append(TraceRecord(
+            index=op.index, name=op.name, kind=op.kernel,
+            operands=operands, schedule=_op_schedule(op),
+            flops=op.flops, traffic_bytes=op.traffic_bytes,
+            modeled_time_s=op.exec_time_s, measured_time_s=measured,
+            repeats=repeats, extras=extras))
+    if work is not None and is_decode:
+        work.lengths += live.to(torch.int32)
+    return trace
+
+
+class OpTimingSampler:
+    """Sampled op timing for serving ticks.
+
+    Every ``every``-th ``tick()`` walks a decode Program once through
+    ``trace_program`` (``REPEATS`` timed calls an op, after the untimed
+    first) on a copy of a ``ProgramState`` and attributes the measured
+    times to op kinds on the metrics plane (``op_time_us{kind=...}``
+    histograms), plus one ``op_sample`` flight event per op, labelled
+    with the ``role`` of the Program the tick ran ("target", or "draft"
+    for a speculative tick's draft round).  The other ``every - 1``
+    ticks cost one integer increment.  The walk reads the live state and
+    writes only its copy, so the engine's caches, lengths and captured
+    graphs are untouched; the engine samples before the sampled
+    Program's call, outside any capture."""
+
+    REPEATS = 1
+
+    def __init__(self, every: int, registry=None, flight=None, *,
+                 impl: str = "auto"):
+        if every < 0:
+            raise ValueError(f"sample cadence must be >= 0, got {every}")
+        self.every = every
+        self.registry = registry
+        self.flight = flight
+        self.impl = impl
+        self.n_calls = 0
+        self.n_samples = 0
+
+    def tick(self, program: Program, params, tokens, *,
+             state: ProgramState | None = None, mask=None,
+             role: str = "target") -> ExecutorTrace | None:
+        """Count one tick; on the sampled ones, trace and time the
+        Program and feed the records to the metrics and flight planes.
+        Returns the trace on sampled ticks, None otherwise."""
+        if not self.every:
+            return None
+        self.n_calls += 1
+        if self.n_calls % self.every:
+            return None
+        trace = trace_program(program, params, tokens, impl=self.impl,
+                              repeats=self.REPEATS, state=state, mask=mask)
+        self.n_samples += 1
+        for rec in trace.records:
+            if self.registry is not None:
+                self.registry.histogram(
+                    "op_time_us",
+                    help="sampled per-op executor wallclock",
+                    kind=rec.kind).observe(rec.measured_time_s * 1e6)
+            if self.flight is not None:
+                self.flight.event(
+                    "op_sample", kind=rec.kind, name=rec.name,
+                    role=role, index=rec.index, flops=rec.flops,
+                    traffic_bytes=rec.traffic_bytes,
+                    modeled_time_s=rec.modeled_time_s,
+                    measured_time_s=rec.measured_time_s)
+        return trace

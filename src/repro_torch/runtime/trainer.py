@@ -16,7 +16,7 @@ Behaviours (tests/test_torch_train.py):
   to evict the slow host and re-shard — here it feeds the log + metrics
   so tests can assert on it).  The median comes off an
   ``obs.Histogram`` over the window — the fixed-bucket type of the
-  metrics plane (ROADMAP A.8) — and a cumulative ``step_time_s``
+  metrics plane — and a cumulative ``step_time_s``
   histogram rides in ``metrics_history`` (p50/p99 per log record);
 * **NaN containment** — a non-finite loss is logged as an anomaly and
   counts toward an abort threshold (``FloatingPointError`` at

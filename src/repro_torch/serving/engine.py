@@ -49,10 +49,33 @@ later calls replay it.  Host work stays between calls: admission,
 call's logits read before the next call.  ``capture_seconds`` sums the
 time spent capturing.
 
+``spec_k`` turns on greedy speculative decode: a draft (prefill,
+decode) pair (``models/transformer.py::compile_draft_pair``; the target
+itself unless ``draft_cfg`` / ``draft_params`` name another model, with
+its own ``ProgramState`` and graphs either way) proposes up to k tokens
+a slot in k batched draft ticks; the target verifies every live slot's
+burst in one chunk call over the whole ``(B, max_len)`` token buffer
+(one graph per width B), accepts the longest agreeing prefix, emits the
+correcting token, and rolls back by copying the truncated lengths into
+both states' ``lengths`` tensors in place (the captured graphs read
+those addresses).  Greedy output equals speculation off
+(``n_spec_proposed`` / ``n_spec_accepted`` / ``n_spec_rollbacks`` count
+the bursts).
+
+Every engine reports through one ``obs.Observability`` bundle: the
+``n_*`` counters live on its ``MetricsRegistry`` (the attributes read
+through), each tick's wallclock and TTFT / inter-token latency land in
+fixed-bucket histograms (``tick_ms``, ``ttft_ms``, ``itl_ms``), and a
+flight recorder, when attached, receives every request's lifecycle
+(enqueue, admission ticket, prefill chunks, tokens, spec bursts, COW
+forks, release) and one snapshot a tick; ``obs.replay_summary`` rebuilds
+the token streams from it.  ``sample_ops_every=N`` times one decode
+tick in N op by op (``executor.OpTimingSampler``) on a copy of the
+state.  The default bundle records counters and histograms only.
+
 The engine runs on the card unless the caller passes ``device="cpu"``
 (then every op runs its plain PyTorch version, eagerly); with no card
-and no device named it raises.  Speculative decode (ROADMAP A.7) and the
-``obs`` metrics plane (A.8) are not ported; asking for them raises.
+and no device named it raises.
 """
 from __future__ import annotations
 
@@ -66,7 +89,8 @@ from ..core.regions import state_specs
 from ..kernels.common import resolve_device
 from ..models import MEMORY_WRITERS
 from ..models.cnn import compile_program
-from ..models.transformer import compile_program_pair
+from ..models.transformer import compile_draft_pair, compile_program_pair
+from ..obs import Observability
 from ..runtime import executor
 from .admission import (NO_FREE_SLOT, PAGES_EXHAUSTED, AdmissionQueue,
                         AdmissionTicket)
@@ -117,13 +141,9 @@ class ServingEngine:
                  queue_capacity: int | None = None, program=None,
                  paged: bool = False, page_size: int = 16,
                  page_pool: int | None = None, kv_quant: str | None = None,
-                 chunk_size: int | None = None, spec_k: int = 0, obs=None):
-        for name, asked, item in (("spec_k", bool(spec_k), "A.7"),
-                                  ("obs", obs is not None, "A.8")):
-            if asked:
-                raise NotImplementedError(
-                    f"{name}: not ported to repro_torch yet (ROADMAP "
-                    f"{item})")
+                 chunk_size: int | None = None, spec_k: int = 0,
+                 draft_cfg=None, draft_params=None,
+                 obs: Observability | None = None):
         if not isinstance(cfg, (ArchConfig, CNNConfig)):
             raise TypeError(f"cannot serve {type(cfg).__name__}")
         self.cfg = cfg
@@ -131,7 +151,21 @@ class ServingEngine:
         self.params = _to_device(params, self.device)
         self.slots = slots
         self.impl = impl
+        # One metrics plane and flight recorder per engine; the default
+        # bundle is counters and histograms only.
+        self.obs = obs if obs is not None else Observability()
+        self._init_metrics()
+        self.tick_no = 0
+        self._op_sampler = None
+        self.spec_k = spec_k
+        self._spec = False
+        self.live: dict[int, Request] = {}           # slot -> request
+        self._pool = None
         if isinstance(cfg, CNNConfig):
+            if chunk_size is not None or spec_k:
+                raise ValueError(
+                    "chunked prefill / speculative decode need the "
+                    f"stateful LM Program path, not {cfg.name}")
             # The Program handed in (paper-faithful, another hardware
             # model) is the one served, as in the reference.
             self.queue: list[Request] = []
@@ -160,8 +194,9 @@ class ServingEngine:
                                                         impl=impl)
         self._decode = executor.graphed_decode_runner(program.decode,
                                                       impl=impl)
-        self.admission = AdmissionQueue(queue_capacity)
-        self.live: dict[int, Request] = {}           # slot -> request
+        # admission_* metrics land on the engine's registry.
+        self.admission = AdmissionQueue(queue_capacity,
+                                        registry=self.obs.registry)
         # Host-side page allocator of a paged pair: admission, on-demand
         # decode pages and COW forks are decided here between executor
         # calls; the device sees the synced table and page copies.
@@ -177,17 +212,130 @@ class ServingEngine:
                 raise ValueError(f"pair is not chunkable: "
                                  f"{program.chunk_blocker}")
         self.chunk_size = chunk_size
+        # The chunk runner also carries the speculative verify.
         self._chunk = (executor.graphed_chunk_runner(program.prefill,
                                                      impl=impl)
-                       if chunk_size is not None else None)
+                       if chunk_size is not None or spec_k else None)
         self._prefilling: dict[int, _InFlightPrefill] = {}
-        self.n_prefills = 0
-        self.n_prefill_recomputes = 0
-        self.n_decode_ticks = 0
-        self.n_prefill_chunks = 0
-        self.n_starved_ticks = 0
-        self.n_shared_pages = 0
-        self.n_cow_forks = 0
+        self._init_spec(program, draft_cfg, draft_params)
+        if self.obs.sample_ops_every:
+            self._op_sampler = executor.OpTimingSampler(
+                self.obs.sample_ops_every, registry=self.obs.registry,
+                flight=self.obs.flight, impl=impl)
+
+    def _init_metrics(self) -> None:
+        """Register the engine's metric families on the bundle's
+        registry; the ``n_*`` attributes read through to these
+        counters."""
+        m = self.obs.registry
+        c, g, h = m.counter, m.gauge, m.histogram
+        self._c_prefills = c("serving_prefills_total")
+        self._c_prefill_recomputes = c("serving_prefill_recomputes_total")
+        self._c_decode_ticks = c("serving_decode_ticks_total")
+        # A live slot a tick failed to advance counts in starved_ticks.
+        self._c_prefill_chunks = c("serving_prefill_chunks_total")
+        self._c_starved = c("serving_starved_ticks_total")
+        # Draft tokens proposed and accepted, and bursts accepted short
+        # of their length (rollbacks).
+        self._c_spec_proposed = c("serving_spec_proposed_total")
+        self._c_spec_accepted = c("serving_spec_accepted_total")
+        self._c_spec_rollbacks = c("serving_spec_rollbacks_total")
+        self._c_shared_pages = c("serving_shared_pages_total")
+        self._c_cow_forks = c("serving_cow_forks_total")
+        self._c_requests = c("serving_requests_total",
+                             help="requests submitted")
+        self._c_finished = c("serving_requests_finished_total")
+        self._c_tokens = c("serving_tokens_total",
+                           help="generated tokens emitted")
+        self._g_live = g("serving_live_slots")
+        self._g_queue = g("serving_queue_depth")
+        self._g_free_pages = g("serving_free_pages")
+        self._h_tick = h("tick_ms", help="engine tick wallclock")
+        self._h_ttft = h("ttft_ms", help="enqueue to first token")
+        self._h_itl = h("itl_ms", help="inter-token latency")
+
+    @property
+    def n_prefills(self) -> int:
+        return int(self._c_prefills.value)
+
+    @property
+    def n_prefill_recomputes(self) -> int:
+        return int(self._c_prefill_recomputes.value)
+
+    @property
+    def n_decode_ticks(self) -> int:
+        return int(self._c_decode_ticks.value)
+
+    @property
+    def n_prefill_chunks(self) -> int:
+        return int(self._c_prefill_chunks.value)
+
+    @property
+    def n_starved_ticks(self) -> int:
+        return int(self._c_starved.value)
+
+    @property
+    def n_spec_proposed(self) -> int:
+        return int(self._c_spec_proposed.value)
+
+    @property
+    def n_spec_accepted(self) -> int:
+        return int(self._c_spec_accepted.value)
+
+    @property
+    def n_spec_rollbacks(self) -> int:
+        return int(self._c_spec_rollbacks.value)
+
+    @property
+    def n_shared_pages(self) -> int:
+        return int(self._c_shared_pages.value)
+
+    @property
+    def n_cow_forks(self) -> int:
+        return int(self._c_cow_forks.value)
+
+    def _init_spec(self, pair, draft_cfg, draft_params) -> None:
+        """Wire the speculative-decode draft: its (prefill, decode) pair
+        at the target's geometry, its own ``ProgramState`` (so its own
+        graphs, even when the pair is the target's), and its runners."""
+        if not self.spec_k:
+            return
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if not self.greedy:
+            raise ValueError(
+                "speculative decode verifies greedy argmax proposals; "
+                "sampling acceptance is out of scope (greedy=True)")
+        if pair.paged is not None:
+            raise NotImplementedError(
+                "speculative decode over paged KV: the verify burst "
+                "would need per-row page preparation (COW forks) "
+                "inside the tick; serve paged configs without spec_k")
+        if pair.caps is not None and not pair.caps.speculatable:
+            raise NotImplementedError(
+                f"speculative decode needs speculatable family state "
+                f"({self.cfg.name} is family={self.cfg.family}): "
+                f"rollback truncates lengths, which cannot rewind "
+                f"recurrent or capacity-routed state")
+        if draft_cfg is None:
+            draft_cfg = self.cfg
+            if draft_params is None:
+                # Self-draft: every proposal verifies.
+                draft_params = self.params
+        if draft_params is None:
+            raise ValueError(
+                f"draft_cfg {draft_cfg.name} needs draft_params "
+                f"(the draft is a separate model)")
+        dpair = compile_draft_pair(self.cfg, draft_cfg, slots=self.slots,
+                                   max_len=self.max_len)
+        self._draft_params = _to_device(draft_params, self.device)
+        self._draft_pair = dpair
+        self._draft_state = executor.init_program_state(dpair, self.device)
+        self._draft_prefill = executor.graphed_prefill_runner(
+            dpair.prefill, impl=self.impl)
+        self._draft_decode = executor.graphed_decode_runner(
+            dpair.decode, impl=self.impl)
+        self._spec = True
 
     @property
     def lm(self) -> bool:
@@ -196,25 +344,65 @@ class ServingEngine:
     @property
     def capture_seconds(self) -> float:
         """Seconds spent capturing CUDA graphs, summed over this
-        engine's graphs (0 on the CPU)."""
-        if self.lm:
-            return self.state.graphs.capture_seconds
-        return self._infer.store(self.params).capture_seconds
+        engine's graphs, the draft's included (0 on the CPU)."""
+        if not self.lm:
+            return self._infer.store(self.params).capture_seconds
+        secs = self.state.graphs.capture_seconds
+        if self._spec:
+            secs += self._draft_state.graphs.capture_seconds
+        return secs
 
     def submit(self, req: Request) -> AdmissionTicket:
         """Enqueue a request.  LM requests go through the bounded
         admission queue (rejected with ``queue_full`` at capacity);
-        images are served FIFO by the next ticks."""
+        images are served FIFO by the next ticks.  Stamps the enqueue
+        time (TTFT starts here) and records the lifecycle events."""
+        req._enqueue_t = self.obs.clock()
+        self._c_requests.inc()
+        prompt_len = (len(req.prompt)
+                      if getattr(req.prompt, "ndim", 1) == 1 else 0)
+        self.obs.flight.event("enqueue", uid=req.uid, prompt_len=prompt_len)
         if self.lm:
-            return self.admission.submit(req)
-        self.queue.append(req)
-        return AdmissionTicket(True, "queued", len(self.queue) - 1)
+            ticket = self.admission.submit(req)
+        else:
+            self.queue.append(req)
+            ticket = AdmissionTicket(True, "queued", len(self.queue) - 1)
+        self.obs.flight.event("admission", uid=req.uid,
+                              accepted=ticket.accepted, reason=ticket.reason,
+                              position=ticket.position)
+        return ticket
 
     def step(self) -> list[Request]:
-        """One engine tick; returns the requests it finished."""
-        if self.lm:
-            return self._lm_program_step()
-        return self._program_step()
+        """One engine tick; returns the requests it finished.  Every
+        tick is timed onto ``tick_ms``, sets the live / queue / free-page
+        gauges and records one ``tick`` flight event."""
+        t0 = self.obs.clock()
+        finished = (self._lm_program_step() if self.lm
+                    else self._program_step())
+        dt_ms = (self.obs.clock() - t0) * 1e3
+        self.tick_no += 1
+        self._h_tick.observe(dt_ms)
+        qd = len(self.admission) if self.lm else len(self.queue)
+        free_pages = self._pool.free_pages if self._pool is not None else -1
+        self._g_live.set(len(self.live))
+        self._g_queue.set(qd)
+        self._g_free_pages.set(free_pages)
+        self.obs.flight.event(
+            "tick", tick=self.tick_no, dt_ms=dt_ms, live=len(self.live),
+            queue_depth=qd, free_pages=free_pages,
+            starved=int(self._c_starved.value))
+        return finished
+
+    def dashboard_line(self) -> str:
+        """One-line console dashboard, read off the same registry the
+        artifacts serialize."""
+        ttft, itl = self._h_ttft.percentile, self._h_itl.percentile
+        return (f"tick {self.tick_no:>6} | live {len(self.live):>3} "
+                f"| queue {int(self._g_queue.value):>3} "
+                f"| toks {int(self._c_tokens.value):>7} "
+                f"| ttft_p50 {ttft(50.0):8.1f}ms "
+                f"| itl_p50 {itl(50.0):7.2f}ms "
+                f"| starved {int(self._c_starved.value)}")
 
     def run_until_drained(self, max_ticks: int = 10_000) -> list[Request]:
         done = []
@@ -259,17 +447,41 @@ class ServingEngine:
                    .choice(self.cfg.vocab, p=_softmax(logits_row)))
 
     def _emit_tokens(self, slot: int, req: Request, toks,
-                     finished: list) -> None:
+                     finished: list) -> int:
         """Append generated tokens in order until EOS or the request's
-        budget retires it; a retired paged slot gives its pages back."""
+        budget retires it (a retired paged slot gives its pages back);
+        returns how many were kept -- a speculative burst past the
+        budget is cut here, so its stream equals the one-token path's."""
+        kept = 0
+        flight = self.obs.flight
         for nxt in toks:
+            now = self.obs.clock()
+            first = not req.out_tokens
             req.out_tokens.append(nxt)
             req._last_token = nxt
-            if ((self.eos is not None and nxt == self.eos)
-                    or len(req.out_tokens) >= req.max_new_tokens):
+            kept += 1
+            self._c_tokens.inc()
+            if first:
+                ttft_ms = ((now - req._enqueue_t) * 1e3
+                           if hasattr(req, "_enqueue_t") else 0.0)
+                self._h_ttft.observe(ttft_ms)
+                flight.event("first_token", uid=req.uid, slot=slot,
+                             token=nxt, ttft_ms=ttft_ms)
+            else:
+                itl_ms = (now - req._last_emit_t) * 1e3
+                self._h_itl.observe(itl_ms)
+                flight.event("token", uid=req.uid, slot=slot, token=nxt,
+                             itl_ms=itl_ms)
+            req._last_emit_t = now
+            eos = self.eos is not None and nxt == self.eos
+            if eos or len(req.out_tokens) >= req.max_new_tokens:
                 req.done = True
                 finished.append(req)
                 self.live.pop(slot, None)
+                self._c_finished.inc()
+                flight.event("release", uid=req.uid, slot=slot,
+                             n_tokens=len(req.out_tokens),
+                             reason="eos" if eos else "max_new_tokens")
                 if self._pool is not None:
                     # Unref the slot's pages (a donor's shared prefix
                     # stays resident while a sharer holds it) and drop
@@ -278,6 +490,7 @@ class ServingEngine:
                     self._slot_prompts.pop(slot, None)
                     self._slot_len.pop(slot, None)
                 break
+        return kept
 
     def _lm_admit(self, finished: list) -> None:
         """Prefill queued prompts into free slots, once per request.
@@ -290,10 +503,13 @@ class ServingEngine:
         ``max_len`` tokens.  A slot freed during the loop (a one-token
         budget) is reused at once.  A request the page pool cannot hold
         goes back to the head of the queue (``pages_exhausted``)."""
+        flight = self.obs.flight
         while self.admission:
             free = self._free_slots()
             if not free:
                 self.admission.note_blocked(NO_FREE_SLOT)
+                flight.event("admission", accepted=False,
+                             reason=NO_FREE_SLOT)
                 break
             req = self.admission.pop()
             if req is None:
@@ -307,12 +523,16 @@ class ServingEngine:
                 write_from = self._paged_admit(slot, win)
                 if write_from is None:
                     self.admission.requeue_front(req, PAGES_EXHAUSTED)
+                    flight.event("admission", accepted=False,
+                                 reason=PAGES_EXHAUSTED, uid=req.uid)
                     break
+            flight.event("prefill_start", uid=req.uid, slot=slot,
+                         length=len(win), write_from=write_from)
             if self._memory_writer is not None:
                 self._write_encoder_memory(slot, req)
+            padded = np.zeros((self.max_len,), np.int32)
+            padded[:len(win)] = win
             if self.chunk_size is not None:
-                padded = np.zeros((self.max_len,), np.int32)
-                padded[:len(win)] = win
                 # A wholly page-shared prompt still owes the chunk that
                 # computes its last row's logits (the write is
                 # redirected, the first token is not).
@@ -322,13 +542,12 @@ class ServingEngine:
                     write_from=write_from,
                     admitted_tick=self.n_decode_ticks)
                 continue
-            padded = np.zeros((1, self.max_len), np.int32)
-            padded[0, :len(win)] = win
-            logits = self._prefill(self.params, torch.from_numpy(padded),
+            logits = self._prefill(self.params,
+                                   torch.from_numpy(padded[None]),
                                    self.state, slot, len(win), write_from)
             self._finish_prefill(
-                slot, req, logits[0, len(win) - 1].float().cpu().numpy(),
-                finished)
+                slot, req, padded, len(win),
+                logits[0, len(win) - 1].float().cpu().numpy(), finished)
 
     def _write_encoder_memory(self, slot: int, req: Request) -> None:
         """Run the family's admission-time memory writer (the whisper
@@ -375,21 +594,28 @@ class ServingEngine:
         if not pool.can_admit(len(prompt), len(shared)):
             return None
         write_from = pool.admit(slot, len(prompt), shared)
-        self.n_shared_pages += len(shared)
+        self._c_shared_pages.inc(len(shared))
         self._slot_prompts[slot] = prompt
         self._slot_len[slot] = len(prompt)
         executor.sync_page_table(self.state, self.program, pool)
         return write_from
 
-    def _finish_prefill(self, slot: int, req: Request,
-                        last_logits: np.ndarray, finished: list) -> None:
-        """Accounting, liveness and the first generated token.  A second
+    def _finish_prefill(self, slot: int, req: Request, padded: np.ndarray,
+                        length: int, last_logits: np.ndarray,
+                        finished: list) -> None:
+        """Accounting, liveness, the draft's prefill of the same prompt
+        when speculation is on (its cache must hold the same history
+        before it proposes), and the first generated token.  A second
         prefill of one request would count in ``n_prefill_recomputes``."""
         if getattr(req, "_prefilled", False):
-            self.n_prefill_recomputes += 1
+            self._c_prefill_recomputes.inc()
         req._prefilled = True
-        self.n_prefills += 1
+        self._c_prefills.inc()
         self.live[slot] = req
+        if self._spec:
+            self._draft_prefill(self._draft_params,
+                                torch.from_numpy(padded[None]),
+                                self._draft_state, slot, length, 0)
         self._emit_tokens(slot, req, [self._next_token(req, last_logits)],
                           finished)
 
@@ -409,15 +635,17 @@ class ServingEngine:
                                                     items])),
             self.state, [s for s, _ in items], starts, stops, lengths,
             [p.write_from for _, p in items])
-        self.n_prefill_chunks += len(items)
+        self._c_prefill_chunks.inc(len(items))
         for i, (slot, p) in enumerate(items):
+            self.obs.flight.event("prefill_chunk", uid=p.req.uid, slot=slot,
+                                  start=int(starts[i]), stop=int(stops[i]))
             p.done = int(stops[i])
             if p.done < p.length:
                 continue
             del self._prefilling[slot]
             self._finish_prefill(
-                slot, p.req, logits[i, p.length - 1].float().cpu().numpy(),
-                finished)
+                slot, p.req, p.tokens, p.length,
+                logits[i, p.length - 1].float().cpu().numpy(), finished)
 
     def _prepare_pages(self) -> None:
         """Make each live slot's write page real and private before the
@@ -428,16 +656,20 @@ class ServingEngine:
             c = self._pool.prepare_decode(slot, self._slot_len[slot])
             if c is not None:
                 copies.append(c)
+                self.obs.flight.event("cow_fork", slot=slot,
+                                      src_page=int(c[0]),
+                                      dst_page=int(c[1]))
         executor.sync_page_table(self.state, self.program, self._pool)
         executor.apply_page_copies(self.state, self.program, copies)
-        self.n_cow_forks += len(copies)
+        self._c_cow_forks.inc(len(copies))
 
     def _lm_program_step(self) -> list[Request]:
         """Admit queued requests (whole prefill, or one chunk per tick),
-        then advance every live slot by one token through the decode
-        Program; the state's buffers update in place.  Decode-first
-        fairness: a slot live at the tick's start always advances this
-        tick (``n_starved_ticks`` counts violations)."""
+        then advance every live slot through the decode Program -- one
+        token, or a verified speculative burst; the state's buffers
+        update in place.  Decode-first fairness: a slot live at the
+        tick's start always advances this tick (``n_starved_ticks``
+        counts violations)."""
         finished: list[Request] = []
         self._lm_admit(finished)
         self._advance_prefills(finished)
@@ -451,22 +683,148 @@ class ServingEngine:
             occupied[slot] = True
         if self._pool is not None:
             self._prepare_pages()
-        # The occupancy mask keeps dead slots inert inside run_decode: no
-        # length advance, no cache-row write.
-        logits = self._decode(self.params, torch.from_numpy(toks),
-                              self.state, torch.from_numpy(occupied))
-        if self._pool is not None:
-            for slot in self.live:
-                self._slot_len[slot] += 1
-        rows = logits.float().cpu().numpy()
-        advanced = set()
-        for slot, req in list(self.live.items()):
-            self._emit_tokens(slot, req, [self._next_token(req, rows[slot])],
-                              finished)
-            advanced.add(slot)
-        self.n_decode_ticks += 1
-        self.n_starved_ticks += len(starved - advanced)
+        if self._spec:
+            advanced = self._spec_tick(toks, finished)
+        else:
+            self._sample_ops(self.program.decode, self.params, toks,
+                             self.state, occupied, "target")
+            # The occupancy mask keeps dead slots inert inside
+            # run_decode: no length advance, no cache-row write.
+            logits = self._decode(self.params, torch.from_numpy(toks),
+                                  self.state, torch.from_numpy(occupied))
+            if self._pool is not None:
+                for slot in self.live:
+                    self._slot_len[slot] += 1
+            rows = logits.float().cpu().numpy()
+            advanced = set()
+            for slot, req in list(self.live.items()):
+                self._emit_tokens(slot, req,
+                                  [self._next_token(req, rows[slot])],
+                                  finished)
+                advanced.add(slot)
+        self._c_decode_ticks.inc()
+        self._c_starved.inc(len(starved - advanced))
         return finished
+
+    def _sample_ops(self, program, params, toks, state, mask,
+                    role: str) -> None:
+        """Count one tick on the op sampler, which on its sampled ticks
+        times ``program``'s ops on a copy of ``state``; called just
+        before that Program's call, so the walk times what the tick
+        runs: the target's decode on a plain tick, the first draft
+        round on a speculative one (the reference samples plain ticks
+        only)."""
+        if self._op_sampler is not None:
+            self._op_sampler.tick(
+                program, params, torch.from_numpy(toks).to(self.device),
+                state=state, mask=torch.from_numpy(mask).to(self.device),
+                role=role)
+
+    def _spec_tick(self, toks: np.ndarray, finished: list) -> set:
+        """One speculative tick: the draft decode proposes up to
+        ``spec_k`` tokens per live slot (k batched draft ticks), then
+        the target verifies every burst in one chunk call -- rows ``[n,
+        n + k_s]`` of each slot, greedy accept / rollback:
+
+        * slot ``s`` feeds ``[x0, d_1..d_k]``; target row ``n + j``
+          gives ``y_{j+1} = argmax``, what sequential decode would give
+          after that prefix (the verify writes the rows' K/V itself);
+        * accept the longest prefix with ``d_j == y_j`` (``a`` tokens),
+          emit ``y_1..y_{a+1}`` (the first mismatch is corrected);
+        * roll back by copying the lengths ``n + kept`` into both
+          states' ``lengths`` tensors in place; rows past them are not
+          attended and the next write overwrites the first stale one.
+
+        A slot whose position reached ``max_len`` (its ring wrapped)
+        takes a plain decode step instead: the verify is row-addressed.
+        Returns the set of slots that advanced (every live one)."""
+        lens = self.state.lengths.cpu().numpy()
+        all_live = sorted(self.live)
+        live_slots = [s for s in all_live if int(lens[s]) < self.max_len]
+        wrapped = [s for s in all_live if int(lens[s]) >= self.max_len]
+        advanced = set()
+        if wrapped:
+            wmask = np.zeros((self.slots,), bool)
+            wmask[wrapped] = True
+            wrows = self._decode(self.params, torch.from_numpy(toks),
+                                 self.state, torch.from_numpy(wmask)
+                                 ).float().cpu().numpy()
+            for s in wrapped:
+                req = self.live[s]
+                self._emit_tokens(s, req, [self._next_token(req, wrows[s])],
+                                  finished)
+                advanced.add(s)
+        if not live_slots:
+            return advanced
+        # The verify writes rows [n, n + k_s]: a slot at the boundary
+        # takes k_s = 0, a plain (verified) single-token step.
+        k_s = {s: max(0, min(self.spec_k, self.max_len - 1 - int(lens[s])))
+               for s in live_slots}
+        max_k = max(k_s.values())
+        # Draft round i feeds the previous proposal and advances only
+        # the slots still inside their burst.
+        proposals = {s: [] for s in live_slots}
+        cur = toks.copy()
+        for i in range(max_k):
+            dmask = np.zeros((self.slots,), bool)
+            for s in live_slots:
+                dmask[s] = i < k_s[s]
+            if i == 0:
+                self._sample_ops(self._draft_pair.decode,
+                                 self._draft_params, cur, self._draft_state,
+                                 dmask, "draft")
+            drows = self._draft_decode(
+                self._draft_params, torch.from_numpy(cur),
+                self._draft_state, torch.from_numpy(dmask)
+            ).float().cpu().numpy()
+            for s in live_slots:
+                if i < k_s[s]:
+                    d = int(np.argmax(drows[s]))
+                    proposals[s].append(d)
+                    cur[s] = d
+        # The target's verify: one chunk call over the live slots' whole
+        # token buffers; length pinned past stop, so no final-chunk tail
+        # write fires.
+        B = len(live_slots)
+        vtoks = np.zeros((B, self.max_len), np.int32)
+        starts = np.array([lens[s] for s in live_slots], np.int32)
+        stops = starts + np.array([k_s[s] + 1 for s in live_slots], np.int32)
+        for i, s in enumerate(live_slots):
+            n = int(starts[i])
+            vtoks[i, n] = toks[s]
+            vtoks[i, n + 1:n + 1 + len(proposals[s])] = proposals[s]
+        vlogits = self._chunk(
+            self.params, torch.from_numpy(vtoks), self.state, live_slots,
+            starts, stops, np.full((B,), self.max_len + 1, np.int32),
+            np.zeros((B,), np.int32))
+        # Only rows [n, n + k_s] leave the device.
+        rows = torch.from_numpy(starts[:, None] + np.arange(max_k + 1))
+        rows = rows.clamp(max=self.max_len - 1).to(vlogits.device).long()
+        batch = torch.arange(B, device=vlogits.device)[:, None]
+        vrows = vlogits[batch, rows].float().cpu().numpy()
+        new_lens = self.state.lengths.cpu().numpy().copy()
+        for i, s in enumerate(live_slots):
+            req = self.live[s]
+            y = [int(np.argmax(vrows[i, j])) for j in range(k_s[s] + 1)]
+            a = 0
+            while a < k_s[s] and proposals[s][a] == y[a]:
+                a += 1
+            self._c_spec_proposed.inc(k_s[s])
+            self._c_spec_accepted.inc(a)
+            if a < k_s[s]:
+                self._c_spec_rollbacks.inc()
+            self.obs.flight.event("spec", slot=s, uid=req.uid,
+                                  proposed=k_s[s], accepted=a,
+                                  rollback=a < k_s[s])
+            new_lens[s] = int(starts[i]) + self._emit_tokens(
+                s, req, y[:a + 1], finished)
+            advanced.add(s)
+        # In place: the captured graphs of both states read these
+        # (separate) tensors at their addresses.
+        new_lens = torch.from_numpy(new_lens)
+        self.state.lengths.copy_(new_lens)
+        self._draft_state.lengths.copy_(new_lens)
+        return advanced
 
 
 def _check_geometry(pair, cfg, slots: int, max_len: int) -> None:

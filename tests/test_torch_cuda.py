@@ -1691,3 +1691,99 @@ def test_moe_dispatch_replays_in_a_cuda_graph(dev):
         want, waux = fn()
         assert torch.equal(out, want)
         assert all(torch.equal(aux[k], waux[k]) for k in aux)
+
+
+def _smoke_engine(dev, **kw):
+    """smollm-360m-smoke in bf16 (2 layers) served off the graphed runners
+    on the card: 3 requests on 2 slots, 6 new tokens each."""
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(REGISTRY["smollm-360m"].smoke(),
+                              dtype="bfloat16", n_layers=2)
+    params = init_params(param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    eng = ServingEngine(cfg, params, slots=2, max_len=64, device=dev, **kw)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((5, 30, 12)):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, n)
+                           .astype(np.int32), max_new_tokens=6))
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    return eng, {r.uid: r.out_tokens for r in done}
+
+
+def test_trace_program_times_each_op_once_per_repeat_on_the_card(dev):
+    """``trace_program`` on a bf16 decode state on the card: each
+    kernel op launches 1 + repeats times, every record has a measured
+    time, the walk's state is bitwise what one eager ``run_decode``
+    leaves, and the caller's state (what captured graphs read) is
+    untouched."""
+    cfg = dataclasses.replace(REGISTRY["smollm-360m"].smoke(),
+                              dtype="bfloat16", n_layers=2)
+    pair = transformer.compile_program_pair(cfg, slots=4, max_len=64)
+    params = init_params(param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(1), dev)
+    state = executor.init_program_state(pair, dev)
+    for buf in state.caches.values():
+        buf.normal_()
+    state.lengths.copy_(torch.tensor([3, 0, 40, 63], dtype=torch.int32))
+    kept = {r: t.clone() for r, t in state.caches.items()}
+    tokens = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=dev)
+    mask = torch.tensor([True, False, True, True], device=dev)
+    before = _counts()
+    trace = executor.trace_program(pair.decode, params, tokens, repeats=3,
+                                   state=state, mask=mask)
+    added = _added(before)
+    want = {}
+    for op in pair.decode.ops:
+        name = {"matmul": "matmul_cuda",
+                "decode_attention": "decode_attention_cuda"}.get(op.kernel)
+        if name:
+            want[name] = want.get(name, 0) + 4
+    assert added == want
+    assert all(r.measured_time_s > 0 for r in trace.records)
+    for rid, t in kept.items():
+        assert torch.equal(state.caches[rid], t), rid
+    twin = executor.ProgramState({r: t.clone() for r, t in kept.items()},
+                                 state.lengths.clone())
+    with executor.disable_graphs():
+        executor.run_decode(pair.decode, params, tokens, twin, mask)
+    _same(trace.state, twin, pair)
+
+
+def test_sampled_engine_equals_the_unsampled_one_on_the_card(dev):
+    """Every tick sampled, plain and speculative: the graphed engine's
+    streams and every byte of its state(s) equal the unsampled run's;
+    ``op_time_us`` holds the matmul and decode-attention kernels' times."""
+    from repro_torch.obs import Observability
+    for spec_k in (0, 3):
+        base, want = _smoke_engine(dev, spec_k=spec_k)
+        eng, got = _smoke_engine(dev, spec_k=spec_k,
+                                 obs=Observability(sample_ops_every=1))
+        assert got == want
+        assert eng._op_sampler.n_samples == eng.n_decode_ticks > 0
+        _same(eng.state, base.state, eng.program)
+        if spec_k:
+            _same(eng._draft_state, base._draft_state, eng.program)
+        hist = eng.obs.registry.snapshot()["histograms"]
+        for kind in ("matmul", "decode_attention"):
+            h = hist[f'op_time_us{{kind="{kind}"}}']
+            assert h["count"] > 0 and h["sum"] > 0
+
+
+def test_speculative_engine_graphed_equals_eager_on_the_card(dev):
+    """Self-draft speculation off the graphed runners: the streams equal
+    the eager engine's; both states keep their
+    ``lengths`` tensors (rollback copies in place) and the verify ran
+    off captured chunk graphs."""
+    eng, got = _smoke_engine(dev, spec_k=3)
+    ptrs = (eng.state.lengths.data_ptr(), eng._draft_state.lengths.data_ptr())
+    with executor.disable_graphs():
+        _, eager = _smoke_engine(dev, spec_k=3)
+    assert got == eager
+    assert eng.n_spec_accepted > 0
+    assert ptrs[0] != ptrs[1]
+    assert any(k[2] == "chunk" and g is not None
+               for k, g in eng.state.graphs.graphs.items())
+    assert any(k[2] == "decode" and g is not None
+               for k, g in eng._draft_state.graphs.graphs.items())
+    assert eng.capture_seconds > 0

@@ -368,17 +368,46 @@ def test_engine_queue_capacity_and_slot_stalls_are_typed():
 
 
 @pytest.mark.parametrize("option", [dict(chunk_size=4, spec_k=1),
-                                    dict(spec_k=2),
-                                    dict(paged=True, spec_k=2),
-                                    dict(obs=object())])
-def test_engine_unported_options_name_their_roadmap_items(option):
-    """Speculative decode and the obs plane are not ported; the paged
-    plan and chunked prefill are (tests/test_torch_paged.py,
-    tests/test_torch_chunked.py) and do not excuse them."""
-    cfg, jcfg = _pair_cfgs("smollm-360m")
-    item = "A.8" if "obs" in option else "A.7"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        ServingEngine(cfg, {}, device="cpu", **option)
+                                    dict(spec_k=2), dict(obs=True)],
+                         ids=["chunked-spec", "spec", "obs"])
+def test_engine_spec_and_obs_options_serve(option):
+    """Speculative decode (with and without chunked prefill) and an
+    ``obs`` bundle construct and serve the greedy streams of the plain
+    engine; the plane counts what the engine did."""
+    from repro_torch.obs import FlightRecorder, Observability
+    cfg, jcfg = _pair_cfgs("smollm-360m", n_layers=2)
+    params, _ = _params(jcfg, seed=7)
+    if option.get("obs"):
+        option = dict(obs=Observability(flight=FlightRecorder()))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (3, 11, 6)]
+
+    def serve(**kw):
+        eng = ServingEngine(cfg, params, slots=2, max_len=16, device="cpu",
+                            **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=5))
+        done = sorted(eng.run_until_drained(), key=lambda r: r.uid)
+        return eng, [r.out_tokens for r in done]
+    eng, got = serve(**option)
+    assert got == serve()[1]
+    if "spec_k" in option:
+        assert eng.n_spec_proposed > 0 and eng.n_starved_ticks == 0
+    if "obs" in option:
+        snap = eng.obs.registry.snapshot()["counters"]
+        assert snap["serving_tokens_total"] == 15
+        assert sum(e["ev"] == "release"
+                   for e in eng.obs.flight.events) == 3
+
+
+def test_engine_spec_refuses_paged_kv():
+    """Speculation over the paged plan is refused at construction, as in
+    the reference (the verify burst would need per-row page
+    preparation)."""
+    cfg, _ = _pair_cfgs("smollm-360m")
+    with pytest.raises(NotImplementedError, match="paged"):
+        ServingEngine(cfg, {}, device="cpu", paged=True, spec_k=2)
 
 
 def test_serve_lm_cli_runs_on_cpu():
