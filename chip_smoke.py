@@ -273,6 +273,25 @@ exits non-zero before the last line is printed.  Phases:
       capture seconds, sampled op times and tok/s beside 5b's; then 5b's
       plain serve twice with a flight recorder and twice without,
       alternated (the plane's cost, as the mean tick ms);
+   n. the schedule autotuner (``repro_torch.core.autotune``) on 5a's
+      zero-copy alexnet-owt Program (``TPU_V5E``) and 5i's SNOWFLAKE
+      paper-faithful one at batch 8, and 5b's smollm-360m decode Program
+      (bf16, 8 slots, max_len 512, after 8 prefills), random weights from
+      the seed: trace, calibrate, replay the best ``TUNE_TOP_K``
+      candidates an op and the incumbent, pin the winners in a tuned
+      cache file; every time on the device clock (``executor.
+      device_times``), candidates with the same launches measured once.
+      Per op, the incumbent's and winner's decisions and device us and
+      the distinct launches measured; per Program, the measured-against-
+      predicted error table before and after calibration.  A second pass
+      over the cache reloaded from its file must make 0 measurements;
+      every tuned op's replay is held to its plain version (f32 1e-4,
+      bf16 2^-7).  With the cache active the three are served again
+      through 5a's, 5i's and 5b's entry points at their bars (classes
+      against the plain path, teacher-forced logits, exact launches,
+      graphed = eager bit for bit), the tuned against the untuned
+      graphed medians, then in turns (untuned, tuned, tuned, untuned),
+      and the served decode Program is traced on both clocks;
    In 5g and 5h the counters must be exactly the Program's kernel ops per
    call (``PAIR_OPS``: zamba2-7b 81 mamba2_scan and 99 matmul per
    admission and per tick, 14 flash per admission, 14 decode per tick;
@@ -563,30 +582,17 @@ def kernel_name(line: str) -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time of one ``fn()`` call: ``reps`` calls captured into one
-    CUDA graph after ``warmup`` eager calls, the graph replayed five
-    times between CUDA events, the median replay over ``reps``.  The
-    graph keeps the host's launch latency out of the reading, so a
-    kernel shorter than its Python wrapper is timed, not the wrapper."""
+    """Device time of one ``fn()`` call, in ms: ``executor.device_times``
+    (``reps`` calls captured into one CUDA graph after ``warmup`` eager
+    calls, the graph replayed five times between CUDA events), the
+    median replay over ``reps``.  The graph keeps the host's launch
+    latency out of the reading, so a kernel shorter than its Python
+    wrapper is timed, not the wrapper."""
     import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    times = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
-    return statistics.median(times)
+    from repro_torch.runtime.executor import device_times
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return 1e3 * statistics.median(device_times(fn, reps, 5, dev,
+                                                warmup=warmup))
 
 
 def max_err(got, want, tol: float = TOL) -> float:
@@ -974,8 +980,9 @@ def check_classes(res, device, label: str) -> int:
     return n_cmp
 
 
-def serve_alexnet(device):
-    """Phase 5a: the port's CNN serving entry point, on the kernels."""
+def serve_alexnet(device, label: str = "5a"):
+    """Phase 5a: the port's CNN serving entry point, on the kernels (5n:
+    again off the tuned Program)."""
     from repro_torch.kernels.conv2d.kernel import conv2d_virtual_cuda
     from repro_torch.kernels.matmul.kernel import matmul_cuda
     from repro_torch.launch import serve
@@ -991,20 +998,19 @@ def serve_alexnet(device):
                 "matmul": matmul_cuda.launches}
     eng, done = res["engine"], res["done"]
     if len(done) != REQUESTS or not all(r.done for r in done):
-        fail(f"served {len(done)} of {REQUESTS} requests")
+        fail(f"{label}: served {len(done)} of {REQUESTS} requests")
     kinds = [op.kernel for op in eng.program.ops]
     want = {"conv2d_virtual": eng.n_ticks * kinds.count("conv2d"),
             "matmul": eng.n_ticks * kinds.count("matmul")}
-    print(f"main path: {eng.n_ticks} ticks, launches {launches}, "
-          f"want {want}")
+    print(f"{label}: {eng.n_ticks} ticks, launches {launches}, want {want}")
     if launches != want:
-        fail(f"launch counts {launches} != ticks x ops {want}")
-    check_matmul_paths("main path", want["matmul"], 0)
-    n_cmp = check_classes(res, device, "5a")
-    print(f"main path: {n_cmp}/{REQUESTS} class ids compared, all equal "
+        fail(f"{label}: launch counts {launches} != ticks x ops {want}")
+    check_matmul_paths(label, want["matmul"], 0)
+    n_cmp = check_classes(res, device, label)
+    print(f"{label}: {n_cmp}/{REQUESTS} class ids compared, all equal "
           f"to the plain path; {REQUESTS / res['seconds']:.1f} img/s "
           f"({res['seconds']:.3f} s)")
-    graphed = cnn_against_eager("5a", run, res, rec)
+    graphed = cnn_against_eager(label, run, res, rec)
     return launches, REQUESTS / res["seconds"], graphed
 
 
@@ -1018,21 +1024,14 @@ def cnn_against_eager(label, run, res, rec) -> dict:
     profiled."""
     import torch
     from repro_torch.runtime import executor
-    from repro_torch.serving import Request
-
-    def again(res):
-        for _ in range(CNN_REPEATS):
-            for i, img in enumerate(res["images"]):
-                res["engine"].submit(Request(uid=i, prompt=img))
-            res["engine"].run_until_drained()
     eng = res["engine"]
     store = eng._infer.store(eng.params)
     if not check_captured(label, store.graphs, ()):
         fail(f"{label}: no CUDA graph was captured")
-    again(res)
+    serve_again(res)
     with executor.disable_graphs(), Recorder() as erec:
         eres = run()
-        again(eres)
+        serve_again(eres)
     if ([r.out_tokens for r in eres["done"]]
             != [r.out_tokens for r in res["done"]]):
         fail(f"{label}: the graphed and eager classes differ")
@@ -1045,12 +1044,15 @@ def cnn_against_eager(label, run, res, rec) -> dict:
     return out
 
 
-def serve_paper_faithful(device, virtual_img_s: float):
+def serve_paper_faithful(device, virtual_img_s: float, label: str = "5i",
+                         turns: bool = True):
     """Phase 5i: the same 20 alexnet-owt images served off the SNOWFLAKE
     paper-faithful Program through ``serve_cnn`` and ``ServingEngine``,
     counters set to 0 just before and read just after: exactly ticks x 5
-    strip launches, no zero-copy launch, ticks x 3 matmul launches.
-    Returns (launches, img/s, served ms per tick)."""
+    strip launches, no zero-copy launch, ticks x 3 matmul launches; with
+    ``turns``, then served in turns with 5a's Program.  Returns
+    (launches, img/s, served ms per tick, graphed-against-eager
+    stats)."""
     from repro_torch.configs import CNN_REGISTRY
     from repro_torch.core import SNOWFLAKE
     from repro_torch.kernels.conv2d.kernel import (conv2d_strips_cuda,
@@ -1074,41 +1076,43 @@ def serve_paper_faithful(device, virtual_img_s: float):
     launches = {k: fn.launches for k, fn in counters.items()}
     eng, done = res["engine"], res["done"]
     if eng.program is not program:
-        fail("5i: the engine did not serve the Program it was given")
+        fail(f"{label}: the engine did not serve the Program it was given")
     if len(done) != REQUESTS or not all(r.done for r in done):
-        fail(f"5i: served {len(done)} of {REQUESTS} requests")
+        fail(f"{label}: served {len(done)} of {REQUESTS} requests")
     kinds = [op.kernel for op in program.ops]
     if (kinds.count("conv2d"), kinds.count("matmul")) != (5, 3):
-        fail(f"5i: the Program lists {kinds}")
+        fail(f"{label}: the Program lists {kinds}")
     want = {"conv2d_strips": eng.n_ticks * 5, "conv2d_virtual": 0,
             "matmul": eng.n_ticks * 3}
-    print(f"5i paper-faithful: {eng.n_ticks} ticks, launches {launches}, "
-          f"want {want}")
+    print(f"{label} paper-faithful: {eng.n_ticks} ticks, launches "
+          f"{launches}, want {want}")
     if launches != want:
-        fail(f"5i: launch counts {launches} != {want}")
-    check_matmul_paths("5i paper-faithful", want["matmul"], 0)
-    n_cmp = check_classes(res, device, "5i")
-    graphed = cnn_against_eager("5i", run, res, rec)
+        fail(f"{label}: launch counts {launches} != {want}")
+    check_matmul_paths(f"{label} paper-faithful", want["matmul"], 0)
+    n_cmp = check_classes(res, device, label)
+    graphed = cnn_against_eager(label, run, res, rec)
     img_s = REQUESTS / res["seconds"]
     tick_ms = 1e3 * res["seconds"] / eng.n_ticks
-    print(f"5i paper-faithful: {n_cmp}/{REQUESTS} class ids compared, all "
-          f"equal to the plain path; {img_s:.1f} img/s ({res['seconds']:.3f}"
-          f" s, {tick_ms:.3f} ms a tick) against 5a's zero-copy "
-          f"{virtual_img_s:.1f} img/s", flush=True)
+    print(f"{label} paper-faithful: {n_cmp}/{REQUESTS} class ids compared, "
+          f"all equal to the plain path; {img_s:.1f} img/s "
+          f"({res['seconds']:.3f} s, {tick_ms:.3f} ms a tick) against 5a's "
+          f"zero-copy {virtual_img_s:.1f} img/s", flush=True)
+    if not turns:
+        return launches, img_s, tick_ms, graphed
     # The two Programs in turns on the same images (zero-copy,
     # paper-faithful, paper-faithful, zero-copy): 5a ran first and
     # alone, so its reading and 5i's are not a like-for-like pair.
-    turns = {"zero-copy": [], "paper-faithful": []}
+    rates = {"zero-copy": [], "paper-faithful": []}
     for kind in ("zero-copy", "paper-faithful", "paper-faithful",
                  "zero-copy"):
         r = serve.serve_cnn("alexnet-owt", slots=SLOTS, requests=REQUESTS,
                             device=device, seed=SEED,
                             program=program if kind == "paper-faithful"
                             else None)
-        turns[kind].append(REQUESTS / r["seconds"])
-    print("5i in turns: " + ", ".join(
+        rates[kind].append(REQUESTS / r["seconds"])
+    print(f"{label} in turns: " + ", ".join(
         f"{k} {' and '.join(f'{v:.1f}' for v in vs)} img/s"
-        for k, vs in turns.items()), flush=True)
+        for k, vs in rates.items()), flush=True)
     return launches, img_s, tick_ms, graphed
 
 
@@ -4016,6 +4020,319 @@ def serve_spec(base_stats) -> tuple[dict, dict]:
     return dict(total), stats
 
 
+# Phase 5n, the schedule autotuner (``core/autotune.py``) on the three
+# Programs served above: 5a's zero-copy alexnet-owt Program (TPU_V5E) and
+# 5i's SNOWFLAKE paper-faithful one at batch 8, and 5b's smollm-360m decode
+# Program at 8 slots and max_len 512 after 8 prefills.  Per op, the
+# TUNE_TOP_K candidates of least predicted cost (and the incumbent) are
+# replayed, each timed on the device clock: the least of TUNE_REPEATS
+# replays of a graph of ``executor.CLOCK_CALLS`` calls.
+TUNE_TOP_K, TUNE_REPEATS = 3, 5
+
+
+def tune_runs(device) -> dict:
+    """5n's three tune calls by label, each taking the cache."""
+    from repro_torch.configs import CNN_REGISTRY, get_config
+    from repro_torch.core import SNOWFLAKE, TPU_V5E, autotune
+    alex = CNN_REGISTRY["alexnet-owt"]
+    kw = dict(top_k=TUNE_TOP_K, repeats=TUNE_REPEATS, seed=SEED,
+              device=device)
+    return {
+        "5a alexnet-owt": lambda cache: autotune.tune_cnn(
+            alex, batch=SLOTS, hw=TPU_V5E, cache=cache, **kw),
+        "5i alexnet-owt@snowflake": lambda cache: autotune.tune_cnn(
+            alex, batch=SLOTS, hw=SNOWFLAKE, paper_faithful=True,
+            cache=cache, **kw),
+        "5b smollm-360m": lambda cache: autotune.tune_lm_decode(
+            get_config(LM_ARCH), slots=SLOTS, max_len=LM_MAX_LEN,
+            cache=cache, **kw)}
+
+
+def tuned_programs() -> dict:
+    """The three Programs 5n tunes, as the compile entry points give
+    them under whatever cache is active."""
+    from repro_torch.configs import CNN_REGISTRY, get_config
+    from repro_torch.core import SNOWFLAKE
+    from repro_torch.models import cnn, transformer
+    alex = CNN_REGISTRY["alexnet-owt"]
+    return {"5a alexnet-owt": cnn.compile_program(alex, batch=SLOTS),
+            "5i alexnet-owt@snowflake": cnn.compile_program(
+                alex, batch=SLOTS, hw=SNOWFLAKE, paper_faithful=True),
+            "5b smollm-360m": transformer.compile_program_pair(
+                get_config(LM_ARCH), slots=SLOTS, max_len=LM_MAX_LEN)}
+
+
+def graph_ms(graph, reps: int = 10) -> float:
+    """Device ms of one replay of a captured ``torch.cuda.CUDAGraph``:
+    the median of ``reps`` replays, each between two CUDA events
+    (``executor.graph_seconds``).  Replaying the graph itself bypasses
+    the runner, so it counts no launches."""
+    import torch
+    from repro_torch.runtime.executor import graph_seconds
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(graph_seconds(graph)
+                                   for _ in range(reps))
+
+
+def ab_ticks(device, untuned: dict, tuned: dict) -> dict:
+    """Each untuned and tuned Program of 5n captured on one parameter
+    tree and input (5b: one state, every slot prefilled with 256 rows
+    from the seed, all slots dead in the tick so that replays leave it
+    as it is), the two graphs replayed in turns (untuned, tuned, tuned,
+    untuned, untuned, tuned): ``graph_ms`` of each."""
+    import torch
+    from repro_torch.configs import CNN_REGISTRY, get_config
+    from repro_torch.models import cnn, init_params, param_defs
+    from repro_torch.runtime import executor
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    alex = CNN_REGISTRY["alexnet-owt"]
+    params = init_params(cnn.param_defs(alex), gen, device)
+    x = torch.randn((SLOTS, alex.input_hw, alex.input_hw, alex.input_ch),
+                    generator=gen, device=device)
+    graphs = {}
+    for label in ("5a alexnet-owt", "5i alexnet-owt@snowflake"):
+        graphs[label] = {}
+        for kind, prog in (("untuned", untuned[label]),
+                           ("tuned", tuned[label])):
+            run = executor.graphed_runner(prog)
+            run(params, x)
+            run(params, x)
+            graphs[label][kind] = next(g for g in run.store(params).graphs
+                                       .values() if g is not None).graph
+    label = "5b smollm-360m"
+    cfg = get_config(LM_ARCH)
+    pu, pt = untuned[label], tuned[label]
+    lm_params = init_params(param_defs(cfg), gen, device)
+    state = executor.init_program_state(pu, device)
+    states = {"untuned": state,
+              "tuned": state if pt.persistent == pu.persistent
+              else executor.init_program_state(pt, device)}
+    for st in {id(v): v for v in states.values()}.values():
+        for slot in range(SLOTS):
+            toks = torch.randint(0, cfg.vocab, (1, LM_MAX_LEN),
+                                 generator=gen, device=device,
+                                 dtype=torch.int32)
+            executor.run_prefill(pu.prefill, lm_params, toks, st, slot,
+                                 LM_MAX_LEN // 2)
+    tokens = torch.zeros(SLOTS, dtype=torch.int32, device=device)
+    dead = torch.zeros(SLOTS, dtype=torch.bool, device=device)
+    graphs[label] = {}
+    for kind, pair in (("untuned", pu), ("tuned", pt)):
+        run = executor.graphed_decode_runner(pair.decode)
+        run(lm_params, tokens, states[kind], dead)
+        run(lm_params, tokens, states[kind], dead)
+        graphs[label][kind] = next(
+            g for k, g in states[kind].graphs.graphs.items()
+            if g is not None and k[0] == id(pair.decode)).graph
+    out = {}
+    for label, pair in graphs.items():
+        out[label] = {"untuned": [], "tuned": []}
+        for kind in ("untuned", "tuned", "tuned", "untuned", "untuned",
+                     "tuned"):
+            out[label][kind].append(graph_ms(pair[kind]))
+        print(f"5n {label}: device ms a graph replay on one parameter tree"
+              + (" and state" if label == "5b smollm-360m" else "")
+              + ", in turns: " + "; ".join(
+                  f"{k} " + ", ".join(f"{ms:.4f}" for ms in v)
+                  for k, v in out[label].items()), flush=True)
+    return out
+
+
+def in_turns(label: str, run, cache, device, repeat=None) -> dict:
+    """``run()`` (a serving entry point, returning its result) untuned,
+    tuned, tuned, untuned, untuned, tuned, each on a fresh engine: the
+    items served per second (a CNN's over ``repeat(res)``, which serves
+    the images again on the same engine, past the first call and the
+    capture)."""
+    from repro_torch.core import autotune
+    rates = {"untuned": [], "tuned": []}
+    for tuned in (False, True, True, False, False, True):
+        if tuned:
+            autotune.activate(cache, device=device)
+        try:
+            res = run()
+        finally:
+            autotune.deactivate()
+        n, secs = (sum(len(r.out_tokens) for r in res["done"]),
+                   res["seconds"])
+        if repeat is not None:
+            t0 = time.perf_counter()
+            n = repeat(res)
+            secs = time.perf_counter() - t0
+        rates["tuned" if tuned else "untuned"].append(n / secs)
+        del res
+    print(f"5n {label} in turns, per second: " + "; ".join(
+        f"{k} " + ", ".join(f"{r:.1f}" for r in vs)
+        for k, vs in rates.items()), flush=True)
+    return rates
+
+
+def serve_again(res) -> int:
+    """The CNN result's images served ``CNN_REPEATS`` more times on its
+    engine; returns how many."""
+    from repro_torch.serving import Request
+    for _ in range(CNN_REPEATS):
+        for i, img in enumerate(res["images"]):
+            res["engine"].submit(Request(uid=i, prompt=img))
+        res["engine"].run_until_drained()
+    return CNN_REPEATS * len(res["images"])
+
+
+def tune_phase(device) -> tuple[dict, dict]:
+    """Phase 5n: trace, calibrate, replay and pin 5a's, 5i's and 5b's
+    Programs on the device clock (counters set to 0 just before, read
+    after the second pass), print each one's per-op decisions and its
+    measured-against-predicted error table before and after calibration;
+    a second pass over the cache reloaded from its file must measure
+    nothing.  Each tuned op's replay is then held to its plain version
+    (f32 1e-4, bf16 2^-7), and with the cache active the three are served
+    again through the same entry points as 5a, 5i and 5b, at their bars
+    (classes against the plain path, teacher-forced logits, graphed =
+    eager bit for bit), tuned against untuned in turns: each Program's
+    graph on one parameter tree (``ab_ticks``) and each entry point's
+    rate (``in_turns``).  Returns (launches, max errors by kernel)."""
+    import tempfile
+    import torch
+    from repro_torch.configs import CNN_REGISTRY
+    from repro_torch.core import SNOWFLAKE, autotune
+    from repro_torch.core.cost import format_error_table
+    from repro_torch.kernels.conv2d.kernel import (conv2d_strips_cuda,
+                                                   conv2d_virtual_cuda)
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn
+    from repro_torch.runtime import executor, replay
+    wrappers = dict(lm_counters(), conv2d_virtual=conv2d_virtual_cuda,
+                    conv2d_strips=conv2d_strips_cuda)
+    runs = tune_runs(device)
+    untuned = tuned_programs()
+    path = os.path.join(tempfile.mkdtemp(prefix="repro_torch_tune_"),
+                        "tuned.json")
+    cache = autotune.TunedCache.load(path)
+    for fn in wrappers.values():
+        fn.launches = 0
+    reports = {}
+    for label, tune in runs.items():
+        t0 = time.perf_counter()
+        rep = tune(cache)
+        reports[label] = rep
+        print(f"5n {label}: {rep.summary()}")
+        print(f"5n {label}: tuned in {time.perf_counter() - t0:.1f} s; "
+              f"measured (device clock) against predicted, before "
+              f"(analytic: the hardware model's roofline) and after "
+              f"calibration:\n{format_error_table(rep.error_rows)}",
+              flush=True)
+        done = [r for r in rep.results if not r.cached]
+        if not rep.n_measurements or not rep.error_rows or not all(
+                r.winner_time_s and r.incumbent_time_s for r in done):
+            fail(f"5n {label}: {rep.n_measurements} measurements, "
+                 f"{len(rep.error_rows)} error rows")
+    cache.save()
+    again = autotune.TunedCache.load(path)
+    if again.entries != cache.entries:
+        fail("5n: the reloaded cache's entries differ from the tuned ones")
+    for label, tune in runs.items():
+        rep = tune(again)
+        if rep.n_measurements or not all(r.cached for r in rep.results):
+            fail(f"5n {label}: the second pass measured "
+                 f"{rep.n_measurements} times")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"5n: second pass over the reloaded cache ({len(again.entries)} "
+          f"entries): 0 replay measurements; launches {launches}",
+          flush=True)
+    for label in ("5a alexnet-owt", "5i alexnet-owt@snowflake"):
+        convs = [r for r in reports[label].results
+                 if r.kind == "conv2d" and not r.cached]
+        moved = [f"{r.name} {autotune.decisions(r.incumbent)} -> "
+                 f"{autotune.decisions(r.winner)}" for r in convs
+                 if (r.winner["strip_storage"], r.winner["dataflow"])
+                 != (r.incumbent["strip_storage"], r.incumbent["dataflow"])]
+        print(f"5n {label}: {len(moved)} of {len(convs)} convs change strip "
+              f"storage or loop order" + "".join(f"; {m}" for m in moved))
+    # Every tuned op's replay (the winner's decisions, seeded operands)
+    # against its plain version: comparison launches, outside the count.
+    # A decode op draws unit-variance operands, where its scores spread
+    # by about one: at the default std 0.1 its softmax is near uniform
+    # and its outputs (about 0.006) lie under the bf16 bar, so a wrong
+    # scale or softmax would pass.
+    errs, peak = {}, {}
+    for label, rep in reports.items():
+        for r in rep.results:
+            if r.cached:
+                continue
+            kw = dict(candidate=r.candidate, seed=SEED, device=device,
+                      scale=1.0 if r.kind == "decode_attention" else 0.1)
+            got = replay.replay_outputs(r.record, impl="cuda", **kw)
+            want = replay.replay_outputs(r.record, impl="reference", **kw)
+            bf16 = got.dtype == torch.bfloat16
+            err = max_err(got, want, BF16_TOL if bf16 else TOL)
+            kernel = r.kind
+            if r.kind == "conv2d":
+                kernel = ("conv2d_strips" if r.winner["strip_storage"]
+                          == "materialized" else "conv2d_virtual")
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+            peak[kernel] = max(peak.get(kernel, 0.0),
+                               want.float().abs().max().item())
+    print(f"5n: every tuned op's replay against its plain version, max "
+          f"|err| by kernel {errs}, max |plain| {peak}", flush=True)
+
+    autotune.activate(again, device=device)
+    try:
+        tuned = tuned_programs()
+        for label, prog in tuned.items():
+            before = untuned[label]
+            if label == "5b smollm-360m":
+                prog, before = prog.decode, before.decode
+            changed = sum(a.trace() != b.trace()
+                          for a, b in zip(prog.ops, before.ops))
+            if prog is before or len(prog.ops) != len(before.ops):
+                fail(f"5n {label}: the compile served the untuned Program")
+            print(f"5n {label}: the tuned Program differs from the untuned "
+                  f"one in {changed} of {len(prog.ops)} ops")
+        a_launches, a_img_s, _ = serve_alexnet(device, "5n 5a tuned")
+        i_launches, *_ = serve_paper_faithful(
+            device, a_img_s, label="5n 5i tuned", turns=False)
+        n_lm = int(LM_ARGS[LM_ARGS.index("--requests") + 1])
+        lm_launches, _, eng, _ = serve_lm(
+            "5n 5b tuned", lambda: serve.main(LM_ARGS), n_lm)
+        if eng.program is not tuned["5b smollm-360m"]:
+            fail("5n 5b tuned: the engine did not serve the tuned pair")
+    finally:
+        autotune.deactivate()
+    # The served decode Program on the engine's last state (8 slots of
+    # 32-448 prompt rows and 32 new tokens), traced on both clocks.
+    tokens = torch.zeros(SLOTS, dtype=torch.int32, device=device)
+    clocks = {}
+    for clock in ("host", "device"):
+        trace = executor.trace_program(eng.program.decode, eng.params,
+                                       tokens, repeats=TUNE_REPEATS,
+                                       clock=clock, state=eng.state)
+        by_kind = {}
+        for r in trace.records:
+            by_kind.setdefault(r.kind, []).append(r.measured_time_s)
+        clocks[clock] = {k: 1e6 * sum(v) / len(v) for k, v in by_kind.items()}
+    print("5n 5b: the served decode Program traced, mean us an op, host / "
+          "device clock: " + ", ".join(
+              f"{k} {clocks['host'][k]:.2f} / {clocks['device'][k]:.2f} "
+              f"({clocks['host'][k] / clocks['device'][k]:.1f}x)"
+              for k in clocks["device"]), flush=True)
+    for k in wrappers:
+        launches[k] += sum(p.get(k, 0) for p in (a_launches, i_launches,
+                                                 lm_launches))
+    ab_ticks(device, untuned, tuned)
+    # Each run compiles under the cache in_turns activates or not.
+    in_turns("5a alexnet-owt img/s", lambda: serve.serve_cnn(
+        "alexnet-owt", slots=SLOTS, requests=REQUESTS, device=device,
+        seed=SEED), again, device, serve_again)
+    in_turns("5i alexnet-owt@snowflake img/s", lambda: serve.serve_cnn(
+        "alexnet-owt", slots=SLOTS, requests=REQUESTS, device=device,
+        seed=SEED, program=cnn.compile_program(
+            CNN_REGISTRY["alexnet-owt"], batch=SLOTS, hw=SNOWFLAKE,
+            paper_faithful=True)), again, device, serve_again)
+    in_turns("5b smollm-360m tok/s", lambda: serve.main(LM_ARGS), again,
+             device)
+    return launches, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4077,6 +4394,7 @@ def main() -> int:
     win_launches, win_stats, _, _ = serve_lm(
         "5b window", lambda: serve.main(LM_ARGS + ["--window",
                                                    str(LM_WINDOW)]), n_lm)
+    tune_launches, tune_errs = tune_phase(device)
     paged = {label: serve_paged(label)
              for label in ("5c paged", "5d int8", "5e chunked")}
     smoke_launches = train_smoke(device)
@@ -4265,7 +4583,8 @@ def main() -> int:
           f"eager {train_stats['eager_ms']:.2f} ms")
     per_path = [cnn_launches, pf_launches, lm_launches, win_launches,
                 smoke_launches, train_launches, moe_launches,
-                moe_train_launches, w_launches, spec_launches] + [
+                moe_train_launches, w_launches, spec_launches,
+                tune_launches] + [
         launch for launch, _ in list(paged.values()) + list(family.values())]
     launches = {k: sum(p.get(k, 0) for p in per_path) for k in SOURCES}
     errs = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k]
@@ -4281,7 +4600,8 @@ def main() -> int:
                       if r["kernel"] == k]
                    + [r["max_abs_err"] for r in z_rows.values()
                       if r["kernel"] == k]
-                   + ([ssm[k]["max_abs_err"]] if k in ssm else []))
+                   + ([ssm[k]["max_abs_err"]] if k in ssm else [])
+                   + ([tune_errs[k]] if k in tune_errs else []))
             for k in SOURCES}
     # The backward kernel per smollm-360m training step: one launch per
     # layer at the training shape, bf16.

@@ -7,9 +7,11 @@ Pipeline:  ModelGraph (ir) -> tiles (tiling) -> loop order (dataflow)
 The hardware models are the reference's (``TPU_V5E``, ``SNOWFLAKE``),
 so a Program compiled here lists byte for byte like ``repro``'s.
 ``quant`` carries the reference's module: the §5.3 fixed-point oracle
-and the int8 half the paged KV pools use.  ``cost`` and ``autotune``
-are not carried yet (ROADMAP A.11), nor ``roofline`` and
-``hlo_analysis`` (A.12).
+and the int8 half the paged KV pools use.  ``cost`` (the measured cost
+model) and ``autotune`` (stage 7: trace, calibrate, replay, pin) are
+the reference's, with the device's clock on the card; they are
+imported as submodules (``autotune`` reaches the executor).
+``roofline`` and ``hlo_analysis`` are not carried yet (ROADMAP A.12).
 """
 from .hw import (HardwareModel, MeshDescriptor, MULTI_POD, SINGLE_POD,
                  SNOWFLAKE, TPU_V5E)

@@ -19,19 +19,22 @@ path does: storage makes no difference to the numbers.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ...core.dataflow import Dataflow, choose_conv_dataflow
 from ...core.hw import TPU_V5E
 from ...core.tiling import ConvTiling, select_conv_row_strips
 from ..common import use_kernel
-from .kernel import (conv2d_strips_cuda, conv2d_virtual_cuda,
+from .kernel import (conv2d_strips_cuda, conv2d_virtual_cuda, conv_plan,
                      materialize_strips, pool_ref, prefetch_row_starts,
                      strip_bypass, strips_geometry, unstrip,
                      virtual_geometry)
 from .ref import conv2d_ref
 
-__all__ = ["conv2d", "norm_pool", "strips_plan", "virtual_plan"]
+__all__ = ["conv2d", "norm_pool", "strips_plan", "virtual_plan",
+           "launch_key"]
 
 
 def norm_pool(fuse_pool):
@@ -157,3 +160,40 @@ def virtual_plan(x_shape, w_shape, *, stride: int, pad: int, pool,
             n_map_tiles=g.B * g.n_strips, n_kernel_tiles=g.Cout // g.kpt,
             overlap_frac=tiling.overlap_frac, strip_storage="virtual")
     return g, dataflow, post_pool
+
+
+def launch_key(x_shape, w_shape, dtype, *, stride: int, pad: int,
+               tiling: ConvTiling, dataflow: Dataflow | None,
+               strip_storage: str = "auto", fuse_pool: tuple | None = None,
+               bias: bool = False, activation: str | None = None,
+               bypass: bool = False, bypass_first: bool = False) -> tuple:
+    """What one ``conv2d`` call on a CUDA tensor launches for x
+    (B, H, W, Cin) and w (kh, kw, Cin, Cout) in ``dtype`` under the
+    schedule's ``tiling``, ``dataflow`` and storage: two calls with
+    equal keys make the same launches (and, materialized, the same strip
+    copy).  From ``strips_plan`` / ``virtual_plan`` and ``conv_plan``:
+    ``kernels_per_tile`` reaches neither kernel, and an unpooled
+    zero-copy conv tiles flat pixels, where the strip a pixel lies in
+    moves no address (row ``r`` of strip ``s`` reads from ``s *
+    out_rows * stride + (r - s * out_rows) * stride = r * stride``), so
+    its ``out_rows`` is no part of the launch.  The loop order reaches
+    both kernels as their weights-resident flag."""
+    by = dtype.itemsize
+    storage = tiling.strip_storage if strip_storage == "auto" else strip_storage
+    epilogue = (bias, activation, bypass, bypass_first)
+    pool = norm_pool(fuse_pool)
+    if storage != "virtual":
+        g, df = strips_plan(tuple(x_shape), tuple(w_shape), stride=stride,
+                            pad=pad, tiling=tiling, dataflow=dataflow,
+                            dtype_bytes=by)
+        return ("conv2d_strips", str(dtype), dataclasses.replace(g, kpt=0),
+                df, epilogue, pool, conv_plan(g))
+    g, df, post_pool = virtual_plan(
+        tuple(x_shape), tuple(w_shape), stride=stride, pad=pad, pool=pool,
+        has_bypass=bypass, tiling=tiling, dataflow=dataflow, dtype_bytes=by)
+    plan = conv_plan(g)
+    g = dataclasses.replace(g, kpt=0)
+    if g.pool is None:
+        g = dataclasses.replace(g, out_rows=0, n_strips=0, rows_c=0, SR=0,
+                                Hp=0)
+    return ("conv2d_virtual", str(dtype), g, df, epilogue, post_pool, plan)

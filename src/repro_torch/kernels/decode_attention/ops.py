@@ -20,12 +20,13 @@ from __future__ import annotations
 import torch
 
 from ..common import use_kernel
-from .kernel import decode_attention_cuda, paged_decode_attention_cuda
+from .kernel import (decode_attention_cuda, decode_plan,
+                     paged_decode_attention_cuda)
 from .ref import (decode_attention_ref, gather_pages,
                   paged_decode_attention_ref)
 
 __all__ = ["decode_attention", "paged_decode_attention", "gather_pages",
-           "ring_kv_len", "ring_positions"]
+           "ring_kv_len", "ring_positions", "launch_key"]
 
 
 def ring_positions(length, cache_len: int, seq_len: int, device=None):
@@ -55,6 +56,20 @@ def ring_kv_len(pos: torch.Tensor, cache_len: int) -> torch.Tensor:
     ``pos % cache_len`` has landed: the last ``min(pos + 1, cache_len)``
     tokens are attendable, older rows have been evicted by overwrite."""
     return (pos + 1).clamp(max=cache_len)
+
+
+def launch_key(q_shape, kv_shape, dtype, kv_dtype=None) -> tuple:
+    """What one ``decode_attention`` call on CUDA tensors launches for q
+    (B,Hq,D) against a (B,Hkv,S,D) cache of ``kv_dtype`` (default
+    ``dtype``): two calls with equal keys make the same launch.  The
+    kernel takes no block (``decode_plan`` splits by shapes alone), so
+    every ``block_kv`` of the schedule is this one launch."""
+    B, Hq, D = q_shape
+    Hkv, S = kv_shape[1], kv_shape[2]
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
+    return ("decode_attention", str(dtype), str(kv_dtype), tuple(q_shape),
+            tuple(kv_shape), decode_plan(B, Hq, Hkv, S, D, dtype,
+                                         kv_dtype=kv_dtype))
 
 
 def decode_attention(q, k, v, *, kv_len=None, scale: float | None = None,

@@ -25,10 +25,10 @@ import torch.nn.functional as F
 from ...core.hw import TPU_V5E, HardwareModel
 from ..common import use_kernel
 from .bwd_kernel import flash_attention_bwd_cuda
-from .kernel import flash_attention_cuda
+from .kernel import flash_attention_cuda, flash_plan
 from .ref import flash_ref
 
-__all__ = ["flash_attention", "attention_block_sizes"]
+__all__ = ["flash_attention", "attention_block_sizes", "launch_key"]
 
 
 class _FlashTrainable(torch.autograd.Function):
@@ -64,6 +64,32 @@ def attention_block_sizes(Sq: int, Skv: int, D: int, dtype_bytes: int,
                                    window=window)
 
 
+def _pads(Sq: int, Skv: int, block_q: int, block_kv: int):
+    """(q rows, kv rows) the reference's padding rule adds: ``block_q``
+    falls back to 128 where it does not divide ``Sq``."""
+    block_q = min(block_q, Sq) if Sq % min(block_q, Sq) == 0 else 128
+    return (-Sq) % block_q, (-Skv) % block_kv
+
+
+def launch_key(q_shape, kv_shape, dtype, *, causal: bool,
+               window: int | None, kv_len: int | None, block_q: int,
+               block_kv: int) -> tuple:
+    """What one ``flash_attention`` call on CUDA tensors launches for q
+    (B,Hq,Sq,D) and k, v (B,Hkv,Skv,D) in ``dtype`` under the schedule's
+    blocks: two calls with equal keys make the same launches.  The
+    kernel cuts its own 64-row tiles (``flash_plan``), so the blocks
+    reach it only through the padding rule (``_pads``): blocks that pad
+    alike are one launch.  The plan is taken for aligned operands, as a
+    padded copy is."""
+    pad_q, pad_kv = _pads(q_shape[2], kv_shape[2], block_q, block_kv)
+    qs = (*q_shape[:2], q_shape[2] + pad_q, q_shape[3])
+    kvs = (*kv_shape[:2], kv_shape[2] + pad_kv, kv_shape[3])
+    if pad_kv and kv_len is None:
+        kv_len = kv_shape[2]             # the padded keys are masked
+    return ("flash_attention", str(dtype), qs, kvs, causal, window, kv_len,
+            flash_plan(qs, kvs, dtype))
+
+
 def flash_attention(q, k, v, *, scale: float | None = None,
                     causal: bool = False, window: int | None = None,
                     kv_len: int | None = None, impl: str = "auto",
@@ -86,9 +112,7 @@ def flash_attention(q, k, v, *, scale: float | None = None,
                                         window=window)
         block_q = block_q or bq
         block_kv = block_kv or bkv
-    block_q = min(block_q, Sq) if Sq % min(block_q, Sq) == 0 else 128
-    pad_q = (-Sq) % block_q
-    pad_kv = (-Skv) % block_kv
+    pad_q, pad_kv = _pads(Sq, Skv, block_q, block_kv)
     if pad_kv and kv_len is None:
         kv_len = Skv
     if pad_q:

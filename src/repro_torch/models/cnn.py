@@ -5,10 +5,10 @@ scheduling decisions: ``to_graph`` lowers the config to the compiler IR,
 the schedule compiler (core/schedule.py) decides strips / Mloop-Kloop /
 strip storage / fusion, ``core/program.py`` lowers that schedule to an
 executable ``Program`` with §5.1 memory regions, and ``forward``
-compiles the Program once per (config, batch, hw) and executes it
-through ``runtime/executor.py``.  The reference's autotune hook (a
-tuned schedule cache threaded into the compile) is not carried yet
-(ROADMAP A.11).
+compiles the Program once per (config, batch, hw, tuned-cache
+generation) and executes it through ``runtime/executor.py``.  When a
+tuned cache is active (``core/autotune.activate``) its measured
+decisions and calibrated cost model are threaded into the compile.
 """
 from __future__ import annotations
 
@@ -76,16 +76,26 @@ def compile_program(cfg: CNNConfig, batch: int = 1,
                     hw: HardwareModel = TPU_V5E, *,
                     paper_faithful: bool = False) -> Program:
     """graph -> schedule -> regions -> Program, memoized per (config,
-    batch, hw, paper_faithful).  Every fusion / tiling / storage decision
-    in the returned Program comes from ``compile_model``."""
-    return _compile_program(cfg, batch, hw, paper_faithful)
+    batch, hw, paper_faithful, tuned-cache generation).  Every fusion /
+    tiling / storage decision in the returned Program comes from
+    ``compile_model``; when a tuned cache is active
+    (``core/autotune.activate``), its entries for this config and batch
+    are consulted before the analytic choosers and its calibrated cost
+    model re-prices the schedule.  The generation in the memo key means
+    a re-tune never serves a stale Program."""
+    from ..core import autotune
+    return _compile_program(cfg, batch, hw, paper_faithful,
+                            autotune.active_generation())
 
 
 @functools.lru_cache(maxsize=128)
 def _compile_program(cfg: CNNConfig, batch: int, hw: HardwareModel,
-                     paper_faithful: bool) -> Program:
+                     paper_faithful: bool, generation: str) -> Program:
+    from ..core import autotune
+    tuned, cost_model = autotune.tuned_context(cfg.name, batch, hw)
     graph = to_graph(cfg, batch=batch, dtype_bytes=cfg.tdtype.itemsize)
-    schedule = compile_model(graph, hw, paper_faithful=paper_faithful)
+    schedule = compile_model(graph, hw, paper_faithful=paper_faithful,
+                             tuned=tuned, cost_model=cost_model)
     return lower_to_program(graph, schedule)
 
 

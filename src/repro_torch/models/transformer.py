@@ -428,16 +428,23 @@ def to_graph(cfg: ArchConfig, batch: int = 1, seq: int = 64,
 def compile_program(cfg: ArchConfig, batch: int = 1, seq: int = 64,
                     hw: HardwareModel = TPU_V5E) -> Program:
     """graph -> schedule -> regions -> Program, memoized per (config,
-    batch, seq, hw).  Every tiling / attention-block / fusion decision
-    in the Program comes from ``compile_model``."""
-    return _compile_program(cfg, batch, seq, hw)
+    batch, seq, hw, tuned-cache generation).  Every tiling /
+    attention-block / fusion decision in the Program comes from
+    ``compile_model``, which consults the active tuned cache
+    (``core/autotune.activate``) at this ``batch`` first."""
+    from ..core import autotune
+    return _compile_program(cfg, batch, seq, hw,
+                            autotune.active_generation())
 
 
 @functools.lru_cache(maxsize=64)
 def _compile_program(cfg: ArchConfig, batch: int, seq: int,
-                     hw: HardwareModel) -> Program:
+                     hw: HardwareModel, generation: str) -> Program:
+    from ..core import autotune
+    tuned, cost_model = autotune.tuned_context(cfg.name, batch, hw)
     graph = to_graph(cfg, batch=batch, seq=seq)
-    return lower_to_program(graph, compile_model(graph, hw))
+    return lower_to_program(graph, compile_model(
+        graph, hw, tuned=tuned, cost_model=cost_model))
 
 
 def to_decode_graph(cfg: ArchConfig, slots: int = 8, max_len: int = 256,
@@ -509,10 +516,13 @@ def compile_program_pair(cfg: ArchConfig, slots: int = 8,
     (full causal forward + cache writes at the admitted slot) and a
     decode Program (one token per slot against the cache), sharing one
     persistent region table so one runtime ``ProgramState`` addresses
-    both.  Memoized per (config, slots, max_len, hw, paged plan).  A
-    windowed config gets regions of ``min(max_len, attn_window)`` rows;
-    the plans differ only in region shape, never in instruction
-    structure.
+    both.  Memoized per (config, slots, max_len, hw, tuned-cache
+    generation, paged plan); with a tuned cache active
+    (``core/autotune.activate``), prefill entries are looked up at
+    ``batch=1`` and decode entries at ``batch=slots`` (as
+    ``core/autotune.tune_lm_decode`` stores them).  A windowed config
+    gets regions of ``min(max_len, attn_window)`` rows; the plans differ
+    only in region shape, never in instruction structure.
 
     ``paged=True`` selects the §5.1 paged plan: page pools and a page
     table (``regions.paged_kv_specs``) instead of contiguous rows --
@@ -533,15 +543,19 @@ def compile_program_pair(cfg: ArchConfig, slots: int = 8,
             f"paged KV and attn_window are mutually exclusive "
             f"({cfg.name} has window={cfg.attn_window}); the window "
             f"plan already bounds resident rows")
-    return _compile_program_pair(cfg, slots, max_len, hw, paged, page_size,
-                                 page_pool, kv_quant)
+    from ..core import autotune
+    return _compile_program_pair(cfg, slots, max_len, hw,
+                                 autotune.active_generation(), paged,
+                                 page_size, page_pool, kv_quant)
 
 
 @functools.lru_cache(maxsize=32)
 def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
-                          hw: HardwareModel, paged: bool = False,
-                          page_size: int = 16, page_pool: int | None = None,
+                          hw: HardwareModel, generation: str,
+                          paged: bool = False, page_size: int = 16,
+                          page_pool: int | None = None,
                           kv_quant: str | None = None) -> ProgramPair:
+    from ..core import autotune
     if cfg.family == "ssm":
         from . import rwkv as gmod
     elif cfg.family == "hybrid":
@@ -567,8 +581,12 @@ def _compile_program_pair(cfg: ArchConfig, slots: int, max_len: int,
         pre_graph = gmod.to_graph(cfg, seq=max_len, write_cache=True)
         dec_graph = gmod.to_decode_graph(cfg, slots=slots, max_len=max_len)
     pre_graph.name = cfg.name + ".prefill"
-    pre_sched = compile_model(pre_graph, hw)
-    dec_sched = compile_model(dec_graph, hw)
+    pre_tuned, cost_model = autotune.tuned_context(cfg.name, 1, hw)
+    dec_tuned, _ = autotune.tuned_context(cfg.name, slots, hw)
+    pre_sched = compile_model(pre_graph, hw, tuned=pre_tuned,
+                              cost_model=cost_model)
+    dec_sched = compile_model(dec_graph, hw, tuned=dec_tuned,
+                              cost_model=cost_model)
     pre_plan = allocate_regions(pre_graph, pre_sched)
     dec_plan = allocate_regions(dec_graph, dec_sched)
     # One persistent table, one base: the state region ids coincide

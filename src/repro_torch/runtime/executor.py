@@ -53,12 +53,15 @@ expert weights and adds the residual on the writeback; a prefill hands
 it the prompt's length as ``valid_count``, so the padded rows claim no
 expert capacity.
 
-``trace_program`` walks a Program op by op, eagerly, timing each op on
-the card and recording the reference's ``TraceRecord`` schema (shapes
-with numpy's dtype names, so the JSONL of either package reads in the
-other); it works on a copy of the state it is given.
-``OpTimingSampler`` runs it on one serving tick in N and files the
-times on the metrics plane.
+``trace_program`` walks a Program op by op, eagerly, timing each op and
+recording the reference's ``TraceRecord`` schema (shapes with numpy's
+dtype names, so the JSONL of either package reads in the other); it
+works on a copy of the state it is given.  It reads one of two clocks:
+the host's, each call between two synchronises (eager dispatch plus
+kernels), or the device's (``device_times``: calls captured in one CUDA
+graph, replays read between CUDA events), which the autotuner ranks and
+calibrates on.  ``OpTimingSampler`` runs it on one serving tick in N on
+the host clock and files the times on the metrics plane.
 
 A ``cross_attention`` op (whisper's decoder) reads the slot's read-only
 encoder memory regions, which the serving engine writes at admission
@@ -98,7 +101,8 @@ __all__ = ["run", "walk", "ProgramState", "GraphStore",
            "graphed_decode_runner", "graphed_chunk_runner",
            "disable_graphs", "PagePool", "paged_pool_regions",
            "sync_page_table", "apply_page_copies", "TraceRecord",
-           "ExecutorTrace", "trace_program", "OpTimingSampler"]
+           "ExecutorTrace", "trace_program", "device_times", "graph_seconds",
+           "OpTimingSampler"]
 
 # coarse recurrent block ops, dispatched by ``_run_family_op``
 _FAMILY_KERNELS = ("wkv", "ssm_scan")
@@ -1431,12 +1435,21 @@ class ExecutorTrace:
         lines += [json.dumps(d, sort_keys=True) for d in self.record_dicts()]
         return "\n".join(lines) + "\n"
 
+    def save(self, path) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_jsonl())
+
     @classmethod
     def from_jsonl(cls, text: str) -> "ExecutorTrace":
         lines = [ln for ln in text.splitlines() if ln.strip()]
         meta = json.loads(lines[0])["trace_meta"]
         recs = [TraceRecord.from_dict(json.loads(ln)) for ln in lines[1:]]
         return cls(records=recs, **meta)
+
+    @classmethod
+    def load(cls, path) -> "ExecutorTrace":
+        with open(path) as f:
+            return cls.from_jsonl(f.read())
 
 
 def _sync(device: torch.device) -> None:
@@ -1446,11 +1459,11 @@ def _sync(device: torch.device) -> None:
 
 def _time_thunk(thunk, repeats: int, device: torch.device,
                 reset=None) -> float:
-    """Min-of-``repeats`` seconds of ``thunk()``, each call between two
-    device synchronises, so the time is the device's work plus the
-    launch, not the launch alone; ``reset()`` (untimed) puts back the
-    state an op writes before each call.  The caller's first call was
-    the warm-up."""
+    """The host clock: min-of-``repeats`` seconds of ``thunk()``, each
+    call between two device synchronises, so on the card the time is
+    the eager dispatch of the op's Python plus its kernels; ``reset()``
+    (untimed) puts back the state an op writes before each call.  The
+    caller's first call was the warm-up."""
     best = float("inf")
     for _ in range(repeats):
         if reset is not None:
@@ -1461,6 +1474,64 @@ def _time_thunk(thunk, repeats: int, device: torch.device,
         _sync(device)
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+# Calls of an op captured in one graph by the device clock.
+CLOCK_CALLS = 10
+
+
+def graph_seconds(graph: torch.cuda.CUDAGraph) -> float:
+    """Seconds of one replay of a captured CUDA graph, between two CUDA
+    events on the current stream."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3
+
+
+def device_times(thunk, calls: int, repeats: int, device: torch.device, *,
+                 warmup: int = 0, reset=None) -> list[float]:
+    """Seconds of one ``thunk()`` call on the card, one reading per
+    replay: ``calls`` calls captured in one CUDA graph (after ``warmup``
+    eager calls), the graph replayed ``repeats`` times, each between two
+    CUDA events, and its time divided by ``calls``.  The host's launch
+    latency is not in the reading, so a kernel shorter than its Python
+    wrapper is timed, not the wrapper.  ``reset()`` (untimed, before
+    each replay) puts back the state the calls write.  A thunk that
+    cannot be captured (a host read, a synchronise) raises; there is no
+    fallback to the host clock.  As for ``_Graph``, the launch counters
+    count what the replays launch, not the capture."""
+    if device.type != "cuda":
+        raise ValueError(f"the device clock times CUDA work, not {device}")
+    with torch.cuda.device(device):
+        for _ in range(warmup):
+            thunk()
+        torch.cuda.synchronize(device)
+        before = [(kernel, _counts(kernel)) for kernel in _counted_kernels()]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(calls):
+                    thunk()
+        finally:
+            launched = []
+            for kernel, then in before:
+                added = _combine(_counts(kernel), then, -1)
+                _set_counts(kernel, then)
+                if added["launches"]:
+                    launched.append((kernel, added))
+        times = []
+        for _ in range(repeats):
+            if reset is not None:
+                reset()
+            times.append(graph_seconds(graph) / calls)
+            for kernel, added in launched:
+                _set_counts(kernel, _combine(_counts(kernel), added, 1))
+        del graph
+    return times
 
 
 def _written_regions(op: ProgramOp) -> tuple:
@@ -1476,8 +1547,8 @@ def _written_regions(op: ProgramOp) -> tuple:
 
 @torch.no_grad()
 def trace_program(program: Program, params, x: torch.Tensor, *,
-                  impl: str = "auto", repeats: int = 3,
-                  state: ProgramState | None = None,
+                  impl: str = "auto", repeats: int = 3, measure: bool = True,
+                  clock: str = "host", state: ProgramState | None = None,
                   mask: torch.Tensor | None = None) -> ExecutorTrace:
     """Execute ``program`` op by op, eagerly, recording each op's
     resolved schedule, operand shapes, modeled cost and measured time.
@@ -1488,15 +1559,28 @@ def trace_program(program: Program, params, x: torch.Tensor, *,
     write is timed as part of it.  The walk runs on a copy of ``state``
     (returned advanced as ``run_decode`` would leave it, in
     ``trace.state``): the caller's tensors, which captured CUDA graphs
-    read, are never touched.  Each op runs once, then ``repeats`` timed
-    times (``repeats >= 1``), every timed call from the
-    pre-op copy of the state it writes, and the first call's result is
-    what the walk keeps -- so a repeat never advances a cache row or a
-    recurrent state twice.  On the card each call is timed between two
-    device synchronises.  Never called while a CUDA graph is captured.
+    read, are never touched.  Each op runs once, untimed, and that
+    call's result is what the walk keeps; then it is timed ``repeats``
+    times (``repeats >= 1``), each reading from the pre-op copy of the
+    state it writes, so a repeat never advances a cache row or a
+    recurrent state twice.  ``measure=False`` skips the timing
+    (schema-only traces; ``repeats`` is then recorded as 0).
+
+    ``clock``: ``"host"`` times each call between two device
+    synchronises (``_time_thunk``: on the card, eager host dispatch plus
+    the kernels); ``"device"`` captures ``CLOCK_CALLS`` calls in one CUDA
+    graph and reads its replays between CUDA events
+    (``device_times``), the kernels' own time -- the clock the tuner
+    ranks and calibrates on.  Never called while a CUDA graph is
+    captured.
     """
-    if repeats < 1:
+    if clock not in ("host", "device"):
+        raise ValueError(f"clock must be host|device, got {clock!r}")
+    if measure and repeats < 1:
         raise ValueError(f"repeats must be >= 1, got {repeats}")
+    if measure and clock == "device" and not x.is_cuda:
+        raise ValueError(f"the device clock times CUDA work; the input "
+                         f"lies on {x.device}")
     if x.is_cuda and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("trace_program runs eagerly; it cannot run "
                            "inside a CUDA graph capture")
@@ -1514,11 +1598,12 @@ def trace_program(program: Program, params, x: torch.Tensor, *,
                 if mask is None
                 else mask.to(device=pos.device, dtype=torch.bool))
     trace = ExecutorTrace(program=program.name, hw=program.hw_name,
-                          impl=impl, interpret=None, repeats=repeats,
-                          state=work)
+                          impl=impl, interpret=None,
+                          repeats=repeats if measure else 0, state=work)
     for op in program.ops:
         src = regions[op.in_region]
-        written = _written_regions(op) if caches is not None else ()
+        written = (_written_regions(op)
+                   if caches is not None and measure else ())
         before = {r: caches[r].clone() for r in written}
 
         def thunk(op=op, src=src):
@@ -1531,10 +1616,16 @@ def trace_program(program: Program, params, x: torch.Tensor, *,
                 caches[r].copy_(t)
 
         out = thunk()
-        after = {r: caches[r].clone() for r in written}
-        measured = _time_thunk(thunk, repeats, x.device, reset)
-        for r, t in after.items():
-            caches[r].copy_(t)
+        measured = None
+        if measure:
+            after = {r: caches[r].clone() for r in written}
+            if clock == "device":
+                measured = min(device_times(thunk, CLOCK_CALLS, repeats,
+                                            x.device, reset=reset))
+            else:
+                measured = _time_thunk(thunk, repeats, x.device, reset)
+            for r, t in after.items():
+                caches[r].copy_(t)
         regions[op.out_region] = out
         operands = _op_operands(op, regions, params, caches)
         operands["out"] = _shape_dtype(out)
@@ -1547,7 +1638,7 @@ def trace_program(program: Program, params, x: torch.Tensor, *,
             operands=operands, schedule=_op_schedule(op),
             flops=op.flops, traffic_bytes=op.traffic_bytes,
             modeled_time_s=op.exec_time_s, measured_time_s=measured,
-            repeats=repeats, extras=extras))
+            repeats=repeats if measure else 0, extras=extras))
     if work is not None and is_decode:
         work.lengths += live.to(torch.int32)
     return trace

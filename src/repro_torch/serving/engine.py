@@ -39,6 +39,10 @@ in one batched chunk call shared by every in-flight
 admission, bitwise-equal to a whole prefill, while live slots keep
 decoding every tick (``n_starved_ticks`` stays 0).
 
+With a tuned cache active (``core/autotune.activate``) the compile
+entry points give the engine the tuned Program (or pair); it needs no
+argument of its own for that.
+
 Every Program run goes through the executor's graphed runners
 (``graphed_runner``, ``graphed_prefill_runner``,
 ``graphed_decode_runner``, ``graphed_chunk_runner``), the counterparts

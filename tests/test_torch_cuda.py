@@ -1787,3 +1787,96 @@ def test_speculative_engine_graphed_equals_eager_on_the_card(dev):
     assert any(k[2] == "decode" and g is not None
                for k, g in eng._draft_state.graphs.graphs.items())
     assert eng.capture_seconds > 0
+
+
+# --- the autotuner on the card: replays, launch keys, the device clock --------------
+@pytest.mark.parametrize("order", ["kloop", "mloop"])
+@pytest.mark.parametrize("storage", ["virtual", "materialized"])
+def test_conv_replay_under_each_storage_and_order_matches_plain(
+        dev, storage, order):
+    """Every conv of the alexnet-owt batch-2 Program replayed from its
+    trace record with a candidate of each strip storage and loop order:
+    the kernel (the storage's own: zero-copy or strips) against the
+    plain version on the same seeded operands, within 1e-4."""
+    from repro_torch.core import TPU_V5E, autotune
+    from repro_torch.runtime import replay
+    cfg = CNN_REGISTRY["alexnet-owt"]
+    prog = cnn.compile_program(cfg, batch=2)
+    params = init_params(cnn.param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    x = torch.randn((2, 224, 224, 3), device=dev)
+    trace = executor.trace_program(prog, params, x, measure=False)
+    graph = cnn.to_graph(cfg, batch=2, dtype_bytes=4)
+    graph.mark_residuals()
+    graph.mark_pool_fusion()
+    nodes = {n.name: n for n in graph}
+    kernel = {"virtual": conv2d_virtual_cuda,
+              "materialized": conv2d_strips_cuda}[storage]
+    n = 0
+    for rec in trace.records:
+        if rec.kind != "conv2d":
+            continue
+        cand = next(c for c in autotune.enumerate_candidates(
+            nodes[rec.name], TPU_V5E) if c["strip_storage"] == storage
+            and c["dataflow"] == order)
+        rc = autotune.entry_to_replay_candidate(nodes[rec.name], cand,
+                                                TPU_V5E)
+        n0 = kernel.launches
+        got = replay.replay_outputs(rec, candidate=rc, impl="cuda", seed=4)
+        want = replay.replay_outputs(rec, candidate=rc, impl="reference",
+                                     seed=4)
+        torch.cuda.synchronize()
+        assert kernel.launches == n0 + 1, rec.name
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+        n += 1
+    assert n == 5
+
+
+def _bf16_smoke(n_layers=2):
+    return dataclasses.replace(REGISTRY["smollm-360m"].smoke(),
+                               dtype="bfloat16", n_layers=n_layers)
+
+
+def test_launch_key_merges_a_skinny_matmuls_candidates(dev):
+    """Tuning a bf16 decode Program at 4 slots on the card: every
+    matmul (the skinny path) and decode op measures one launch for all
+    its candidates, and the incumbent keeps its place."""
+    from repro_torch.core import autotune
+    rep = autotune.tune_lm_decode(_bf16_smoke(), slots=4, max_len=64,
+                                  top_k=3, repeats=2, device=dev)
+    measured = [r for r in rep.results if not r.cached]
+    assert {r.kind for r in measured} == {"matmul", "decode_attention"}
+    for r in measured:
+        assert r.measurements == 1 and r.candidates >= 2, r.name
+        # one launch, one time: only lower modeled traffic moves a winner
+        assert r.winner_time_s == r.incumbent_time_s > 0, r.name
+    assert rep.n_measurements == len(measured)
+    assert rep.error_rows
+
+
+def test_device_clock_reads_a_decode_op_near_its_kernels(dev):
+    """smollm-360m's decode attention (full width, 8 slots, 512 rows, two
+    layers): on the device clock the op reads tens of microseconds --
+    its kernels -- in the trace and in a replay, where the host clock
+    reads its eager dispatch, several times more."""
+    from repro_torch.runtime import replay
+    cfg = dataclasses.replace(REGISTRY["smollm-360m"], n_layers=2)
+    pair = transformer.compile_program_pair(cfg, slots=8, max_len=512)
+    params = init_params(param_defs(cfg),
+                         torch.Generator(device=dev).manual_seed(2), dev)
+    state = executor.init_program_state(pair, dev)
+    for buf in state.caches.values():
+        buf.normal_()
+    state.lengths.copy_(torch.arange(8, dtype=torch.int32) * 60 + 30)
+    tokens = torch.arange(8, dtype=torch.int32, device=dev)
+    times = {}
+    for clock in ("device", "host"):
+        trace = executor.trace_program(pair.decode, params, tokens,
+                                       repeats=5, clock=clock, state=state)
+        times[clock] = min(r.measured_time_s for r in trace.records
+                           if r.kind == "decode_attention")
+    rec = next(r for r in trace.records if r.kind == "decode_attention")
+    _, t_replay = replay.replay_record(rec, repeats=5, device=dev)
+    assert 0 < times["device"] < 150e-6, times
+    assert 0 < t_replay < 150e-6, t_replay
+    assert times["host"] > 3 * times["device"], times
