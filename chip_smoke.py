@@ -110,7 +110,16 @@ exits non-zero before the last line is printed.  Phases:
    reaches the kernel and the bf16 simt check is skipped.  Each flash row
    must run f32 on simt and bf16 on mma (``flash_plan``), and the bf16 flash
    times are summed per smollm-360m and zamba2-7b admission, the forward
-   and the backward per training step, likewise;
+   and the backward per training step, likewise.  Then llama-3.2-vision-
+   11b's attention at 5o's shapes, in its legacy path's layouts
+   (``check_vlm_kernels``): the causal self flash (8, 32 / 8 heads of
+   128, 128 rows), the non-causal cross flash of 128 queries over the
+   1601 vision rows (no multiple of the kv block: the wrapper pads k and
+   v and masks the padding through kv_len), the decode kernel over a
+   512-row self ring with mixed kv_len and over all 1601 cross rows, in
+   the legacy cache's contiguous (B, Hkv, S, D); f32 (1e-4) and bf16
+   (2^-7), timed in bf16 beside the plain version, SDPA and the bound,
+   and summed per forward (40 + 8 flash) and per decode step (40 + 8);
 5. the main paths, each with the launch counters set to 0 just before
    it and read just after.  Every served Program run goes through the
    executor's CUDA-graph runners (``graphed_runner``,
@@ -292,6 +301,30 @@ exits non-zero before the last line is printed.  Phases:
       graphed = eager bit for bit), the tuned against the untuned
       graphed medians, then in turns (untuned, tuned, tuned, untuned),
       and the served decode Program is traced on both clocks;
+   o. llama-3.2-vision-11b (``serve_vlm``) at full width and depth in
+      bf16, the weights from the seed with the 8 cross gates drawn
+      nonzero: the generate path (``forward(vision_embeds=,
+      return_cache=True, cache_len=512)`` on 8 prompts of 128 tokens over
+      a (8, 1601, 4096) stub vision input, then 16 ``decode_step``s),
+      exactly 48 flash launches a forward and 48 decode launches a step,
+      replayed through the plain path and held to a floor built as the
+      family phases build theirs (two plain versions, the second's
+      attention the library's fused bf16 one), the cache leaves at 2^-7
+      (1 + |x|) plus twice the two plain versions' largest difference at
+      the same slot and row of the layer, the cross path shown
+      to reach the logits (the gates zeroed move them past the bound);
+      then ``ServingEngine``, which falls back to the legacy loop with
+      the reference's blockers, serving 8 requests of 4-32 prompt tokens
+      and 32 new tokens on 8 slots, exactly 48 decode launches a
+      ``decode_step`` and no flash, replayed teacher-forced through a
+      plain engine; tok/s, the step ms and the phase's seconds printed.
+   5b, 5g, 5h and 5l each end with a legacy leg (``legacy_leg``): the
+   phase's first 8 prompts, cut to the shortest, through the phase's
+   Program pair and 8 greedy ticks, then through the legacy ``forward
+   (return_cache)`` and 8 ``decode_step``s fed the pair's tokens, every
+   logits row held to the pair's under the phase's gate, with exactly
+   the attention, cross and scan launches the pair's listing makes a
+   layer and no matmul launch.
    In 5g and 5h the counters must be exactly the Program's kernel ops per
    call (``PAIR_OPS``: zamba2-7b 81 mamba2_scan and 99 matmul per
    admission and per tick, 14 flash per admission, 14 decode per tick;
@@ -396,6 +429,22 @@ FAMILY_MEAN_TOL = {"zamba2-7b": 0.28, "rwkv6-7b": 0.08}
 # is held to its plain version on the same input (``check_family_ops``;
 # the dispatch, plain torch on both sides, bit for bit).
 MOE_ARCH, MOE_STEPS = "granite-moe-1b-a400m", 3
+# llama-3.2-vision-11b (hf:meta-llama/Llama-3.2-11B-Vision) at full width
+# and depth in bf16 (5o): 40 layers, d_model 4096, 32 / 8 heads of 128, a
+# gated cross-attention block before every 5th layer over 1601 vision
+# rows.  It has no Program lowering, so it runs the legacy path: the
+# generate path on VLM_BATCH prompts of VLM_PROMPT tokens with a
+# (VLM_BATCH, 1601, 4096) stub vision input and a cache of LM_MAX_LEN
+# rows, VLM_STEPS decode steps; then the engine, which falls back to the
+# legacy loop, on VLM_ARGS' requests (no vision input, as in the
+# reference).
+VLM_ARCH, VLM_PROMPT, VLM_STEPS = "llama-3.2-vision-11b", 128, 16
+VLM_REQUESTS, VLM_PROMPT_LEN, VLM_NEW = 8, (4, 32), 32
+# The legacy legs of 5b, 5g, 5h and 5l: the phase's first SLOTS prompts,
+# cut to the shortest of them, through the phase's Program pair (its
+# emitted tokens) and through the legacy forward and LEGACY_STEPS
+# decode steps fed those tokens.
+LEGACY_STEPS = 8
 # whisper-base (arXiv:2212.04356) at full width and depth in bf16 (6
 # encoder and 6 decoder layers, d_model 512, 8 heads of 64, vocab 51,865,
 # the head tied to the embedding): 5l serves 16 requests on 8 slots at
@@ -1265,12 +1314,14 @@ def lm_matmul_case(op, shape, dtype, device, gen):
             by * (M * K + K * N + M * N * (2 if byp is not None else 1)))
 
 
-def lm_flash_case(op, dtype, device, gen, offset=False, shape=None):
+def lm_flash_case(op, dtype, device, gen, offset=False, shape=None,
+                  batch: int = 1):
     """The kernel, plain and library callables of one flash op at the
     served width, with its FLOPs and bytes; ``offset``: the operands in
     buffers off a 16-byte boundary (``unaligned``).  ``shape``: (Sq, Skv),
     the rows of q and of k / v (default max_len both); a non-causal op
-    (whisper's encoder and cross) attends every pair."""
+    (whisper's encoder and cross) attends every pair.  ``batch``
+    sequences (a legacy forward's batch; a Program prefill's is 1)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1280,7 +1331,7 @@ def lm_flash_case(op, dtype, device, gen, offset=False, shape=None):
     Sq, Skv = shape or (LM_MAX_LEN, LM_MAX_LEN)
 
     def heads(H, S):                 # the executor's (B, S, H, D) layout
-        t = torch.randn((1, S, H, a.head_dim), generator=gen,
+        t = torch.randn((batch, S, H, a.head_dim), generator=gen,
                         device=device).to(dtype).transpose(1, 2)
         return unaligned(t) if offset else t
     q = heads(a.heads, Sq)
@@ -1302,10 +1353,10 @@ def lm_flash_case(op, dtype, device, gen, offset=False, shape=None):
         q, k, v, attn_mask=mask, is_causal=mask is None and a.causal,
         scale=scale, enable_gqa=True)
     by = q.element_size()
-    pairs = int(allowed.sum())
+    pairs = batch * int(allowed.sum())
     return (kern, plain, library, 4 * a.head_dim * a.heads * pairs,
-            by * a.head_dim * (2 * a.heads * Sq + 2 * a.kv_heads * Skv)
-            + 4 * a.heads * Sq)
+            batch * (by * a.head_dim * (2 * a.heads * Sq + 2 * a.kv_heads
+                                        * Skv) + 4 * a.heads * Sq))
 
 
 def _kv_lens(cache: int):
@@ -1317,10 +1368,12 @@ def _kv_lens(cache: int):
 
 
 def lm_decode_case(op, cache, dtype, device, gen, kv_dtype=None,
-                   full=False):
+                   full=False, legacy=False):
     """One decode op: q in ``dtype``, the cache in ``kv_dtype`` (default
     ``dtype``; ``torch.float8_e4m3fn`` for the config's float8 caches).
-    ``full``: every row live (a cross op over its encoder memory)."""
+    ``full``: every row live (a cross op over its encoder memory).
+    ``legacy``: the legacy cache's contiguous (B, Hkv, S, D) layout, not
+    a view of the Program's (slots, rows, kv heads, D) regions."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention
@@ -1330,10 +1383,12 @@ def lm_decode_case(op, cache, dtype, device, gen, kv_dtype=None,
     q = torch.randn((SLOTS, a.heads, a.head_dim), generator=gen,
                     device=device).to(dtype)
     # the (slots, rows, kv heads, D) cache regions, viewed (B, Hkv, S, D)
-    ck, cv = (torch.randn((SLOTS, cache, a.kv_heads, a.head_dim),
-                          generator=gen, device=device).to(kv_dtype or dtype)
+    rows = (SLOTS, a.kv_heads, cache) if legacy else (SLOTS, cache,
+                                                      a.kv_heads)
+    ck, cv = (torch.randn(rows + (a.head_dim,), generator=gen,
+                          device=device).to(kv_dtype or dtype)
               for _ in range(2))
-    k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+    k, v = (ck, cv) if legacy else (ck.transpose(1, 2), cv.transpose(1, 2))
     lens = [cache] * SLOTS if full else _kv_lens(cache)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
     scale = a.head_dim ** -0.5
@@ -1449,6 +1504,99 @@ def check_lm_kernels(device, peaks, arch=LM_ARCH):
               f"| {desc}", flush=True)
         del case, kern, plain, library
     return rows, uses
+
+
+def vlm_ops() -> dict:
+    """The attention ops of llama-3.2-vision-11b's legacy path at the 5o
+    shapes, by description: (kernel, op, shape, launches per forward or
+    tick).  Its forward (8 prompts of ``VLM_PROMPT`` tokens) runs one
+    causal self flash a layer and one non-causal cross flash a group over
+    the ``n_vision_tokens`` rows; each decode step one decode a layer
+    over the ring of ``LM_MAX_LEN`` rows and one a group over all the
+    vision rows (the cross K/V)."""
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    G, Tv = cfg.n_layers // cfg.cross_attn_every, cfg.n_vision_tokens
+
+    def op(causal):
+        return SimpleNamespace(kernel="legacy", attn=SimpleNamespace(
+            heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+            causal=causal, window=None, block_q=None, block_kv=None))
+    h = f"h={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.hd} B={SLOTS}"
+    return {
+        f"flash_attention self {h} S={VLM_PROMPT} causal":
+            ("flash_attention", op(True), (VLM_PROMPT, VLM_PROMPT),
+             cfg.n_layers),
+        f"flash_attention cross {h} Sq={VLM_PROMPT} Tv={Tv}":
+            ("flash_attention", op(False), (VLM_PROMPT, Tv), G),
+        f"decode_attention self {h} ring={LM_MAX_LEN}":
+            ("decode_attention", op(True), (LM_MAX_LEN,), cfg.n_layers),
+        f"decode_attention cross {h} memory={Tv}":
+            ("decode_attention", op(False), (Tv,), G)}
+
+
+def check_vlm_kernels(device, peaks) -> dict:
+    """Phase 4, llama-3.2-vision-11b: the flash and decode kernels at
+    ``vlm_ops``' shapes in the legacy path's layouts (flash: 8 sequences
+    in the (B, S, H, D) layout the projections leave; decode: the legacy
+    cache's contiguous (B, Hkv, S, D), mixed kv_len over the self ring,
+    every row over the cross K/V), f32 (1e-4, simt) and bf16 (2^-7, mma),
+    timed in bf16 beside the plain version, SDPA and the bound.  The
+    cross flash's 1601 keys are no multiple of the kv block: the wrapper
+    pads k and v and masks the padding through kv_len.  Returns rows by
+    description, with ``uses`` (launches per forward or tick)."""
+    import torch
+    from repro_torch.kernels.decode_attention.kernel import decode_plan
+    fwd_paths = flash_wrappers()[0].path_launches
+    rows = {}
+    for i, (desc, (kernel, op, shape, uses)) in enumerate(
+            sorted(vlm_ops().items())):
+        errs = []
+        for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+            gen = torch.Generator(device=device).manual_seed(SEED + i)
+            if kernel == "flash_attention":
+                case = lm_flash_case(op, dtype, device, gen, shape=shape,
+                                     batch=SLOTS)
+            else:
+                case = lm_decode_case(op, shape[0], dtype, device, gen,
+                                      full="cross" in desc, legacy=True)
+            kern, plain, library, flops, nbytes = case
+            before = dict(fwd_paths)
+            errs.append(max_err(kern(), plain(), tol))
+            if kernel == "flash_attention":
+                taken = [k for k in fwd_paths if fwd_paths[k] > before[k]]
+                want = "simt" if dtype == torch.float32 else "mma"
+                if taken != [want]:
+                    fail(f"flash {desc} {dtype}: ran on {taken}, not {want}")
+        row = {"kernel": kernel, "shape": desc, "uses": uses,
+               "err_f32": errs[0], "err_bf16": errs[1],
+               "max_abs_err": max(errs), "ms": time_ms(kern),
+               "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+               "flop_ms": flops / peaks["bfloat16"] * 1e3,
+               "byte_ms": nbytes / peaks["hbm"] * 1e3}
+        row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
+        extra = ""
+        if kernel == "decode_attention":
+            a = op.attn
+            extra = " " + plan_text(decode_plan(
+                SLOTS, a.heads, a.kv_heads, shape[0], a.head_dim,
+                torch.bfloat16))
+        rows[desc] = row
+        print(f"  {kernel:16s} err f32={errs[0]:.2e} bf16={errs[1]:.2e}"
+              f"{extra} ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+              f"lib={row['library_ms']:.4f} bound={row['bound_ms']:.4f} ("
+              f"{'operations' if row['flop_ms'] >= row['byte_ms'] else 'bytes'}"
+              f") x {uses} | {desc}", flush=True)
+        del case, kern, plain, library
+    for kernel, per in (("flash_attention", "forward"),
+                        ("decode_attention", "tick")):
+        mine = [r for r in rows.values() if r["kernel"] == kernel]
+        print(f"{VLM_ARCH} {kernel} per {per}: "
+              f"{sum(r['uses'] for r in mine)} launches, " + ", ".join(
+                  f"{k} {sum(r['uses'] * r[k] for r in mine):.4f}"
+                  for k in ("ms", "bound_ms", "plain_ms", "library_ms")))
+    return rows
 
 
 def paged_operands(pool_dtype, q_dtype, device, gen, D=None):
@@ -2617,7 +2765,6 @@ class Recorder:
         Returns (max |logit diff|, rows compared, token ids compared,
         the two plain replays' largest difference or None, the bound) and
         prints the mean |logit diff| of each comparison."""
-        import numpy as np
         moe = arch == MOE_ARCH
         routes = [] if moe else None
         plain = self._plain_rows(eng, routes=routes)
@@ -2626,42 +2773,23 @@ class Recorder:
             with (reordered_plain() if moe
                   else sequential_plain(*FAMILY_FLOOR[arch])):
                 alt = self._plain_rows(eng)
-            d = [np.abs(a[i] - b[i]) for (_, a), (_, b) in zip(plain, alt)
-                 for i in a]
-            spread = max(float(x.max()) for x in d)
-            bound = max(LOGIT_TOL, 2 * spread)
-            plain_mean = float(np.mean([x.mean() for x in d]))
+            bound, plain_mean, spread = plain_floor(
+                (a[i], b[i]) for (_, a), (_, b) in zip(plain, alt)
+                for i in a)
             mean_tol = FAMILY_MEAN_TOL.get(arch, 2 * plain_mean)
             note = f"; between the two plain replays {plain_mean:.4f}"
         served = [c for c in self.calls
                   if c[0] in ("prefill", "chunk", "decode")]
         if moe:
             self.routing_report(eng, served, plain, routes)
-        worst, n_rows, n_ids, means = 0.0, 0, 0, []
-        for (kind, want), (_, _, _, got) in zip(plain, served):
-            for i, g in got.items():
-                g, w = g.float().cpu().numpy(), want[i]
-                means.append(float(np.abs(g - w).mean()))
-                diff = float(np.abs(g - w).max())
-                worst = max(worst, diff)
-                n_rows += 1
-                if not np.isfinite(g).all() or diff > bound:
-                    fail(f"{kind}: served logits differ from the plain "
-                         f"path by {diff:.3e} > {bound:.3e}")
-                top2 = np.sort(w)[-2:]
-                if top2[1] - top2[0] > 2 * diff:
-                    n_ids += 1
-                    if int(np.argmax(g)) != int(np.argmax(w)):
-                        fail(f"{kind}: served token {int(np.argmax(g))} != "
-                             f"plain {int(np.argmax(w))} with a top-2 gap "
-                             f"of {top2[1] - top2[0]:.3f}")
-        mean = float(np.mean(means))
+        worst, mean, n_rows, n_ids, largest = hold_rows(
+            "served", ((kind, g.float().cpu().numpy(), want[i])
+                       for (kind, want), (_, _, _, got) in zip(plain,
+                                                                served)
+                       for i, g in got.items()), bound, mean_tol)
         print(f"  mean |logit diff| per row: served against plain "
-              f"{mean:.4f} (largest row {max(means):.4f}){note}"
+              f"{mean:.4f} (largest row {largest:.4f}){note}"
               + (f"; limit {mean_tol:.4f}" if mean_tol else ""))
-        if mean_tol is not None and mean > mean_tol:
-            fail(f"served logits differ from the plain path by {mean:.4f} "
-                 f"per row on the mean > {mean_tol:.4f}")
         return worst, n_rows, n_ids, spread, bound
 
     def routing_report(self, eng, served, plain, routes) -> None:
@@ -2716,8 +2844,8 @@ def write_memory(eng, state, slot: int, frames, impl: str) -> None:
     cross K/V projection of ``frames`` through ``impl`` ("reference": the
     plain path), the rows copied into the read-only regions at
     ``slot``."""
-    from repro_torch.models import MEMORY_WRITERS
-    _, writer = MEMORY_WRITERS[eng.cfg.family]
+    from repro_torch.models import get_model
+    writer = get_model(eng.cfg).encode_memory
     rows = writer(eng.params, frames.to(eng.device, eng.cfg.tdtype),
                   eng.cfg, impl=impl)
     for name, row in rows.items():
@@ -3048,7 +3176,7 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
              "ticks": ticks, "worst_logit_diff": worst,
              "plain_spread": spread, "logit_bound": bound,
              "streams": [r.out_tokens for r in done],
-             "capture_s": eng.capture_seconds}
+             "prompts": res["prompts"], "capture_s": eng.capture_seconds}
     per_call = " ".join(f"{k} {stats[k + '_ms']:.2f} ms per call,"
                         for k in ("prefill", "chunk") if stats[k + "_ms"])
     floor_note = ("" if spread is None else
@@ -3378,14 +3506,16 @@ def serve_family(label: str, arch: str):
         return serve.main(["--arch", arch] + FAMILY_ARGS)
     launches, stats, eng, rec = serve_lm(label, run, n, new, arch=arch)
     check_family_ops(label, eng, rec, arch)
+    peak = torch.cuda.max_memory_allocated()   # the served phase's alone
+    if arch != MOE_ARCH:
+        stats["legacy"] = legacy_leg(label, eng, stats, arch)
     pair = eng.program
     state_mb = {}
     for r in pair.decode.plan.persistent_regions():
         kind = r.name.split(".")[-1]
         state_mb[kind] = state_mb.get(kind, 0.0) + r.size_bytes / 1e6
     n_params = sum(t.numel() for t in _named_leaves(eng.params).values())
-    stats.update(state_mb=state_mb, n_params=n_params,
-                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    stats.update(state_mb=state_mb, n_params=n_params, peak_gb=peak / 1e9)
     print(f"{label}: {n_params / 1e9:.3f} B parameters, persistent state "
           f"{pair.persistent_bytes / 1e6:.2f} MB (" + ", ".join(
               f"{k} {v:.2f} MB" for k, v in state_mb.items())
@@ -3427,6 +3557,8 @@ def serve_whisper(label: str):
     def run():
         return serve.main(WHISPER_ARGS)
     launches, stats, eng, rec = serve_lm(label, run, n, new, arch=WHISPER)
+    peak = torch.cuda.max_memory_allocated()   # the served phase's alone
+    stats["legacy"] = legacy_leg(label, eng, stats, WHISPER)
     slots_used = Counter(c[2][0] for c in rec.calls if c[0] == "memory")
     if sorted(slots_used.values()) != [n // SLOTS] * SLOTS:
         fail(f"{label}: admissions per slot {dict(slots_used)}, want "
@@ -3437,8 +3569,7 @@ def serve_whisper(label: str):
         kind = r.name.split(".")[-1]
         state_mb[kind] = state_mb.get(kind, 0.0) + r.size_bytes / 1e6
     n_params = sum(t.numel() for t in _named_leaves(eng.params).values())
-    stats.update(state_mb=state_mb, n_params=n_params,
-                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    stats.update(state_mb=state_mb, n_params=n_params, peak_gb=peak / 1e9)
     print(f"{label}: {n_params / 1e6:.1f} M parameters, persistent state "
           f"{pair.persistent_bytes / 1e6:.2f} MB (" + ", ".join(
               f"{k} {v:.2f} MB" for k, v in state_mb.items())
@@ -3451,6 +3582,515 @@ def serve_whisper(label: str):
     torch.cuda.empty_cache()
     stats.update(check_eager(label, run, stats, rec, exact=True))
     return launches, stats
+
+
+@contextlib.contextmanager
+def sdpa_plain():
+    """Inside, the plain path's attention is PyTorch's fused
+    ``scaled_dot_product_attention`` on the bf16 operands (the kv heads
+    repeated for each group, ``kv_len`` as a mask): a second plain
+    version of the legacy path that rounds as a fused bf16 attention
+    does.  A version that only reorders the f32 sums rounds to the same
+    bf16 values far more often than a fused kernel: on 5o it left some
+    cache rows equal to the plain ones bit for bit, so a floor taken row
+    by row from it is 0 there, under the kernels' own rounding."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    orig = flash_ops.flash_ref, decode_ops.decode_attention_ref
+
+    def groups(q, k, v):
+        g = q.shape[1] // k.shape[1]
+        return k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+
+    def flash(q, k, v, *, scale=None, causal=False, window=None,
+              kv_len=None, chunk=512, return_lse=False):
+        if window is not None or return_lse or (causal and kv_len is not None):
+            raise NotImplementedError("sdpa_plain: window, lse, or causal "
+                                      "with kv_len")
+        k, v = groups(q, k, v)
+        mask = (None if kv_len is None else
+                torch.arange(k.shape[2], device=q.device) < kv_len)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              is_causal=causal, scale=scale)
+
+    def decode(q, k, v, *, kv_len=None, scale=None):
+        k, v = groups(q[:, :, None], k, v)
+        mask = (None if kv_len is None else
+                (torch.arange(k.shape[2], device=q.device)[None]
+                 < kv_len[:, None])[:, None, None])
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, scale=scale)[:, :, 0]
+    flash_ops.flash_ref, decode_ops.decode_attention_ref = flash, decode
+    try:
+        yield
+    finally:
+        flash_ops.flash_ref, decode_ops.decode_attention_ref = orig
+
+
+def plain_floor(pairs) -> tuple[float, float, float]:
+    """The logits gate of a model whose depth amplifies one-ulp
+    differences past any fixed bound (a recurrent family, MoE routing,
+    40 random-weight bf16 layers), measured on the same calls: ``pairs``
+    holds each logits row of two plain versions that sum in other
+    orders.  Returns (bound, mean, spread): ``spread`` is their largest
+    difference, ``bound`` max(``LOGIT_TOL``, twice it) and ``mean`` their
+    mean |diff| per row."""
+    import numpy as np
+    d = [np.abs(a - b) for a, b in pairs]
+    spread = max(float(x.max()) for x in d)
+    return (max(LOGIT_TOL, 2 * spread), float(np.mean([x.mean() for x in d])),
+            spread)
+
+
+def hold_rows(label: str, rows, bound: float, mean_tol: float | None,
+              against: str = "the plain path"):
+    """Every logits row against its reference: finite and within
+    ``bound``; the token equal wherever the reference's top-2 gap exceeds
+    twice the row's largest difference; the mean |diff| per row within
+    ``mean_tol`` (None: not held).  ``rows``: (where, got, want) with two
+    (V,) f32 rows.  Returns (worst, mean, rows, token ids compared, the
+    largest row's mean)."""
+    import numpy as np
+    worst, means, n_ids = 0.0, [], 0
+    for where, g, w in rows:
+        diff = float(np.abs(g - w).max())
+        worst = max(worst, diff)
+        means.append(float(np.abs(g - w).mean()))
+        if not np.isfinite(g).all() or diff > bound:
+            fail(f"{label} {where}: logits differ from {against} by "
+                 f"{diff:.3e} > {bound:.3e}")
+        top2 = np.sort(w)[-2:]
+        if top2[1] - top2[0] > 2 * diff:
+            n_ids += 1
+            if int(np.argmax(g)) != int(np.argmax(w)):
+                fail(f"{label} {where}: token {int(np.argmax(g))} != "
+                     f"{int(np.argmax(w))} of {against}, with a top-2 "
+                     f"gap of {top2[1] - top2[0]:.3f}")
+    mean = float(np.mean(means))
+    if mean_tol is not None and mean > mean_tol:
+        fail(f"{label}: logits differ from {against} by {mean:.4f} per "
+             f"row on the mean > {mean_tol:.4f}")
+    return worst, mean, len(means), n_ids, max(means)
+
+
+def call_rows(calls):
+    """(where, got, want) for ``hold_rows`` from per-call (got, want)
+    pairs of (B, V) rows."""
+    return ((f"call {t} row {i}", g[i], w[i])
+            for t, (g, w) in enumerate(calls) for i in range(len(g)))
+
+
+def hold_cache(label: str, got: dict, plain: dict, alt: dict) -> dict:
+    """5o's final legacy cache against the plain path's, leaf by leaf and
+    layer by layer: each element within 2^-7 (1 + |x|) plus twice the
+    largest difference between the two plain versions' caches (``alt``:
+    ``sdpa_plain``) at the same slot and row of that layer, over its
+    heads and head dim.  A K/V row is projected
+    from its token's residual stream, which the random-weight model
+    moves by more than an ulp with depth, on either path alike: the
+    floor is measured row by row, so a fault in one row or one slot is
+    held to that row's own spread, not the layer's largest.  ``pos``
+    exactly.  Prints, by layer, the two plain versions' largest
+    difference and the worst |err| / limit; returns them by leaf."""
+    import torch
+    if not torch.equal(got["pos"], plain["pos"]):
+        fail(f"{label}: cache pos {got['pos']} != {plain['pos']}")
+    report, bad = {}, []
+    for k in ("k", "v", "cross_k", "cross_v"):
+        worst, rule, spreads, ratios = 0.0, 0.0, [], []
+        for layer, (g, p, a) in enumerate(zip(got[k], plain[k], alt[k])):
+            g, p, a = g.float(), p.float(), a.float()   # (B, KV, rows, hd)
+            spread = (p - a).abs().amax(dim=(1, 3), keepdim=True)
+            err = (g - p).abs()
+            ratio = (err / (BF16_TOL * (1 + p.abs()) + 2 * spread)).max()
+            spreads.append(spread.max().item())
+            ratios.append(ratio.item())
+            if not bool(torch.isfinite(g).all()) or ratios[-1] > 1:
+                bad.append(f"{k} layer {layer} ({ratios[-1]:.3f})")
+            worst = max(worst, err.max().item())
+            rule = max(rule, (err / (1 + p.abs())).max().item())
+        report[k] = {"spread": spreads, "ratio": ratios}
+        print(f"  cache {k} {tuple(got[k].shape)}: max |err| {worst:.3e}, "
+              f"max |err| / (1 + |x|) {rule:.3e} (2^-7 = {BF16_TOL:.3e}); "
+              f"by layer, the plain versions' largest row spread "
+              f"{[float(f'{x:.3g}') for x in spreads]} and the worst "
+              f"|err| / (2^-7 (1 + |x|) + 2 x that row's spread) "
+              f"{[float(f'{x:.3g}') for x in ratios]}", flush=True)
+    if bad:
+        fail(f"{label}: cache leaves differ from the plain path past "
+             f"2^-7 (1 + |x|) + 2 x the row's plain spread: "
+             f"{', '.join(bad)}")
+    return report
+
+
+def serve_vlm(device) -> tuple[dict, dict]:
+    """Phase 5o: llama-3.2-vision-11b at full width and depth in bf16
+    (about 10.1 B parameters, 20.2 GB), weights drawn from the seed; the
+    8 cross gates, zeros at init (tanh(0) = 0 would shut the cross path),
+    are drawn nonzero, |g| in [0.5, 1.5) with random signs, from the same
+    seed.  It has no Program lowering, so it runs the legacy path:
+
+    a. the generate path: ``forward(vision_embeds=(8, 1601, 4096) stub,
+       return_cache=True, cache_len=512)`` on 8 prompts of 128 tokens,
+       then VLM_STEPS greedy ``decode_step``s: exactly 40 self + 8 cross
+       flash launches in the forward and 40 + 8 decode launches a step,
+       no matmul launch (the projections are plain ``@``); the same calls
+       replayed through the plain path (``impl="reference"``) and a
+       second plain version whose attention is the library's fused bf16
+       one (``sdpa_plain``), the logits held by ``plain_floor`` /
+       ``hold_rows``, the final cache leaves by ``hold_cache``; the
+       forward again with the
+       gates zeroed must move the last rows' logits by more than the
+       bound (the cross path reaches the logits);
+    b. ``ServingEngine`` with its default ``use_program=True`` falls back
+       (a RuntimeWarning, ``fallback_reason`` naming the reference's
+       blockers) and serves VLM_REQUESTS requests of 4-32 prompt tokens
+       and VLM_NEW new tokens on 8 slots, max_len 512, no vision input
+       (as in the reference; the loop's cross memory stays zero): exactly
+       48 decode launches a ``decode_step`` (a teacher-forced admission
+       step or a tick), no flash; tok/s and the step ms; every call
+       replayed teacher-forced through a plain engine (the same resets,
+       masks and tokens) under (a)'s gate.
+
+    Returns (launches, stats)."""
+    import gc
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, param_defs, transformer
+    from repro_torch.serving import Request, ServingEngine
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    label = f"5o {VLM_ARCH}"
+    cfg = get_config(VLM_ARCH)
+    G = cfg.n_layers // cfg.cross_attn_every
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(param_defs(cfg), gen, device)
+    mag = torch.rand((G,), generator=gen, device=device) + 0.5
+    sign = torch.randint(0, 2, (G,), generator=gen, device=device) * 2 - 1
+    gates = (mag * sign).to(cfg.tdtype)
+    params["cross_blocks"]["gate"] = gates
+    n_params = sum(t.numel() for t in _named_leaves(params).values())
+    vis = torch.randn((SLOTS, cfg.n_vision_tokens, cfg.d_model),
+                      generator=gen, device=device).to(cfg.tdtype)
+    toks = torch.randint(0, cfg.vocab, (SLOTS, VLM_PROMPT), generator=gen,
+                         device=device).to(torch.int32)
+    print(f"{label}: {n_params / 1e9:.3f} B parameters "
+          f"({2 * n_params / 1e9:.2f} GB bf16; analytic "
+          f"{cfg.n_params() / 1e9:.3f} B), "
+          f"cross gates {[round(float(g), 3) for g in gates]}", flush=True)
+    counters = lm_counters()
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counters.items() if fn.launches}
+    per_fwd = {"flash_attention": cfg.n_layers + G}
+    per_step = {"decode_attention": cfg.n_layers + G}
+
+    def generate(impl, fed=None):
+        """forward + VLM_STEPS decode steps (greedy, or fed ``fed``):
+        (per call (8, V) f32 rows, the fed tokens, the final cache, ms)."""
+        ms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = transformer.forward(params, toks, cfg, vision_embeds=vis,
+                                  impl=impl, return_cache=True,
+                                  cache_len=LM_MAX_LEN)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        rows = [out["logits"][:, -1].float().cpu().numpy()]
+        cache = out["cache"]
+        del out
+        fed = fed or []
+        for t in range(VLM_STEPS):
+            if len(fed) <= t:
+                fed.append(torch.from_numpy(rows[-1].argmax(-1).astype(
+                    np.int32)).to(device))
+            if impl == "auto" and read() != (per_fwd if t == 0 else {}):
+                fail(f"{label}: launches {read()} before step {t}, want "
+                     f"{per_fwd if t == 0 else {}}")
+            reset()
+            t0 = time.perf_counter()
+            logits, cache = transformer.decode_step(params, cache, fed[t],
+                                                    cfg, impl=impl)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            rows.append(logits.float().cpu().numpy())
+            if impl == "auto":
+                if read() != per_step:
+                    fail(f"{label}: step {t} launches {read()}, want "
+                         f"{per_step}")
+                reset()
+        return rows, fed, cache, ms
+
+    with torch.no_grad():
+        reset()
+        reset_flash_paths()
+        got, fed, cache, ms = generate("auto")
+        check_flash_paths(label, per_fwd["flash_attention"], 0)
+        # Where an eager step's time goes: one more step (the cache is
+        # not written: the step is functional) under the profiler.
+        step_prof = profile_train(
+            f"{label} decode step",
+            lambda: transformer.decode_step(params, cache, fed[-1], cfg),
+            statistics.median(ms[1:]))
+        launches = {"flash_attention": per_fwd["flash_attention"],
+                    "decode_attention": VLM_STEPS
+                    * per_step["decode_attention"]}
+        plain, _, pcache, _ = generate("reference", fed)
+        with sdpa_plain():
+            alt, _, acache, _ = generate("reference", fed)
+        bound, plain_mean, spread = plain_floor(zip(
+            (r for rows in plain for r in rows),
+            (r for rows in alt for r in rows)))
+        mean_tol = 2 * plain_mean
+        print(f"{label}: bound {bound:.3e} = max({LOGIT_TOL}, 2 x "
+              f"{spread:.3e}, the two plain versions' largest difference), "
+              f"mean limit {mean_tol:.4f} (twice theirs)")
+        worst, mean, n_rows, n_ids, _ = hold_rows(
+            f"{label} generate", call_rows(zip(got, plain)), bound, mean_tol)
+        print(f"{label} generate: {n_rows} logits rows within "
+              f"{worst:.3e} of the plain path (bound {bound:.3e}); mean "
+              f"|diff| per row {mean:.4f} (limit {mean_tol:.4f}); {n_ids} "
+              f"token ids compared, all equal", flush=True)
+        cache_report = hold_cache(label, cache, pcache, acache)
+        del cache, pcache, acache
+        params["cross_blocks"]["gate"] = torch.zeros_like(gates)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shut = transformer.forward(params, toks, cfg, vision_embeds=vis)
+        torch.cuda.synchronize()
+        again_ms = 1e3 * (time.perf_counter() - t0)
+        params["cross_blocks"]["gate"] = gates
+        moved = float(np.abs(shut["logits"][:, -1].float().cpu().numpy()
+                             - got[0]).max())
+        del shut
+        if moved <= bound:
+            fail(f"{label}: zeroing the cross gates moves the logits by "
+                 f"{moved:.3e}, not past the bound {bound:.3e}")
+    print(f"{label} generate: forward of {SLOTS} x {VLM_PROMPT} tokens over "
+          f"{cfg.n_vision_tokens} vision rows {ms[0]:.2f} ms (the first; "
+          f"again, gates zeroed, {again_ms:.2f} ms), decode step "
+          f"{statistics.median(ms[1:]):.2f} ms median / "
+          f"{statistics.mean(ms[1:]):.2f} mean (eager); launches "
+          f"{per_fwd} a forward, {per_step} a step; the gates zeroed move "
+          f"the logits by {moved:.3e} (> {bound:.3e})", flush=True)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng = ServingEngine(cfg, params, slots=SLOTS, max_len=LM_MAX_LEN,
+                            device=device)
+    blockers = ("blocked by: family=vlm (not a decoder-only transformer "
+                "graph), gated cross-attention (vision bridge), "
+                "vision-encoder inputs")
+    if (eng.on_program_path or blockers not in (eng.fallback_reason or "")
+            or not any(issubclass(w.category, RuntimeWarning)
+                       for w in caught)):
+        fail(f"{label}: the engine did not fall back with the reference's "
+             f"blockers: {eng.fallback_reason!r}")
+    calls = []
+    orig = {n: getattr(eng, n) for n in ("_reset_slots", "_step_masked",
+                                         "_legacy_decode")}
+
+    def reset_slots(slots):
+        calls.append(("reset", list(slots)))
+        return orig["_reset_slots"](slots)
+
+    def step_masked(t, mask):
+        calls.append(("mask", mask.copy()))
+        return orig["_step_masked"](t, mask)
+
+    def decode(t):
+        live = (calls[-1][1].nonzero()[0].tolist()
+                if calls and calls[-1][0] == "mask" else sorted(eng.live))
+        t0 = time.perf_counter()
+        out = orig["_legacy_decode"](t)
+        torch.cuda.synchronize()
+        calls.append(("decode", 1e3 * (time.perf_counter() - t0), t.copy(),
+                      {i: out[0][i].float().cpu().numpy() for i in live}))
+        return out
+    eng._reset_slots, eng._step_masked = reset_slots, step_masked
+    eng._legacy_decode = decode
+    prompts = serve.make_prompts(cfg.vocab, VLM_REQUESTS, *VLM_PROMPT_LEN,
+                                 SEED)
+    reset()
+    reset_flash_paths()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new_tokens=VLM_NEW))
+    done = eng.run_until_drained()
+    seconds = time.perf_counter() - t0
+    steps = [c for c in calls if c[0] == "decode"]
+    n_tok = sum(len(r.out_tokens) for r in done)
+    if len(done) != VLM_REQUESTS or n_tok != VLM_REQUESTS * VLM_NEW:
+        fail(f"{label}: served {len(done)} requests, {n_tok} tokens")
+    want = {"decode_attention": len(steps) * per_step["decode_attention"]}
+    if read() != want:
+        fail(f"{label} engine: launches {read()}, want {want}")
+    launches["decode_attention"] += want["decode_attention"]
+    step_ms = [c[1] for c in steps]
+    with torch.no_grad():
+        ref = ServingEngine(cfg, params, slots=SLOTS, max_len=LM_MAX_LEN,
+                            device=device, impl="reference",
+                            use_program=False)
+        e_got, e_plain, mask = [], [], None
+        for c in calls:
+            if c[0] == "reset":
+                ref._reset_slots(c[1])
+            elif c[0] == "mask":
+                mask = c[1]
+            else:
+                if mask is not None:
+                    logits = ref._step_masked(c[2], mask)
+                else:
+                    logits, ref.cache = ref._legacy_decode(c[2])
+                mask = None
+                rows = logits.float().cpu().numpy()
+                e_got.append(np.stack(list(c[3].values())))
+                e_plain.append(rows[list(c[3])])
+        del ref
+    live_rows = [(g, p) for g, p in zip(e_got, e_plain) if len(g)]
+    worst_e, mean_e, n_rows, n_ids, _ = hold_rows(
+        f"{label} engine replay", call_rows(live_rows), bound, mean_tol)
+    print(f"{label} engine replay: {n_rows} logits rows within "
+          f"{worst_e:.3e} of the plain path (bound {bound:.3e}); mean "
+          f"|diff| per row {mean_e:.4f} (limit {mean_tol:.4f}); {n_ids} "
+          f"token ids compared, all equal", flush=True)
+    stats = {"tok_s": n_tok / seconds, "step_ms": statistics.median(step_ms),
+             "step_mean_ms": statistics.mean(step_ms),
+             "forward_ms": again_ms, "gen_step_ms": statistics.median(ms[1:]),
+             "worst": worst, "bound": bound, "mean": mean,
+             "step_profile": step_prof, "cache": cache_report,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{label} engine: fell back to the legacy loop; {n_tok} tokens in "
+          f"{seconds:.3f} s ({stats['tok_s']:.1f} tok/s); {len(steps)} "
+          f"decode_step calls (admission steps and ticks), "
+          f"{stats['step_ms']:.2f} ms median, {stats['step_mean_ms']:.2f} "
+          f"mean; launches {want}; logits rows within {worst_e:.3e} of the "
+          f"teacher-forced plain replay (bound {bound:.3e}), mean "
+          f"{mean_e:.4f}; peak memory "
+          f"{stats['peak_gb']:.2f} GB; 5o took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    del eng, params, vis
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def legacy_leg(label: str, eng, stats, arch: str) -> dict:
+    """The legacy leg of 5b, 5g, 5h and 5l, on the phase's parameters:
+    its first SLOTS prompts, cut to the shortest of them (whisper's with
+    their stub frames), admitted through the phase's Program pair
+    (eagerly, on a fresh state) and decoded LEGACY_STEPS ticks on its
+    greedy tokens; then the same batch through the legacy ``forward
+    (return_cache=True, cache_len=max_len)`` and LEGACY_STEPS
+    ``decode_step``s fed the pair's tokens, with the counters set to 0
+    just before and read just after.  The legacy path launches what the
+    pair's listing launches a layer: a flash kernel per attention (and
+    per cross) op and a scan per recurrent block in the forward (one
+    batched launch where the pair makes one per admission), the
+    encoder's flash per layer, a decode kernel per attention and cross
+    op and a scan per mamba block each step; never the matmul kernel
+    (its projections are plain ``@``, as in the reference) nor wkv6 in a
+    step (plain, as in the reference).  Every logits row is held to the
+    pair's under the phase's gate (``stats["logit_bound"]``, the token
+    rule, and for the recurrent families the mean |logit diff| within
+    ``FAMILY_MEAN_TOL``).  Returns the launches and times."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.runtime import executor
+    cfg, pair, params, dev = eng.cfg, eng.program, eng.params, eng.device
+    prompts = stats["prompts"][:SLOTS]
+    P = min(len(p) for p in prompts)
+    toks = np.stack([p[:P] for p in prompts]).astype(np.int32)
+    frames = serve.make_frames(cfg, len(stats["prompts"]), SEED)
+    state = executor.init_program_state(pair, dev)
+    with torch.no_grad():
+        rows = []
+        for s in range(SLOTS):
+            if frames is not None:
+                write_memory(eng, state, s, torch.from_numpy(frames[s]),
+                             "auto")
+            padded = torch.zeros((1, eng.max_len), dtype=torch.int32)
+            padded[0, :P] = torch.from_numpy(toks[s])
+            out = executor.run_prefill(pair.prefill, params, padded.to(dev),
+                                       state, s, P, 0)
+            rows.append(out[0, P - 1].float().cpu().numpy())
+        want, fed = [np.stack(rows)], []
+        live = torch.ones((SLOTS,), dtype=torch.bool, device=dev)
+        for _ in range(LEGACY_STEPS):
+            fed.append(torch.from_numpy(want[-1].argmax(-1).astype(np.int32)))
+            want.append(executor.run_decode(pair.decode, params,
+                                            fed[-1].to(dev), state, live)
+                        .float().cpu().numpy())
+    del state
+    pre, dec = (Counter(op.kernel for op in prog.ops
+                        if op.kernel in KERNEL_OPS)
+                for prog in (pair.prefill, pair.decode))
+    want_fwd = {"flash_attention": pre["flash_attention"]
+                + pre["cross_attention"] + cfg.n_encoder_layers,
+                "mamba2_scan": pre["ssm_scan"], "wkv6": pre["wkv"]}
+    want_step = {"decode_attention": dec["decode_attention"]
+                 + dec["cross_attention"], "mamba2_scan": dec["ssm_scan"]}
+    counters = lm_counters()
+    api = get_model(cfg)
+    kw = {} if frames is None else {"encoder_frames": torch.from_numpy(
+        np.stack(frames[:SLOTS])).to(dev, cfg.tdtype)}
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = api.forward(params, torch.from_numpy(toks).to(dev), cfg,
+                          return_cache=True, cache_len=eng.max_len, **kw)
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+        fwd = {k: fn.launches for k, fn in counters.items()}
+        got = [out["logits"][:, -1].float().cpu().numpy()]
+        cache = out["cache"]
+        del out
+        step_ms = []
+        for nxt in fed:
+            t0 = time.perf_counter()
+            logits, cache = api.decode_step(params, cache, nxt.to(dev), cfg)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            got.append(logits.float().cpu().numpy())
+    del cache
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want_all = {k: want_fwd.get(k, 0) + LEGACY_STEPS * want_step.get(k, 0)
+                for k in counters}
+    if {k: v for k, v in fwd.items() if v} != {
+            k: v for k, v in want_fwd.items() if v} or launches != want_all:
+        fail(f"{label} legacy: launches {fwd} in the forward, {launches} "
+             f"in all; want {want_fwd} and {want_all}")
+    bound, mean_tol = stats["logit_bound"], FAMILY_MEAN_TOL.get(arch)
+    worst, mean, _, n_ids, _ = hold_rows(
+        f"{label} legacy", call_rows(zip(got, want)), bound, mean_tol,
+        against="the pair")
+    print(f"{label} legacy: forward of {SLOTS} x {P} tokens "
+          f"{fwd_ms:.2f} ms, {LEGACY_STEPS} decode steps "
+          f"{statistics.median(step_ms):.2f} ms median (eager); launches "
+          f"{ {k: v for k, v in launches.items() if v} } as the pair's "
+          f"listing per layer; {len(got) * SLOTS} logits rows within "
+          f"{worst:.3e} of the pair's (bound {bound:.3e}), mean "
+          f"{mean:.4f}" + (f" (limit {mean_tol})" if mean_tol else "")
+          + f", {n_ids} tokens equal", flush=True)
+    return {"launches": launches, "forward_ms": fwd_ms,
+            "step_ms": statistics.median(step_ms), "worst": worst,
+            "mean": mean}
 
 
 # Phase 5m: speculative decode on the observability plane.  The flags
@@ -4379,6 +5019,7 @@ def main() -> int:
     g_rows, g_uses = check_lm_kernels(device, peaks, MOE_ARCH)
     g_bwd_row = check_flash_bwd(device, peaks, MOE_ARCH)
     w_rows, w_uses = check_lm_kernels(device, peaks, WHISPER)
+    v_rows = check_vlm_kernels(device, peaks)
     cnn_launches, img_s, cnn_graphed = serve_alexnet(device)
     resnet18_forward(device)
     from repro_torch.core import SNOWFLAKE
@@ -4389,8 +5030,10 @@ def main() -> int:
         fail(f"5i resnet18: {n_strips} strip launches, want 20")
     from repro_torch.launch import serve
     n_lm = int(LM_ARGS[LM_ARGS.index("--requests") + 1])
-    lm_launches, lm_stats, _, _ = serve_lm(
+    lm_launches, lm_stats, lm_eng, _ = serve_lm(
         "5b", lambda: serve.main(LM_ARGS), n_lm)
+    lm_stats["legacy"] = legacy_leg("5b", lm_eng, lm_stats, LM_ARCH)
+    del lm_eng
     win_launches, win_stats, _, _ = serve_lm(
         "5b window", lambda: serve.main(LM_ARGS + ["--window",
                                                    str(LM_WINDOW)]), n_lm)
@@ -4405,6 +5048,7 @@ def main() -> int:
     moe_train_launches, moe_train = train_moe(device, g_bwd_row)
     w_launches, w_stats = serve_whisper(f"5l {WHISPER}")
     spec_launches, spec_stats = serve_spec(lm_stats)
+    vlm_launches, vlm_stats = serve_vlm(device)
 
     tick = {}
     for kname, label in (("conv2d_virtual", "alexnet-owt"),
@@ -4584,8 +5228,10 @@ def main() -> int:
     per_path = [cnn_launches, pf_launches, lm_launches, win_launches,
                 smoke_launches, train_launches, moe_launches,
                 moe_train_launches, w_launches, spec_launches,
-                tune_launches] + [
-        launch for launch, _ in list(paged.values()) + list(family.values())]
+                tune_launches, vlm_launches] + [
+        launch for launch, _ in list(paged.values()) + list(family.values())
+    ] + [st["legacy"]["launches"] for st in (
+        lm_stats, w_stats, *(st for _, st in family.values()))]
     launches = {k: sum(p.get(k, 0) for p in per_path) for k in SOURCES}
     errs = {k: max([r["max_abs_err"] for r in rows if r["kernel"] == k]
                    + [r["max_abs_err"] for r in lm_rows.values()
@@ -4597,6 +5243,8 @@ def main() -> int:
                    + [r["max_abs_err"] for r in g_rows.values()
                       if r["kernel"] == k]
                    + [r["max_abs_err"] for r in w_rows.values()
+                      if r["kernel"] == k]
+                   + [r["max_abs_err"] for r in v_rows.values()
                       if r["kernel"] == k]
                    + [r["max_abs_err"] for r in z_rows.values()
                       if r["kernel"] == k]
@@ -4689,7 +5337,15 @@ def main() -> int:
           f"{w_stats['tok_s']:.1f} tok/s served; 5m speculative: "
           + ", ".join(f"{name} {st['tok_s']:.1f} tok/s"
                       for name, st in spec_stats.items()
-                      if name in SPEC_RUNS))
+                      if name in SPEC_RUNS)
+          + f"; 5o {VLM_ARCH}: {vlm_stats['tok_s']:.1f} tok/s on the "
+          f"legacy loop, decode step {vlm_stats['step_ms']:.2f} ms median "
+          f"/ {vlm_stats['step_mean_ms']:.2f} mean; legacy legs (forward, "
+          f"step ms): " + ", ".join(
+              f"{name} {st['legacy']['forward_ms']:.1f} / "
+              f"{st['legacy']['step_ms']:.1f}" for name, st in (
+                  ("5b", lm_stats), ("5l", w_stats),
+                  *((lab[:2], st) for lab, (_, st) in family.items()))))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Config registry: --arch <id> -> ArchConfig (LMs) / CNNConfig."""
 from .archs import (ALL_ARCHS, DEEPSEEK_7B, GRANITE_MOE_1B, LLAMA3_8B,
-                    LLAMA4_MAVERICK, MAMBA2, OLMO_1B, RWKV6_7B, SMOLLM_360M,
-                    UNPORTED_ARCHS, WHISPER_BASE, ZAMBA2_7B, not_ported)
+                    LLAMA32_VISION_11B, LLAMA4_MAVERICK, MAMBA2, OLMO_1B,
+                    RWKV6_7B, SMOLLM_360M, WHISPER_BASE, ZAMBA2_7B)
 from .base import ArchConfig, CNNConfig, CNNLayer, ShapeSpec
 from .cnns import ALEXNET_OWT, ALL_CNNS, RESNET18, RESNET50
 
@@ -11,11 +11,8 @@ CNN_REGISTRY = {c.name: c for c in ALL_CNNS}
 
 def get_config(name: str):
     """The config named ``name`` (an ``-smoke`` suffix gives its reduced
-    form).  Raises ``NotImplementedError`` naming its ROADMAP item for
-    an architecture the port does not carry yet."""
+    form)."""
     base = name.removesuffix("-smoke")
-    if base in UNPORTED_ARCHS:
-        raise not_ported(name, UNPORTED_ARCHS[base])
     if name in CNN_REGISTRY:
         return CNN_REGISTRY[name]
     if name in REGISTRY:
@@ -30,4 +27,5 @@ __all__ = ["ArchConfig", "CNNConfig", "CNNLayer", "ShapeSpec", "REGISTRY",
            "CNN_REGISTRY", "get_config", "ALL_ARCHS", "ALL_CNNS",
            "ALEXNET_OWT", "RESNET18", "RESNET50", "DEEPSEEK_7B", "LLAMA3_8B",
            "OLMO_1B", "SMOLLM_360M", "ZAMBA2_7B", "MAMBA2", "RWKV6_7B",
-           "WHISPER_BASE", "GRANITE_MOE_1B", "LLAMA4_MAVERICK"]
+           "WHISPER_BASE", "GRANITE_MOE_1B", "LLAMA4_MAVERICK",
+           "LLAMA32_VISION_11B"]

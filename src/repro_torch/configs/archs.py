@@ -1,9 +1,9 @@
 """The LM architectures of ``repro.configs.archs``, same numbers.
 
-The dense, MoE (granite, llama4), hybrid (zamba2, mamba2), ssm (rwkv6)
-and audio (whisper) families are carried; the VLM config waits for the
-legacy decode loop the reference serves it on (ROADMAP A.6.4) and is
-listed so ``get_config`` can say so.
+Every family of the reference is carried: dense, MoE (granite,
+llama4), hybrid (zamba2, mamba2), ssm (rwkv6), audio (whisper) and vlm
+(llama-3.2-vision, served on the legacy decode loop, as in the
+reference).
 """
 from __future__ import annotations
 
@@ -84,19 +84,14 @@ LLAMA4_MAVERICK = ArchConfig(
     vocab=202048, head_dim=128, n_experts=128, top_k=1, moe_every=2,
     rope_theta=500000.0, source="hf:meta-llama/Llama-4-Scout-17B-16E")
 
+LLAMA32_VISION_11B = ArchConfig(
+    # [hf:meta-llama/Llama-3.2-11B-Vision; unverified] — cross-attn image
+    # layers every 5th layer; vision tower is a stub.
+    name="llama-3.2-vision-11b", family="vlm",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
+    vocab=128256, cross_attn_every=5, n_vision_tokens=1601,
+    rope_theta=500000.0, source="hf:meta-llama/Llama-3.2-11B-Vision")
+
 ALL_ARCHS = (ZAMBA2_7B, MAMBA2, DEEPSEEK_7B, OLMO_1B, SMOLLM_360M,
              LLAMA3_8B, RWKV6_7B, WHISPER_BASE, GRANITE_MOE_1B,
-             LLAMA4_MAVERICK)
-
-# The reference's other architectures, by family, and the ROADMAP item
-# that ports each family.
-UNPORTED_ARCHS = {"llama-3.2-vision-11b": "vlm"}
-UNPORTED_FAMILIES = {"vlm": "A.6.4"}
-
-
-def not_ported(name: str, family: str) -> NotImplementedError:
-    """The refusal of a config of a family the port does not carry yet,
-    naming the ROADMAP item that ports it."""
-    return NotImplementedError(
-        f"{name}: the {family} family is not ported to repro_torch yet "
-        f"(ROADMAP {UNPORTED_FAMILIES[family]})")
+             LLAMA4_MAVERICK, LLAMA32_VISION_11B)

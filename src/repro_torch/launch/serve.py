@@ -23,6 +23,9 @@
         --max-new 32 --spec-decode 4 [--draft smollm-360m] \
         [--chunk-size 128] [--metrics-out m.json --flight-out f.jsonl \
         --sample-ops 8 --dash-every 16]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-11b --slots 8 --max-len 512 --requests 8 \
+        --prompt-len 4-32 --max-new 32 [--smoke --device cpu] [--program]
 
 CNN archs (alexnet-owt / resnet18 / resnet50) serve image-classify
 requests through the compiled Program; it prints the Program listing,
@@ -37,7 +40,13 @@ recurrent family's state), then every tick runs the decode Program.  An
 audio request also carries stub encoder frames ((encoder_seq, d_model)
 float32, drawn from ``--seed``; the audio frontend is a stub, as in the
 reference), which admission encodes once into the slot's read-only
-encoder memory.
+encoder memory.  The vlm (llama-3.2-vision-11b) has no Program
+lowering: the engine warns once and serves it on the legacy decode loop
+(``ServingEngine.fallback_reason``), its requests carrying no vision
+input, as in the reference; ``--program`` makes that fallback an error:
+the metrics and flight artifacts are written, ``error: --program
+requested but <name> has no decode-Program lowering (<reason>)`` goes to
+stderr and the exit code is 2.
 ``--smoke`` takes the reduced config, ``--window`` sets a sliding
 attention window (the KV regions then hold ``min(max_len, window)``
 rows), prompt lengths are drawn from ``--prompt-len LO-HI``.
@@ -55,7 +64,8 @@ names the draft (same vocab, weights from ``--seed`` + 1; default: the
 target itself).  It prints the pair's first listing line, ``served N
 requests, T tokens in S s (X tok/s)``, the prefill / recompute /
 decode-tick counters, the chunk, speculation, admission and page
-counters where they apply, and a few streams.
+counters where they apply (the listing line and the counters only on
+the Program path), and a few streams.
 
 The observability plane: ``--metrics-out PATH`` writes the metrics
 registry's JSON snapshot to PATH and its Prometheus text to PATH.prom,
@@ -72,9 +82,8 @@ graphed runners); the served seconds include the captures, and a line
 ``graph capture: S s`` gives their sum on its own.  Weights and
 prompts are random, drawn from ``--seed``; ``--ckpt DIR`` loads the
 params of the latest checkpoint in DIR instead (written by
-``repro_torch.launch.train`` or by ``repro``'s trainer).  An
-architecture of a family not ported yet exits 2, naming
-its ROADMAP item.
+``repro_torch.launch.train`` or by ``repro``'s trainer).  An unknown
+architecture exits 2.
 """
 from __future__ import annotations
 
@@ -89,7 +98,7 @@ import torch
 from ..checkpoint import restore_checkpoint
 from ..configs import CNN_REGISTRY, get_config
 from ..kernels.common import resolve_device
-from ..models import MEMORY_WRITERS, cnn, init_params, param_defs
+from ..models import cnn, get_model, init_params, param_defs
 from ..obs import Observability
 from ..serving import Request, ServingEngine
 
@@ -166,7 +175,7 @@ def make_frames(cfg, n: int, seed: int) -> list[np.ndarray] | None:
     """``n`` (encoder_seq, d_model) float32 stub encoder inputs drawn
     from ``seed`` for a family whose requests carry one (audio), else
     None."""
-    if cfg.family not in MEMORY_WRITERS:
+    if get_model(cfg).encode_memory is None:
         return None
     rng = np.random.default_rng([seed, 2])
     return [rng.standard_normal((cfg.encoder_seq, cfg.d_model))
@@ -177,7 +186,7 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
              prompt_len: tuple[int, int], device=None, seed: int = 0,
              shared_prefix: int = 0, long_prompt: int = 0,
              ckpt: str | None = None, draft_cfg=None, dash_every: int = 0,
-             **engine_kw) -> dict:
+             require_program: bool = False, **engine_kw) -> dict:
     """Serve ``requests`` random prompts of the LM ``cfg`` with
     random weights drawn from ``seed`` (or the params of the checkpoint
     in ``ckpt``); ``engine_kw`` (``paged``, ``page_size``,
@@ -189,7 +198,8 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
     encoder frames (``make_frames``).  Returns the engine, the finished
     requests (by uid), the prompts and the wall seconds of the serving
     loop (the kernels' first-use build and the weight init stay outside
-    it)."""
+    it); with ``require_program`` an engine that fell back to the legacy
+    loop serves nothing ("done" None)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = _restore_params(
@@ -200,6 +210,9 @@ def serve_lm(cfg, *, slots: int, max_len: int, requests: int, max_new: int,
             torch.Generator(device=dev).manual_seed(seed + 1), dev))
     eng = ServingEngine(cfg, params, slots=slots, max_len=max_len,
                         device=dev, **engine_kw)
+    if require_program and not eng.on_program_path:
+        return {"engine": eng, "done": None, "prompts": None,
+                "seconds": 0.0}
     prompts = make_prompts(cfg.vocab, requests, *prompt_len, seed)
     rng = np.random.default_rng([seed, 1])
     prefix = rng.integers(0, cfg.vocab, size=shared_prefix).astype(np.int32)
@@ -264,6 +277,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--program", action="store_true",
+                    help="require the compiled Program path: an LM arch "
+                         "with no Program lowering exits 2 instead of "
+                         "serving on the legacy decode loop")
     ap.add_argument("--window", type=int, default=None,
                     help="sliding attention window (LM archs); the KV "
                          "regions then hold min(max_len, window) rows")
@@ -329,7 +346,7 @@ def main(argv=None) -> dict:
     try:
         cfg = get_config(args.arch)
         draft_cfg = get_config(args.draft) if args.draft else None
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         print(f"error: --arch {args.arch}: {e}", file=sys.stderr)
         raise SystemExit(2)
     if args.smoke:
@@ -345,16 +362,28 @@ def main(argv=None) -> dict:
                    draft_cfg=draft_cfg, dash_every=args.dash_every,
                    paged=args.paged, page_size=args.page_size,
                    kv_quant=args.kv_quant, chunk_size=args.chunk_size,
-                   spec_k=args.spec_decode, obs=obs)
+                   spec_k=args.spec_decode, obs=obs,
+                   require_program=args.program)
     eng, done, dt = res["engine"], res["done"], res["seconds"]
+    if done is None:
+        # The program path was asked for: a legacy-loop run would
+        # misreport what was measured.  The artifacts carry the
+        # fallback event and gauge.
+        _write_artifacts(args, obs)
+        print(f"error: --program requested but {cfg.name} has no "
+              f"decode-Program lowering ({eng.fallback_reason})",
+              file=sys.stderr)
+        raise SystemExit(2)
     n_tok = sum(len(r.out_tokens) for r in done)
-    print(eng.program.listing().splitlines()[0])
+    if eng.on_program_path:
+        print(eng.program.listing().splitlines()[0])
     print(f"served {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / dt:.1f} tok/s)")
     print(f"graph capture: {eng.capture_seconds:.3f} s")
-    print(f"prefills={eng.n_prefills} "
-          f"prefill_recomputes={eng.n_prefill_recomputes} "
-          f"decode_ticks={eng.n_decode_ticks}")
+    if eng.on_program_path:
+        print(f"prefills={eng.n_prefills} "
+              f"prefill_recomputes={eng.n_prefill_recomputes} "
+              f"decode_ticks={eng.n_decode_ticks}")
     if eng.chunk_size is not None:
         print(f"prefill_chunks={eng.n_prefill_chunks} "
               f"starved_ticks={eng.n_starved_ticks}")
@@ -362,8 +391,8 @@ def main(argv=None) -> dict:
         print(f"spec_proposed={eng.n_spec_proposed} "
               f"spec_accepted={eng.n_spec_accepted} "
               f"spec_rollbacks={eng.n_spec_rollbacks}")
-    adm = eng.admission
-    if adm.n_rejected or adm.n_requeued:
+    adm = getattr(eng, "admission", None)
+    if adm is not None and (adm.n_rejected or adm.n_requeued):
         print(f"rejected={adm.n_rejected} requeued={adm.n_requeued} "
               f"last_blocked={adm.last_blocked}")
     if args.paged:

@@ -36,10 +36,21 @@ __all__ = ["AUX_LOSS_WEIGHT", "loss_and_grads", "build_train_step"]
 AUX_LOSS_WEIGHT = 0.01
 
 
+def _require_trainable(cfg: ArchConfig) -> None:
+    """Refuse the families whose training is not ported: the reference
+    trains every family through its legacy forward, but the recurrent,
+    audio and vision inputs' steps are not ported."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported "
+            f"to repro_torch yet (ROADMAP A.10)")
+
+
 def _loss_aux_grads(cfg: ArchConfig, params, batch, *, impl: str,
                     remat: bool):
     """(loss, aux, grads): the training loss of one batch, the forward's
     MoE statistics and the loss's gradient in every parameter."""
+    _require_trainable(cfg)
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
     p = tree_unflatten(params, leaves)
     with torch.enable_grad():
@@ -72,6 +83,7 @@ def build_train_step(cfg: ArchConfig, optimizer: AdamW | None = None, *,
     ``batch`` holds "tokens" and "labels" (B, S).  ``metrics``: "loss",
     "grad_norm", "lr" and, for an MoE config, "moe_imbalance_pct".  The
     step's graphs are its ``graphs`` attribute (a ``GraphStore``)."""
+    _require_trainable(cfg)
     optimizer = optimizer or AdamW()
     if remat is None:
         remat = cfg.n_layers >= 16

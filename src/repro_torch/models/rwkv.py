@@ -9,8 +9,11 @@ token-shift vectors -- O(1) in sequence length.  ``block_prefill`` /
 op (prefill runs the recurrence through ``wkv6``, decode through the
 plain ``wkv6_decode_step``, as the reference does); ``to_graph`` /
 ``to_decode_graph`` lower the model and ``_rwkv_state_specs`` mints its
-state (registered as the "ssm" state family).  Not carried yet: the
-legacy ``forward``, ``init_cache`` and ``decode_step`` (ROADMAP A.6.4).
+state (registered as the "ssm" state family).  The legacy ``forward``
+(with ``return_cache``), ``init_cache`` and ``decode_step`` run the same
+block emitters (``_block_seq``, ``_block_step``) as a Python loop over
+the layers (the reference's scan); the cache holds every layer's wkv
+state and its two shift rows.
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ from ..kernels.common import apply_activation
 from ..kernels.rwkv6 import wkv6, wkv6_decode_step
 from .common import ParamDef, layer_norm, rms_norm
 
-__all__ = ["param_defs", "to_graph", "to_decode_graph", "block_prefill",
-           "block_decode"]
+__all__ = ["param_defs", "forward", "init_cache", "decode_step",
+           "to_graph", "to_decode_graph", "block_prefill", "block_decode"]
 
 _LORA = 64
 
@@ -78,9 +81,11 @@ def param_defs(cfg: ArchConfig) -> dict:
     }
 
 
-def _shift(x):
-    """Token shift: x_{t-1}, zeros at t=0 (a prefill starts the slot)."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+def _shift(x, last=None):
+    """Token shift: x_{t-1}, zeros (or the carried row ``last`` (B, D))
+    at t=0."""
+    first = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
 def _lerp(x, xx, mu):
@@ -105,12 +110,13 @@ def _decay(xw, p):
     return torch.exp(-torch.exp(w_log))
 
 
-def _time_mix(h, p, hd, *, impl, length=None):
-    """Time-mix over a (B, S, D) block from zero state.  Returns (out,
-    new wkv state, shift row)."""
+def _time_mix(h, p, hd, *, impl, wkv_state=None, shift_state=None,
+              length=None):
+    """Time-mix over a (B, S, D) block from ``wkv_state`` / ``shift_state``
+    (zeros where None).  Returns (out, new wkv state, shift row)."""
     B, S, D = h.shape
     H = D // hd
-    xx = _shift(h)
+    xx = _shift(h, shift_state)
     r = _lerp(h, xx, p["mu_r"]) @ p["wr"]
     k = _lerp(h, xx, p["mu_k"]) @ p["wk"]
     v = _lerp(h, xx, p["mu_v"]) @ p["wv"]
@@ -130,15 +136,16 @@ def _time_mix(h, p, hd, *, impl, length=None):
         return a.reshape(B, S, H, hd)
 
     y, s_new = wkv6(heads(r), heads(k), heads(v), heads(w.to(h.dtype)),
-                    p["u"], return_state=True, impl=impl)
+                    p["u"], s0=wkv_state, return_state=True, impl=impl)
     y = rms_norm(y.reshape(B, S, D), p["ln_x"])         # per-channel norm
     out = (y.float() * g).to(h.dtype) @ p["wo"]
     return out, s_new, _last_row(h, length)
 
 
-def _channel_mix(h, p, *, length=None):
-    """Channel-mix over a (B, S, D) block.  Returns (out, shift row)."""
-    xx = _shift(h)
+def _channel_mix(h, p, *, shift_state=None, length=None):
+    """Channel-mix over a (B, S, D) block from ``shift_state`` (zeros
+    where None).  Returns (out, shift row)."""
+    xx = _shift(h, shift_state)
     kx = _lerp(h, xx, p["mu_ck"]) @ p["wc_in"]
     k = torch.square(torch.relu(kx.float()))
     r = torch.sigmoid((_lerp(h, xx, p["mu_cr"]) @ p["wc_r"]).float())
@@ -146,16 +153,84 @@ def _channel_mix(h, p, *, length=None):
     return out, _last_row(h, length)
 
 
-def _block_seq(carry, p_i, hd, *, impl, length=None):
-    """One rwkv block over a (B, S, D) sequence from zero state -- ln1 +
-    time-mix + residual, ln2 + channel-mix + residual.  Returns (out,
-    (wkv state, time-mix shift row, channel-mix shift row))."""
+def _block_seq(carry, p_i, hd, *, impl, wkv_state=None, shift_t=None,
+               shift_c=None, length=None, want_state=True):
+    """One rwkv block over a (B, S, D) sequence -- ln1 + time-mix +
+    residual, ln2 + channel-mix + residual -- from the given states
+    (zeros where None).  Returns (out, (wkv state, time-mix shift row,
+    channel-mix shift row)), the states None unless ``want_state``.  The
+    one emitter behind the legacy ``forward`` and the Program's ``wkv``
+    prefill op."""
     a_in = layer_norm(carry, p_i["ln1"], p_i["ln1_b"])
-    a, s_new, sh1 = _time_mix(a_in, p_i, hd, impl=impl, length=length)
+    a, s_new, sh1 = _time_mix(a_in, p_i, hd, impl=impl, wkv_state=wkv_state,
+                              shift_state=shift_t, length=length)
     carry = carry + a
     c_in = layer_norm(carry, p_i["ln2"], p_i["ln2_b"])
-    c, sh2 = _channel_mix(c_in, p_i, length=length)
-    return carry + c, (s_new, sh1, sh2)
+    c, sh2 = _channel_mix(c_in, p_i, shift_state=shift_c, length=length)
+    states = (s_new, sh1, sh2) if want_state else (None, None, None)
+    return carry + c, states
+
+
+def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
+            return_cache: bool = False, cache_len: int | None = None) -> dict:
+    """The legacy forward: tokens (B, S) -> {"logits", "aux": {}[,
+    "cache"]}; the cache (``return_cache``) holds each
+    layer's wkv state and shift rows and ``pos`` = S (``cache_len`` is
+    not read: the state is O(1) in length)."""
+    B, S = tokens.shape
+    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    h = layer_norm(h, params["ln_in"], params["ln_in_b"])
+    blocks = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    states = []
+    for i in range(cfg.n_layers):
+        p_i = {k: v[i] for k, v in blocks.items()}
+        h, st = _block_seq(h, p_i, cfg.hd, impl=impl,
+                           want_state=return_cache)
+        states.append(st)
+    h = layer_norm(h, params["final_norm"], params["final_norm_b"])
+    out = {"logits": h @ params["lm_head"], "aux": {}}
+    if return_cache:
+        s_stack, sh1, sh2 = (torch.stack(x) for x in zip(*states))
+        out["cache"] = {"wkv": s_stack, "shift_t": sh1, "shift_c": sh2,
+                        "pos": torch.full((B,), S, dtype=torch.int32,
+                                          device=h.device)}
+    return out
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Zeroed legacy cache: per layer the (H, hd, hd) f32 wkv state and
+    the two shift rows, and ``pos``."""
+    D, L = cfg.d_model, cfg.n_layers
+    H, hd = D // cfg.hd, cfg.hd
+    row = (L, batch, D)
+    return {
+        "wkv": torch.zeros((L, batch, H, hd, hd), dtype=torch.float32,
+                           device=device),
+        "shift_t": torch.zeros(row, dtype=cfg.tdtype, device=device),
+        "shift_c": torch.zeros(row, dtype=cfg.tdtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig, *,
+                impl: str = "auto"):
+    """tokens (B,) -> (logits (B, V), new cache): every block one step
+    (``_block_step``, plain torch as in the reference).  The cache passed
+    in is left as it was."""
+    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    h = layer_norm(h, params["ln_in"], params["ln_in_b"])
+    blocks = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    states = []
+    for i in range(cfg.n_layers):
+        h, st = _block_step(h, {k: v[i] for k, v in blocks.items()},
+                            cache["wkv"][i], cache["shift_t"][i],
+                            cache["shift_c"][i])
+        states.append(st)
+    h = layer_norm(h, params["final_norm"], params["final_norm_b"])
+    s_new, sh1, sh2 = (torch.stack(x) for x in zip(*states))
+    return h @ params["lm_head"], {"wkv": s_new, "shift_t": sh1,
+                                   "shift_c": sh2, "pos": cache["pos"] + 1}
 
 
 def _block_step(carry, p_i, s_i, sh1_i, sh2_i):

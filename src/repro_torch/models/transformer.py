@@ -1,7 +1,7 @@
-"""Decoder-only transformer LM, dense and MoE families, on the Program
-path (counterpart of the dense and MoE parts of
-``repro/models/transformer.py``), and the Program-pair entry point of
-every ported LM family.
+"""Decoder-only transformer LM: dense, MoE and the gated cross-attention
+(vlm, llama-3.2-vision) variants, one implementation parameterized by
+``ArchConfig`` (counterpart of ``repro/models/transformer.py``), and the
+Program-pair entry point of every LM family.
 
 ``to_graph`` emits the layer graph (embed -> N x {norm, qkv matmuls,
 flash attention, o-proj, MLP matmul chain or one ``moe_dispatch`` op}
@@ -25,18 +25,24 @@ MoE configs put their experts in every layer (granite,
 layer, whose parameters live in "moe_blocks"); ``_block_path`` maps a
 global layer to its group for the forward and the graph alike.
 
-``forward`` is the reference's legacy forward, the training path: the
-stacked ``(L, ...)`` block parameters run as a Python loop (the
-reference's ``jax.lax.scan``), each block optionally under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
-``nothing_saveable``), every projection a plain ``@``, attention the
-differentiable ``flash_attention`` and an MoE layer ``models/moe.py``;
-its ``aux`` holds the MoE layers' mean load-balance statistics.
-
-Not carried yet: ``init_cache`` / ``decode_step`` and ``forward``'s
-``return_cache``, and the VLM cross-attention variant the reference
-serves on that legacy loop (ROADMAP A.6.4), and the autotune hook of
-the compile entry points.  The audio family (whisper) lowers through
+``forward`` is the reference's legacy forward, the training path and
+the legacy serving loop's prefill: the stacked ``(L, ...)`` block
+parameters run as a Python loop (the reference's ``jax.lax.scan``), each
+block optionally under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` with ``nothing_saveable``), every projection a plain
+``@``, attention the differentiable ``flash_attention`` and an MoE layer
+``models/moe.py``; its ``aux`` holds the MoE layers' mean load-balance
+statistics.  A vlm config runs its layers in groups: a gated
+cross-attention block over ``vision_embeds`` (non-causal flash, no
+RoPE, ``tanh(gate)`` on the residual), then ``cross_attn_every`` self
+layers.  ``return_cache`` returns the legacy cache -- ``(L, B, KV, S,
+hd)`` K/V padded to ``cache_len`` or converted to a ring for a window,
+the ``pos`` vector and, for the vlm, the ``(G, B, KV, Tv, hd)`` cross
+K/V -- and ``decode_step`` advances it one token a sequence through the
+decode-attention kernel, returning a new cache (the one passed in is
+left as it was).  The vlm has no Program lowering (``_require_dense``
+names its blockers): the serving engine serves it on that legacy loop,
+as the reference does.  The audio family (whisper) lowers through
 models/whisper.py, dispatched by ``compile_program_pair``.
 """
 from __future__ import annotations
@@ -47,7 +53,6 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.archs import UNPORTED_FAMILIES
 from ..configs.base import ArchConfig
 from ..core.hw import TPU_V5E, HardwareModel
 from ..core.ir import (ModelGraph, attention_node, decode_attention_node,
@@ -60,14 +65,17 @@ from ..core.regions import (PAGE_TABLE_REGION, PersistentSpec, StateCaps,
                             state_specs)
 from ..core.schedule import compile_model
 from ..kernels.common import apply_activation
+from ..kernels.decode_attention import (decode_attention, ring_kv_len,
+                                        ring_positions)
 from ..kernels.flash_attention import flash_attention
 from ..runtime.executor import graphed_runner
 from .common import ParamDef, Rotary, apply_rope, layer_norm, rms_norm
 from .moe import moe_mlp
 
-__all__ = ["param_defs", "forward", "to_graph", "to_decode_graph",
-           "compile_program", "compile_program_pair", "compile_draft_pair",
-           "program_forward", "kv_cache_len"]
+__all__ = ["param_defs", "forward", "init_cache", "decode_step",
+           "to_graph", "to_decode_graph", "compile_program",
+           "compile_program_pair", "compile_draft_pair", "program_forward",
+           "kv_cache_len", "LoweringBlocked"]
 
 
 # --- parameter declaration -------------------------------------------------------
@@ -137,7 +145,6 @@ def _interleaved(cfg: ArchConfig) -> bool:
 
 
 def param_defs(cfg: ArchConfig) -> dict:
-    _require_dense(cfg)
     L = cfg.n_layers
     defs = {"embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                               cfg.tdtype, "embed")}
@@ -152,6 +159,12 @@ def param_defs(cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((cfg.d_model, cfg.vocab),
                                    ("embed", "vocab"), cfg.tdtype)
+    if cfg.cross_attn_every:
+        G = cfg.n_layers // cfg.cross_attn_every
+        cross = _norm_defs(cfg, G, "attn_norm")
+        cross.update(_attn_defs(cfg, G))
+        cross["gate"] = ParamDef((G,), ("layers",), cfg.tdtype, "zeros")
+        defs["cross_blocks"] = cross
     return defs
 
 
@@ -169,17 +182,35 @@ def _heads(x, n, hd):
     return x.reshape(B, S, n, hd).transpose(1, 2)          # (B, n, S, hd)
 
 
-def _attention(h, p, cfg, cos, sin, *, impl, causal=True, window=None):
-    """Self-attention on (B, S, D); RoPE only where ``cos`` is given."""
+def _mm(a, b):
+    """``a @ b`` with mixed operand types promoted as JAX promotes them
+    (``torch.promote_types``; never a cast down): f32 vision embeddings
+    under bf16 weights give f32 K/V, as in the reference."""
+    if a.dtype != b.dtype:
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
+    return a @ b
+
+
+def _attention(h, p, cfg, cos, sin, *, impl, causal=True, window=None,
+               kv_override=None, return_kv=False):
+    """Self- (or, with ``kv_override`` (B, Skv, D), cross-) attention on
+    (B, S, D); RoPE only where ``cos`` is given (on q alone for cross
+    attention).  ``return_kv`` also returns the (B, KV, S, hd) K and V
+    the attention read."""
     B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _heads(h @ p["wq"], H, hd)
-    k = _heads(h @ p["wk"], KV, hd)
-    v = _heads(h @ p["wv"], KV, hd)
+    src = h if kv_override is None else kv_override
+    k = _heads(_mm(src, p["wk"]), KV, hd)
+    v = _heads(_mm(src, p["wv"]), KV, hd)
     if cos is not None:
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        q = apply_rope(q, cos, sin)
+        if kv_override is None:
+            k = apply_rope(k, cos, sin)
     out = flash_attention(q, k, v, causal=causal, window=window, impl=impl)
-    return out.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+    out = out.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+    return (out, (k, v)) if return_kv else out
 
 
 def _mlp(h, p, cfg):
@@ -199,41 +230,73 @@ def _mlp(h, p, cfg):
     return g @ p["w_down"], {}
 
 
-def _block(h, p, cos, sin, *, cfg, impl, window):
-    h = h + _attention(_norm(h, p, cfg, "attn_norm"), p, cfg, cos, sin,
-                       impl=impl, window=window)
+def _block(h, p, cos, sin, *, cfg, impl, window, return_kv=False):
+    """One decoder block: (h, aux), or (h, aux, (k, v)) with
+    ``return_kv``."""
+    a = _attention(_norm(h, p, cfg, "attn_norm"), p, cfg, cos, sin,
+                   impl=impl, window=window, return_kv=return_kv)
+    a, kv = a if return_kv else (a, None)
+    h = h + a
     m, aux = _mlp(_norm(h, p, cfg, "mlp_norm"), p, cfg)
-    return h + m, aux
+    return (h + m, aux, kv) if return_kv else (h + m, aux)
 
 
-def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
-            remat: bool = False, return_hidden: bool = False) -> dict:
-    """tokens (B, S) -> {"logits": (B, S, V), "aux": {...}}, or with
-    ``return_hidden`` {"logits": None, "hidden": the final-norm output
-    (B, S, D), "aux": {...}}.  ``aux`` holds each MoE statistic averaged
-    over the MoE layers ({} for a dense config).  ``remat`` recomputes
-    each block in the backward pass instead of keeping its activations,
-    so the flash forward runs twice per layer per training step."""
-    _require_dense(cfg)
+def _cross_block(h, p, cfg, vis, *, impl):
+    """Gated cross-attention sub-block (llama-3.2-vision style): no RoPE,
+    non-causal over the vision rows, ``tanh(gate)`` on the residual."""
+    a = _attention(_norm(h, p, cfg, "attn_norm"), p, cfg, None, None,
+                   impl=impl, causal=False, kv_override=vis)
+    return h + torch.tanh(p["gate"]).to(h.dtype) * a
+
+
+def forward(params, tokens, cfg: ArchConfig, *, vision_embeds=None,
+            impl: str = "auto", return_cache: bool = False,
+            cache_len: int | None = None, remat: bool = False,
+            return_hidden: bool = False) -> dict:
+    """tokens (B, S) -> {"logits": (B, S, V), "aux": {...}[, "cache"]},
+    or with ``return_hidden`` {"logits": None, "hidden": the final-norm
+    output (B, S, D), "aux": {...}}.  ``aux`` holds each MoE statistic
+    averaged over the MoE layers ({} for a dense config).  ``remat``
+    recomputes each block in the backward pass instead of keeping its
+    activations, so the flash forward runs twice per layer per training
+    step.  A vlm config needs ``vision_embeds`` (B, Tv, D).
+
+    ``return_cache`` adds the legacy decode cache: K/V (L, B, KV,
+    cache_len, hd) in the KV dtype, zero-padded past S, or for a window
+    shorter than S the ring of the last window rows (``ring_positions``,
+    the Program prefill's rule); ``pos`` (B,) = S; for the vlm the cross
+    K/V of every group (``_cross_kv``)."""
+    per = cfg.cross_attn_every
+    if per and vision_embeds is None:
+        raise ValueError("vlm arch requires vision_embeds")
     B, S = tokens.shape
     h = params["embed"][tokens.long()].to(cfg.tdtype)
     cos, sin = Rotary(cfg.hd, cfg.rope_theta).freqs(
         torch.arange(S, device=tokens.device))
     block = functools.partial(_block, cfg=cfg, impl=impl,
-                              window=cfg.attn_window)
+                              window=cfg.attn_window, return_kv=return_cache)
     groups = {g: {k: v.unbind(0) for k, v in params[g].items()}
-              for g in ("blocks", "moe_blocks") if g in params}
-    auxs = []
+              for g in ("blocks", "moe_blocks", "cross_blocks")
+              if g in params}
+    auxs, ks, vs = [], [], []
     for i in range(cfg.n_layers):
+        if per and i % per == 0:
+            cross_p = {k: v[i // per]
+                       for k, v in groups["cross_blocks"].items()}
+            h = _cross_block(h, cross_p, cfg, vision_embeds, impl=impl)
         grp, gi, is_moe = _block_path(cfg, i)
         p_i = {k: v[gi] for k, v in groups[grp].items()}
         if remat:
             # No forward draws random numbers, and jax.checkpoint keeps
             # no RNG state: not saving it keeps the step capturable.
-            h, aux = checkpoint(block, h, p_i, cos, sin, use_reentrant=False,
-                                preserve_rng_state=False)
+            out = checkpoint(block, h, p_i, cos, sin, use_reentrant=False,
+                             preserve_rng_state=False)
         else:
-            h, aux = block(h, p_i, cos, sin)
+            out = block(h, p_i, cos, sin)
+        h, aux = out[:2]
+        if return_cache:
+            ks.append(out[2][0])
+            vs.append(out[2][1])
         if is_moe:
             auxs.append(aux)
     h = _norm(h, params, cfg, "final_norm")
@@ -246,31 +309,81 @@ def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
         out["logits"] = h @ head
+    if return_cache:
+        out["cache"] = _prefill_cache(params, cfg, torch.stack(ks),
+                                      torch.stack(vs), cache_len,
+                                      vision_embeds)
     return out
 
 
+def _prefill_cache(params, cfg, k_stack, v_stack, cache_len,
+                   vision_embeds) -> dict:
+    """``forward``'s legacy cache from the (L, B, KV, S, hd) K/V stacks:
+    padded to ``cache_len`` rows, or the ring of the last rows when a
+    window keeps fewer than S."""
+    B, S = k_stack.shape[1], k_stack.shape[3]
+    CL = cache_len or S
+    if cfg.attn_window:
+        CL = min(CL, cfg.attn_window)
+    if CL > S:                           # room to append during decode
+        k_stack = torch.nn.functional.pad(k_stack, (0, 0, 0, CL - S))
+        v_stack = torch.nn.functional.pad(v_stack, (0, 0, 0, CL - S))
+    elif CL < S:                         # rolling window: keep last CL
+        pos = ring_positions(S, CL, S, k_stack.device)
+        k_stack = k_stack[:, :, :, pos]
+        v_stack = v_stack[:, :, :, pos]
+    cache = {"k": k_stack.to(cfg.kv_tdtype), "v": v_stack.to(cfg.kv_tdtype),
+             "pos": torch.full((B,), S, dtype=torch.int32,
+                               device=k_stack.device)}
+    if cfg.cross_attn_every:
+        cache["cross_k"], cache["cross_v"] = _cross_kv(params, cfg,
+                                                       vision_embeds)
+    return cache
+
+
+def _cross_kv(params, cfg, vis):
+    """Every cross block's K and V of the vision rows (decode): two (G,
+    B, KV, Tv, hd) stacks, in the promoted type of ``vis`` and the
+    weights."""
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    p = params["cross_blocks"]
+    xk = [_heads(_mm(vis, w), KV, hd) for w in p["wk"].unbind(0)]
+    xv = [_heads(_mm(vis, w), KV, hd) for w in p["wv"].unbind(0)]
+    return torch.stack(xk), torch.stack(xv)
+
+
 # --- compile-to-Program lowering --------------------------------------------------
+class LoweringBlocked(NotImplementedError):
+    """The config itself has no Program lowering, whatever the serving
+    options; the engine falls back to the legacy decode loop on this
+    refusal and on no other."""
+
+
 def _require_dense(cfg: ArchConfig) -> None:
-    """Gate what the *transformer-graph* lowering cannot express.  Dense
-    and MoE decoder-only configs lower here; the hybrid and ssm families
-    lower through their own modules (``compile_program_pair`` dispatches
-    them, audio too); VLM is not ported and names its ROADMAP item."""
+    """Gate what the *transformer-graph* lowering cannot express, with
+    every blocker named (the serving engine reports the message as its
+    ``fallback_reason``, and ``serve --program`` exits 2 with it).
+    Dense and MoE decoder-only configs lower here; the hybrid, ssm and
+    audio families lower through their own modules, so the remaining
+    blockers are the vision-bridge features."""
     blockers = []
     if cfg.family not in ("dense", "moe"):
-        blockers.append(f"family={cfg.family}")
-    if cfg.cross_attn_every or cfg.n_vision_tokens:
-        blockers.append("cross-attention (vision bridge)")
+        blockers.append(f"family={cfg.family} (not a decoder-only "
+                        f"transformer graph)")
+    if cfg.cross_attn_every:
+        blockers.append("gated cross-attention (vision bridge)")
+    if cfg.n_vision_tokens:
+        blockers.append("vision-encoder inputs")
     if cfg.n_encoder_layers:
         blockers.append("encoder-decoder")
     if cfg.shared_attn_every:
         blockers.append("shared attention blocks")
     if blockers:
-        raise NotImplementedError(
-            f"{cfg.name}: the transformer lowering takes the dense and "
-            f"MoE decoder-only families (hybrid, ssm and audio pairs "
-            f"lower through their own modules; vlm is not ported, "
-            f"ROADMAP {UNPORTED_FAMILIES['vlm']}); blocked by "
-            f"{', '.join(blockers)}")
+        raise LoweringBlocked(
+            f"Program lowering covers the decoder-only transformer "
+            f"families (windowed attention and MoE included); "
+            f"{cfg.name} is blocked by: {', '.join(blockers)} — it "
+            f"still runs the scan forward")
 
 
 def kv_cache_len(cfg: ArchConfig, max_len: int) -> int:
@@ -656,3 +769,95 @@ def program_forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
     program = compile_program(cfg, batch=tokens.shape[0],
                               seq=tokens.shape[1], hw=hw)
     return graphed_runner(program, impl=impl)(params, tokens)
+
+
+# --- legacy decode ----------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Zeroed legacy cache: K/V (L, batch, KV, kv_cache_len, hd) in the
+    KV dtype, ``pos`` (batch,) int32 and, for the vlm, the cross K/V
+    (G, batch, KV, Tv, hd)."""
+    KV, hd, L = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    dt = cfg.kv_tdtype
+    shape = (L, batch, KV, kv_cache_len(cfg, max_len), hd)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device),
+             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.cross_attn_every:
+        G = cfg.n_layers // cfg.cross_attn_every
+        xshape = (G, batch, KV, cfg.n_vision_tokens, hd)
+        cache["cross_k"] = torch.zeros(xshape, dtype=dt, device=device)
+        cache["cross_v"] = torch.zeros(xshape, dtype=dt, device=device)
+    return cache
+
+
+def _write_cache(cache_k, cache_v, k_new, v_new, slot):
+    """Insert (B, KV, hd) at each sequence's row ``slot`` (B,) of (B,
+    KV, S, hd); new tensors, the inputs are left as they were."""
+    idx = slot.long()[:, None, None, None].expand(-1, k_new.shape[1], 1,
+                                                  k_new.shape[2])
+    return (cache_k.scatter(2, idx, k_new[:, :, None]),
+            cache_v.scatter(2, idx, v_new[:, :, None]))
+
+
+def _attention_decode(h1, p, cfg, ck, cv, pos, cos, sin, *, impl):
+    """h1 (B, D); ck/cv (B, KV, S, hd); pos (B,).  The new row lands at
+    ``pos % S`` (the rolling window cache), then one decode-attention
+    launch over the ring's live rows."""
+    B, _ = h1.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = ck.shape[2]
+    q = (h1 @ p["wq"]).reshape(B, H, hd)
+    k = (h1 @ p["wk"]).reshape(B, KV, hd)
+    v = (h1 @ p["wv"]).reshape(B, KV, hd)
+    if cos is not None:
+        q = apply_rope(q, cos[:, None], sin[:, None])
+        k = apply_rope(k, cos[:, None], sin[:, None])
+    ck, cv = _write_cache(ck, cv, k.to(ck.dtype), v.to(cv.dtype), pos % S)
+    out = decode_attention(q, ck, cv, kv_len=ring_kv_len(pos, S), impl=impl)
+    return out.reshape(B, H * hd) @ p["wo"], ck, cv
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig, *,
+                impl: str = "auto"):
+    """tokens (B,) -> (logits (B, V), new cache); ``pos`` advances by
+    one.  Every layer's self-attention is one decode-attention launch
+    over its ring; a vlm group first attends its cross K/V (all Tv rows,
+    one more launch) through its gate.  The cache passed in is left as
+    it was (the reference's functional step)."""
+    B = tokens.shape[0]
+    pos = cache["pos"]
+    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    cos, sin = Rotary(cfg.hd, cfg.rope_theta).freqs(pos)   # (B, hd/2)
+    groups = {g: {k: v.unbind(0) for k, v in params[g].items()}
+              for g in ("blocks", "moe_blocks", "cross_blocks")
+              if g in params}
+    per = cfg.cross_attn_every
+    H, hd = cfg.n_heads, cfg.hd
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        if per and i % per == 0:
+            g = i // per
+            cross_p = {k: v[g] for k, v in groups["cross_blocks"].items()}
+            q = (_norm(h, cross_p, cfg, "attn_norm") @ cross_p["wq"]
+                 ).reshape(B, H, hd)
+            a = decode_attention(q, cache["cross_k"][g], cache["cross_v"][g],
+                                 impl=impl)
+            a = a.reshape(B, H * hd) @ cross_p["wo"]
+            h = h + torch.tanh(cross_p["gate"]).to(h.dtype) * a
+        grp, gi, _ = _block_path(cfg, i)
+        p_i = {k: v[gi] for k, v in groups[grp].items()}
+        a, ck, cv = _attention_decode(_norm(h, p_i, cfg, "attn_norm"), p_i,
+                                      cfg, cache["k"][i], cache["v"][i], pos,
+                                      cos, sin, impl=impl)
+        h = h + a
+        m, _ = _mlp(_norm(h, p_i, cfg, "mlp_norm")[:, None], p_i, cfg)
+        h = h + m[:, 0]
+        ks.append(ck)
+        vs.append(cv)
+    h = _norm(h, params, cfg, "final_norm")
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    new_cache = dict(cache)
+    new_cache.update({"k": torch.stack(ks), "v": torch.stack(vs),
+                      "pos": pos + 1})
+    return h @ head, new_cache

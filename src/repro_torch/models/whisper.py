@@ -15,8 +15,12 @@ the serving engine writes into the pair's *read-only* persistent memory
 regions at the slot before the prefill Program runs.  ``to_graph`` /
 ``to_decode_graph`` lower the decoder (the encoder never enters the
 per-token instruction stream) and ``_audio_state_specs`` mints its state
-(registered as the "audio" state family).  Not carried yet: the legacy
-``forward``, ``init_cache`` and ``decode_step`` (ROADMAP A.6.4).
+(registered as the "audio" state family).  The legacy ``forward`` (the
+encoder, then the decoder over ``encoder_frames``; with ``return_cache``
+the self K/V, the cross K/V and ``pos``), ``init_cache`` and
+``decode_step`` (one decode-attention launch over the self ring and one
+over the cross rows per layer) are the reference's, as a Python loop
+over the layers.
 """
 from __future__ import annotations
 
@@ -29,8 +33,9 @@ from ..core.ir import (ModelGraph, attention_node, cross_attention_node,
                        decode_attention_node, embed_node, matmul_node,
                        norm_node)
 from ..core.regions import PersistentSpec, StateCaps, register_state_family
+from ..kernels.decode_attention import decode_attention
 from .common import ParamDef, layer_norm
-from .transformer import _attention, _attn_defs, _heads, _mlp
+from .transformer import _attention, _attn_defs, _heads, _mlp, _write_cache
 
 __all__ = ["param_defs", "encode", "encode_memory", "to_graph",
            "to_decode_graph", "forward", "init_cache", "decode_step"]
@@ -156,22 +161,117 @@ def encode_memory(params, frames, cfg: ArchConfig, *,
     return rows
 
 
-def _legacy(name: str):
-    raise NotImplementedError(
-        f"whisper.{name}: the legacy (non-Program) path is not ported to "
-        f"repro_torch yet (ROADMAP A.6.4); serve through the Program pair")
+def forward(params, tokens, cfg: ArchConfig, *, encoder_frames=None,
+            impl: str = "auto", return_cache: bool = False,
+            cache_len: int | None = None) -> dict:
+    """The legacy decoder forward over the encoded ``encoder_frames`` (B,
+    T_enc, D): tokens (B, S) -> {"logits", "aux": {}[, "cache"]}; the
+    cache holds the self K/V (L, B, KV, cache_len, hd),
+    zero-padded past S, the cross K/V (L, B, KV, T_enc, hd) and ``pos``."""
+    if encoder_frames is None:
+        raise ValueError("whisper needs encoder_frames")
+    c = _WhisperCfg(cfg)
+    enc_out = encode(params, encoder_frames, cfg, impl=impl)
+    B, S = tokens.shape
+    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    h = h + params["pos_embed"][:S][None].to(cfg.tdtype)
+
+    def body(x, p_i):
+        a, kv = _attention(layer_norm(x, p_i["attn_norm"],
+                                      p_i["attn_norm_b"]),
+                           p_i, c, None, None, impl=impl, causal=True,
+                           return_kv=True)
+        x = x + a
+        xp = {k[1:]: v for k, v in p_i.items() if k.startswith("x")}
+        x = x + _attention(layer_norm(x, p_i["cross_norm"],
+                                      p_i["cross_norm_b"]),
+                           xp, c, None, None, impl=impl, causal=False,
+                           kv_override=enc_out)
+        m, _ = _mlp(layer_norm(x, p_i["mlp_norm"], p_i["mlp_norm_b"]),
+                    p_i, c)
+        return x + m, kv
+
+    blocks = {k: v.unbind(0) for k, v in params["dec_blocks"].items()}
+    kvs = []
+    for i in range(cfg.n_layers):
+        p_i = {k: v[i] for k, v in blocks.items()}
+        h, kv = body(h, p_i)
+        kvs.append(kv)
+    h = layer_norm(h, params["final_norm"], params["final_norm_b"])
+    out = {"logits": h @ params["embed"].T, "aux": {}}
+    if return_cache:
+        k_stack = torch.stack([k for k, _ in kvs])
+        v_stack = torch.stack([v for _, v in kvs])
+        CL = cache_len or S
+        if CL > S:
+            k_stack = torch.nn.functional.pad(k_stack, (0, 0, 0, CL - S))
+            v_stack = torch.nn.functional.pad(v_stack, (0, 0, 0, CL - S))
+        xk, xv = _cross_kv(params, cfg, enc_out)
+        dt = cfg.kv_tdtype
+        out["cache"] = {"k": k_stack.to(dt), "v": v_stack.to(dt),
+                        "pos": torch.full((B,), S, dtype=torch.int32,
+                                          device=h.device),
+                        "cross_k": xk.to(dt), "cross_v": xv.to(dt)}
+    return out
 
 
-def forward(*args, **kwargs):
-    _legacy("forward")
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Zeroed legacy cache: self K/V (L, batch, KV, max_len, hd), cross
+    K/V (L, batch, KV, T_enc, hd), ``pos``."""
+    KV, hd, L = cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    dt = cfg.kv_tdtype
+    Te = cfg.encoder_seq
+
+    def zeros(rows):
+        return torch.zeros((L, batch, KV, rows, hd), dtype=dt, device=device)
+    return {"k": zeros(max_len), "v": zeros(max_len), "cross_k": zeros(Te),
+            "cross_v": zeros(Te),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def init_cache(*args, **kwargs):
-    _legacy("init_cache")
-
-
-def decode_step(*args, **kwargs):
-    _legacy("decode_step")
+def decode_step(params, cache, tokens, cfg: ArchConfig, *,
+                impl: str = "auto"):
+    """tokens (B,) -> (logits (B, V), new cache): per layer the new row
+    written at ``pos % max_len``, one decode attention over the ring and
+    one over all the cross rows.  The cache passed in is left as it
+    was."""
+    c = _WhisperCfg(cfg)
+    B = tokens.shape[0]
+    pos = cache["pos"]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    h = h + params["pos_embed"][pos.long()].to(cfg.tdtype)
+    blocks = {k: v.unbind(0) for k, v in params["dec_blocks"].items()}
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p_i = {k: v[i] for k, v in blocks.items()}
+        a_in = layer_norm(h, p_i["attn_norm"], p_i["attn_norm_b"])
+        q = (a_in @ p_i["wq"]).reshape(B, H, hd)
+        k = (a_in @ p_i["wk"]).reshape(B, KV, hd)
+        v = (a_in @ p_i["wv"]).reshape(B, KV, hd)
+        ck, cv = cache["k"][i], cache["v"][i]
+        ck, cv = _write_cache(ck, cv, k.to(ck.dtype), v.to(cv.dtype),
+                              pos % ck.shape[2])
+        a = decode_attention(q, ck, cv,
+                             kv_len=(pos + 1).clamp(max=ck.shape[2]),
+                             impl=impl)
+        h = h + a.reshape(B, H * hd) @ p_i["wo"]
+        x_in = layer_norm(h, p_i["cross_norm"], p_i["cross_norm_b"])
+        xq = (x_in @ p_i["xwq"]).reshape(B, H, hd)
+        xa = decode_attention(xq, cache["cross_k"][i], cache["cross_v"][i],
+                              impl=impl)
+        h = h + xa.reshape(B, H * hd) @ p_i["xwo"]
+        m, _ = _mlp(layer_norm(h, p_i["mlp_norm"], p_i["mlp_norm_b"])[:, None],
+                    p_i, c)
+        h = h + m[:, 0]
+        ks.append(ck)
+        vs.append(cv)
+    h = layer_norm(h, params["final_norm"], params["final_norm_b"])
+    new_cache = dict(cache)
+    new_cache.update({"k": torch.stack(ks), "v": torch.stack(vs),
+                      "pos": pos + 1})
+    return h @ params["embed"].T, new_cache
 
 
 def to_graph(cfg: ArchConfig, batch: int = 1, seq: int = 64,

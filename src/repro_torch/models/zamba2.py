@@ -14,8 +14,11 @@ for one coarse ``ssm_scan`` op; ``to_graph`` / ``to_decode_graph`` lower
 the model to the compiler IR and ``_hybrid_state_specs`` mints its
 persistent state (registered as the "hybrid" state family).  The
 in_proj / out_proj products are plain ``@`` inside the coarse op, as in
-the reference, where XLA takes them.  Not carried yet: the legacy
-``forward``, ``init_cache`` and ``decode_step`` (ROADMAP A.6.4).
+the reference, where XLA takes them.  The legacy ``forward`` (with
+``return_cache``), ``init_cache`` and ``decode_step`` run the same
+blocks as a Python loop over the layers (the reference's scan): the
+cache holds every layer's SSM and conv state and each shared-block
+application's K/V ring of ``min(window, S)`` rows.
 """
 from __future__ import annotations
 
@@ -29,12 +32,13 @@ from ..core.ir import (ModelGraph, attention_node, decode_attention_node,
                        ssm_scan_node)
 from ..core.regions import PersistentSpec, StateCaps, register_state_family
 from ..kernels.common import apply_activation
+from ..kernels.decode_attention import ring_positions
 from ..kernels.mamba2 import mamba2_scan
-from .common import ParamDef, rms_norm
-from .transformer import _attn_defs
+from .common import ParamDef, Rotary, rms_norm
+from .transformer import _attention, _attention_decode, _attn_defs, _mlp
 
-__all__ = ["param_defs", "to_graph", "to_decode_graph", "block_prefill",
-           "block_decode"]
+__all__ = ["param_defs", "forward", "init_cache", "decode_step",
+           "to_graph", "to_decode_graph", "block_prefill", "block_decode"]
 
 _CONV_K = 4
 
@@ -176,6 +180,138 @@ def block_decode(h, p_i, ssm_state, conv_state, *, impl="auto"):
         rms_norm(h, p_i["norm"])[:, None], p_i, impl=impl,
         state=ssm_state, conv_state=conv_state)
     return h + mixed[:, 0], (s_new, c_new)
+
+
+def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
+            return_cache: bool = False,
+            cache_len: int | None = None) -> dict:
+    """The legacy forward: tokens (B, S) -> {"logits", "aux": {}[,
+    "cache"]}.  The shared block runs before every
+    ``shared_attn_every``-th mamba block.  The cache (``return_cache``)
+    is ``_prefill_cache``'s: its K/V ring holds ``attn_window`` rows (S
+    without a window); ``cache_len`` is not read, as in the reference."""
+    B, S = tokens.shape
+    e = cfg.shared_attn_every
+    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    cos, sin = Rotary(cfg.hd, cfg.rope_theta).freqs(
+        torch.arange(S, device=tokens.device))
+    shared = params.get("shared")
+
+    def body(x, p_i, is_attn: bool):
+        kv = None
+        if is_attn:
+            a = _attention(rms_norm(x, shared["attn_norm"]), shared, cfg,
+                           cos, sin, impl=impl, window=cfg.attn_window,
+                           return_kv=return_cache)
+            a, kv = a if return_cache else (a, None)
+            x = x + a
+            m, _ = _mlp(rms_norm(x, shared["mlp_norm"]), shared, cfg)
+            x = x + m
+        x, (s_fin, c_fin) = block_prefill(x, p_i, impl=impl)
+        return x, kv, s_fin, c_fin
+
+    blocks = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    kvs, ssm, conv = [], [], []
+    for i in range(cfg.n_layers):
+        p_i = {k: v[i] for k, v in blocks.items()}
+        is_attn = bool(e) and i % e == 0
+        h, kv, s_fin, c_fin = body(h, p_i, is_attn)
+        if is_attn and return_cache:
+            kvs.append(kv)
+        ssm.append(s_fin)
+        conv.append(c_fin)
+    h = rms_norm(h, params["final_norm"])
+    out = {"logits": h @ params["lm_head"], "aux": {}}
+    if return_cache:
+        if kvs:
+            k_stack = torch.stack([k for k, _ in kvs])
+            v_stack = torch.stack([v for _, v in kvs])
+        else:
+            k_stack = v_stack = torch.zeros(
+                (0, B, cfg.n_kv_heads, S, cfg.hd), dtype=cfg.tdtype,
+                device=h.device)
+        cache = _prefill_cache(cfg, k_stack, v_stack, B, S)
+        cache["ssm"] = torch.stack(ssm)
+        cache["conv"] = torch.stack(conv)
+        out["cache"] = cache
+    return out
+
+
+def _prefill_cache(cfg, k_stack, v_stack, B, S):
+    """Convert the prefill K/V (napp, B, KV, S, hd) into the rolling
+    window cache of W = ``attn_window`` (or S) rows: for S >= W the last
+    W positions, laid out so that row ``pos % W`` holds ``pos``; else
+    zero-padded to W."""
+    W = cfg.attn_window or S
+    if S >= W:
+        pos = ring_positions(S, W, S, k_stack.device)
+        kw, vw = k_stack[:, :, :, pos], v_stack[:, :, :, pos]
+    else:
+        kw = torch.nn.functional.pad(k_stack, (0, 0, 0, W - S))
+        vw = torch.nn.functional.pad(v_stack, (0, 0, 0, W - S))
+    cache = init_cache(cfg, B, W, device=k_stack.device)
+    cache.update({"attn_k": kw.to(cfg.kv_tdtype),
+                  "attn_v": vw.to(cfg.kv_tdtype),
+                  "pos": torch.full((B,), S, dtype=torch.int32,
+                                    device=k_stack.device)})
+    return cache
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Zeroed legacy cache: per layer the SSM state (f32) and the conv
+    window, per shared-block application a K/V ring of ``min(max_len,
+    attn_window)`` rows, and ``pos``."""
+    L, di, N = cfg.n_layers, cfg.d_inner, cfg.ssm_state
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    W = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
+    kv = (_n_apps(cfg), batch, cfg.n_kv_heads, W, cfg.hd)
+    return {
+        "ssm": torch.zeros((L, batch, H, N, P), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((L, batch, _CONV_K - 1, di + 2 * N),
+                            dtype=cfg.tdtype, device=device),
+        "attn_k": torch.zeros(kv, dtype=cfg.kv_tdtype, device=device),
+        "attn_v": torch.zeros(kv, dtype=cfg.kv_tdtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step(params, cache, tokens, cfg: ArchConfig, *,
+                impl: str = "auto"):
+    """tokens (B,) -> (logits (B, V), new cache): every mamba block one
+    step (the scan at L = 1), each shared-block application one decode
+    attention over its own ring.  The cache passed in is left as it
+    was."""
+    e = cfg.shared_attn_every
+    pos = cache["pos"]
+    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    cos, sin = Rotary(cfg.hd, cfg.rope_theta).freqs(pos)
+    shared = params.get("shared")
+    kc, vc = list(cache["attn_k"].unbind(0)), list(cache["attn_v"].unbind(0))
+    blocks = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    ssm, conv = [], []
+    for i in range(cfg.n_layers):
+        if e and i % e == 0:
+            a = i // e
+            out, kc[a], vc[a] = _attention_decode(
+                rms_norm(h, shared["attn_norm"]), shared, cfg, kc[a], vc[a],
+                pos, cos, sin, impl=impl)
+            h = h + out
+            m, _ = _mlp(rms_norm(h, shared["mlp_norm"])[:, None], shared,
+                        cfg)
+            h = h + m[:, 0]
+        h, (s_new, c_new) = block_decode(
+            h, {k: v[i] for k, v in blocks.items()}, cache["ssm"][i],
+            cache["conv"][i], impl=impl)
+        ssm.append(s_new)
+        conv.append(c_new)
+    h = rms_norm(h, params["final_norm"])
+    new_cache = {"ssm": torch.stack(ssm), "conv": torch.stack(conv),
+                 "attn_k": torch.stack(kc) if kc else cache["attn_k"],
+                 "attn_v": torch.stack(vc) if vc else cache["attn_v"],
+                 "pos": pos + 1}
+    return h @ params["lm_head"], new_cache
 
 
 # --- Program lowering (generic named state) ---------------------------------------

@@ -7,8 +7,9 @@ batch, executes the compiled ``core/program.py::Program`` once through
 ``runtime/executor.py``, and retires every request with its argmax
 class id.
 
-An ``ArchConfig`` (an LM of the dense, MoE, hybrid, ssm or audio family)
-is served statefully: the engine compiles the (prefill, decode) Program pair
+An ``ArchConfig`` of a family with a Program lowering (dense, MoE,
+hybrid, ssm, audio) is served statefully: the engine compiles the
+(prefill, decode) Program pair
 (``models/transformer.py::compile_program_pair``) whose persistent
 regions -- KV caches, or a recurrent family's named state -- are owned
 by the §5.1 allocator, and keeps one
@@ -22,7 +23,7 @@ eviction.  A recurrent family's prefill restarts its slot's state from
 zero and overwrites it, so a slot reused in the same tick carries
 nothing over.  An audio (whisper) request carries its encoder input in
 ``Request.extra``: admission runs the encoder once
-(``models.MEMORY_WRITERS``) and copies its cross K/V rows into the
+(``ModelApi.encode_memory``) and copies its cross K/V rows into the
 pair's read-only memory regions at the slot, in place, before the
 prefill Program's cross ops read them.  The paged plan and chunked prefill are gated by the
 pair's ``caps`` (``chunk_blocker``), never by assuming KV-shaped
@@ -77,12 +78,33 @@ the token streams from it.  ``sample_ops_every=N`` times one decode
 tick in N op by op (``executor.OpTimingSampler``) on a copy of the
 state.  The default bundle records counters and histograms only.
 
+A config with no Program lowering (the vlm, llama-3.2-vision: its gated
+cross-attention has no graph) falls back to the reference's legacy
+decode loop, warning once at construction (``RuntimeWarning``) with the
+lowering's full blocker list, which ``fallback_reason`` keeps (a
+``fallback`` flight event and a ``serving_fallback{fallback_reason}``
+gauge record it too).  It falls back only when the config itself has
+no lowering (``LoweringBlocked``): an option that the lowering refuses
+raises, and so does ``paged``, ``kv_quant``, ``chunk_size`` or
+``spec_k`` on the legacy loop.  ``use_program=False`` picks that loop for any LM
+(the reference's default; the port's is the Program path).  The loop
+keeps the family's legacy cache (``ModelApi.init_cache``) for all
+slots: admission zeroes the admitted slots and teacher-forces their
+prompts together, one token a tick, each step's cache updates kept for
+the admitted slots only (``_step_masked``); then each tick runs one
+``decode_step`` over every slot, eagerly, through the decode-attention
+kernel on the card.  As in the reference, the loop never writes a vlm's
+cross memory (``init_cache`` zeroes it; ``Request.extra`` is not read
+there), and it takes no chunked prefill or speculation.
+``on_program_path`` says which path serves.
+
 The engine runs on the card unless the caller passes ``device="cpu"``
 (then every op runs its plain PyTorch version, eagerly); with no card
 and no device named it raises.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -91,9 +113,10 @@ import torch
 from ..configs.base import ArchConfig, CNNConfig
 from ..core.regions import state_specs
 from ..kernels.common import resolve_device
-from ..models import MEMORY_WRITERS
+from ..models import get_model
 from ..models.cnn import compile_program
-from ..models.transformer import compile_draft_pair, compile_program_pair
+from ..models.transformer import (LoweringBlocked, compile_draft_pair,
+                                  compile_program_pair)
 from ..obs import Observability
 from ..runtime import executor
 from .admission import (NO_FREE_SLOT, PAGES_EXHAUSTED, AdmissionQueue,
@@ -147,7 +170,7 @@ class ServingEngine:
                  page_pool: int | None = None, kv_quant: str | None = None,
                  chunk_size: int | None = None, spec_k: int = 0,
                  draft_cfg=None, draft_params=None,
-                 obs: Observability | None = None):
+                 obs: Observability | None = None, use_program: bool = True):
         if not isinstance(cfg, (ArchConfig, CNNConfig)):
             raise TypeError(f"cannot serve {type(cfg).__name__}")
         self.cfg = cfg
@@ -165,6 +188,11 @@ class ServingEngine:
         self._spec = False
         self.live: dict[int, Request] = {}           # slot -> request
         self._pool = None
+        self._prefilling: dict[int, _InFlightPrefill] = {}
+        self._lm_program = False
+        # Why an LM config fell back to the legacy decode loop (None: no
+        # fallback); ``serve --program`` reads it.
+        self.fallback_reason: str | None = None
         if isinstance(cfg, CNNConfig):
             if chunk_size is not None or spec_k:
                 raise ValueError(
@@ -181,19 +209,39 @@ class ServingEngine:
         self.max_len = max_len
         self.eos = eos_id
         self.greedy = greedy
-        if program is None:
-            program = compile_program_pair(cfg, slots=slots, max_len=max_len,
-                                           paged=paged, page_size=page_size,
-                                           page_pool=page_pool,
-                                           kv_quant=kv_quant)
-        else:
+        if program is not None:
             _check_geometry(program, cfg, slots, max_len)
+        elif use_program:
+            try:
+                program = compile_program_pair(
+                    cfg, slots=slots, max_len=max_len, paged=paged,
+                    page_size=page_size, page_pool=page_pool,
+                    kv_quant=kv_quant)
+            except LoweringBlocked as e:
+                # Once per engine, never per tick; the flight event and
+                # the gauge are the warning's structured twins.
+                self.fallback_reason = str(e)
+                self.obs.flight.event("fallback", reason=str(e))
+                self.obs.registry.gauge(
+                    "serving_fallback",
+                    help="1 when the engine fell back to the legacy "
+                         "decode loop, labeled by blocker",
+                    fallback_reason=str(e)).set(1)
+                warnings.warn(
+                    f"no decode-Program lowering for {cfg.name} — {e}; "
+                    f"serving through the legacy decode loop",
+                    RuntimeWarning, stacklevel=2)
+        if program is None:
+            self._init_legacy(chunk_size, spec_k, paged, kv_quant)
+            return
+        self._lm_program = True
         self.program = program
         self.state = executor.init_program_state(program, self.device)
         # Families whose decode Program reads read-only persistent memory
         # (audio: encoder cross K/V) fill it once per admission.
-        self._memory_input, self._memory_writer = MEMORY_WRITERS.get(
-            cfg.family, (None, None))
+        api = get_model(cfg)
+        self._memory_input, self._memory_writer = (api.extra_input,
+                                                   api.encode_memory)
         self._prefill = executor.graphed_prefill_runner(program.prefill,
                                                         impl=impl)
         self._decode = executor.graphed_decode_runner(program.decode,
@@ -220,12 +268,36 @@ class ServingEngine:
         self._chunk = (executor.graphed_chunk_runner(program.prefill,
                                                      impl=impl)
                        if chunk_size is not None or spec_k else None)
-        self._prefilling: dict[int, _InFlightPrefill] = {}
         self._init_spec(program, draft_cfg, draft_params)
         if self.obs.sample_ops_every:
             self._op_sampler = executor.OpTimingSampler(
                 self.obs.sample_ops_every, registry=self.obs.registry,
                 flight=self.obs.flight, impl=impl)
+
+    def _init_legacy(self, chunk_size, spec_k, paged, kv_quant) -> None:
+        """The legacy decode loop: the family's legacy cache for every
+        slot, a FIFO queue, one eager ``decode_step`` a tick.  An option
+        only the Program path has is refused, never dropped."""
+        if chunk_size is not None or spec_k or paged or kv_quant is not None:
+            raise ValueError(
+                "chunked prefill / speculative decode / paged KV need the "
+                "stateful LM Program path (use_program=True on a lowerable "
+                "dense config); blocked by: "
+                f"{self.fallback_reason or self.cfg.name}")
+        self.chunk_size = None
+        self.program = None
+        self.queue = []
+        self.api = get_model(self.cfg)
+        self.cache = self.api.init_cache(self.cfg, self.slots, self.max_len,
+                                         device=self.device)
+
+    @property
+    def on_program_path(self) -> bool:
+        """True when LM tokens are served through the compiled (prefill,
+        decode) Program pair; False on the legacy decode loop (with
+        ``fallback_reason`` naming why, after a fallback) and for a
+        CNN, as in the reference."""
+        return self._lm_program
 
     def _init_metrics(self) -> None:
         """Register the engine's metric families on the bundle's
@@ -342,14 +414,13 @@ class ServingEngine:
         self._spec = True
 
     @property
-    def lm(self) -> bool:
-        return isinstance(self.cfg, ArchConfig)
-
-    @property
     def capture_seconds(self) -> float:
         """Seconds spent capturing CUDA graphs, summed over this
-        engine's graphs, the draft's included (0 on the CPU)."""
-        if not self.lm:
+        engine's graphs, the draft's included (0 on the CPU and on the
+        legacy loop, which runs eagerly)."""
+        if self.program is None:
+            return 0.0
+        if not self._lm_program:
             return self._infer.store(self.params).capture_seconds
         secs = self.state.graphs.capture_seconds
         if self._spec:
@@ -357,16 +428,17 @@ class ServingEngine:
         return secs
 
     def submit(self, req: Request) -> AdmissionTicket:
-        """Enqueue a request.  LM requests go through the bounded
-        admission queue (rejected with ``queue_full`` at capacity);
-        images are served FIFO by the next ticks.  Stamps the enqueue
+        """Enqueue a request.  LM requests on the Program path go through
+        the bounded admission queue (rejected with ``queue_full`` at
+        capacity); images and the legacy loop's requests are served FIFO
+        by the next ticks.  Stamps the enqueue
         time (TTFT starts here) and records the lifecycle events."""
         req._enqueue_t = self.obs.clock()
         self._c_requests.inc()
         prompt_len = (len(req.prompt)
                       if getattr(req.prompt, "ndim", 1) == 1 else 0)
         self.obs.flight.event("enqueue", uid=req.uid, prompt_len=prompt_len)
-        if self.lm:
+        if self._lm_program:
             ticket = self.admission.submit(req)
         else:
             self.queue.append(req)
@@ -381,12 +453,16 @@ class ServingEngine:
         tick is timed onto ``tick_ms``, sets the live / queue / free-page
         gauges and records one ``tick`` flight event."""
         t0 = self.obs.clock()
-        finished = (self._lm_program_step() if self.lm
-                    else self._program_step())
+        if self._lm_program:
+            finished = self._lm_program_step()
+        elif self.program is not None:
+            finished = self._program_step()
+        else:
+            finished = self._legacy_step()
         dt_ms = (self.obs.clock() - t0) * 1e3
         self.tick_no += 1
         self._h_tick.observe(dt_ms)
-        qd = len(self.admission) if self.lm else len(self.queue)
+        qd = len(self.admission) if self._lm_program else len(self.queue)
         free_pages = self._pool.free_pages if self._pool is not None else -1
         self._g_live.set(len(self.live))
         self._g_queue.set(qd)
@@ -412,7 +488,7 @@ class ServingEngine:
         done = []
         for _ in range(max_ticks):
             pending = ((self.live or self.admission or self._prefilling)
-                       if self.lm else self.queue)
+                       if self._lm_program else self.live or self.queue)
             if not pending:
                 break
             done.extend(self.step())
@@ -438,6 +514,94 @@ class ServingEngine:
             r.done = True
         self.n_ticks += 1
         return batch
+
+    # -- LM: the legacy decode loop --------------------------------------------
+    def _legacy_step(self) -> list[Request]:
+        """Admit queued requests, then one ``decode_step`` over every
+        slot; each live slot emits its next token."""
+        self._admit()
+        if not self.live:
+            return []
+        toks = np.zeros((self.slots,), np.int32)
+        for slot, req in self.live.items():
+            toks[slot] = req._last_token
+        logits, self.cache = self._legacy_decode(toks)
+        rows = logits.float().cpu().numpy()
+        finished: list[Request] = []
+        for slot, req in list(self.live.items()):
+            self._emit_tokens(slot, req, [self._next_token(req, rows[slot])],
+                              finished)
+        return finished
+
+    @torch.no_grad()
+    def _legacy_decode(self, toks: np.ndarray):
+        """One legacy ``decode_step`` over every slot: (logits, new
+        cache); ``self.cache`` is left as it was."""
+        return self.api.decode_step(self.params, self.cache,
+                                    torch.from_numpy(toks).to(self.device),
+                                    self.cfg, impl=self.impl)
+
+    def _admit(self) -> None:
+        """Move queued requests into free slots.  All of a tick's
+        admissions are batched: one merge zeroes every admitted slot's
+        cache, then the prompts are teacher-forced together -- at step t
+        every admitted slot still inside its prompt advances, and one
+        masked merge keeps exactly those slots' cache updates (the live
+        slots' caches stay as they were).  The prompt's last token is
+        the first one the next tick decodes."""
+        admitted: list[tuple[int, Request]] = []
+        for slot in self._free_slots():
+            if not self.queue:
+                break
+            admitted.append((slot, self.queue.pop(0)))
+        if not admitted:
+            return
+        self._reset_slots([slot for slot, _ in admitted])
+        steps = max(len(req.prompt) - 1 for _, req in admitted)
+        for t in range(steps):
+            toks = np.zeros((self.slots,), np.int32)
+            mask = np.zeros((self.slots,), bool)
+            for slot, req in admitted:
+                if t < len(req.prompt) - 1:
+                    toks[slot] = int(req.prompt[t])
+                    mask[slot] = True
+            self._step_masked(toks, mask)
+        for slot, req in admitted:
+            req._last_token = int(req.prompt[-1])
+            self.live[slot] = req
+
+    @staticmethod
+    def _batch_axis(leaf) -> int:
+        """Legacy caches carry batch at axis 1 ((L, B, ...)); the shared
+        ``pos`` vector is (B,)."""
+        return 0 if leaf.ndim == 1 else 1
+
+    def _reset_slots(self, slots: list[int]) -> None:
+        """Zero the admitted slots' cache, one merge for all of them."""
+        fresh = self.api.init_cache(self.cfg, 1, self.max_len,
+                                    device=self.device)
+        idx = torch.tensor(slots, device=self.device)
+
+        def put(c, f):
+            axis = self._batch_axis(c)
+            shape = list(c.shape)
+            shape[axis] = len(slots)
+            return c.index_copy(axis, idx, f.to(c.dtype).expand(shape))
+        self.cache = {k: put(c, fresh[k]) for k, c in self.cache.items()}
+
+    def _step_masked(self, toks: np.ndarray, mask: np.ndarray):
+        """One batched decode step keeping only the masked slots' cache
+        updates (the other slots' caches stay as they were)."""
+        old = self.cache
+        logits, new = self._legacy_decode(toks)
+        m = torch.from_numpy(mask).to(self.device)
+
+        def merge(o, n):
+            shape = [1] * o.ndim
+            shape[self._batch_axis(o)] = self.slots
+            return torch.where(m.reshape(shape), n, o)
+        self.cache = {k: merge(old[k], new[k]) for k in old}
+        return logits
 
     # -- LM: the stateful (prefill, decode) pair ---------------------------------
     def _free_slots(self) -> list[int]:

@@ -61,7 +61,8 @@ def _params(jcfg, seed):
 
 
 # --- configs and parameter trees --------------------------------------------------
-@pytest.mark.parametrize("name", DENSE + ["whisper-base"])
+@pytest.mark.parametrize("name", DENSE + ["whisper-base",
+                                  "llama-3.2-vision-11b"])
 def test_config_matches_reference(name):
     cfg, jcfg = _pair_cfgs(name + ":full")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
@@ -74,13 +75,22 @@ def test_config_matches_reference(name):
 
 
 def test_unported_family_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6.4"):
-        get_config("llama-3.2-vision-11b")
+    """Every family of the reference is carried now: the vlm's config is
+    the reference's (full and smoke); an unknown name is still a
+    KeyError."""
+    vlm = get_config("llama-3.2-vision-11b")
+    jvlm = JAX_REGISTRY["llama-3.2-vision-11b"]
+    assert dataclasses.asdict(vlm) == dataclasses.asdict(jvlm)
+    assert get_config("llama-3.2-vision-11b-smoke") == vlm.smoke()
+    assert (vlm.family, vlm.cross_attn_every, vlm.n_vision_tokens) == (
+        "vlm", 5, 1601)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("name", ["smollm-360m:full"] + SMOKE)
+@pytest.mark.parametrize("name", ["smollm-360m:full",
+                                  "llama-3.2-vision-11b:full",
+                                  "llama-3.2-vision-11b"] + SMOKE)
 def test_param_defs_match_reference(name):
     cfg, jcfg = _pair_cfgs(name)
     ours, ref = transformer.param_defs(cfg), jax_tf.param_defs(jcfg)
@@ -151,16 +161,23 @@ def test_stateless_program_listing_matches_reference(name):
 
 def test_unported_plans_and_families_name_their_roadmap_items():
     """The paged plan is ported; paging a windowed config is refused as
-    in ``repro``, and the VLM family still names its ROADMAP item."""
+    in ``repro``, and the vlm, which has no Program lowering in either
+    package, is refused with the reference's blocker list word for
+    word (the engine's ``fallback_reason``)."""
     cfg, _ = _pair_cfgs("smollm-360m")
     assert transformer.compile_program_pair(cfg, paged=True).paged
     with pytest.raises(NotImplementedError, match="mutually exclusive"):
         transformer.compile_program_pair(
             dataclasses.replace(cfg, attn_window=8), paged=True)
-    vlm = dataclasses.replace(cfg, family="vlm", cross_attn_every=2,
-                              n_vision_tokens=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6.4"):
+    vlm, jvlm = _pair_cfgs("llama-3.2-vision-11b")
+    with pytest.raises(NotImplementedError) as err:
         transformer.compile_program_pair(vlm)
+    with pytest.raises(NotImplementedError) as jerr:
+        jax_tf.compile_program_pair(jvlm)
+    assert str(err.value) == str(jerr.value)
+    assert ("blocked by: family=vlm (not a decoder-only transformer "
+            "graph), gated cross-attention (vision bridge), vision-encoder "
+            "inputs") in str(err.value)
 
 
 # --- norms and rotary ---------------------------------------------------------------

@@ -113,11 +113,25 @@ def test_serve_cli_runs_on_cpu():
     assert lm.returncode == 0, lm.stderr
     assert "served 16 requests, 256 tokens in" in lm.stdout
     assert "prefill_recomputes=0" in lm.stdout
+    # The vlm has no Program lowering: --program exits 2 with the
+    # reference's blocker list; without it the legacy loop serves.
+    vlm = ["--arch", "llama-3.2-vision-11b", "--smoke", "--device", "cpu"]
     other = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "llama-3.2-vision-11b", "--device", "cpu"], capture_output=True,
-        text=True, env=env, timeout=300)
-    assert other.returncode == 2 and "ROADMAP A.6.4" in other.stderr
+        [sys.executable, "-m", "repro_torch.launch.serve", *vlm,
+         "--program"], capture_output=True, text=True, env=env, timeout=300)
+    assert other.returncode == 2, other.stderr
+    assert ("error: --program requested but llama-3.2-vision-11b-smoke has "
+            "no decode-Program lowering") in other.stderr
+    assert ("blocked by: family=vlm (not a decoder-only transformer "
+            "graph), gated cross-attention (vision bridge), vision-encoder "
+            "inputs") in other.stderr
+    assert "served" not in other.stdout
+    fallback = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *vlm],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert fallback.returncode == 0, fallback.stderr
+    assert "serving through the legacy decode loop" in fallback.stderr
+    assert "served 16 requests, 256 tokens in" in fallback.stdout
     audio = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
          "whisper-base", "--smoke", "--device", "cpu"], capture_output=True,

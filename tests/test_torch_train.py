@@ -32,7 +32,8 @@ from repro_torch.checkpoint import (latest_step, restore_checkpoint,  # noqa
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import PackedFileDataset, SyntheticLM  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
-from repro_torch.launch.steps import build_train_step  # noqa: E402
+from repro_torch.launch.steps import (build_train_step,  # noqa: E402
+                                     loss_and_grads)
 from repro_torch.models import params_from_numpy, transformer  # noqa: E402
 from repro_torch.models.common import cross_entropy_loss  # noqa: E402
 from repro_torch.models.losses import chunked_cross_entropy  # noqa: E402
@@ -130,9 +131,28 @@ def test_cross_entropy_losses_match_repro(masked):
 
 
 def test_forward_refuses_unported_families(smoke):
+    """The vlm forward is ported; called without its vision input it is
+    refused with the reference's message."""
     cfg = dataclasses.replace(smoke[3], cross_attn_every=2, n_vision_tokens=8)
-    with pytest.raises(NotImplementedError, match="A.6.4"):
+    with pytest.raises(ValueError, match="vlm arch requires vision_embeds"):
         transformer.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)
+
+
+@pytest.mark.parametrize("entry", ["loss_and_grads", "build_train_step"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-7b", "whisper-base",
+                                  "llama-3.2-vision-11b"])
+def test_training_refuses_unported_families(arch, entry):
+    """Both training entry points refuse a family whose step is not
+    ported, naming its ROADMAP item, rather than build a transformer
+    step for it."""
+    cfg = get_config(arch).smoke()
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
+        if entry == "loss_and_grads":
+            loss_and_grads(cfg, {}, batch)
+        else:
+            build_train_step(cfg)
 
 
 # --- optimizer ---------------------------------------------------------------------

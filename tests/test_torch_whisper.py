@@ -126,10 +126,42 @@ def test_encode_and_memory_rows_match_reference():
 
 
 def test_legacy_entry_points_name_their_roadmap_item():
-    cfg, _ = _cfgs()
-    for fn in (whisper.forward, whisper.init_cache, whisper.decode_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6.4"):
-            fn({}, None, cfg)
+    """The legacy entry points are ported: ``forward(encoder_frames=,
+    return_cache=True, cache_len=)``, ``init_cache`` and two
+    ``decode_step``s against ``repro.models.whisper`` (logits and every
+    cache leaf, the scaled position table included), and the missing
+    encoder input refused with the reference's message."""
+    cfg, jcfg = _cfgs()
+    params, jparams = _params(jcfg, seed=8)
+    rng = np.random.default_rng(8)
+    frames = rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+    toks = rng.integers(0, cfg.vocab, (2, 5)).astype(np.int32)
+    out = whisper.forward(params, torch.from_numpy(toks), cfg,
+                          encoder_frames=torch.from_numpy(frames),
+                          return_cache=True, cache_len=9, impl="reference")
+    jout = jax_whisper.forward(jparams, jnp.asarray(toks), jcfg,
+                               encoder_frames=jnp.asarray(frames),
+                               return_cache=True, cache_len=9,
+                               impl="reference")
+    _close(out["logits"], jout["logits"])
+    cache, jcache = out["cache"], jout["cache"]
+    zero = whisper.init_cache(cfg, 2, 9)
+    for k, v in jax_whisper.init_cache(jcfg, 2, 9).items():
+        assert tuple(zero[k].shape) == v.shape == jcache[k].shape, k
+    for t in range(2):
+        for k in jcache:
+            _close(cache[k], jcache[k])
+        tok = rng.integers(0, cfg.vocab, (2,)).astype(np.int32)
+        logits, cache = whisper.decode_step(params, cache,
+                                            torch.from_numpy(tok), cfg,
+                                            impl="reference")
+        jlogits, jcache = jax_whisper.decode_step(jparams, jcache,
+                                                  jnp.asarray(tok), jcfg,
+                                                  impl="reference")
+        _close(logits, jlogits)
+    with pytest.raises(ValueError, match="whisper needs encoder_frames"):
+        whisper.forward(params, torch.from_numpy(toks), cfg)
 
 
 # --- compiler: the Program pair ---------------------------------------------------
