@@ -119,7 +119,19 @@ exits non-zero before the last line is printed.  Phases:
    512-row self ring with mixed kv_len and over all 1601 cross rows, in
    the legacy cache's contiguous (B, Hkv, S, D); f32 (1e-4) and bf16
    (2^-7), timed in bf16 beside the plain version, SDPA and the bound,
-   and summed per forward (40 + 8 flash) and per decode step (40 + 8);
+   and summed per forward (40 + 8 flash) and per decode step (40 + 8).
+   Then the training shapes of 5p-5s: ``mamba2_scan`` and ``wkv6`` under
+   autograd (``check_train_scans``: zamba2-7b's (8, 512, 112, 64) with
+   N = 64, the mamba2 config's (8, 512, 80, 64) with N = 128, rwkv6-7b's
+   (8, 512, 64, 64); y against the sequential f32 recurrence at 2^-7,
+   every input's gradient against autograd through the chunked form at
+   2^-7 of its largest, one launch a call), and both flash kernels at
+   the six new attention shapes (``check_train_attention``: zamba2's
+   shared (8, 32/32, 512, 112) causal, whisper's encoder (1500 x 1500),
+   self (448) and cross (448 over 1500), the vlm's self (8, 32/8, 512,
+   128) and cross (512 over 1601); padded by the wrapper's rule, the
+   backward against ``flash_bwd_ref`` at one bf16 ulp plus the f32
+   bound), timed beside their plain versions, SDPA and the bounds;
 5. the main paths, each with the launch counters set to 0 just before
    it and read just after.  Every served Program run goes through the
    executor's CUDA-graph runners (``graphed_runner``,
@@ -317,7 +329,29 @@ exits non-zero before the last line is printed.  Phases:
       the reference's blockers, serving 8 requests of 4-32 prompt tokens
       and 32 new tokens on 8 slots, exactly 48 decode launches a
       ``decode_step`` and no flash, replayed teacher-forced through a
-      plain engine; tok/s, the step ms and the phase's seconds printed.
+      plain engine; tok/s, the step ms and the phase's seconds printed;
+   p-s. training the hybrid, ssm, audio and vlm families
+      (``train_family``) in bf16 with 8-bit AdamW moments and remat from
+      16 layers on: zamba2-7b at full width and depth (81 layers, 14
+      shared-attention applications, 8 x 512 tokens), rwkv6-7b (32
+      layers, 8 x 512), whisper-base (6 + 6 layers, 8 x 448 tokens over
+      seeded (8, 1500, 512) frames, through ``runtime.Trainer`` with a
+      data wrapper) and llama-3.2-vision-11b at full width and 20 of its
+      40 layers (4 cross layers; 8 x 512 over seeded (8, 1601, 4096)
+      vision rows, the cross gates at 0.5): step 0's loss and gradients
+      through the kernels against the plain path on the card (5f's gates;
+      for the recurrent two each limit at least twice the same distance
+      between the plain path and a second plain version that rounds
+      otherwise, ``rounded_plain``, and none past FLOOR_CAP; zamba2-7b's
+      at full width and 7 layers, STEP0_DEPTH), then 4 graphed steps
+      (eager, captured, replays) and 2 more replays, exactly
+      ``family_launches`` a step (zamba2-7b: 162 mamba2_scan, 28 flash
+      forward, 14 backward; rwkv6-7b: 64 wkv6; whisper-base: 18 and 18;
+      the vlm: 44 and 24), every flash launch on mma, then 4 steps under
+      ``disable_graphs()``: every metric, param and optimizer-state leaf
+      bit for bit (``graphed_against_eager_steps``, as 5f and 5k);
+      tokens/s, the step ms graphed and eager, the peak memory and both
+      sides' device-time profiles printed;
    5b, 5g, 5h and 5l each end with a legacy leg (``legacy_leg``): the
    phase's first 8 prompts, cut to the shortest, through the phase's
    Program pair and 8 greedy ticks, then through the legacy ``forward
@@ -356,8 +390,9 @@ exits non-zero before the last line is printed.  Phases:
    (decode_attention, paged_decode_attention, matmul), one smollm-360m
    training step (flash_attention_bwd), one zamba2-7b admission
    (mamba2_scan) or one rwkv6-7b admission (wkv6); the granite rows
-   (per tick, per admission, the head, per training step) print before
-   it;
+   (per tick, per admission, the head, per training step) and the
+   kernels per training step of 5p-5s (phase 4's training rows times
+   their launches a step) print before it;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 TF32 is switched off for cuDNN and cuBLAS, so the plain versions and
@@ -535,6 +570,9 @@ LOSS_RTOL, GNORM_RTOL = 1e-2, 0.02
 # gradient: sound runs read 2.9% at most (wk; H100 80GB HBM3), while a fault
 # confined to one leaf's gradient (a mis-strided dq) moves it to ~100%.
 LEAF_RTOL = 0.10
+# No leaf limit raised by a plain floor (``step0_against_plain``) may pass
+# this: a lost or zeroed gradient reads 1.0, and must fail.
+FLOOR_CAP = 0.5
 # The backward's bf16 check: one ulp of the plain result plus, for the
 # sums that cancel, the f32 rounding bound of the plain computation: the
 # unit roundoff 2^-24 times its longest chain of sums (Skv keys after D
@@ -603,12 +641,19 @@ def flash_wrappers():
     return flash_attention_cuda, flash_attention_bwd_cuda
 
 
+def flash_paths() -> list:
+    """The flash wrappers' per-path launch counts since the last reset:
+    [forward, backward]."""
+    return [dict(fn.path_launches) for fn in flash_wrappers()]
+
+
 def check_flash_paths(label: str, fwd: int, bwd: int,
-                      path: str = "mma") -> None:
-    """The flash launches since the last reset went ``fwd`` (forward) and
-    ``bwd`` (backward) times through ``path`` and never through the
-    other one."""
-    got = [dict(fn.path_launches) for fn in flash_wrappers()]
+                      path: str = "mma", got=None) -> None:
+    """The flash launches since the last reset (or ``got``, counts taken
+    earlier by ``flash_paths``) went ``fwd`` (forward) and ``bwd``
+    (backward) times through ``path`` and never through the other
+    one."""
+    got = flash_paths() if got is None else got
     want = [{"mma": 0, "simt": 0, path: n} for n in (fwd, bwd)]
     print(f"{label}: flash paths forward {got[0]}, backward {got[1]}; "
           f"want {want[0]}, {want[1]}")
@@ -2197,122 +2242,262 @@ def train_smoke(device):
     return launches
 
 
-def step0_against_plain(label, cfg, device, batch):
+def _row_blocks(t, rows: int = 1 << 12):
+    """``t`` as blocks of rows (every dim but the last flattened), so a
+    7B model's stacked leaf is compared without a whole-leaf f32 copy."""
+    if t.ndim < 2:
+        return [t]
+    return list(t.reshape(-1, t.shape[-1]).split(rows))
+
+
+def leaf_diffs(a, b) -> dict:
+    """{leaf name: (max |a - b| / max |b|, ||a - b|| / ||b||)}, a block
+    of rows at a time."""
+    nb = _named_leaves(b)
+    out = {}
+    for name, x in _named_leaves(a).items():
+        d = m = dd = bb = 0.0
+        for xp, yp in zip(_row_blocks(x), _row_blocks(nb[name])):
+            xp, yp = xp.float(), yp.float()
+            d = max(d, (xp - yp).abs().max().item())
+            m = max(m, yp.abs().max().item())
+            dd += (xp - yp).double().square().sum().item()
+            bb += yp.double().square().sum().item()
+        out[name] = (d / m, (dd / bb) ** 0.5)
+    return out
+
+
+# The second plain version of the recurrent families' step-0 floor: the
+# plain path's chunked scans rounded otherwise -- mamba2's in f32 with y
+# rounded once (the reference rounds its decay matrix to x's type before
+# the product; the kernels and the sequential oracle do not), wkv6's (all
+# f32 already) cut into chunks of 8 (the reference: 16).
+WKV_RECHUNK = 8
+
+
+@contextlib.contextmanager
+def rounded_plain():
+    """Inside, the plain path's chunked scans round otherwise (the
+    comment above): the same functions, a second plain version."""
+    from repro_torch.kernels.mamba2 import ops as scan_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    orig = scan_ops.mamba2_scan_chunked, wkv_ops.wkv6_chunked
+
+    def scan(x, dt, A, B, C, *, return_state=False, **kw):
+        out = orig[0](x.float(), dt, A, B.float(), C.float(),
+                      return_state=return_state, **kw)
+        if return_state:
+            return out[0].to(x.dtype), out[1]
+        return out.to(x.dtype)
+    scan_ops.mamba2_scan_chunked = scan
+    wkv_ops.wkv6_chunked = lambda *a, **k: orig[1](
+        *a, chunk=WKV_RECHUNK, **k)
+    try:
+        yield
+    finally:
+        scan_ops.mamba2_scan_chunked, wkv_ops.wkv6_chunked = orig
+
+
+def step0_against_plain(label, cfg, device, batch, params=None,
+                        remat: bool = True, floor: bool = False):
     """Step 0 of a training run again, its loss and gradients through the
-    kernels against the plain path on the card (remat on, as the step):
-    loss within LOSS_RTOL, global gradient norm within GNORM_RTOL, each
-    leaf's largest gradient difference within LEAF_RTOL of that leaf's
-    largest gradient.  Returns the kernel path's step-0 loss."""
+    kernels against the plain path on the card (``remat`` as the step;
+    ``params`` the seed's unless given): loss within LOSS_RTOL, global
+    gradient norm within GNORM_RTOL, each leaf's largest gradient
+    difference within LEAF_RTOL of that leaf's largest gradient.
+
+    With ``floor`` (the recurrent families, whose depth amplifies
+    one-ulp differences past 5f's leaf gate) each leaf is held by its
+    relative difference ||a - b|| / ||b||, which no single outlier
+    drives, within LEAF_RTOL or twice the same quantity between the
+    plain path and a second plain version that differs from it only in
+    rounding (``rounded_plain``), whichever is larger; the loss and norm
+    limits take the same floor.  Every leaf limit must stay under
+    FLOOR_CAP (else the two plain versions disagree too far to tell a
+    lost gradient), and each leaf's largest difference stays within
+    FLOOR_CAP of its largest gradient: a lost, zeroed or negated leaf
+    reads 1 or more on both measures.  Returns the kernel path's step-0
+    loss."""
     import torch
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import init_params, param_defs
     from repro_torch.optim import global_norm
-    params = init_params(param_defs(cfg),
-                         torch.Generator(device).manual_seed(SEED))
-    got = loss_and_grads(cfg, params, batch, impl="auto", remat=True)
-    ref = loss_and_grads(cfg, params, batch, impl="reference", remat=True)
-    (loss_k, grads_k), (loss_r, grads_r) = got, ref
-    gn_k, gn_r = float(global_norm(grads_k)), float(global_norm(grads_r))
-    d_loss = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
-    d_norm = abs(gn_k - gn_r) / gn_r
-    print(f"{label} step 0: loss kernels {float(loss_k):.6f} plain "
-          f"{float(loss_r):.6f} (rel diff {d_loss:.2e}, bound {LOSS_RTOL}); "
-          f"grad norm kernels {gn_k:.6f} plain {gn_r:.6f} (rel diff "
-          f"{d_norm:.2e}, bound {GNORM_RTOL})")
-    named_r = _named_leaves(grads_r)
-    leaf_diffs = {}
-    for name, gk in _named_leaves(grads_k).items():
-        gr = named_r[name]
-        leaf_diffs[name] = ((gk.float() - gr.float()).abs().max().item(),
-                            gr.float().abs().max().item())
-    leaf_rel = {k: d / m for k, (d, m) in leaf_diffs.items()}
-    print(f"{label} step 0 per-leaf max |grad diff| (max |grad|; ratio, "
-          f"bound {LEAF_RTOL}): " + ", ".join(
-              f"{k} {d:.3e} ({m:.3e}; {leaf_rel[k]:.4f})"
-              for k, (d, m) in leaf_diffs.items()))
-    bad = [k for k, r in leaf_rel.items() if not r <= LEAF_RTOL]
-    if not (d_loss <= LOSS_RTOL and d_norm <= GNORM_RTOL) or bad:
+    if params is None:
+        params = init_params(param_defs(cfg),
+                             torch.Generator(device).manual_seed(SEED))
+
+    def run(impl):
+        loss, grads = loss_and_grads(cfg, params, batch, impl=impl,
+                                     remat=remat)
+        return float(loss), float(global_norm(grads)), grads
+
+    loss_k, gn_k, grads_k = run("auto")
+    loss_r, gn_r, grads_r = run("reference")
+    diffs = leaf_diffs(grads_k, grads_r)
+    del grads_k
+    rel = lambda a, b: abs(a - b) / abs(b)
+    d_loss, d_norm = rel(loss_k, loss_r), rel(gn_k, gn_r)
+    lim = {"loss": LOSS_RTOL, "norm": GNORM_RTOL}
+    # (measure, limit) per leaf: the max ratio, or with a floor the norm
+    # ratio (the max ratio then held to FLOOR_CAP).
+    held = {k: (mx, LEAF_RTOL) for k, (mx, _) in diffs.items()}
+    note = ""
+    if floor:
+        with rounded_plain():
+            loss_s, gn_s, grads_s = run("reference")
+        fl = leaf_diffs(grads_s, grads_r)
+        del grads_s
+        f_loss, f_norm = rel(loss_s, loss_r), rel(gn_s, gn_r)
+        lim = {"loss": max(LOSS_RTOL, 2 * f_loss),
+               "norm": max(GNORM_RTOL, 2 * f_norm)}
+        held = {k: (nr, max(LEAF_RTOL, 2 * fl[k][1]))
+                for k, (_, nr) in diffs.items()}
+        note = (f"; plain floor (mamba2 in f32, wkv6 in chunks of "
+                f"{WKV_RECHUNK}): loss {f_loss:.2e}, norm {f_norm:.2e}, "
+                f"leaves ||diff|| / ||grad|| (max ratio) " + ", ".join(
+                    f"{k} {fl[k][1]:.4f} ({fl[k][0]:.4f})" for k in fl))
+    del grads_r
+    print(f"{label} step 0: loss kernels {loss_k:.6f} plain {loss_r:.6f} "
+          f"(rel diff {d_loss:.2e}, bound {lim['loss']:.3g}); grad norm "
+          f"kernels {gn_k:.6f} plain {gn_r:.6f} (rel diff {d_norm:.2e}, "
+          f"bound {lim['norm']:.3g}){note}")
+    what = ("||grad diff|| / ||grad|| (bound; max |grad diff| / max |grad|,"
+            f" bound {FLOOR_CAP})" if floor else
+            "max |grad diff| / max |grad| (bound)")
+    print(f"{label} step 0 per-leaf {what}: " + ", ".join(
+        f"{k} {r:.4f} ({b:.4f}" + (f"; {diffs[k][0]:.4f})" if floor else ")")
+        for k, (r, b) in held.items()))
+    wide = [k for k, (_, b) in held.items() if not b <= FLOOR_CAP]
+    if wide:
+        fail(f"{label} step 0: the plain floor sets leaf limits past "
+             f"{FLOOR_CAP} ({wide}): no oracle at this depth")
+    bad = [k for k, (r, b) in held.items() if not r <= b]
+    if floor:
+        bad += [k for k, (mx, _) in diffs.items() if not mx <= FLOOR_CAP]
+    if not (d_loss <= lim["loss"] and d_norm <= lim["norm"]) or bad:
         fail(f"{label} step 0: kernel path disagrees with the plain path "
-             f"(leaves over {LEAF_RTOL}: {bad})")
-    return float(loss_k)
+             f"(leaves over their bound: {bad})")
+    return loss_k
 
 
 def graphed_against_eager_steps(label, cfg, device, optimizer,
-                                n: int = COMPARE_STEPS):
-    """``n`` training steps through the compiled step (step 0 eager,
-    step 1 captured and replayed, replays after) and ``n`` under
-    ``executor.disable_graphs()``, each from the seed's params on the
-    SyntheticLM batches 0..n-1: every metric of every step, the params
-    and the optimizer state bit for bit.  Each step is timed to a device
-    synchronise; then one more replay and one more eager step run under
-    the profiler (``profile_train``).  Returns the step ms (medians of
-    the replays and of the eager steps past the first) and the
-    profiles."""
+                                extra: int = 0, data=None) -> dict:
+    """COMPARE_STEPS training steps through the compiled step (step 0
+    eager, step 1 captured and replayed, replays after) -- through
+    ``runtime.Trainer`` over ``data`` when given (a small checkpoint),
+    else called directly -- then ``extra`` more replays, the launch
+    counters set to 0 just before and read just after; then
+    COMPARE_STEPS steps under ``executor.disable_graphs()``.  Each side
+    starts from ``family_params`` and takes ``family_batch`` i at step
+    i: every metric of every compared step and, after the last, every
+    param and optimizer-state leaf bit for bit (the graphed side's
+    copied to the host, so a 7B state is not held twice on the card).
+    Each step is timed to a device synchronise; one more step a side
+    runs under the profiler (``profile_train``).  Returns the launches,
+    the step ms (medians of the replays and of the eager steps past the
+    first), the times, the losses, the graphed side's peak memory, the
+    capture seconds and the profiles."""
     import gc
+    import math
+    import shutil
+    import tempfile
     import torch
-    from repro_torch.checkpoint import tree_leaves
-    from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import build_train_step
-    from repro_torch.models import init_params, param_defs
-    from repro_torch.runtime import executor
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                       global_batch=TRAIN_BATCH, seed=0)
-    batches = [{k: torch.from_numpy(v).to(device)
-                for k, v in data.batch_at(i).items()} for i in range(n + 1)]
-    out, runs = {}, {}
+    from repro_torch.runtime import Trainer, TrainerConfig, executor
+    n = COMPARE_STEPS + extra
+    counters = lm_counters()
+    out, metrics, host = {}, {}, None
     for side in ("graphed", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         ctx = (executor.disable_graphs() if side == "eager"
                else contextlib.nullcontext())
-        with ctx:
-            params = init_params(param_defs(cfg),
-                                 torch.Generator(device).manual_seed(SEED))
-            state = optimizer.init(params)
-            step = build_train_step(cfg, optimizer)
-            metrics, times = [], []
-            for b in batches[:n]:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                metrics.append(step(params, state, b)[2])
-                torch.cuda.synchronize()
-                times.append(1e3 * (time.perf_counter() - t0))
-            # The steady state: the replays (from step 2), eager past 0.
-            ms = statistics.median(times[2:] if side == "graphed"
-                                   else times[1:])
-            out[f"{side}_ms"], out[f"{side}_times"] = ms, times
-            # The comparison is taken before the profiled step moves the
-            # state on.
-            runs[side] = ([t.clone() for t in tree_leaves((params, state))],
-                          metrics)
-            out[f"{side}_profile"] = profile_train(
-                f"{label} {side} step",
-                lambda: step(params, state, batches[n]), ms)
-            if side == "graphed":
-                captured = [g for g in step.graphs.graphs.values()
-                            if g is not None]
-                if len(captured) != 1:
-                    fail(f"{label}: {len(captured)} graphs captured for "
-                         f"the train step, want 1")
-            del params, state, step
-            gc.collect()
-            torch.cuda.empty_cache()
-    (lg, mg), (le, me) = runs["graphed"], runs["eager"]
-    same_metrics = all(sorted(a) == sorted(b) and all(
-        torch.equal(a[k], b[k]) for k in a) for a, b in zip(mg, me))
-    same_state = _tree_equal(lg, le)
-    losses = [[round(float(m["loss"]), 6) for m in ms] for ms in (mg, me)]
-    print(f"{label}: {n} steps graphed against {n} under disable_graphs(): "
-          f"losses {losses[0]} / {losses[1]}; every metric bit-equal: "
-          f"{same_metrics}; params and optimizer state bit-equal: "
-          f"{same_state}; step ms graphed {out['graphed_ms']:.2f} (median "
-          f"of the replays; {[round(t, 2) for t in out['graphed_times']]})"
-          f" / eager {out['eager_ms']:.2f} (median past step 0; "
-          f"{[round(t, 2) for t in out['eager_times']]})", flush=True)
-    if not (same_metrics and same_state):
-        fail(f"{label}: the graphed steps are not bitwise equal to the "
-             f"eager ones")
-    del runs, lg, le, batches
+        ckpt_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{label}_")
+        try:
+            with ctx:
+                params = family_params(cfg, device)
+                state = optimizer.init(params)
+                step = build_train_step(cfg, optimizer)
+                for fn in counters.values():
+                    fn.launches = 0
+                reset_flash_paths()
+                ms, times = [], []
+                if data is not None and side == "graphed":
+                    trainer = Trainer(step, data, TrainerConfig(
+                        total_steps=COMPARE_STEPS, ckpt_every=COMPARE_STEPS,
+                        ckpt_dir=ckpt_dir, log_every=1), device=device)
+                    params, state, done = trainer.run(params, state)
+                    if done != COMPARE_STEPS:
+                        fail(f"{label}: the Trainer ended at step {done}")
+                    ms = [{k: r[k] for k in ("loss", "grad_norm", "lr")}
+                          for r in trainer.metrics_history]
+                    times = [1e3 * r["dt_s"]
+                             for r in trainer.metrics_history]
+                last = n if side == "graphed" else COMPARE_STEPS
+                for i in range(len(ms), last):
+                    if side == "graphed" and i == COMPARE_STEPS:
+                        host = _to_host((params, state))
+                    b = family_batch(cfg, i, device)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ms.append(step(params, state, b)[2])
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t0))
+                    if i == 0:
+                        torch.cuda.empty_cache()   # the eager step's blocks
+                metrics[side] = [{k: float(v) for k, v in m.items()}
+                                 for m in ms[:COMPARE_STEPS]]
+                if side == "graphed":
+                    out["launches"] = {k: fn.launches
+                                       for k, fn in counters.items()}
+                    out["flash_paths"] = flash_paths()
+                    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                    out["losses"] = [float(m["loss"]) for m in ms]
+                    if host is None:
+                        host = _to_host((params, state))
+                    captured = [g for g in step.graphs.graphs.values()
+                                if g is not None]
+                    if len(captured) != 1:
+                        fail(f"{label}: {len(captured)} graphs captured for "
+                             f"the train step, want 1")
+                    out["capture_s"] = step.graphs.capture_seconds
+                    del captured
+                else:
+                    out["same_state"] = _host_equal(host, (params, state))
+                    if step.graphs.graphs:
+                        fail(f"{label}: a graph was captured under "
+                             f"disable_graphs()")
+                # The steady state: the replays (from step 2), eager past 0.
+                med = statistics.median(times[2:] if side == "graphed"
+                                        else times[1:])
+                out[f"{side}_ms"], out[f"{side}_times"] = med, times
+                out[f"{side}_profile"] = profile_train(
+                    f"{label} {side} step", lambda: step(
+                        params, state, family_batch(cfg, n, device)), med)
+                del params, state, step
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del host
     gc.collect()
     torch.cuda.empty_cache()
+    # Equal f32 values are equal bits (a NaN equals nothing).
+    same_metrics = metrics["graphed"] == metrics["eager"] and all(
+        math.isfinite(v) for m in metrics["graphed"] for v in m.values())
+    losses = [[round(m["loss"], 6) for m in metrics[side]]
+              for side in ("graphed", "eager")]
+    print(f"{label}: {COMPARE_STEPS} steps graphed against {COMPARE_STEPS} "
+          f"under disable_graphs(): losses {losses[0]} / {losses[1]}; every "
+          f"metric bit-equal: {same_metrics}; params and optimizer state "
+          f"bit-equal: {out['same_state']}; step ms graphed "
+          f"{out['graphed_ms']:.2f} (median of the replays; "
+          f"{[round(t, 2) for t in out['graphed_times']]}, step 1 with the "
+          f"capture, {out['capture_s']:.2f} s) / eager {out['eager_ms']:.2f} "
+          f"(median past step 0; {[round(t, 2) for t in out['eager_times']]})"
+          f"; peak memory allocated {out['peak_gb']:.2f} GB", flush=True)
+    if not (same_metrics and out["same_state"]):
+        fail(f"{label}: the graphed steps are not bitwise equal to the "
+             f"eager ones")
     return out
 
 
@@ -2400,11 +2585,11 @@ def train_lm(device, bwd_row):
     step_ms = 1e3 * statistics.mean(r["dt_s"] for r in hist[2:])
     compare = graphed_against_eager_steps("5f", cfg, device, AdamW())
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    stats = {"step_ms": step_ms, "tok_s": tokens / (step_ms / 1e3),
+    stats = {**compare, "step_ms": step_ms, "tok_s": tokens / (step_ms / 1e3),
              "warmup_ms": 1e3 * hist[0]["dt_s"],
              "capture_ms": 1e3 * hist[1]["dt_s"], "losses": losses,
              "fwd_ms": 2 * L * bwd_row["fwd_ms"], "bwd_ms": L * bwd_row["ms"],
-             "peak_gb": peak / 1e9, **compare}
+             "peak_gb": peak / 1e9}
     print(f"5f train: {stats['tok_s']:.0f} tokens/s trained, step "
           f"{step_ms:.2f} ms mean over the replayed steps 2-{n - 1} (step 0 "
           f"eager {stats['warmup_ms']:.1f} ms, step 1 with the capture "
@@ -2482,12 +2667,11 @@ def train_moe(device, bwd_row):
                                           AdamW(state_bits=8))
     step_ms = 1e3 * statistics.mean(r["dt_s"] for r in hist[2:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    stats = {"step_ms": step_ms, "tok_s": tokens / (step_ms / 1e3),
+    stats = {**compare, "step_ms": step_ms, "tok_s": tokens / (step_ms / 1e3),
              "warmup_ms": 1e3 * hist[0]["dt_s"],
              "capture_ms": 1e3 * hist[1]["dt_s"], "losses": losses,
              "imbalance": imb, "peak_gb": peak / 1e9,
-             "fwd_ms": fwd * bwd_row["fwd_ms"], "bwd_ms": L * bwd_row["ms"],
-             **compare}
+             "fwd_ms": fwd * bwd_row["fwd_ms"], "bwd_ms": L * bwd_row["ms"]}
     print(f"5k train: {stats['tok_s']:.0f} tokens/s trained, step "
           f"{step_ms:.2f} ms (the replayed steps 2-{n - 1}; step 0 eager "
           f"{stats['warmup_ms']:.1f} ms, step 1 with the capture "
@@ -2500,6 +2684,464 @@ def train_moe(device, bwd_row):
           f"{stats['fwd_ms']:.2f} ms and backward {L} x {bwd_row['ms']:.4f} "
           f"= {stats['bwd_ms']:.2f} ms of kernel time per step; peak memory "
           f"allocated {stats['peak_gb']:.2f} GB", flush=True)
+    return launches, stats
+
+
+# Phase 4's training cases of this slice: the recurrent kernels' autograd
+# Functions at the training shapes, (label, kind, shape) -- zamba2-7b's
+# (8, 512, 112 heads of 64, N 64), the mamba2 config's (8, 512, 80, 64,
+# N 128), rwkv6-7b's (8, 512, 64 heads of 64) -- and the flash kernels at
+# the training phases' attention shapes, (label, B, Hq, Hkv, Sq, Skv, D,
+# causal, window).
+TRAIN_SCANS = (("zamba2-7b", "mamba2_scan", (8, 512, 112, 64, 64)),
+               ("mamba2", "mamba2_scan", (8, 512, 80, 64, 128)),
+               ("rwkv6-7b", "wkv6", (8, 512, 64, 64)))
+TRAIN_ATTN = (("zamba2-7b shared", 8, 32, 32, 512, 512, 112, True, 4096),
+              ("whisper encoder", 8, 8, 8, 1500, 1500, 64, False, None),
+              ("whisper self", 8, 8, 8, 448, 448, 64, True, None),
+              ("whisper cross", 8, 8, 8, 448, 1500, 64, False, None),
+              ("vlm self", 8, 32, 8, 512, 512, 128, True, None),
+              ("vlm cross", 8, 32, 8, 512, 1601, 128, False, None))
+
+
+def scan_train_operands(kind, shape, device, gen):
+    """The operands of one training-shape scan as the models hand them
+    (bf16; mamba2's x, B and C strided column slices of one leaf), the
+    leaves to differentiate, their names, and (flops, bytes) of the
+    recurrence as ``ssd_case`` / ``wkv_case`` count them."""
+    import torch
+    bf = torch.bfloat16
+    if kind == "mamba2_scan":
+        Bt, L, H, P, N = shape
+        xbc = torch.randn((Bt, L, H * P + 2 * N), generator=gen,
+                          device=device).to(bf).requires_grad_()
+        dt = torch.nn.functional.softplus(torch.randn(
+            (Bt, L, H), generator=gen, device=device)).requires_grad_()
+        A = (-torch.exp(torch.randn((H,), generator=gen, device=device)
+                        * 0.5)).requires_grad_()
+        leaves = [xbc, dt, A]
+
+        def args(ls=leaves):
+            xbc_, dt_, A_ = ls
+            x = xbc_[..., :H * P].reshape(Bt, L, H, P)
+            return (x, dt_, A_, xbc_[..., H * P:H * P + N],
+                    xbc_[..., H * P + N:])
+        nbytes = 2 * (2 * Bt * L * H * P + 2 * Bt * L * N) + 4 * Bt * L * H \
+            + 4 * H + 4 * Bt * H * N * P
+        return args, leaves, 5 * N * P * Bt * L * H, nbytes
+    B, L, H, D = shape
+    r, k, v = (torch.randn((B, L, H, D), generator=gen, device=device)
+               .to(bf).requires_grad_() for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((B, L, H, D), generator=gen,
+                                         device=device) * 0.5)).to(
+        bf).requires_grad_()
+    u = torch.randn((H, D), generator=gen, device=device).requires_grad_()
+    leaves = [r, k, v, w, u]
+    nbytes = 2 * 5 * B * L * H * D + 4 * H * D + 4 * B * H * D * D
+    return (lambda ls=leaves: tuple(ls)), leaves, 5 * D * D * B * L * H, \
+        nbytes
+
+
+def check_train_scans(device, peaks):
+    """Phase 4, the recurrent kernels under autograd at the training
+    shapes (``TRAIN_SCANS``), bf16: the op (``mamba2_scan`` / ``wkv6``
+    under grad mode, its autograd Function: one kernel launch forward,
+    the chunked form recomputed backward): y against the kernel's plain
+    version (the sequential f32 recurrence) at 2^-7, and each gradient --
+    (dx, dB, dC) as one strided leaf, ddt, dA; or (dr, dk, dv, dw, du) --
+    against autograd through the plain chunked form on the same inputs
+    and upstream gradient, within 2^-7 of its largest |grad| plus 2^-7
+    relative.  Timed: the kernel's forward launch (``ms``), the chunked
+    forward (``plain_ms``), and forward + backward through each.  The
+    bound is the recurrence's, as in the served rows; no PyTorch call
+    computes either function.  Returns (max |err|, {label: row})."""
+    import torch
+    from repro_torch.kernels.mamba2 import mamba2_scan
+    from repro_torch.kernels.mamba2.kernel import (mamba2_scan_cuda,
+                                                   mamba2_scan_plain)
+    from repro_torch.kernels.mamba2.ref import mamba2_scan_chunked
+    from repro_torch.kernels.rwkv6 import wkv6
+    from repro_torch.kernels.rwkv6.kernel import wkv6_cuda, wkv6_plain
+    from repro_torch.kernels.rwkv6.ref import wkv6_chunked
+    errs, rows = [], {}
+    for i, (label, kind, shape) in enumerate(TRAIN_SCANS):
+        gen = torch.Generator(device=device).manual_seed(SEED + 600 + i)
+        args, leaves, flops, nbytes = scan_train_operands(kind, shape,
+                                                          device, gen)
+        if kind == "mamba2_scan":
+            op = lambda ls=leaves: mamba2_scan(*args(ls))
+            plain = lambda ls=leaves: mamba2_scan_chunked(*args(ls))
+            kern = lambda: mamba2_scan_cuda(*args())
+            seq = lambda: mamba2_scan_plain(*args())[0]
+            launcher = mamba2_scan_cuda
+        else:
+            op = lambda ls=leaves: wkv6(*args(ls))
+            plain = lambda ls=leaves: wkv6_chunked(*args(ls))
+            kern = lambda: wkv6_cuda(*args())
+            seq = lambda: wkv6_plain(*args())[0]
+            launcher = wkv6_cuda
+        n0 = launcher.launches
+        y = op()
+        if launcher.launches != n0 + 1 or "Trainable" not in type(
+                y.grad_fn).__name__:
+            fail(f"{label} {kind}: grad mode did not launch the kernel "
+                 f"through its autograd Function ({y.grad_fn})")
+        y_ref = plain()
+        dy = torch.randn(y.shape, generator=gen, device=device).to(y.dtype)
+        got = torch.autograd.grad(y, leaves, dy)
+        want = torch.autograd.grad(y_ref, leaves, dy)
+        if launcher.launches != n0 + 1:
+            fail(f"{label} {kind}: the backward launched the kernel")
+        with torch.no_grad():
+            err = max_err(y, seq(), BF16_TOL)
+        parts = []
+        for leaf, g, w in zip(leaves, got, want):
+            g, w = g.float(), w.float()
+            scale = w.abs().max().item()
+            e = (g - w).abs()
+            if not (torch.isfinite(g).all() and bool(
+                    (e <= BF16_TOL * (scale + w.abs())).all())):
+                fail(f"{label} {kind}: the gradient of a "
+                     f"{tuple(leaf.shape)} input disagrees with the "
+                     f"chunked form's autograd (max |err| "
+                     f"{e.max().item():.3e}, max |grad| {scale:.3e})")
+            parts.append(f"{tuple(leaf.shape)} {e.max().item():.2e} / "
+                         f"{scale:.2e}")
+        errs.append(err)
+        def fb(f):
+            # Leaves made inside the timed (captured) call, as the
+            # training step makes its own: autograd then keeps every
+            # node on the capturing stream.
+            def run():
+                ls = [t.detach().requires_grad_() for t in leaves]
+                return torch.autograd.grad(f(ls), ls, dy)
+            return run
+        row = {"ms": time_ms(kern), "plain_ms": time_ms(plain, reps=3,
+                                                        warmup=1),
+               "train_ms": time_ms(fb(op), reps=3, warmup=1),
+               "plain_train_ms": time_ms(fb(plain), reps=3, warmup=1),
+               "library_ms": None,
+               "flop_ms": flops / peaks["float32"] * 1e3,
+               "byte_ms": nbytes / peaks["hbm"] * 1e3,
+               "max_abs_err": err}
+        row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
+        rows[label] = row
+        print(f"  {kind} under autograd, {label} {shape} bf16: y max |err| "
+              f"{err:.2e} (2^-7, against the sequential f32 recurrence); "
+              f"gradients against the chunked form's autograd (max |err| / "
+              f"max |grad|): "
+              + ", ".join(parts) + f"; ms={row['ms']:.4f} (the forward "
+              f"launch) plain={row['plain_ms']:.4f} (the chunked form) "
+              f"bound={row['bound_ms']:.4f}; forward + backward "
+              f"{row['train_ms']:.3f} ms (the kernel, then the chunked "
+              f"recompute) against {row['plain_train_ms']:.3f} (the "
+              f"chunked form both ways)", flush=True)
+        del y, y_ref, got, want, leaves
+    return max(errs), rows
+
+
+def check_train_attention(device, peaks):
+    """Phase 4, the flash kernels at the training phases' attention shapes
+    (``TRAIN_ATTN``), bf16, as the trainable wrapper hands them to the
+    kernels: q, k and v in the model's transposed layout, padded by the
+    wrapper's rule (``ops._pads``: q to its block, k and v to the kv
+    block, the padded keys masked through kv_len).  The forward kernel
+    against its plain version at 2^-7, the backward kernel on its out and
+    lse against ``flash_bwd_ref`` (one bf16 ulp plus the f32 rounding
+    bound, as ``check_flash_bwd``); then each timed with its plain
+    version and SDPA (the backward: SDPA forward + backward minus
+    forward) on the unpadded operands.  Bounds count the unpadded,
+    unmasked work.  Returns (max |err| forward, backward, {label:
+    row})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.bwd_kernel import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import (
+        _pads, attention_block_sizes)
+    bf = torch.bfloat16
+    fwd_errs, bwd_errs, rows = [], [], {}
+    for i, (label, B, Hq, Hkv, Sq, Skv, D, causal, window) in enumerate(
+            TRAIN_ATTN):
+        gen = torch.Generator(device=device).manual_seed(SEED + 700 + i)
+        q, do = (_train_heads(B, Sq, Hq, bf, device, gen, D)
+                 for _ in range(2))
+        k, v = (_train_heads(B, Skv, Hkv, bf, device, gen, D)
+                for _ in range(2))
+        bq, bkv = attention_block_sizes(Sq, Skv, D, 2, window=window)
+        pad_q, pad_kv = _pads(Sq, Skv, bq, bkv)
+        kv_len = Skv if pad_kv else None
+        qp, dop = ((F.pad(t, (0, 0, 0, pad_q)) if pad_q else t)
+                   for t in (q, do))
+        kp, vp = ((F.pad(t, (0, 0, 0, pad_kv)) if pad_kv else t)
+                  for t in (k, v))
+        kw = dict(scale=D ** -0.5, causal=causal, window=window,
+                  kv_len=kv_len)
+        out, lse = flash_attention_cuda(qp, kp, vp, **kw)
+        ref, _ = flash_attention_plain(qp, kp, vp, **kw)
+        fwd_errs.append(max_err(out, ref, BF16_TOL))
+        kern = lambda: flash_attention_bwd_cuda(qp, kp, vp, out, lse, dop,
+                                                **kw)
+        plain = lambda: flash_attention_bwd_plain(qp, kp, vp, out, lse, dop,
+                                                  **kw)
+        got, want = kern(), plain()
+        mags = bwd_magnitudes(qp, kp, vp, out, lse, dop, **kw)
+        slack = bwd_slack(Skv + pad_kv, D)
+        err, worst = map(max, zip(*(max_err_ulp(g, w, slack * m)
+                                    for g, w, m in zip(got, want, mags))))
+        bwd_errs.append(err)
+        del got, want, mags, ref
+        qi = torch.arange(Sq, device=device)[:, None]
+        ki = torch.arange(Skv, device=device)[None, :]
+        ok = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+        if causal:
+            ok &= ki <= qi
+        if window:
+            ok &= ki > qi - window
+        pairs = int(ok.sum())
+        n_q, n_kv = B * Hq * Sq * D, B * Hkv * Skv * D
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa = lambda: F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, scale=D ** -0.5, enable_gqa=True)
+        sdpa_ms = time_ms(sdpa)
+        flops = 5 * 2 * D * pairs * B * Hq
+        nbytes = 2 * (4 * n_q + 4 * n_kv) + 4 * B * Hq * Sq
+        fwd_flops = 2 * 2 * D * pairs * B * Hq
+        fwd_bytes = 2 * (2 * n_q + 2 * n_kv) + 4 * B * Hq * Sq
+        row = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+               "library_ms": time_ms(lambda: torch.autograd.grad(
+                   sdpa(), leaves, do)) - sdpa_ms,
+               "flop_ms": flops / peaks["bfloat16"] * 1e3,
+               "byte_ms": nbytes / peaks["hbm"] * 1e3,
+               "fwd_ms": time_ms(lambda: flash_attention_cuda(
+                   qp, kp, vp, **kw)),
+               "fwd_plain_ms": time_ms(lambda: flash_attention_plain(
+                   qp, kp, vp, **kw)),
+               "fwd_library_ms": sdpa_ms,
+               "fwd_flop_ms": fwd_flops / peaks["bfloat16"] * 1e3,
+               "fwd_byte_ms": fwd_bytes / peaks["hbm"] * 1e3}
+        row["bound_ms"] = max(row["flop_ms"], row["byte_ms"])
+        row["fwd_bound_ms"] = max(row["fwd_flop_ms"], row["fwd_byte_ms"])
+        rows[label] = row
+        print(f"  flash forward / backward, {label} B={B} {Hq}/{Hkv}x{D} "
+              f"{Sq} q over {Skv} keys (kernels see {Sq + pad_q} x "
+              f"{Skv + pad_kv}, kv_len {kv_len}), causal {causal}, window "
+              f"{window}: forward max |err| {fwd_errs[-1]:.2e} (2^-7), "
+              f"backward {err:.2e} (one bf16 ulp + the f32 bound, worst "
+              f"{worst:.3f} of it); forward ms={row['fwd_ms']:.4f} plain="
+              f"{row['fwd_plain_ms']:.4f} SDPA={sdpa_ms:.4f} bound="
+              f"{row['fwd_bound_ms']:.4f}; backward ms={row['ms']:.4f} "
+              f"plain={row['plain_ms']:.4f} SDPA (fwd+bwd minus fwd)="
+              f"{row['library_ms']:.4f} bound={row['bound_ms']:.4f}",
+              flush=True)
+        del out, lse, leaves
+    return max(fwd_errs), max(bwd_errs), rows
+
+
+# The training phases of the hybrid, ssm, audio and vlm families (5p-5s):
+# (label, arch, depth cut or None).  Batch 8 x 512 tokens (448 for
+# whisper, its decoder's positions), 8-bit AdamW moments; the vlm at 20
+# of its 40 layers (4 cross layers) with its cross gates set to
+# FAMILY_GATE (tanh(0) = 0 at init would leave every cross weight's
+# gradient zero).
+FAMILY_TRAIN = (("5p", "zamba2-7b", None), ("5q", "rwkv6-7b", None),
+                ("5r", WHISPER, None), ("5s", VLM_ARCH, 20))
+FAMILY_GATE = 0.5
+# Step 0 against the plain path at full width and this depth: zamba2-7b's
+# 7 layers hold both shared-attention applications' sum (layers 0 and
+# 6).  At its 81 layers random weights amplify one-ulp differences until
+# two plain versions differ by 0.14-0.79 of a leaf's largest gradient on
+# the H100: a floor under which a lost gradient would pass.
+STEP0_DEPTH = {"zamba2-7b": 7}
+# The training attentions of each arch (TRAIN_ATTN labels), with their
+# layers a step: (label, forward calls before remat, backward calls).
+FAMILY_ATTN = {"zamba2-7b": (("zamba2-7b shared", 14, 14),),
+               WHISPER: (("whisper encoder", 6, 6), ("whisper self", 6, 6),
+                         ("whisper cross", 6, 6)),
+               VLM_ARCH: (("vlm self", 20, 20), ("vlm cross", 4, 4))}
+# Replayed steps beyond the COMPARE_STEPS held against eager ones.
+FAMILY_EXTRA_STEPS = 2
+
+
+def family_cfg(arch, depth):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
+
+
+def family_params(cfg, device):
+    """The seed's parameters, the vlm's cross gates at FAMILY_GATE."""
+    import torch
+    from repro_torch.models import init_params, param_defs
+    params = init_params(param_defs(cfg),
+                         torch.Generator(device).manual_seed(SEED))
+    if "cross_blocks" in params:
+        params["cross_blocks"]["gate"].fill_(FAMILY_GATE)
+    return params
+
+
+def family_seq(cfg) -> int:
+    """Tokens a row: TRAIN_SEQ; whisper's decoder takes WHISPER_MAX_LEN
+    (its learned positions' count in the served phase)."""
+    return WHISPER_MAX_LEN if cfg.family == "audio" else TRAIN_SEQ
+
+
+def family_batch(cfg, step: int, device) -> dict:
+    """Batch ``step``: SyntheticLM (seed 0) tokens and labels, 8 x
+    ``family_seq``, and for the vlm and audio families their extra input
+    (8, rows, d_model) drawn from a seeded ``torch.Generator`` on the
+    card, in the config's type."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import get_model
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=family_seq(cfg),
+                       global_batch=TRAIN_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(step).items()}
+    extra = get_model(cfg).extra_input
+    if extra:
+        rows = (cfg.n_vision_tokens if extra == "vision_embeds"
+                else cfg.encoder_seq)
+        gen = torch.Generator(device).manual_seed(SEED + 500 + step)
+        batch[extra] = torch.randn((TRAIN_BATCH, rows, cfg.d_model),
+                                   generator=gen, device=device).to(
+            cfg.tdtype)
+    return batch
+
+
+class FamilyData:
+    """The Trainer's data for 5r: ``family_batch`` as numpy arrays (the
+    extra input in f32, which the step takes back to the config's type:
+    bf16 -> f32 -> bf16 is exact)."""
+
+    def __init__(self, cfg, device):
+        self.cfg, self.device = cfg, device
+
+    def batch_at(self, step, *args):
+        return {k: v.float().cpu().numpy() if v.is_floating_point()
+                else v.cpu().numpy()
+                for k, v in family_batch(self.cfg, step, self.device).items()}
+
+
+def family_launches(cfg, remat: bool) -> dict:
+    """The kernel launches of one training step of ``cfg``: the scans once
+    per layer (twice under remat), the flash forward once per attention
+    (twice for those inside a rematerialised block: every zamba2 shared
+    application, the decoder's self and cross in whisper, the vlm's self
+    attention; never the vlm's cross blocks, outside the checkpoint, nor
+    whisper's encoder) and the backward once per attention."""
+    L, per = cfg.n_layers, 2 if remat else 1
+    want = {k: 0 for k in ("flash_attention", "flash_attention_bwd",
+                           "decode_attention", "paged_decode_attention",
+                           "matmul", "mamba2_scan", "wkv6")}
+    if cfg.family == "hybrid":
+        e = cfg.shared_attn_every
+        apps = -(-L // e) if e else 0
+        want.update(mamba2_scan=per * L, flash_attention=per * apps,
+                    flash_attention_bwd=apps)
+    elif cfg.family == "ssm":
+        want["wkv6"] = per * L
+    elif cfg.family == "audio":
+        E = cfg.n_encoder_layers
+        want.update(flash_attention=E + per * 2 * L,
+                    flash_attention_bwd=E + 2 * L)
+    else:                                                  # vlm
+        cross = L // cfg.cross_attn_every
+        want.update(flash_attention=per * L + cross,
+                    flash_attention_bwd=L + cross)
+    return want
+
+
+def _to_host(tree):
+    from repro_torch.checkpoint import tree_leaves
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def _host_equal(host, tree) -> bool:
+    """``tree``'s leaves bit for bit against ``host`` copies, a leaf at a
+    time on the card."""
+    import torch
+    from repro_torch.checkpoint import tree_leaves
+    leaves = tree_leaves(tree)
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return len(host) == len(leaves) and all(
+        h.dtype == t.dtype and torch.equal(bits(h.to(t.device)), bits(t))
+        for h, t in zip(host, leaves))
+
+
+def train_family(label, arch, device, depth=None):
+    """Phases 5p-5s: ``arch`` trained at full width (``depth`` layers when
+    cut) on its legacy forward through ``launch/steps.py`` in bf16, batch
+    8, 8-bit AdamW moments, remat by the reference's rule (16 layers on).
+
+    (a) Step 0's loss and gradients through the kernels against the plain
+    path on the card (``step0_against_plain``: 5f's gates; for the
+    recurrent families a floor from a second plain version, no leaf
+    limit past FLOOR_CAP), at STEP0_DEPTH layers where the arch has one;
+    (b) ``graphed_against_eager_steps`` with FAMILY_EXTRA_STEPS more
+    replays, through ``runtime.Trainer`` for the audio family (its
+    checkpoint is small; a 7B state's would be 27 GB): exactly
+    ``family_launches`` per graphed step, every flash launch on mma,
+    every loss finite, graphed and eager steps bit for bit.  Returns
+    (launches, stats)."""
+    import gc
+    import math
+    import torch
+    from repro_torch.models import param_defs
+    from repro_torch.optim import AdamW
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = family_cfg(arch, depth)
+    remat = cfg.n_layers >= 16
+    n = COMPARE_STEPS + FAMILY_EXTRA_STEPS
+    per_step = family_launches(cfg, remat)
+    cut = (f"{cfg.n_layers} of {family_cfg(arch, None).n_layers} layers"
+           if depth else "full depth")
+    n_params = sum(math.prod(d.shape)
+                   for d in _named_leaves(param_defs(cfg)).values())
+    print(f"{label} {arch}: {n_params / 1e9:.3f} B parameters, "
+          f"{cfg.n_layers} layers ({cut}), width {cfg.d_model}, batch "
+          f"{TRAIN_BATCH} x {family_seq(cfg)}, remat {remat}, 8-bit "
+          f"moments; per step {per_step}", flush=True)
+    # (a) step 0 against the plain path, at STEP0_DEPTH layers if cut
+    cfg0 = family_cfg(arch, STEP0_DEPTH.get(arch, depth))
+    if cfg0.n_layers != cfg.n_layers:
+        print(f"{label} step 0 at full width and {cfg0.n_layers} of "
+              f"{cfg.n_layers} layers, remat {remat} (STEP0_DEPTH)")
+    loss0 = step0_against_plain(
+        label, cfg0, device, family_batch(cfg0, 0, device),
+        params=family_params(cfg0, device), remat=remat,
+        floor=cfg.family in ("hybrid", "ssm"))
+    # (b) the compiled step against the eager one
+    cmp = graphed_against_eager_steps(label, cfg, device,
+                                      AdamW(state_bits=8),
+                                      extra=FAMILY_EXTRA_STEPS,
+                                      data=(FamilyData(cfg, device)
+                                            if cfg.family == "audio"
+                                            else None))
+    launches = cmp["launches"]
+    want = {k: n * v for k, v in per_step.items()}
+    print(f"{label} train: {n} steps, launches {launches}, want {want}")
+    if launches != want:
+        fail(f"{label}: launch counts {launches} != {want}")
+    check_flash_paths(f"{label} train", want["flash_attention"],
+                      want["flash_attention_bwd"], got=cmp["flash_paths"])
+    losses = cmp["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss in {losses}")
+    tokens = TRAIN_BATCH * family_seq(cfg)
+    stats = {**cmp, "tok_s": tokens / (cmp["graphed_ms"] / 1e3),
+             "loss0": loss0, "per_step": per_step, "params_b": n_params / 1e9,
+             "cut": cut, "seconds": time.perf_counter() - t_phase}
+    print(f"{label} {arch}: {stats['tok_s']:.0f} tokens/s trained; step "
+          f"{cmp['graphed_ms']:.2f} ms graphed / {cmp['eager_ms']:.2f} ms "
+          f"eager; peak memory allocated {cmp['peak_gb']:.2f} GB; losses "
+          f"{[round(x, 4) for x in losses]}; phase "
+          f"{stats['seconds']:.1f} s", flush=True)
     return launches, stats
 
 
@@ -2519,7 +3161,8 @@ KERNEL_GROUPS = (("flash forward (CUDA)", ("flash_kernel",
                  ("reductions and softmax", ("reduce", "softmax",
                                              "logsumexp")),
                  ("index / scatter / gather", ("index", "scatter",
-                                               "gather")))
+                                               "gather")),
+                 ("recurrent scans (CUDA)", ("ssd_", "wkv_")))
 
 
 SERVE_GROUPS = (("the port's kernels (CUDA)", SERVE_KERNELS),
@@ -2530,12 +3173,13 @@ def profile_train(label, call, step_ms):
     """One more training step (``call()``) under ``torch.profiler``:
     device time by kernel group, the device-busy share of the unprofiled
     step ``step_ms``, and the launches.  Prints "not measured" when the
-    profiler sees no device time."""
+    profiler sees no device time.  The device's activity alone is
+    recorded: nothing here reads the host's ops, and sorting them beside
+    a step of ~70k launches takes minutes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -4973,6 +5617,16 @@ def tune_phase(device) -> tuple[dict, dict]:
     return launches, errs
 
 
+START = time.perf_counter()
+
+
+def lap(label: str) -> None:
+    """Print the seconds since the script started, at the end of the
+    phases ``label`` names: the script against its time limit."""
+    print(f"[chip_smoke] {label}: {time.perf_counter() - START:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5009,6 +5663,7 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {lib} {kernel}: {line.strip()}")
 
+    lap("built")
     rows = check_kernels(device, peaks)
     rows += check_bf16_convs(device)
     lm_rows, uses = check_lm_kernels(device, peaks)
@@ -5020,6 +5675,10 @@ def main() -> int:
     g_bwd_row = check_flash_bwd(device, peaks, MOE_ARCH)
     w_rows, w_uses = check_lm_kernels(device, peaks, WHISPER)
     v_rows = check_vlm_kernels(device, peaks)
+    scan_train_err, scan_train_rows = check_train_scans(device, peaks)
+    attn_fwd_err, attn_bwd_err, attn_train_rows = check_train_attention(
+        device, peaks)
+    lap("phases 3-4")
     cnn_launches, img_s, cnn_graphed = serve_alexnet(device)
     resnet18_forward(device)
     from repro_torch.core import SNOWFLAKE
@@ -5028,28 +5687,43 @@ def main() -> int:
     n_strips = resnet18_forward(device, hw=SNOWFLAKE, paper_faithful=True)
     if n_strips != 20:
         fail(f"5i resnet18: {n_strips} strip launches, want 20")
+    lap("5a, 5i")
     from repro_torch.launch import serve
     n_lm = int(LM_ARGS[LM_ARGS.index("--requests") + 1])
     lm_launches, lm_stats, lm_eng, _ = serve_lm(
         "5b", lambda: serve.main(LM_ARGS), n_lm)
     lm_stats["legacy"] = legacy_leg("5b", lm_eng, lm_stats, LM_ARCH)
     del lm_eng
+    lap("5b")
     win_launches, win_stats, _, _ = serve_lm(
         "5b window", lambda: serve.main(LM_ARGS + ["--window",
                                                    str(LM_WINDOW)]), n_lm)
+    lap("5b window")
     tune_launches, tune_errs = tune_phase(device)
+    lap("5n")
     paged = {label: serve_paged(label)
              for label in ("5c paged", "5d int8", "5e chunked")}
+    lap("5c-5e")
     smoke_launches = train_smoke(device)
     train_launches, train_stats = train_lm(device, bwd_row)
+    lap("5f")
     family = {label: serve_family(label, arch) for label, arch in (
         ("5g zamba2-7b", "zamba2-7b"), ("5h rwkv6-7b", "rwkv6-7b"))}
+    lap("5g, 5h")
     moe_launches, moe_stats = serve_family(f"5j {MOE_ARCH}", MOE_ARCH)
+    lap("5j")
     moe_train_launches, moe_train = train_moe(device, g_bwd_row)
+    lap("5k")
     w_launches, w_stats = serve_whisper(f"5l {WHISPER}")
+    lap("5l")
     spec_launches, spec_stats = serve_spec(lm_stats)
+    lap("5m")
     vlm_launches, vlm_stats = serve_vlm(device)
+    lap("5o")
+    fam_train = {label: train_family(label, arch, device, depth)
+                 for label, arch, depth in FAMILY_TRAIN}
 
+    lap("5p-5s")
     tick = {}
     for kname, label in (("conv2d_virtual", "alexnet-owt"),
                          ("matmul", "alexnet-owt"),
@@ -5229,6 +5903,7 @@ def main() -> int:
                 smoke_launches, train_launches, moe_launches,
                 moe_train_launches, w_launches, spec_launches,
                 tune_launches, vlm_launches] + [
+        launch for launch, _ in fam_train.values()] + [
         launch for launch, _ in list(paged.values()) + list(family.values())
     ] + [st["legacy"]["launches"] for st in (
         lm_stats, w_stats, *(st for _, st in family.values()))]
@@ -5238,8 +5913,11 @@ def main() -> int:
                       if r["kernel"] == k]
                    + ([r["max_abs_err"] for r in paged_rows.values()]
                       if k == "paged_decode_attention" else [])
-                   + ([bwd_row["max_abs_err"], g_bwd_row["max_abs_err"]]
-                      if k == "flash_attention_bwd" else [])
+                   + ([bwd_row["max_abs_err"], g_bwd_row["max_abs_err"],
+                       attn_bwd_err] if k == "flash_attention_bwd" else [])
+                   + ([attn_fwd_err] if k == "flash_attention" else [])
+                   + ([scan_train_err] if k in ("mamba2_scan", "wkv6")
+                      else [])
                    + [r["max_abs_err"] for r in g_rows.values()
                       if r["kernel"] == k]
                    + [r["max_abs_err"] for r in w_rows.values()
@@ -5275,6 +5953,33 @@ def main() -> int:
         print(f"flash {what}, bf16: {t['launches']} launches, ms "
               f"{t['ms']:.4f}, library_ms {t['library_ms']:.4f}, bound_ms "
               f"{t['bound_ms']:.4f}, plain_ms {t['plain_ms']:.4f}")
+    # The kernels per training step of 5p-5s, from phase 4's training
+    # rows: (kernel, attention or scan row, launches a step).
+    for label, arch, _ in FAMILY_TRAIN:
+        st = fam_train[label][1]
+        ps = st["per_step"]
+        parts = []
+        if ps["mamba2_scan"]:
+            parts.append(("mamba2_scan", scan_train_rows[arch], "ms",
+                          ps["mamba2_scan"]))
+        if ps["wkv6"]:
+            parts.append(("wkv6", scan_train_rows[arch], "ms", ps["wkv6"]))
+        for name, calls_f, calls_b in FAMILY_ATTN.get(arch, ()):
+            row = attn_train_rows[name]
+            twice = ps["flash_attention"] > ps["flash_attention_bwd"] \
+                and name not in ("whisper encoder", "vlm cross")
+            parts.append((f"flash forward ({name})", row, "fwd_ms",
+                          (2 if twice else 1) * calls_f))
+            parts.append((f"flash backward ({name})", row, "ms", calls_b))
+        ksum = sum(n * row[key] for _, row, key, n in parts)
+        bsum = sum(n * row["fwd_bound_ms" if key == "fwd_ms"
+                           else "bound_ms"] for _, row, key, n in parts)
+        print(f"{label} {arch} training step: graphed {st['graphed_ms']:.2f}"
+              f" / eager {st['eager_ms']:.2f} ms; kernels "
+              f"{ksum:.3f} ms a step (bound {bsum:.4f}): " + ", ".join(
+                  f"{name} {n} x {row[key]:.4f}" for name, row, key, n
+                  in parts) + "; the scans' plain recompute backward and "
+              "the cuBLAS products not in the sum")
     per = {"conv2d_virtual": ("alexnet-owt batch-8 tick",
                               tick["conv2d_virtual"]),
            "conv2d_strips": (
@@ -5338,6 +6043,10 @@ def main() -> int:
           + ", ".join(f"{name} {st['tok_s']:.1f} tok/s"
                       for name, st in spec_stats.items()
                       if name in SPEC_RUNS)
+          + "; " + ", ".join(
+              f"{label} {arch}: {fam_train[label][1]['tok_s']:.0f} tokens/s "
+              f"trained (step {fam_train[label][1]['graphed_ms']:.1f} ms)"
+              for label, arch, _ in FAMILY_TRAIN)
           + f"; 5o {VLM_ARCH}: {vlm_stats['tok_s']:.1f} tok/s on the "
           f"legacy loop, decode step {vlm_stats['step_ms']:.2f} ms median "
           f"/ {vlm_stats['step_mean_ms']:.2f} mean; legacy legs (forward, "

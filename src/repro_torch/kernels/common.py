@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 __all__ = ["ACTIVATIONS", "ACT_CODES", "apply_activation", "pad_to", "unpad",
            "resolve_device", "use_kernel", "build_kernels", "load_library",
-           "check_launch", "BUILD_DIR", "CSRC_DIR"]
+           "check_launch", "recompute_grads", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -65,6 +65,28 @@ def unpad(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     if tuple(x.shape) == tuple(shape):
         return x
     return x[tuple(slice(0, s) for s in shape)]
+
+
+def recompute_grads(fn, saved, need, upstream):
+    """The gradients of ``fn(*saved)`` (a tuple of outputs) in the
+    inputs ``need`` marks, for the upstream gradients given (None for an
+    output nobody read); None for the rest.  ``fn`` is recomputed under
+    autograd on detached copies of the saved inputs."""
+    grads = [None] * len(saved)
+    outs = [(i, g) for i, g in enumerate(upstream) if g is not None]
+    wanted = [i for i, n in enumerate(need) if n]
+    if not outs or not wanted:
+        return grads
+    with torch.enable_grad():
+        xs = [None if t is None else t.detach().requires_grad_(n)
+              for t, n in zip(saved, need)]
+        res = fn(*xs)
+        got = torch.autograd.grad([res[i] for i, _ in outs],
+                                  [xs[i] for i in wanted],
+                                  [g for _, g in outs], allow_unused=True)
+    for i, g in zip(wanted, got):
+        grads[i] = g
+    return grads
 
 
 def _silu(x):

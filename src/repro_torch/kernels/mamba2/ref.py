@@ -54,7 +54,12 @@ def mamba2_scan_chunked(x, dt, A, B, C, *, D_skip=None, h0=None,
     The roundings are the reference's: large activations stay in the
     input dtype, only the per-head cumsums and the state run in f32, and
     the (Q, S, H) decay matrix is cast to x's dtype before its product
-    with x (sums in f32).  All exponents are <= 0."""
+    with x (sums in f32).  All exponents are <= 0: the decay matrix's
+    exponent is zeroed above the diagonal before ``exp``, where the
+    reference exponentiates cum_q - cum_s > 0 and masks the product
+    after.  The forward is the same bits; the reference's gradient there
+    is 0 x exp(+large) = NaN once a chunk's decay passes e^88 (zamba2-7b
+    at L = 512 with A dt ~ 0.7 reaches e^180), the port's is 0."""
     Bt, L, H, P = x.shape
     N = B.shape[-1]
     Q = min(chunk, L)
@@ -77,7 +82,8 @@ def mamba2_scan_chunked(x, dt, A, B, C, *, D_skip=None, h0=None,
         cum = torch.cumsum(a, dim=1)
         total = cum[:, -1]                                         # (Bt,H)
         CB = torch.einsum("bqn,bsn->bqs", Cc.float(), Bc.float())
-        dec = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])   # (Bt,Q,S,H)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]             # (Bt,Q,S,H)
+        dec = torch.exp(torch.where(mask, diff, torch.zeros_like(diff)))
         M = (torch.where(mask, CB[..., None] * dec, torch.zeros_like(dec))
              * dtc[:, None, :, :])
         y = torch.einsum("bqsh,bshp->bqhp", M.to(cdt).float(), xc.float())

@@ -44,46 +44,53 @@ def wkv6_ref(r, k, v, w, u, *, s0=None, return_state: bool = False):
 
 def wkv6_chunked(r, k, v, w, u, *, s0=None, return_state: bool = False,
                  chunk: int = 16):
-    """Block-parallel WKV6 (the model path off the card): L/Q chunk
-    steps instead of L sequential state updates.
+    """Block-parallel WKV6 (the model path off the card): every chunk's
+    intra-chunk products at once, then L/Q state steps.
 
-    Within a chunk, pair weights exp(cum_{t-1} - cum_s) are factored as
-    (r * e^{cum_prev - m})(k * e^{m - cum}) with the per-channel center
-    m = cum at mid-chunk, which keeps both factors within e^{+-Q/2 |log
-    w|} -- safe in f32 for Q <= 16 with realistic decay magnitudes."""
+    Within a chunk each pair (q, s < q) carries the per-channel decay
+    exp(cum_{q-1} - cum_s), its exponent <= 0, zeroed above the diagonal
+    before ``exp``.  The reference factors it as (r e^{cum_prev - m})(k
+    e^{m - cum}) around the mid-chunk cum m, whose factors pass f32's
+    e^88 once Q/2 |log w| does (w < 1.7e-5 at Q = 16; rwkv6-7b's trained
+    decays reach it within a step of random init), and whose gradient is
+    then NaN; the pair form is the same function without that limit.
+    All chunks at once, not a chunk at a time: a (B, L/Q, Q, Q, H, D)
+    tensor, about 1 GB at rwkv6-7b's training shape, against L/Q times
+    the launches, which an eager training step waits on (twice the step
+    time on an H100)."""
     B, L, H, D = r.shape
     Q = min(chunk, L)
     while L % Q != 0:
         Q //= 2
     nc = L // Q
-    uf = u.float()
-    rr, kk, vv, ww = (a.reshape(B, nc, Q, H, D) for a in (r, k, v, w))
+    rc, kc, vc, wc = (a.float().reshape(B, nc, Q, H, D)
+                      for a in (r, k, v, w))
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=r.device),
-                      diagonal=-1)[None, :, :, None]
+                      diagonal=-1)[None, None, :, :, None]       # (1,1,Q,S,1)
+    lw = torch.log(torch.clamp(wc, min=1e-30))                     # <= 0
+    cum = torch.cumsum(lw, dim=2)                                  # inclusive
+    cum_prev = cum - lw                                            # exclusive
+    diff = cum_prev[:, :, :, None] - cum[:, :, None]             # (B,c,Q,S,H,D)
+    dec = torch.exp(torch.where(mask[..., None], diff,
+                                torch.zeros_like(diff)))
+    A = torch.einsum("bcqhd,bcqshd->bcqsh", rc, dec * kc[:, :, None])
+    diag = torch.einsum("bcqhd,bcqhd->bcqh", rc * u.float()[None, None], kc)
+    y = torch.einsum("bcqsh,bcshd->bcqhd",
+                     torch.where(mask, A, torch.zeros_like(A)), vc)
+    y = y + diag[..., None] * vc
+    # each chunk's own state update, then the states entering the chunks
+    total = cum[:, :, -1]                                          # (B,c,H,D)
+    upd = torch.einsum("bcqhi,bcqhj->bchij",
+                       kc * torch.exp(total[:, :, None] - cum), vc)
     S = _s_init(s0, B, H, D, r.device)
-    ys = []
+    entering = []
     for c in range(nc):
-        rc, kc, vc, wc = (a[:, c].float() for a in (rr, kk, vv, ww))
-        lw = torch.log(torch.clamp(wc, min=1e-30))                 # <= 0
-        cum = torch.cumsum(lw, dim=1)                              # inclusive
-        cum_prev = cum - lw                                        # exclusive
-        m = cum[:, Q // 2][:, None]                                # center
-        r_t = rc * torch.exp(cum_prev - m)
-        k_t = kc * torch.exp(m - cum)
-        A = torch.einsum("bqhd,bshd->bqsh", r_t, k_t)              # (B,Q,S,H)
-        diag = torch.einsum("bqhd,bqhd->bqh", rc * uf[None, None], kc)
-        y = torch.einsum("bqsh,bshd->bqhd",
-                         torch.where(mask, A, torch.zeros_like(A)), vc)
-        y = y + diag[..., None] * vc
-        # inter-chunk: the carried state read out with decayed r
-        y = y + torch.einsum("bqhi,bhij->bqhj", rc * torch.exp(cum_prev), S)
-        # state update
-        total = cum[:, -1][:, None]                                # (B,1,H,D)
-        k_s = kc * torch.exp(total - cum)
-        S = (S * torch.exp(total[:, 0])[..., None]
-             + torch.einsum("bqhi,bqhj->bhij", k_s, vc))
-        ys.append(y.to(r.dtype))
-    y = torch.stack(ys, 1).reshape(B, L, H, D)
+        entering.append(S)
+        S = S * torch.exp(total[:, c])[..., None] + upd[:, c]
+    # inter-chunk: the carried state read out with decayed r
+    y = y + torch.einsum("bcqhi,bchij->bcqhj", rc * torch.exp(cum_prev),
+                         torch.stack(entering, 1))
+    y = y.reshape(B, L, H, D).to(r.dtype)
     if return_state:
         return y, S
     return y

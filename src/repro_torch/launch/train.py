@@ -4,12 +4,19 @@
         --arch smollm-360m --smoke --steps 3 --device cpu
 
 On the card (the default) every attention forward and backward runs the
-hand-written CUDA flash kernels, and the step runs off a CUDA graph
-(``launch/steps.py``: step 0 eager, step 1 captured, replays after);
-with ``--device cpu`` the plain PyTorch versions, eagerly.  An MoE arch
-(``--arch granite-moe-1b-a400m``) adds the load-balance term to the
-loss and prints each step's expert imbalance.  Parameters are initialised from ``--seed``; the data is the
-seeded ``SyntheticLM`` stream or a packed token file.  Fault tolerance
+hand-written CUDA flash kernels, every selective scan (zamba2, mamba2)
+and WKV6 recurrence (rwkv6) the CUDA scan kernels, and the step runs
+off a CUDA graph (``launch/steps.py``: step 0 eager, step 1 captured,
+replays after); with ``--device cpu`` the plain PyTorch versions,
+eagerly.  ``--arch`` takes the dense, MoE, hybrid and ssm configs.  An
+MoE arch (``--arch granite-moe-1b-a400m``) adds the load-balance term
+to the loss and prints each step's expert imbalance.  The vlm and
+audio families are refused: their steps need ``vision_embeds`` /
+``encoder_frames``, which the synthetic token stream does not carry
+(nor does the reference's); train them through
+``steps.build_train_step`` with the extra input in each batch.
+Parameters are initialised from ``--seed``; the data is the seeded
+``SyntheticLM`` stream or a packed token file.  Fault tolerance
 (auto-resume from ``--ckpt-dir``, preemption checkpoint, straggler log)
 comes from ``runtime.Trainer``.  Prints each step's loss, time and
 tokens per second.  The multi-device ``--strategy`` of the reference is
@@ -29,7 +36,7 @@ from ..configs import get_config
 from ..configs.base import ShapeSpec
 from ..data import PackedFileDataset, SyntheticLM
 from ..kernels.common import resolve_device
-from ..models import init_params, transformer
+from ..models import get_model, init_params
 from ..optim import AdamW, cosine_schedule
 from ..runtime import Trainer, TrainerConfig
 from .steps import build_train_step
@@ -63,12 +70,19 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    extra = get_model(cfg).extra_input
+    if extra:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family's step needs {extra}, "
+            f"which the synthetic token stream does not carry; train it "
+            f"through launch.steps.build_train_step with {extra} in each "
+            f"batch")
     shape = ShapeSpec("cli_train", args.seq, args.batch, "train")
     optimizer = AdamW(lr=cosine_schedule(args.lr, warmup=20,
                                          total=args.steps),
                       state_bits=args.opt_bits)
     step_fn = build_train_step(cfg, optimizer, impl="auto")
-    params = init_params(transformer.param_defs(cfg),
+    params = init_params(get_model(cfg).param_defs(cfg),
                          torch.Generator(device).manual_seed(args.seed))
     opt_state = optimizer.init(params)
     if args.data == "synthetic":

@@ -17,9 +17,11 @@ state and its two shift rows.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.ir import ModelGraph, embed_node, matmul_node, norm_node, wkv_node
@@ -172,23 +174,37 @@ def _block_seq(carry, p_i, hd, *, impl, wkv_state=None, shift_t=None,
 
 
 def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
-            return_cache: bool = False, cache_len: int | None = None) -> dict:
+            return_cache: bool = False, cache_len: int | None = None,
+            remat: bool = False, return_hidden: bool = False) -> dict:
     """The legacy forward: tokens (B, S) -> {"logits", "aux": {}[,
-    "cache"]}; the cache (``return_cache``) holds each
-    layer's wkv state and shift rows and ``pos`` = S (``cache_len`` is
-    not read: the state is O(1) in length)."""
+    "cache"]}, or with ``return_hidden`` {"logits": None, "hidden": the
+    final-norm output (B, S, D), "aux": {}}.  ``remat`` recomputes each
+    block in the backward pass, as the reference's
+    ``jax.checkpoint(body)``: the wkv kernel runs twice per layer per
+    training step.  The cache (``return_cache``) holds each layer's wkv
+    state and shift rows and ``pos`` = S (``cache_len`` is not read:
+    the state is O(1) in length)."""
     B, S = tokens.shape
     h = params["embed"][tokens.long()].to(cfg.tdtype)
     h = layer_norm(h, params["ln_in"], params["ln_in_b"])
     blocks = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    block = functools.partial(_block_seq, hd=cfg.hd, impl=impl,
+                              want_state=return_cache)
     states = []
     for i in range(cfg.n_layers):
         p_i = {k: v[i] for k, v in blocks.items()}
-        h, st = _block_seq(h, p_i, cfg.hd, impl=impl,
-                           want_state=return_cache)
+        if remat:
+            # No forward draws random numbers: no RNG state is kept.
+            h, st = checkpoint(block, h, p_i, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            h, st = block(h, p_i)
         states.append(st)
     h = layer_norm(h, params["final_norm"], params["final_norm_b"])
-    out = {"logits": h @ params["lm_head"], "aux": {}}
+    out = {"logits": None if return_hidden else h @ params["lm_head"],
+           "aux": {}}
+    if return_hidden:
+        out["hidden"] = h
     if return_cache:
         s_stack, sh1, sh2 = (torch.stack(x) for x in zip(*states))
         out["cache"] = {"wkv": s_stack, "shift_t": sh1, "shift_c": sh2,

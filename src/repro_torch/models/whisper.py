@@ -27,6 +27,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.ir import (ModelGraph, attention_node, cross_attention_node,
@@ -163,11 +164,17 @@ def encode_memory(params, frames, cfg: ArchConfig, *,
 
 def forward(params, tokens, cfg: ArchConfig, *, encoder_frames=None,
             impl: str = "auto", return_cache: bool = False,
-            cache_len: int | None = None) -> dict:
+            cache_len: int | None = None, remat: bool = False,
+            return_hidden: bool = False) -> dict:
     """The legacy decoder forward over the encoded ``encoder_frames`` (B,
-    T_enc, D): tokens (B, S) -> {"logits", "aux": {}[, "cache"]}; the
-    cache holds the self K/V (L, B, KV, cache_len, hd),
-    zero-padded past S, the cross K/V (L, B, KV, T_enc, hd) and ``pos``."""
+    T_enc, D): tokens (B, S) -> {"logits", "aux": {}[, "cache"]}, or
+    with ``return_hidden`` {"logits": None, "hidden": the final-norm
+    output (B, S, D), "aux": {}}.  The encoder runs inside, so its
+    weights get gradients too.  ``remat`` recomputes each decoder block
+    in the backward pass (the encoder's are kept), as the reference's
+    ``jax.checkpoint(body)``.  The cache holds the self K/V (L, B, KV,
+    cache_len, hd), zero-padded past S, the cross K/V (L, B, KV, T_enc,
+    hd) and ``pos``."""
     if encoder_frames is None:
         raise ValueError("whisper needs encoder_frames")
     c = _WhisperCfg(cfg)
@@ -176,7 +183,7 @@ def forward(params, tokens, cfg: ArchConfig, *, encoder_frames=None,
     h = params["embed"][tokens.long()].to(cfg.tdtype)
     h = h + params["pos_embed"][:S][None].to(cfg.tdtype)
 
-    def body(x, p_i):
+    def body(x, p_i, mem):
         a, kv = _attention(layer_norm(x, p_i["attn_norm"],
                                       p_i["attn_norm_b"]),
                            p_i, c, None, None, impl=impl, causal=True,
@@ -186,7 +193,7 @@ def forward(params, tokens, cfg: ArchConfig, *, encoder_frames=None,
         x = x + _attention(layer_norm(x, p_i["cross_norm"],
                                       p_i["cross_norm_b"]),
                            xp, c, None, None, impl=impl, causal=False,
-                           kv_override=enc_out)
+                           kv_override=mem)
         m, _ = _mlp(layer_norm(x, p_i["mlp_norm"], p_i["mlp_norm_b"]),
                     p_i, c)
         return x + m, kv
@@ -195,10 +202,19 @@ def forward(params, tokens, cfg: ArchConfig, *, encoder_frames=None,
     kvs = []
     for i in range(cfg.n_layers):
         p_i = {k: v[i] for k, v in blocks.items()}
-        h, kv = body(h, p_i)
-        kvs.append(kv)
+        if remat:
+            # No forward draws random numbers: no RNG state is kept.
+            h, kv = checkpoint(body, h, p_i, enc_out, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            h, kv = body(h, p_i, enc_out)
+        if return_cache:
+            kvs.append(kv)
     h = layer_norm(h, params["final_norm"], params["final_norm_b"])
-    out = {"logits": h @ params["embed"].T, "aux": {}}
+    out = {"logits": None if return_hidden else h @ params["embed"].T,
+           "aux": {}}
+    if return_hidden:
+        out["hidden"] = h
     if return_cache:
         k_stack = torch.stack([k for k, _ in kvs])
         v_stack = torch.stack([v for _, v in kvs])

@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.ir import (ModelGraph, attention_node, decode_attention_node,
@@ -183,13 +184,19 @@ def block_decode(h, p_i, ssm_state, conv_state, *, impl="auto"):
 
 
 def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
-            return_cache: bool = False,
-            cache_len: int | None = None) -> dict:
+            return_cache: bool = False, cache_len: int | None = None,
+            remat: bool = False, return_hidden: bool = False) -> dict:
     """The legacy forward: tokens (B, S) -> {"logits", "aux": {}[,
-    "cache"]}.  The shared block runs before every
-    ``shared_attn_every``-th mamba block.  The cache (``return_cache``)
-    is ``_prefill_cache``'s: its K/V ring holds ``attn_window`` rows (S
-    without a window); ``cache_len`` is not read, as in the reference."""
+    "cache"]}, or with ``return_hidden`` {"logits": None, "hidden": the
+    final-norm output (B, S, D), "aux": {}}.  The shared block runs
+    before every ``shared_attn_every``-th mamba block.  ``remat``
+    recomputes each layer's body (the shared block where it runs, then
+    the mamba block) in the backward pass, as the reference's
+    ``jax.checkpoint(body)``: the scan and the shared attention's flash
+    forward run twice per layer per training step.  The cache
+    (``return_cache``) is ``_prefill_cache``'s: its K/V ring holds
+    ``attn_window`` rows (S without a window); ``cache_len`` is not
+    read, as in the reference."""
     B, S = tokens.shape
     e = cfg.shared_attn_every
     h = params["embed"][tokens.long()].to(cfg.tdtype)
@@ -215,13 +222,22 @@ def forward(params, tokens, cfg: ArchConfig, *, impl: str = "auto",
     for i in range(cfg.n_layers):
         p_i = {k: v[i] for k, v in blocks.items()}
         is_attn = bool(e) and i % e == 0
-        h, kv, s_fin, c_fin = body(h, p_i, is_attn)
+        if remat:
+            # No forward draws random numbers: no RNG state is kept.
+            h, kv, s_fin, c_fin = checkpoint(
+                body, h, p_i, is_attn, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            h, kv, s_fin, c_fin = body(h, p_i, is_attn)
         if is_attn and return_cache:
             kvs.append(kv)
         ssm.append(s_fin)
         conv.append(c_fin)
     h = rms_norm(h, params["final_norm"])
-    out = {"logits": h @ params["lm_head"], "aux": {}}
+    out = {"logits": None if return_hidden else h @ params["lm_head"],
+           "aux": {}}
+    if return_hidden:
+        out["hidden"] = h
     if return_cache:
         if kvs:
             k_stack = torch.stack([k for k, _ in kvs])

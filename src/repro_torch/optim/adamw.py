@@ -33,10 +33,51 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
+# Leaves of SLICE_ELEMS elements or more (an f32 copy of 2 GiB) are
+# updated (and their norms summed) BLOCK_ELEMS at a time, a block of
+# whole rows, so their f32 temporaries stay at 64 MB each: a 7B model's
+# stacked (layers, d, ff) leaf is 4.2e9 elements, 17 GB in f32, and the
+# update keeps several such temporaries.  Smaller leaves take the
+# whole-leaf path, as the reference: granite's largest (4.0e8 elements)
+# among them.
+SLICE_ELEMS = 1 << 29
+BLOCK_ELEMS = 1 << 24
+
+
+def _parts(*ts):
+    """Each of ``ts`` (same shape, contiguous; a ``Q8State`` as its q and
+    its (..., 1) scales) cut into the same blocks of rows (every dim but
+    the last flattened), or whole when small, not a matrix or not
+    contiguous."""
+    p = ts[-1]
+    whole = [tuple(ts)]
+    if p.ndim < 2 or p.numel() < SLICE_ELEMS:
+        return whole
+    rows, step = p.numel() // p.shape[-1], max(1, BLOCK_ELEMS // p.shape[-1])
+
+    def flat(t):
+        if isinstance(t, Q8State):
+            return Q8State(flat(t.q), t.scale.reshape(rows, 1))
+        return t.reshape(rows, p.shape[-1]) if t.is_contiguous() else None
+
+    flats = [flat(t) for t in ts]
+    if any(f is None or (isinstance(f, Q8State) and not (
+            f.q.is_contiguous() and f.scale.is_contiguous()))
+           for f in flats):
+        return whole
+
+    def cut(f, i):
+        if isinstance(f, Q8State):
+            return Q8State(f.q[i:i + step], f.scale[i:i + step])
+        return f[i:i + step]
+    return [tuple(cut(f, i) for f in flats) for i in range(0, rows, step)]
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                          for leaf in tree_leaves(tree)))
+    return torch.sqrt(sum(torch.sum(torch.square(part.float()))
+                          for leaf in tree_leaves(tree)
+                          for (part,) in _parts(leaf)))
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int
@@ -88,8 +129,16 @@ class AdamW:
 
     def init(self, params) -> dict:
         def zero(p):
-            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            return quantize_state(z) if self.state_bits == 8 else z
+            if self.state_bits != 8:
+                return torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+            # quantize_state of zeros, made without the f32 zeros: q 0
+            # and a scale of 1 per row (per the (1,) row of a scalar).
+            rows = tuple(p.shape[:-1]) + (1,) if p.ndim else (1,)
+            return Q8State(
+                torch.zeros(p.shape if p.ndim else (1,), dtype=torch.int8,
+                            device=p.device),
+                torch.ones(rows, dtype=torch.float32, device=p.device))
         step_device = tree_leaves(params)[0].device
         return {
             "m": _map(zero, params),
@@ -120,7 +169,8 @@ class AdamW:
         c1 = 1.0 - b1 ** step.float()
         c2 = 1.0 - b2 ** step.float()
 
-        def upd(g, m, v, p):
+        def moments(g, m, v):
+            """(m_new, v_new, delta) of one block of a leaf, in f32."""
             g = g.float()
             if clip is not None:
                 g = g * clip
@@ -135,24 +185,41 @@ class AdamW:
             v_new = b2 * vf + (1 - b2) * g * g
             mhat = m_new / c1
             vhat = v_new / c2
-            delta = mhat / (torch.sqrt(vhat) + self.eps)
+            return m_new, v_new, mhat / (torch.sqrt(vhat) + self.eps)
+
+        def upd(g, m, v, p):
+            parts = _parts(g, m, v, p)
+            rms = whole = None
+            if len(parts) == 1:
+                whole = moments(g, m, v)
             if self.state_bits == 8:
-                # Adafactor-style update clipping, as the reference.
-                rms = torch.sqrt(torch.mean(torch.square(delta)) + 1e-30)
-                delta = delta / torch.clamp(rms, min=1.0)
-            if p.ndim >= 2:   # decoupled weight decay on matrices only
-                delta = delta + self.weight_decay * p.float()
-            p_new = (p.float() - lr * delta).to(p.dtype)
-            if self.state_bits == 8:
-                m_new = quantize_state(m_new)
-                v_new = quantize_state(torch.sqrt(v_new))
-            p.copy_(p_new)
-            for old, new in ((m, m_new), (v, v_new)):
-                if self.state_bits == 8:
-                    old.q.copy_(new.q)
-                    old.scale.copy_(new.scale)
+                # Adafactor-style update clipping, as the reference: the
+                # rms of the whole leaf's update (a first pass over its
+                # blocks when it is cut).
+                if whole is not None:
+                    rms = torch.sqrt(torch.mean(torch.square(whole[2]))
+                                     + 1e-30)
                 else:
-                    old.copy_(new)
+                    ss = sum(torch.sum(torch.square(moments(*part[:3])[2]))
+                             for part in parts)
+                    rms = torch.sqrt(ss / p.numel() + 1e-30)
+            for g_, m_, v_, p_ in parts:
+                m_new, v_new, delta = whole or moments(g_, m_, v_)
+                if rms is not None:
+                    delta = delta / torch.clamp(rms, min=1.0)
+                if p.ndim >= 2:   # decoupled weight decay on matrices only
+                    delta = delta + self.weight_decay * p_.float()
+                p_new = (p_.float() - lr * delta).to(p_.dtype)
+                if self.state_bits == 8:
+                    m_new = quantize_state(m_new)
+                    v_new = quantize_state(torch.sqrt(v_new))
+                p_.copy_(p_new)
+                for old, new in ((m_, m_new), (v_, v_new)):
+                    if self.state_bits == 8:
+                        old.q.copy_(new.q)
+                        old.scale.copy_(new.scale)
+                    else:
+                        old.copy_(new)
 
         _map(upd, grads, state["m"], state["v"], params)
         state["step"].copy_(step)

@@ -1364,6 +1364,127 @@ def test_recurrent_kernels_replay_in_a_cuda_graph(dev):
         assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
+# (kind, shape, with the initial state): small cases of both trainable
+# scans, one not a multiple of the kernels' 64-step chunk.
+TRAINABLE = [("mamba2_scan", (2, 96, 6, 32, 16), False),
+             ("mamba2_scan", (1, 77, 4, 64, 64), True),
+             ("wkv6", (2, 96, 4, 32), False), ("wkv6", (1, 80, 3, 64), True)]
+
+
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("case", range(len(TRAINABLE)))
+def test_trainable_scans_match_chunked_autograd(dev, case, dt):
+    """Under grad mode each scan op runs its CUDA kernel once through its
+    autograd Function (y and the final state at the kernel's tolerance
+    against its plain version, the sequential f32 recurrence) and its
+    gradients in every input are autograd's through the chunked form on
+    the same inputs and upstream gradients (y and the final state both
+    read); the backward launches no kernel."""
+    from repro_torch.kernels.mamba2.ref import mamba2_scan_chunked
+    from repro_torch.kernels.rwkv6.ref import wkv6_chunked
+    dtype, tol = DTYPES[dt]
+    kind, shape, with_state = TRAINABLE[case]
+    gen = torch.Generator(device=dev).manual_seed(300 + case)
+
+    def randn(*sh):
+        return torch.randn(sh, generator=gen, device=dev)
+    if kind == "mamba2_scan":
+        Bt, L, H, P, N = shape
+        inputs = [randn(Bt, L, H, P).to(dtype),
+                  torch.nn.functional.softplus(randn(Bt, L, H)),
+                  -torch.exp(randn(H) * 0.5), randn(Bt, L, N).to(dtype),
+                  randn(Bt, L, N).to(dtype),
+                  randn(Bt, H, N, P) if with_state else None]
+        launcher, plain = mamba2_scan_cuda, mamba2_scan_plain
+
+        def kernel_path(*xs):
+            return mamba2_scan(*xs[:5], h0=xs[5], return_state=True)
+
+        def chunked(*xs):
+            return mamba2_scan_chunked(*xs[:5], h0=xs[5], return_state=True,
+                                       chunk=256)
+    else:
+        B, L, H, D = shape
+        inputs = [randn(B, L, H, D).to(dtype) for _ in range(3)] + [
+            torch.exp(-torch.exp(randn(B, L, H, D) * 0.5)).to(dtype),
+            randn(H, D).to(dtype),
+            randn(B, H, D, D) if with_state else None]
+        launcher, plain = wkv6_cuda, wkv6_plain
+
+        def kernel_path(*xs):
+            return wkv6(*xs[:5], s0=xs[5], return_state=True)
+
+        def chunked(*xs):
+            return wkv6_chunked(*xs[:5], s0=xs[5], return_state=True)
+    got_in = [None if t is None else t.clone().requires_grad_()
+              for t in inputs]
+    want_in = [None if t is None else t.clone().requires_grad_()
+               for t in inputs]
+    n0 = launcher.launches
+    y, s = kernel_path(*got_in)
+    y_want, s_want = chunked(*want_in)
+    dy, ds = randn(*y.shape).to(dtype), randn(*s.shape)
+    ((y.float() * dy.float()).sum() + (s * ds).sum()).backward()
+    ((y_want.float() * dy.float()).sum() + (s_want * ds).sum()).backward()
+    torch.cuda.synchronize()
+    assert launcher.launches == n0 + 1
+    with torch.no_grad():
+        y_plain, s_plain = plain(*inputs[:5], **{
+            "h0" if kind == "mamba2_scan" else "s0": inputs[5]})
+    torch.testing.assert_close(y.float(), y_plain.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(s, s_plain, rtol=TOL, atol=TOL)
+    for i, (a, b) in enumerate(zip(got_in, want_in)):
+        if a is not None:
+            scale = b.grad.float().abs().max().item()
+            torch.testing.assert_close(a.grad.float(), b.grad.float(),
+                                       rtol=1e-5, atol=1e-5 * scale,
+                                       msg=f"input {i}")
+
+
+# (B, Hq, Hkv, Sq, Skv, D): whisper's and the vlm's cross-attention as
+# the wrapper hands them to the kernels: 448 (whisper) and 512 (the
+# vlm) queries over 1500 / 1601 keys padded to the kv block and masked
+# by kv_len, non-causal; the trainable wrapper with its padding.
+FLASH_CROSS = [(2, 8, 8, 448, 1500, 64), (1, 32, 8, 512, 1601, 128),
+               (2, 8, 8, 1500, 1500, 64)]
+
+
+@pytest.mark.parametrize("case", range(len(FLASH_CROSS)))
+def test_flash_trainable_cross_shapes_match_plain(dev, case):
+    """The flash wrapper under autograd at the cross and encoder shapes
+    (padded q, k and v; padded keys masked through kv_len; Sq != Skv),
+    bf16 on the mma path: out and (dq, dk, dv) against ``flash_ref``'s
+    autograd in f32 on the same bf16 inputs, at the bf16 tolerance of
+    the result's scale; one forward and one backward launch."""
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    B, Hq, Hkv, Sq, Skv, D = FLASH_CROSS[case]
+    gen = torch.Generator(device=dev).manual_seed(400 + case)
+
+    def heads(S, H):
+        return torch.randn((B, S, H, D), generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2)
+    q, k, v, do = heads(Sq, Hq), heads(Skv, Hkv), heads(Skv, Hkv), \
+        heads(Sq, Hq)
+    got = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = [t.float().requires_grad_() for t in (q, k, v)]
+    n0 = (flash_attention_cuda.launches, flash_attention_bwd_cuda.launches)
+    out = flash_attention(*got, causal=False)
+    out.backward(do)
+    ref = flash_ref(*want, scale=D ** -0.5, causal=False, window=None,
+                    kv_len=None)
+    ref.backward(do.float())
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches,
+            flash_attention_bwd_cuda.launches) == (n0[0] + 1, n0[1] + 1)
+    for g, w in ((out, ref), *((a.grad, b.grad) for a, b in zip(got,
+                                                                  want))):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        scale = w.abs().max().item()
+        torch.testing.assert_close(g.float(), w, rtol=BF16_TOL,
+                                   atol=BF16_TOL * scale)
+
+
 @pytest.mark.parametrize("name", ["zamba2-7b", "mamba2", "rwkv6-7b"])
 def test_family_prefill_and_decode_kernels_match_plain(dev, name):
     """A small f32 config of each recurrent family through run_prefill +

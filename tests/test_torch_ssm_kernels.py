@@ -153,8 +153,9 @@ def test_wkv6_ref_matches_reference(s0):
 @pytest.mark.parametrize("L,chunk,s0", [(48, 16, True), (40, 16, False),
                                         (12, 16, True)])
 def test_wkv6_chunked_matches_reference(L, chunk, s0):
-    """The chunked form with its mid-chunk centring (40 rows run as five
-    chunks of 8, 12 rows as one chunk of 12)."""
+    """The chunked form (its pair decays against the reference's
+    mid-chunk centring; 40 rows run as five chunks of 8, 12 rows as one
+    chunk of 12)."""
     (r, k, v, w, u, ss), (jr, jk, jv, jw, ju, js) = both(
         wkv_inputs(2, L, 3, 8, seed=6, s0=s0))
     y, S = rwkv6.wkv6_chunked(r, k, v, w, u, s0=ss, return_state=True,

@@ -32,8 +32,7 @@ from repro_torch.checkpoint import (latest_step, restore_checkpoint,  # noqa
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import PackedFileDataset, SyntheticLM  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
-from repro_torch.launch.steps import (build_train_step,  # noqa: E402
-                                     loss_and_grads)
+from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.models import params_from_numpy, transformer  # noqa: E402
 from repro_torch.models.common import cross_entropy_loss  # noqa: E402
 from repro_torch.models.losses import chunked_cross_entropy  # noqa: E402
@@ -138,23 +137,6 @@ def test_forward_refuses_unported_families(smoke):
         transformer.forward({}, torch.zeros((1, 4), dtype=torch.int32), cfg)
 
 
-@pytest.mark.parametrize("entry", ["loss_and_grads", "build_train_step"])
-@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-7b", "whisper-base",
-                                  "llama-3.2-vision-11b"])
-def test_training_refuses_unported_families(arch, entry):
-    """Both training entry points refuse a family whose step is not
-    ported, naming its ROADMAP item, rather than build a transformer
-    step for it."""
-    cfg = get_config(arch).smoke()
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        if entry == "loss_and_grads":
-            loss_and_grads(cfg, {}, batch)
-        else:
-            build_train_step(cfg)
-
-
 # --- optimizer ---------------------------------------------------------------------
 def _value(x):
     """A moment or param as f32 numpy; 8-bit states dequantized."""
@@ -190,6 +172,71 @@ def test_adamw_matches_repro(bits):
         for k in ("lr", "grad_norm"):
             assert abs(float(tm[k]) - float(jm[k])) <= 1e-6 * max(
                 1.0, abs(float(jm[k])))
+        for want, got in ((jp, tp), (js["m"], ts["m"]), (js["v"], ts["v"])):
+            got_flat = _flat(got)
+            for path, w in _flat(want).items():
+                np.testing.assert_allclose(_value(got_flat[path]), _value(w),
+                                           rtol=0, atol=1e-6)
+        assert int(ts["step"]) == int(js["step"])
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+def test_adamw_blocked_matches_repro(bits, monkeypatch):
+    """The update a block of rows at a time (the path of leaves past
+    ``SLICE_ELEMS``), cut here at 64 elements into blocks of 2 rows that
+    divide neither leaf: a stacked (3, 5, 16) leaf and a (7, 16) matrix,
+    beside a vector and a scalar that stay whole.  ``global_norm`` over
+    the blocks within 1e-6 of the whole leaves' sum and of ``repro``'s;
+    five updates with clipping on, params and moments within 1e-6 of
+    ``repro``'s whole-leaf update (8-bit: the rms clip over the whole
+    leaf, the per-row scales of every block).  The update is handed
+    ``repro``'s norm: the two packages sum the squares in other orders,
+    and at this seed that one-ulp difference in the clip flips an int8
+    rounding tie of the 8-bit moments on the whole-leaf path too."""
+    from repro.optim import global_norm as jglobal_norm
+    from repro_torch.optim import adamw, global_norm
+    monkeypatch.setattr(adamw, "SLICE_ELEMS", 64)
+    monkeypatch.setattr(adamw, "BLOCK_ELEMS", 32)
+    rng = np.random.default_rng(10 + bits)
+    params = {"w": (rng.standard_normal((3, 5, 16)) * 0.1).astype(np.float32),
+              "e": (rng.standard_normal((7, 16)) * 0.1).astype(np.float32),
+              "b": rng.standard_normal(16).astype(np.float32),
+              "s": np.float32(0.3)}
+    jopt = JAdamW(lr=jcosine(1e-2, warmup=2, total=6), state_bits=bits,
+                  grad_clip=0.5)
+    topt = AdamW(lr=cosine_schedule(1e-2, warmup=2, total=6),
+                 state_bits=bits, grad_clip=0.5)
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = jax.tree.map(torch.tensor, params)
+    js, ts = jopt.init(jp), topt.init(tp)
+    assert [len(adamw._parts(tp[k])) for k in ("w", "e", "b", "s")] == [
+        8, 4, 1, 1]
+    # Each entry a steady gradient over two decades, each row's first
+    # column +-100 by turns: that column's v sets the row's int8 scale
+    # while its m cancels, so small entries keep an m and lose their v,
+    # and the 8-bit update's rms clip engages.
+    steady = jax.tree.map(lambda x: np.sign(rng.standard_normal(
+        np.shape(x))) * 10.0 ** rng.uniform(-2, 0, np.shape(x)), params)
+
+    def turn(g, i):
+        g = g.copy()
+        if g.ndim:
+            g[..., 0] = 100.0 * (-1) ** i
+        return g.astype(np.float32)
+    for i in range(5):
+        grads = jax.tree.map(lambda g: turn(g, i), steady)
+        tg = jax.tree.map(torch.tensor, grads)
+        jg = jax.tree.map(jnp.asarray, grads)
+        norm, jnorm = float(global_norm(tg)), float(jglobal_norm(jg))
+        whole = float(torch.sqrt(sum(torch.sum(torch.square(t))
+                                     for t in tg.values())))
+        assert abs(norm - whole) <= 1e-6 * whole
+        assert abs(norm - jnorm) <= 1e-6 * jnorm
+        monkeypatch.setattr(adamw, "global_norm", lambda tree, n=jnorm: (
+            torch.tensor(n, dtype=torch.float32)))
+        jp, js, jm = jopt.update(jg, js, jp)
+        tp, ts, tm = topt.update(tg, ts, tp)
+        assert abs(float(tm["lr"]) - float(jm["lr"])) <= 1e-6
         for want, got in ((jp, tp), (js["m"], ts["m"]), (js["v"], ts["v"])):
             got_flat = _flat(got)
             for path, w in _flat(want).items():
