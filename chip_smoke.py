@@ -352,6 +352,23 @@ exits non-zero before the last line is printed.  Phases:
       bit for bit (``graphed_against_eager_steps``, as 5f and 5k);
       tokens/s, the step ms graphed and eager, the peak memory and both
       sides' device-time profiles printed;
+   t. the sharded steps (``sharded_phase``): NCCL initialised as a world
+      of one (``init_process_group("nccl", store=HashStore(), ...,
+      device_id=)``, never gloo) and a (1, 1) ("data", "model") mesh;
+      under each of tp, fsdp and auto, 2 sharded train steps of
+      smollm-360m at full width and depth (bf16, f32 moments, 8 x 512,
+      SyntheticLM batches; every leaf a DTensor), each bit for bit
+      against ``build_train_step`` run eagerly from the same params
+      (loss, grad norm, lr, every param and moment leaf); one sharded
+      prefill (8 x 512) and 8 sharded decode steps bit for bit against
+      the legacy ``forward(return_cache)`` and ``decode_step``; both
+      ring collective matmuls at the group of one at smollm's w_up
+      shape (4096 x 960 x 2560, bf16) through the matmul kernel against
+      the plain matmul at 2^-7; exactly 3 x 2 x 64 + 2 x 32 flash forward,
+      3 x 2 x 32 backward (all on mma), 8 x 32 decode and 2 matmul
+      launches on the sharded paths; the NCCL init time, each step's ms
+      beside the eager single-device step's and 5f's, the prefill and
+      decode ms; then ``destroy_process_group()``;
    5b, 5g, 5h and 5l each end with a legacy leg (``legacy_leg``): the
    phase's first 8 prompts, cut to the shortest, through the phase's
    Program pair and 8 greedy ticks, then through the legacy ``forward
@@ -3156,6 +3173,7 @@ KERNEL_GROUPS = (("flash forward (CUDA)", ("flash_kernel",
                  ("flash backward (CUDA)", ("dq_kernel", "dkv_kernel",
                                             "dq_mma_kernel",
                                             "dkv_mma_kernel")),
+                 ("NCCL collectives", ("nccl",)),
                  ("cuBLAS GEMMs", ("gemm", "gemv", "xmma", "cutlass",
                                    "cublas", "nvjet")),
                  ("reductions and softmax", ("reduce", "softmax",
@@ -5620,6 +5638,241 @@ def tune_phase(device) -> tuple[dict, dict]:
 START = time.perf_counter()
 
 
+# Phase 5t: the sharded steps (``launch/steps.py::build_step``) on a
+# world-of-one NCCL mesh, smollm-360m at 5f's width, depth and batch.
+SHARDED_STEPS, SHARDED_DECODE = 2, 8
+
+
+def sharded_phase(device, train_stats) -> tuple[dict, dict]:
+    """Phase 5t: NCCL initialised as a world of one on the card (a
+    ``HashStore``, no port) and a (1, 1) ("data", "model") mesh.  Under
+    each of tp, fsdp and auto, SHARDED_STEPS sharded train steps of
+    smollm-360m at full width and depth (bf16, f32 moments, 5f's batch 8
+    x 512, SyntheticLM batches), each held bit for bit against
+    ``build_train_step`` run eagerly (``executor.disable_graphs()``)
+    from the same params: loss, grad norm, lr and every updated param
+    and moment leaf, then one more step a side under the profiler
+    (auto); one sharded prefill (8 x 512; a second one timed) and
+    SHARDED_DECODE sharded decode steps under auto, bit for bit against
+    the legacy ``forward(return_cache)`` and ``decode_step`` on the same
+    cache;
+    both ring collective matmuls at the group of one at smollm's w_up
+    shape (M = 4096, K = 960, N = 2560, bf16), through the matmul
+    kernel, against the plain matmul at 2^-7.  The launch and flash
+    path counters are read around each sharded call and ring call (the
+    main path), never around the single-device and legacy calls they
+    are compared with.  Returns (launches, stats)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.hw import MeshDescriptor
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.matmul import matmul_ref
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh_from_descriptor
+    from repro_torch.models import init_params, transformer
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import (all_gather_matmul, make_plan,
+                                      matmul_reduce_scatter)
+    from repro_torch.parallel.placement import gather
+    from repro_torch.runtime import executor
+    counters = lm_counters()
+    cfg = get_config(LM_ARCH)
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=device)
+    init_s = time.perf_counter() - t0
+    if dist.get_backend() != "nccl":
+        fail(f"5t: the process group's backend is {dist.get_backend()}")
+    desc = MeshDescriptor((1, 1), ("data", "model"))
+    mesh = make_mesh_from_descriptor(desc, "cuda")
+    stats = {"init_s": init_s, "steps": {}}
+    launches = {k: 0 for k in counters}
+    paths = [{"mma": 0, "simt": 0}, {"mma": 0, "simt": 0}]
+
+    def synced(call, main=False):
+        """(call's result, its ms to a device synchronise); with
+        ``main`` its kernel launches and flash paths are the phase's."""
+        before = {k: fn.launches for k, fn in counters.items()}
+        p0 = flash_paths()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        if main:
+            for k, fn in counters.items():
+                launches[k] += fn.launches - before[k]
+            for got, a, b in zip(paths, p0, flash_paths()):
+                for k in got:
+                    got[k] += b[k] - a[k]
+        return out, ms
+
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in data.batch_at(i).items()}
+               for i in range(SHARDED_STEPS)]
+    shape = ShapeSpec("5t train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    same = True
+    for strategy in ("tp", "fsdp", "auto"):
+        plan = make_plan(cfg, shape, desc, strategy)
+        opt = AdamW()
+        bundle = steps.build_step(cfg, shape, plan, mesh, optimizer=opt)
+        full = init_params(transformer.param_defs(cfg),
+                           torch.Generator(device).manual_seed(SEED))
+        params = steps.distribute_tree(full, bundle.specs["params"], mesh)
+        state = steps.distribute_tree(opt.init(full),
+                                      bundle.specs["opt_state"], mesh)
+        eager_state = opt.init(full)
+        eager = steps.build_train_step(cfg, opt)
+        ms, ems, metrics = [], [], []
+        for b in batches:
+            (_, _, m), t = synced(lambda: bundle.fn(params, state, b), True)
+            ms.append(t)
+            with executor.disable_graphs():
+                (_, _, em), t = synced(lambda: eager(full, eager_state, b))
+            ems.append(t)
+            metrics.append((m, em))
+        ok_metrics = all(_tree_equal([m[k] for k in ("loss", "grad_norm",
+                                                     "lr")],
+                                     [em[k] for k in ("loss", "grad_norm",
+                                                      "lr")])
+                         for m, em in metrics)
+        ok_state = (_tree_equal(steps.gather_tree(params), full)
+                    and _tree_equal(steps.gather_tree(state), eager_state))
+        same = same and ok_metrics and ok_state
+        if strategy == "auto":
+            # One more step a side under the profiler: where the sharded
+            # step's extra time goes (not counted: past the checks).
+            def eager_step():
+                with executor.disable_graphs():
+                    return eager(full, eager_state, batches[0])
+            stats["profiles"] = (
+                profile_train("5t sharded step (auto)", lambda: bundle.fn(
+                    params, state, batches[0]), ms[-1]),
+                profile_train("5t eager single-device step", eager_step,
+                              ems[-1]))
+        stats["steps"][strategy] = {
+            "ms": ms, "eager_ms": ems,
+            "layout": plan.decisions.get("layout", strategy),
+            "losses": [float(m["loss"]) for m, _ in metrics]}
+        print(f"5t train {strategy} ({stats['steps'][strategy]['layout']}):"
+              f" losses {stats['steps'][strategy]['losses']}; sharded step "
+              f"ms {[round(t, 2) for t in ms]} against the eager "
+              f"single-device step {[round(t, 2) for t in ems]}; metrics "
+              f"bit-equal {ok_metrics}, params and moments bit-equal "
+              f"{ok_state}", flush=True)
+        del params, state, eager_state, full, bundle, eager
+        torch.cuda.empty_cache()
+
+    # Prefill and decode under auto, against the legacy path.
+    pshape = ShapeSpec("5t prefill", TRAIN_SEQ, TRAIN_BATCH, "prefill")
+    dshape = ShapeSpec("5t decode", TRAIN_SEQ, TRAIN_BATCH, "decode")
+    pre = steps.build_step(cfg, pshape, make_plan(cfg, pshape, desc),
+                           mesh)
+    dec = steps.build_step(cfg, dshape, make_plan(cfg, dshape, desc), mesh)
+    full = init_params(transformer.param_defs(cfg),
+                       torch.Generator(device).manual_seed(SEED))
+    params = steps.distribute_tree(full, pre.specs["params"], mesh)
+    dparams = steps.distribute_tree(full, dec.specs["params"], mesh)
+    gen = torch.Generator(device).manual_seed(SEED + 5)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=gen, device=device)
+    head = full["embed"].T if cfg.tie_embeddings else full["lm_head"]
+
+    def legacy_prefill():
+        with torch.no_grad():
+            out = transformer.forward(full, toks, cfg, return_cache=True,
+                                      return_hidden=True,
+                                      cache_len=TRAIN_SEQ)
+        return out["hidden"][:, -1] @ head, out["cache"]
+    # Each side twice: the first call checked, the second timed (the
+    # first carries one-time costs).
+    (logits, cache), first_ms = synced(
+        lambda: pre.fn(params, {"tokens": toks}), True)
+    (want, wcache), _ = synced(legacy_prefill)
+    pre_ms = synced(lambda: pre.fn(params, {"tokens": toks}), True)[1]
+    legacy_ms = synced(legacy_prefill)[1]
+    ok_prefill = (_tree_equal(gather(logits), want)
+                  and _tree_equal(steps.gather_tree(cache), wcache))
+    dcache = steps.distribute_tree(wcache, dec.specs["cache"], mesh)
+    dec_ms, leg_ms, ok_decode = [], [], True
+    for i in range(SHARDED_DECODE):
+        t = torch.randint(0, cfg.vocab, (TRAIN_BATCH,), generator=gen,
+                          device=device)
+        (logits, dcache), ms_ = synced(
+            lambda: dec.fn(dparams, dcache, {"tokens": t}), True)
+        with torch.no_grad():
+            (want, wcache), lms = synced(lambda: transformer.decode_step(
+                full, wcache, t, cfg))
+        dec_ms.append(ms_)
+        leg_ms.append(lms)
+        ok_decode = ok_decode and _tree_equal(gather(logits), want)
+    ok_decode = ok_decode and _tree_equal(steps.gather_tree(dcache), wcache)
+    stats.update(prefill_ms=pre_ms, legacy_prefill_ms=legacy_ms,
+                 decode_ms=statistics.median(dec_ms[1:]),
+                 legacy_decode_ms=statistics.median(leg_ms[1:]))
+    print(f"5t prefill 8 x {TRAIN_SEQ} (auto): {pre_ms:.2f} ms sharded "
+          f"(the first call {first_ms:.2f}), {legacy_ms:.2f} ms legacy "
+          f"forward; logits and cache bit-equal "
+          f"{ok_prefill}; {SHARDED_DECODE} decode steps: sharded "
+          f"{[round(x, 2) for x in dec_ms]} ms, legacy "
+          f"{[round(x, 2) for x in leg_ms]} ms; logits and cache bit-equal "
+          f"{ok_decode}", flush=True)
+    del params, dparams, cache, dcache, wcache, full
+
+    # The ring collective matmuls at the group of one, smollm's w_up.
+    group = mesh.get_group("model")
+    gen = torch.Generator(device).manual_seed(SEED + 6)
+    M, K, N = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff
+    x = torch.randn(M, K, generator=gen, device=device).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=gen, device=device) * K ** -0.5).to(
+        torch.bfloat16)
+    ref = matmul_ref(x, w)
+    before = launches["matmul"]
+    ring_err = max(max_err(synced(lambda: all_gather_matmul(x, w, group),
+                                  True)[0], ref, BF16_TOL),
+                   max_err(synced(lambda: matmul_reduce_scatter(x, w, group),
+                                  True)[0], ref, BF16_TOL))
+    ring_launches = launches["matmul"] - before
+    ring = {"agm_ms": time_ms(lambda: all_gather_matmul(x, w, group)),
+            "mrs_ms": time_ms(lambda: matmul_reduce_scatter(x, w, group)),
+            "plain_ms": time_ms(lambda: matmul_ref(x, w)),
+            "library_ms": time_ms(lambda: x @ w)}
+    stats.update(ring=ring, ring_err=ring_err)
+    print(f"5t ring matmuls at a group of one ({M} x {K} x {N}, bf16): "
+          f"{ring_launches} matmul launches, max |err| {ring_err:.3e} "
+          f"against the plain matmul (tolerance {BF16_TOL}); all_gather_"
+          f"matmul {ring['agm_ms']:.4f} ms, matmul_reduce_scatter "
+          f"{ring['mrs_ms']:.4f} ms, plain {ring['plain_ms']:.4f} ms, "
+          f"library (bf16 `@`, cuBLAS) {ring['library_ms']:.4f} ms")
+    t0 = time.perf_counter()
+    dist.destroy_process_group()
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=2 * L * SHARDED_STEPS * 3 + 2 * L,
+                flash_attention_bwd=L * SHARDED_STEPS * 3,
+                decode_attention=L * SHARDED_DECODE, matmul=2)
+    print(f"5t: NCCL init {init_s:.3f} s, destroy "
+          f"{time.perf_counter() - t0:.3f} s; launches on the sharded "
+          f"paths {launches}, want {want}", flush=True)
+    if launches != want or ring_launches != 2:
+        fail(f"5t: launch counts {launches} != {want}")
+    check_flash_paths("5t", want["flash_attention"],
+                      want["flash_attention_bwd"], got=paths)
+    if not same:
+        fail("5t: a sharded train step is not bitwise equal to the eager "
+             "single-device step")
+    if not (ok_prefill and ok_decode):
+        fail("5t: the sharded prefill or decode is not bitwise equal to "
+             "the legacy path")
+    stats["eager_5f_ms"] = train_stats["eager_ms"]
+    stats["graphed_5f_ms"] = train_stats["graphed_ms"]
+    return launches, stats
+
+
 def lap(label: str) -> None:
     """Print the seconds since the script started, at the end of the
     phases ``label`` names: the script against its time limit."""
@@ -5724,6 +5977,8 @@ def main() -> int:
                  for label, arch, depth in FAMILY_TRAIN}
 
     lap("5p-5s")
+    sharded_launches, sharded = sharded_phase(device, train_stats)
+    lap("5t")
     tick = {}
     for kname, label in (("conv2d_virtual", "alexnet-owt"),
                          ("matmul", "alexnet-owt"),
@@ -5903,7 +6158,7 @@ def main() -> int:
                 smoke_launches, train_launches, moe_launches,
                 moe_train_launches, w_launches, spec_launches,
                 tune_launches, vlm_launches] + [
-        launch for launch, _ in fam_train.values()] + [
+        launch for launch, _ in fam_train.values()] + [sharded_launches] + [
         launch for launch, _ in list(paged.values()) + list(family.values())
     ] + [st["legacy"]["launches"] for st in (
         lm_stats, w_stats, *(st for _, st in family.values()))]
@@ -5927,7 +6182,8 @@ def main() -> int:
                    + [r["max_abs_err"] for r in z_rows.values()
                       if r["kernel"] == k]
                    + ([ssm[k]["max_abs_err"]] if k in ssm else [])
-                   + ([tune_errs[k]] if k in tune_errs else []))
+                   + ([tune_errs[k]] if k in tune_errs else [])
+                   + ([sharded["ring_err"]] if k == "matmul" else []))
             for k in SOURCES}
     # The backward kernel per smollm-360m training step: one launch per
     # layer at the training shape, bf16.
@@ -5980,6 +6236,18 @@ def main() -> int:
                   f"{name} {n} x {row[key]:.4f}" for name, row, key, n
                   in parts) + "; the scans' plain recompute backward and "
               "the cuBLAS products not in the sum")
+    print("5t sharded smollm-360m train step (world of one, NCCL), ms: "
+          + "; ".join(f"{st} ({v['layout']}) {v['ms'][-1]:.2f} (first "
+                      f"{v['ms'][0]:.2f}), eager single-device "
+                      f"{v['eager_ms'][-1]:.2f}"
+                      for st, v in sharded["steps"].items())
+          + f"; 5f's step graphed {sharded['graphed_5f_ms']:.2f} / eager "
+          f"{sharded['eager_5f_ms']:.2f}; prefill 8 x {TRAIN_SEQ} "
+          f"{sharded['prefill_ms']:.2f} (legacy "
+          f"{sharded['legacy_prefill_ms']:.2f}); decode step "
+          f"{sharded['decode_ms']:.2f} (legacy "
+          f"{sharded['legacy_decode_ms']:.2f}); NCCL init "
+          f"{sharded['init_s']:.3f} s")
     per = {"conv2d_virtual": ("alexnet-owt batch-8 tick",
                               tick["conv2d_virtual"]),
            "conv2d_strips": (

@@ -21,6 +21,12 @@ the card lacks.  A bf16 leaf is written as its raw 2-byte words
 restore re-views by item size; a leaf the manifest calls ``"bfloat16"``
 (``repro`` writes them as raw ``|V2`` data) is read as 16-bit words and
 viewed as ``torch.bfloat16``.  Both directions are bit for bit.
+
+Under a mesh (``launch/steps.py::build_step``) the leaves are DTensors:
+every rank gathers each leaf whole for the snapshot (a collective: all
+ranks save together) and rank 0 alone writes it.  A restore into a tree
+of DTensors reads the full arrays on every rank and keeps each rank's
+blocks under the placements of the matching leaf.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "AsyncCheckpointer", "tree_leaves", "tree_unflatten"]
@@ -102,8 +110,18 @@ def _structure(node) -> str:
     return "*"
 
 
+def _writes() -> bool:
+    """True where this process writes checkpoints: rank 0 of a process
+    group, or a process with none."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """(numpy array to write, manifest dtype) of one leaf."""
+    """(numpy array to write, manifest dtype) of one leaf; a DTensor's
+    whole value."""
+    if isinstance(leaf, DTensor):
+        from ..parallel.placement import gather
+        leaf = gather(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -148,9 +166,12 @@ def _write(directory: str, step: int, host: list, structure: str,
 
 def save_checkpoint(directory: str, step: int, tree, *,
                     keep: int = 3) -> str:
-    """Blocking save; returns the checkpoint path."""
+    """Blocking save; returns the checkpoint path (written by rank 0
+    only under a process group)."""
     host, structure = _snapshot(tree)
-    return _write(directory, step, host, structure, keep)
+    path = os.path.join(directory, f"step_{step:08d}")
+    return _write(directory, step, host, structure, keep) if _writes() \
+        else path
 
 
 def _gc(directory: str, keep: int):
@@ -217,7 +238,13 @@ def restore_checkpoint(directory: str, like, *, step: int | None = None):
             raise ValueError(f"{path}: {key} has shape {list(t.shape)}, "
                              f"the tree {shape}")
         device = ref.device if is_tensor else "cpu"
-        restored.append(t.to(device))
+        if isinstance(ref, DTensor):
+            from ..parallel.placement import from_local, local_part, spec_of
+            spec, mesh = spec_of(ref), ref.device_mesh
+            restored.append(from_local(local_part(
+                t.to(device), mesh, spec).contiguous(), mesh, spec))
+        else:
+            restored.append(t.to(device))
     return tree_unflatten(like, restored), step
 
 
@@ -238,6 +265,8 @@ class AsyncCheckpointer:
     def save(self, step: int, tree):
         self.wait()
         host, structure = _snapshot(tree)
+        if not _writes():
+            return
 
         def work():
             _write(self.directory, step, host, structure, self.keep)

@@ -2,7 +2,7 @@
 from .archs import (ALL_ARCHS, DEEPSEEK_7B, GRANITE_MOE_1B, LLAMA3_8B,
                     LLAMA32_VISION_11B, LLAMA4_MAVERICK, MAMBA2, OLMO_1B,
                     RWKV6_7B, SMOLLM_360M, WHISPER_BASE, ZAMBA2_7B)
-from .base import ArchConfig, CNNConfig, CNNLayer, ShapeSpec
+from .base import ArchConfig, CNNConfig, CNNLayer, LM_SHAPES, ShapeSpec
 from .cnns import ALEXNET_OWT, ALL_CNNS, RESNET18, RESNET50
 
 REGISTRY = {c.name: c for c in ALL_ARCHS}
@@ -23,7 +23,8 @@ def get_config(name: str):
                    f"{sorted(REGISTRY) + sorted(CNN_REGISTRY)}")
 
 
-__all__ = ["ArchConfig", "CNNConfig", "CNNLayer", "ShapeSpec", "REGISTRY",
+__all__ = ["ArchConfig", "CNNConfig", "CNNLayer", "LM_SHAPES", "ShapeSpec",
+           "REGISTRY",
            "CNN_REGISTRY", "get_config", "ALL_ARCHS", "ALL_CNNS",
            "ALEXNET_OWT", "RESNET18", "RESNET50", "DEEPSEEK_7B", "LLAMA3_8B",
            "OLMO_1B", "SMOLLM_360M", "ZAMBA2_7B", "MAMBA2", "RWKV6_7B",

@@ -3,7 +3,9 @@
 ``ArchConfig`` carries the LM configs (every field the reference has, so
 the registry entries read the same); ``CNNConfig`` the paper's own CNNs.
 ``smoke()`` derives the reduced same-family config the CPU tests use;
-``ShapeSpec`` names an input shape (a training run's batch and length).
+``ShapeSpec`` names an input shape (a training run's batch and length)
+and ``LM_SHAPES`` the reference's assigned cells, which ``shapes()``
+filters by ``sub_quadratic`` (the sharding plan's inputs).
 The reference's ``jdtype`` / ``kv_jdtype`` are ``tdtype`` /
 ``kv_tdtype`` here.
 """
@@ -14,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["ArchConfig", "ShapeSpec", "CNNLayer", "CNNConfig"]
+__all__ = ["ArchConfig", "ShapeSpec", "LM_SHAPES", "CNNLayer", "CNNConfig"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _KV_DTYPES = dict(_DTYPES, float8=torch.float8_e4m3fn)
@@ -26,6 +28,14 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: str          # "train" | "prefill" | "decode"
+
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", 4096, 256, "train"),
+    ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    ShapeSpec("decode_32k", 32768, 128, "decode"),
+    ShapeSpec("long_500k", 524288, 1, "decode"),
+)
 
 
 @dataclass(frozen=True)
@@ -124,6 +134,27 @@ class ArchConfig:
             n_cross = self.n_layers // self.cross_attn_every
             total += n_cross * (qkv + o)
         return float(total)
+
+    def n_active_params(self) -> float:
+        """Parameters one token reads: an MoE layer counts its top-k
+        experts' MLPs, not all of them."""
+        if not self.n_experts:
+            return self.n_params()
+        D, F, L = self.d_model, self.d_ff, self.n_layers
+        glu = 3 if self.gated_mlp else 2
+        n_moe = L // self.moe_every
+        dense = dataclasses.replace(self, n_experts=0, top_k=0)
+        return float(dense.n_params() - n_moe * glu * D * F
+                     + n_moe * glu * D * F * self.top_k)
+
+    def shapes(self) -> tuple[ShapeSpec, ...]:
+        """The assigned cells of this arch: ``long_500k`` only for a
+        sub-quadratic one."""
+        return tuple(s for s in LM_SHAPES
+                     if s.name != "long_500k" or self.sub_quadratic)
+
+    def skipped_shapes(self) -> tuple[str, ...]:
+        return () if self.sub_quadratic else ("long_500k",)
 
     def smoke(self) -> "ArchConfig":
         """Reduced same-family config for CPU smoke tests."""

@@ -11,7 +11,8 @@ and the int8 half the paged KV pools use.  ``cost`` (the measured cost
 model) and ``autotune`` (stage 7: trace, calibrate, replay, pin) are
 the reference's, with the device's clock on the card; they are
 imported as submodules (``autotune`` reaches the executor).
-``roofline`` and ``hlo_analysis`` are not carried yet (ROADMAP A.12).
+``roofline`` and ``hlo_analysis`` are not carried yet: they are the
+dry-run tooling of ROADMAP A.12 (b).
 """
 from .hw import (HardwareModel, MeshDescriptor, MULTI_POD, SINGLE_POD,
                  SNOWFLAKE, TPU_V5E)

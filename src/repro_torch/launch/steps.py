@@ -1,5 +1,6 @@
-"""The training step (counterpart of the single-device body of
-``repro/launch/steps.py::build_step``, lines 213-248).
+"""Step builders: the single-device training step and the sharded
+train / prefill / decode steps (counterpart of
+``repro/launch/steps.py``).
 
 One step, for every family: the family's legacy forward
 (``get_model(cfg).forward``, with the batch's extra input --
@@ -8,35 +9,68 @@ family names one) with ``return_hidden`` (remat by default from 16
 layers on, as the reference), the chunked cross-entropy against
 the head (``embed.T`` when the embeddings are tied) plus
 ``AUX_LOSS_WEIGHT`` times the MoE layers' load-balance loss, gradients
-by autograd, then the AdamW update.  The mesh, the sharding trees and
-the prefill / decode builders are multi-device work (ROADMAP A.12).
+by autograd, then the AdamW update.
 
-The reference jits the step and donates the params and the optimizer
-state.  Here the step updates both in place (``AdamW.update``), and on
-the card it runs off a CUDA graph through the executor's ``GraphStore``:
-the first call runs eagerly and is the real first step, the second is
-captured and replayed, later ones replay.  The batch is copied into the
-graph's static inputs (the extra input beside the tokens and labels),
-the gradients live in its memory pool, and the metrics are cloned out
-after each replay.  The graph is keyed on the batch shapes and the
-addresses of the params and state it was captured
-on, so state that comes back from a checkpoint as new tensors gets a
-graph of its own (the step keeps one).  On the CPU, and inside
-``executor.disable_graphs()``, every call runs eagerly.
+``build_train_step`` is that step on one device.  The reference jits
+the step and donates the params and the optimizer state.  Here the step
+updates both in place (``AdamW.update``), and on the card it runs off a
+CUDA graph through the executor's ``GraphStore``: the first call runs
+eagerly and is the real first step, the second is captured and
+replayed, later ones replay.  The batch is copied into the graph's
+static inputs (the extra input beside the tokens and labels), the
+gradients live in its memory pool, and the metrics are cloned out after
+each replay.  The graph is keyed on the batch shapes and the addresses
+of the params and state it was captured on, so state that comes back
+from a checkpoint as new tensors gets a graph of its own (the step
+keeps one).  On the CPU, and inside ``executor.disable_graphs()``,
+every call runs eagerly.
+
+The spec half is the reference's, allocation-free: ``input_specs`` and
+``abstract_*`` return tensors on the ``meta`` device, and
+``batch_pspecs`` / ``cache_pspecs`` / ``opt_state_pspecs`` the ``P``
+trees a ``ShardingPlan`` gives them.  ``build_step`` is the sharded step
+of one (arch x shape) cell on a ``DeviceMesh`` (``launch/mesh.py``):
+every parameter and moment leaf is a ``DTensor`` under its spec
+(``parallel/placement.py``), and each rank runs the rows
+``batch_pspecs`` fits for each input (all rows where the batch is left
+unsharded; the ranks along an axis that carries no batch run the same
+rows).  Execution in this slice is weight-gathered for every class: each
+leaf is gathered whole before the forward and freed after, the rank
+runs the single-device forward and backward on its rows (the card's
+kernels unchanged, on plain tensors), the gradients are averaged over
+the batch group, each rank keeps its block and AdamW updates the blocks
+(``AdamW.update(..., shards=)``).  So the ``mixed`` and ``tp`` layouts'
+activation-gathered classes (split over "model") and the
+``sequence_parallel`` prefill's sequence split run duplicated along
+"model": the results are the reference's, the compute is not split
+(ROADMAP A.12 c).  The steps run eagerly: no collective is captured in
+a CUDA graph.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from typing import Any
+
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.store import tree_leaves, tree_unflatten
-from ..configs.base import ArchConfig
-from ..models import get_model
+from ..configs.base import ArchConfig, ShapeSpec
+from ..models import abstract_params, get_model, param_pspecs
 from ..models.losses import chunked_cross_entropy
-from ..optim import AdamW
+from ..optim import AdamW, LeafShards, Q8State
+from ..parallel.act_sharding import (ActivationRules, P, activation_rules,
+                                     mesh_sizes)
+from ..parallel.placement import (axes_of, distribute, from_local, gather,
+                                  gather_dim, group_size_rank, local_part,
+                                  mesh_group)
+from ..parallel.rules import ShardingPlan
 from ..runtime import executor
 
 __all__ = ["AUX_LOSS_WEIGHT", "loss_and_grads", "build_train_step",
-           "step_key"]
+           "step_key", "StepBundle", "input_specs", "batch_pspecs",
+           "cache_pspecs", "opt_state_pspecs", "abstract_train_state",
+           "abstract_cache", "build_step", "distribute_tree", "gather_tree"]
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -127,3 +161,356 @@ def step_key(inputs, params, opt_state) -> tuple:
     return (executor._shapes(inputs),
             tuple((t.data_ptr(), t.shape, t.dtype)
                   for t in tree_leaves((params, opt_state))))
+
+
+# --- input specs ------------------------------------------------------------------
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """``meta`` tensors standing in for every model input of this cell."""
+    GB, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if shape.kind == "train":
+        specs = {"tokens": meta((GB, S)), "labels": meta((GB, S))}
+    elif shape.kind == "prefill":
+        specs = {"tokens": meta((GB, S))}
+    else:  # decode: one new token each; the cache is a separate operand
+        specs = {"tokens": meta((GB,))}
+    api = get_model(cfg)
+    if api.extra_input == "vision_embeds" and shape.kind != "decode":
+        specs["vision_embeds"] = meta((GB, cfg.n_vision_tokens, cfg.d_model),
+                                      cfg.tdtype)
+    if api.extra_input == "encoder_frames" and shape.kind != "decode":
+        specs["encoder_frames"] = meta((GB, cfg.encoder_seq, cfg.d_model),
+                                       cfg.tdtype)
+    return specs
+
+
+def _axis_total(mesh_sizes: dict, entry) -> int:
+    total = 1
+    for n in axes_of(entry):
+        total *= mesh_sizes.get(n, 1)
+    return total
+
+
+def _fit(shape: tuple, mesh_sizes: dict, *entries) -> P:
+    """Divisibility-checked spec: non-dividing entries fall to None;
+    each mesh axis used at most once."""
+    used: set[str] = set()
+    fixed = []
+    for dim, e in zip(shape, entries):
+        names = axes_of(e)
+        total = _axis_total(mesh_sizes, e)
+        if not names or dim % total != 0 or any(n in used for n in names):
+            fixed.append(None)
+        else:
+            used.update(names)
+            fixed.append(e)
+    return P(*fixed)
+
+
+def _batch_candidates(dp) -> list:
+    """Fallback chain for the batch axis: the full dp spec, then every
+    contiguous sub-tuple by decreasing coverage (e.g. 256-batch on a
+    512-chip flat axis falls back to (data, model))."""
+    if isinstance(dp, str) or dp is None:
+        return [dp]
+    cands = []
+    n = len(dp)
+    for size in range(n, 0, -1):
+        for start in range(0, n - size + 1):
+            cands.append(tuple(dp[start:start + size]))
+    return cands
+
+
+def batch_pspecs(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan,
+                 mesh_sizes: dict) -> dict:
+    dp = plan.batch_spec[0]
+    out = {}
+    for k, v in input_specs(cfg, shape).items():
+        spec = P(*([None] * v.ndim))
+        for cand in _batch_candidates(dp):
+            trial = _fit(v.shape, mesh_sizes, cand, *([None] * (v.ndim - 1)))
+            if trial[0] is not None:
+                spec = trial
+                break
+        out[k] = spec
+    return out
+
+
+def cache_pspecs(cache_abstract: dict, plan: ShardingPlan,
+                 mesh_sizes: dict) -> dict:
+    """Per-key cache sharding: batch over dp, heads over model, with
+    divisibility-aware fallback (kv_heads < model axis -> shard head_dim;
+    batch=1 long-context -> shard heads over the data axes too)."""
+    dp = plan.batch_spec[0]
+    specs = {}
+    for k, v in cache_abstract.items():
+        sh = tuple(v.shape)
+        if k == "pos":
+            specs[k] = _fit(sh, mesh_sizes, dp)
+        elif k in ("k", "v", "cross_k", "cross_v", "attn_k", "attn_v"):
+            # (L, B, KV, S, hd): prefer heads on model, else head_dim.
+            s = _fit(sh, mesh_sizes, None, dp, "model", None, None)
+            if s[2] is None:
+                s = _fit(sh, mesh_sizes, None, dp, None, None, "model")
+            if s[1] is None:   # batch not shardable: spread heads wider
+                s2 = _fit(sh, mesh_sizes, None, None, (dp, "model")
+                          if isinstance(dp, str) else tuple(dp) + ("model",),
+                          None, None)
+                if s2[2] is not None:
+                    s = s2
+            specs[k] = s
+        elif k in ("ssm", "wkv"):            # (L, B, H, N, P)
+            s = _fit(sh, mesh_sizes, None, dp, "model", None, None)
+            if s[2] is None:
+                s = _fit(sh, mesh_sizes, None, dp, None, None, "model")
+            specs[k] = s
+        elif k == "conv":                    # (L, B, K, C)
+            specs[k] = _fit(sh, mesh_sizes, None, dp, None, "model")
+        elif k in ("shift_t", "shift_c"):    # (L, B, D)
+            specs[k] = _fit(sh, mesh_sizes, None, dp, "model")
+        else:
+            specs[k] = P(*([None] * len(sh)))
+    return specs
+
+
+def _leafmap(fn, tree):
+    """``fn`` over the leaves of a tree of dicts and Q8States (a spec
+    tree's leaves are its ``P``s)."""
+    if isinstance(tree, dict):
+        return {k: _leafmap(fn, v) for k, v in tree.items()}
+    if isinstance(tree, Q8State):
+        return Q8State(fn(tree.q), fn(tree.scale))
+    return fn(tree)
+
+
+def opt_state_pspecs(param_specs: dict, state_bits: int) -> dict:
+    """Optimizer-state specs mirror the (ZeRO-sharded) param specs.
+
+    8-bit moments: Q8State(q like the param, scale with the last axis
+    unsharded -- it is reduced to length 1)."""
+    if state_bits == 8:
+        def expand(spec):
+            entries = list(spec)
+            scale_entries = entries[:-1] + [None] if entries else []
+            return Q8State(q=spec, scale=P(*scale_entries))
+        m = _leafmap(expand, param_specs)
+        return {"m": m, "v": m, "step": P()}
+    return {"m": param_specs, "v": param_specs, "step": P()}
+
+
+# --- abstract state ---------------------------------------------------------------
+def abstract_train_state(cfg: ArchConfig, optimizer: AdamW):
+    """(params, opt_state, defs) on the ``meta`` device: no storage."""
+    defs = get_model(cfg).param_defs(cfg)
+    params = abstract_params(defs)
+    return params, optimizer.init(params), defs
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    return get_model(cfg).init_cache(cfg, batch, max_len, device="meta")
+
+
+# --- the sharded steps ------------------------------------------------------------
+@dataclass
+class StepBundle:
+    fn: Any                      # the step
+    args: tuple                  # abstract operands in call order
+    specs: dict = field(default_factory=dict)   # operand name -> P tree
+    mesh: Any = None
+
+
+def _walk(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts and Q8States."""
+    if isinstance(tree, dict):
+        return {k: _walk(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, Q8State):
+        return Q8State(fn(tree.q, specs.q), fn(tree.scale, specs.scale))
+    return fn(tree, specs)
+
+
+def distribute_tree(tree, specs, mesh):
+    """A tree of full tensors (the same on every rank) as DTensors under
+    ``specs``."""
+    return _walk(lambda t, s: distribute(t, mesh, s), tree, specs)
+
+
+def gather_tree(tree):
+    """The full tensors of a tree of DTensors (every rank must call)."""
+    return _leafmap(gather, tree)
+
+
+def _local(t):
+    """A DTensor's local block, its own storage: an update in place
+    lands in the DTensor."""
+    return t.to_local()
+
+
+def _to_spec(t, dim: int, have: tuple, spec: P, mesh):
+    """This rank's block under ``spec`` of a tensor of which ``t`` holds
+    this rank's rows along ``dim``, rows split over the mesh axes
+    ``have``: a slice where ``spec`` splits the rows the same way, else
+    the rows of the batch group gathered first.  Returns a DTensor."""
+    if axes_of(spec[dim]) == have:
+        rest = P(*(None if d == dim else e for d, e in enumerate(spec)))
+    else:
+        t, rest = gather_dim(t, dim, mesh_group(mesh, have)), spec
+    return from_local(local_part(t, mesh, rest).contiguous(), mesh, spec)
+
+
+def _batch_average(leaves: list, group, n: int) -> list:
+    """Each leaf summed over ``group`` and divided by its size ``n``:
+    one all-reduce per dtype over the leaves laid end to end."""
+    out = list(leaves)
+    for dtype in {t.dtype for t in leaves}:
+        idx = [i for i, t in enumerate(leaves) if t.dtype == dtype]
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        if n > 1:
+            flat = flat / n
+        for i, part in zip(idx, flat.split([leaves[i].numel()
+                                            for i in idx])):
+            out[i] = part.view(leaves[i].shape)
+    return out
+
+
+def _leaf_shards(mesh, spec: P, numel: int) -> LeafShards:
+    names = tuple(n for e in spec for n in axes_of(e))
+    return LeafShards(whole=mesh_group(mesh, names),
+                      last=mesh_group(mesh, axes_of(spec[-1]))
+                      if len(spec) else None, numel=numel)
+
+
+def build_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan,
+               mesh, *, optimizer: AdamW | None = None,
+               impl: str = "auto", remat: bool | None = None
+               ) -> StepBundle:
+    """The sharded step of one (arch x shape) cell on ``mesh`` (module
+    docstring).  Train: ``fn(params, opt_state, batch) -> (params,
+    opt_state, metrics)``, the DTensor state updated in place.  Prefill:
+    ``fn(params, batch) -> (logits, cache)``.  Decode: ``fn(params,
+    cache, batch) -> (logits, cache)``, a new cache (the one passed in
+    is left as it was).  ``batch`` holds the global inputs of
+    ``input_specs`` as plain tensors on every rank; logits (the last
+    position's in a prefill) and caches come back as DTensors under the
+    reference's output specs.  ``bundle.specs`` holds every operand's
+    spec tree, for ``distribute_tree``."""
+    api = get_model(cfg)
+    defs = api.param_defs(cfg)
+    sizes = mesh_sizes(mesh)
+    p_specs = param_pspecs(defs, plan.rules, plan.overrides,
+                           axis_sizes=sizes)
+    params_abs = abstract_params(defs)
+    b_specs = batch_pspecs(cfg, shape, plan, sizes)
+    batch_abs = input_specs(cfg, shape)
+    rows = {axes_of(s[0]) for s in b_specs.values()}
+    assert len(rows) == 1, b_specs
+    rows = rows.pop()
+    act_rules = ActivationRules(plan.act_specs, mesh, batch_axes=rows)
+    b_group = mesh_group(mesh, rows)
+    n_rows, _ = group_size_rank(b_group)
+    if remat is None:
+        remat = shape.kind == "train" and cfg.n_layers >= 16
+    extra = api.extra_input if api.extra_input in batch_abs else None
+    specs = {"params": p_specs, "batch": b_specs}
+    logits_spec = _fit((shape.global_batch, cfg.vocab), sizes,
+                       plan.batch_spec[0], "model")
+
+    def my_rows(batch):
+        out = {k: local_part(v, mesh, P(b_specs[k][0]))
+               for k, v in batch.items() if k in b_specs}
+        if extra:
+            out[extra] = out[extra].to(cfg.tdtype)
+        return out
+
+    def batch_mean(x):
+        """The mean of a 0-d metric over the batch group."""
+        x = x.detach().float().clone()
+        if b_group is not None:
+            dist.all_reduce(x, group=b_group)
+            if n_rows > 1:
+                x = x / n_rows
+        return x
+
+    if shape.kind == "train":
+        optimizer = optimizer or AdamW()
+        opt_abs = optimizer.init(params_abs)
+        specs["opt_state"] = opt_state_pspecs(p_specs,
+                                              optimizer.state_bits)
+        shards = _walk(lambda p, spec: _leaf_shards(mesh, spec, p.numel()),
+                       params_abs, p_specs)
+
+        def grads_of(params, batch):
+            """(loss, aux, grads) of the rank's rows, the gradients
+            averaged over the batch group and cut to this rank's blocks."""
+            full = gather_tree(params)
+            with activation_rules(act_rules):
+                loss, aux, grads = _loss_aux_grads(
+                    cfg, full, my_rows(batch), impl=impl, remat=remat)
+            del full
+
+            if b_group is not None:
+                grads = tree_unflatten(grads, _batch_average(
+                    tree_leaves(grads), b_group, n_rows))
+            return loss, aux, _walk(
+                lambda g, spec: local_part(g, mesh, spec).contiguous(),
+                grads, p_specs)
+
+        def train_step(params, opt_state, batch):
+            loss, aux, grads = grads_of(params, batch)
+            _, _, om = optimizer.update(grads, _leafmap(_local, opt_state),
+                                        _leafmap(_local, params), shards)
+            metrics = {"loss": batch_mean(loss), **om}
+            if "imbalance_pct" in aux:
+                metrics["moe_imbalance_pct"] = batch_mean(
+                    aux["imbalance_pct"])
+            return params, opt_state, metrics
+
+        train_step.grads = grads_of
+        return StepBundle(train_step, (params_abs, opt_abs, batch_abs),
+                          specs=specs, mesh=mesh)
+
+    cache_abs = abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    c_specs = cache_pspecs(cache_abs, plan, sizes)
+    specs.update(cache=c_specs, logits=logits_spec)
+
+    def outputs(logits, cache):
+        return (_to_spec(logits, 0, rows, logits_spec, mesh),
+                {k: _to_spec(v, 0 if k == "pos" else 1, rows, c_specs[k],
+                             mesh) for k, v in cache.items()})
+
+    if shape.kind == "prefill":
+        @torch.no_grad()
+        def prefill_step(params, batch):
+            full = gather_tree(params)
+            b = my_rows(batch)
+            kw = {extra: b[extra]} if extra else {}
+            with activation_rules(act_rules):
+                out = api.forward(full, b["tokens"], cfg, impl=impl,
+                                  return_cache=True, return_hidden=True,
+                                  cache_len=shape.seq_len, **kw)
+                # head applied to the last position only -- never
+                # materializes (B, S, V) logits during prefill.
+                head = (full["embed"].T if cfg.tie_embeddings
+                        else full["lm_head"])
+                logits = out["hidden"][:, -1] @ head
+            return outputs(logits, out["cache"])
+
+        return StepBundle(prefill_step, (params_abs, batch_abs),
+                          specs=specs, mesh=mesh)
+
+    @torch.no_grad()
+    def serve_step(params, cache, batch):
+        full = gather_tree(params)
+        b = my_rows(batch)
+        mine = {k: local_part(gather(v), mesh,
+                              P(*[None] * (k != "pos"), rows))
+                for k, v in cache.items()}
+        with activation_rules(act_rules):
+            logits, new = api.decode_step(full, mine, b["tokens"], cfg,
+                                          impl=impl)
+        return outputs(logits, new)
+
+    return StepBundle(serve_step, (params_abs, cache_abs, batch_abs),
+                      specs=specs, mesh=mesh)

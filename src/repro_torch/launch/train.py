@@ -19,8 +19,19 @@ Parameters are initialised from ``--seed``; the data is the seeded
 ``SyntheticLM`` stream or a packed token file.  Fault tolerance
 (auto-resume from ``--ckpt-dir``, preemption checkpoint, straggler log)
 comes from ``runtime.Trainer``.  Prints each step's loss, time and
-tokens per second.  The multi-device ``--strategy`` of the reference is
-ROADMAP A.12.
+tokens per second.
+
+``--strategy {tp,fsdp,auto}`` trains through the sharded step
+(``steps.build_step``) on a ``("data", "model")`` mesh of every rank,
+shaped as the reference shapes it: ``(n // 2, 2)`` from 4 ranks up, else
+``(n, 1)``; ``parallel.make_plan`` picks the layout.  On the card it
+initialises NCCL, from torchrun's environment when ``WORLD_SIZE`` is set
+(one process per card: ``torchrun --nproc-per-node 4 -m
+repro_torch.launch.train --strategy auto ...``), else as a world of one;
+``--device cpu`` uses gloo.  A checkpoint gathers the full tensors and
+rank 0 writes them; a resume redistributes them per the plan.  Without
+``--strategy`` the CLI runs the graphed single-device step (the
+reference always builds a mesh).
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config
 from ..configs.base import ShapeSpec
@@ -38,8 +50,37 @@ from ..data import PackedFileDataset, SyntheticLM
 from ..kernels.common import resolve_device
 from ..models import get_model, init_params
 from ..optim import AdamW, cosine_schedule
+from ..core.hw import MeshDescriptor
+from ..parallel import STRATEGIES, make_plan
 from ..runtime import Trainer, TrainerConfig
-from .steps import build_train_step
+from .mesh import make_mesh_from_descriptor
+from .steps import build_step, build_train_step, distribute_tree
+
+
+def init_distributed(device: torch.device) -> torch.device:
+    """Initialise ``torch.distributed`` for ``--strategy``: NCCL on the
+    card (never gloo there), gloo on the CPU; from torchrun's
+    environment when ``WORLD_SIZE`` is set, else a world of one.
+    Returns this rank's device."""
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        torch.cuda.init()       # the mesh then keeps this device
+        backend, kw = "nccl", {"device_id": device}
+    else:
+        backend, kw = "gloo", {}
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, **kw)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, **kw)
+    return device
+
+
+def mesh_descriptor(n: int) -> MeshDescriptor:
+    """The reference's CLI mesh of ``n`` devices."""
+    return MeshDescriptor((n // 2, 2) if n >= 4 else (n, 1),
+                          ("data", "model"))
 
 
 def main(argv=None) -> dict:
@@ -62,6 +103,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' for the plain path")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--strategy", default=None, choices=STRATEGIES,
+                    help="train the sharded step on a mesh of every rank; "
+                         "default: the graphed single-device step")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -81,10 +125,25 @@ def main(argv=None) -> dict:
     optimizer = AdamW(lr=cosine_schedule(args.lr, warmup=20,
                                          total=args.steps),
                       state_bits=args.opt_bits)
-    step_fn = build_train_step(cfg, optimizer, impl="auto")
+    owns_group = False
+    if args.strategy and not dist.is_initialized():
+        device, owns_group = init_distributed(device), True
     params = init_params(get_model(cfg).param_defs(cfg),
                          torch.Generator(device).manual_seed(args.seed))
     opt_state = optimizer.init(params)
+    mesh = plan = None
+    if args.strategy:
+        desc = mesh_descriptor(dist.get_world_size())
+        mesh = make_mesh_from_descriptor(desc, device.type)
+        plan = make_plan(cfg, shape, desc, args.strategy)
+        bundle = build_step(cfg, shape, plan, mesh, optimizer=optimizer,
+                            impl="auto")
+        params = distribute_tree(params, bundle.specs["params"], mesh)
+        opt_state = distribute_tree(opt_state, bundle.specs["opt_state"],
+                                    mesh)
+        step_fn = bundle.fn
+    else:
+        step_fn = build_train_step(cfg, optimizer, impl="auto")
     if args.data == "synthetic":
         data = SyntheticLM(vocab=cfg.vocab, seq_len=shape.seq_len,
                            global_batch=shape.global_batch, seed=0)
@@ -97,9 +156,17 @@ def main(argv=None) -> dict:
         total_steps=args.steps, ckpt_every=args.ckpt_every,
         ckpt_dir=ckpt_dir, log_every=1), device=device)
     t0 = time.perf_counter()
-    params, opt_state, step = trainer.run(params, opt_state)
+    try:
+        params, opt_state, step = trainer.run(params, opt_state)
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
     seconds = time.perf_counter() - t0
     tokens = shape.global_batch * shape.seq_len
+    if plan is not None:
+        print(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, "
+              f"strategy {plan.strategy}, layout "
+              f"{plan.decisions.get('layout', plan.strategy)}")
     for rec in trainer.metrics_history:
         moe = (f", moe imbalance {rec['moe_imbalance_pct']:.1f}%"
                if "moe_imbalance_pct" in rec else "")
@@ -110,7 +177,8 @@ def main(argv=None) -> dict:
         f"last loss {trainer.metrics_history[-1]['loss']:.4f}"
         if trainer.metrics_history else "no steps ran"))
     return {"cfg": cfg, "params": params, "opt_state": opt_state,
-            "step": step, "trainer": trainer, "seconds": seconds}
+            "step": step, "trainer": trainer, "seconds": seconds,
+            "mesh": mesh, "plan": plan}
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ and MoE, the zamba2 / mamba2 hybrid, rwkv6, whisper and the vlm
 family's entry points.  Importing the package registers every family's
 persistent-state hook (``core.regions.register_state_family``)."""
 from . import cnn, rwkv, transformer, whisper, zamba2
-from .common import ParamDef, init_params, params_from_numpy, tree_paths
+from .common import (ParamDef, abstract_params, init_params, param_pspecs,
+                     params_from_numpy, tree_paths)
 from .registry import FAMILIES, ModelApi, get_model
 
 
@@ -14,5 +15,6 @@ def param_defs(cfg) -> dict:
 
 
 __all__ = ["cnn", "transformer", "zamba2", "rwkv", "whisper", "ParamDef",
-           "init_params", "params_from_numpy", "tree_paths", "param_defs",
-           "FAMILIES", "ModelApi", "get_model"]
+           "abstract_params", "param_pspecs", "init_params",
+           "params_from_numpy", "tree_paths", "param_defs", "FAMILIES",
+           "ModelApi", "get_model"]

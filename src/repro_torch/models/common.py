@@ -19,8 +19,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..parallel.act_sharding import P
+
 __all__ = ["ParamDef", "init_params", "tree_paths", "params_from_numpy",
-           "rms_norm", "layer_norm", "Rotary", "apply_rope",
+           "abstract_params", "param_pspecs", "rms_norm", "layer_norm", "Rotary", "apply_rope",
            "cross_entropy_loss"]
 
 
@@ -77,6 +79,64 @@ def init_params(defs: dict, generator: torch.Generator,
         return {k: go(v) if isinstance(v, dict)
                 else _init_leaf(v, generator, device)
                 for k, v in sub.items()}
+    return go(defs)
+
+
+def abstract_params(defs: dict) -> dict:
+    """The tree of parameters on the ``meta`` device: shapes and dtypes,
+    no storage (the reference's ShapeDtypeStruct tree)."""
+    return {k: abstract_params(v) if isinstance(v, dict)
+            else torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in defs.items()}
+
+
+def param_pspecs(defs: dict, rules: dict,
+                 overrides: dict | None = None,
+                 axis_sizes: dict | None = None) -> dict:
+    """Map logical axes -> mesh axes (rules values: None, str, or tuple).
+
+    A mesh axis may appear only once per tensor; when two logical axes
+    map to the same mesh axis, the earlier tensor axis wins (e.g. MoE
+    weights (experts, embed, ff) with experts->model keep ff unsharded).
+    Entries whose dimension is not divisible by the mesh-axis size are
+    dropped (every shard the same size).  ``overrides``: path-suffix ->
+    rules dict, for per-layer-class strategies chosen by the distributed
+    Mloop/Kloop cost model; the longest matching suffix wins.
+    """
+    def spec(d: ParamDef, ruleset: dict) -> P:
+        entries = []
+        used: set[str] = set()
+        for ax, dim in zip(d.axes, d.shape):
+            r = ruleset.get(ax) if ax is not None else None
+            names = (r,) if isinstance(r, str) else tuple(r or ())
+            if axis_sizes is not None and names:
+                total = 1
+                for n in names:
+                    total *= axis_sizes.get(n, 1)
+                if total and dim % total != 0:
+                    r, names = None, ()
+            if any(n in used for n in names):
+                r = None
+            else:
+                used.update(names)
+            entries.append(r)
+        return P(*entries)
+
+    def pick_rules(path: str) -> dict:
+        best = None
+        for suffix, rs in (overrides or {}).items():
+            if path.endswith(suffix) and (best is None
+                                          or len(suffix) > len(best[0])):
+                best = (suffix, rs)
+        return rules if best is None else best[1]
+
+    def go(sub, prefix=""):
+        out = {}
+        for k, v in sub.items():
+            p = f"{prefix}/{k}" if prefix else k
+            out[k] = (go(v, p) if isinstance(v, dict)
+                      else spec(v, pick_rules(p)))
+        return out
     return go(defs)
 
 

@@ -16,16 +16,36 @@ graph can capture the dispatch: the counts are a ``scatter_add_`` into
 ``E + 1`` bins (``torch.bincount`` sizes its output from the data), the
 pad rows of a right-padded prefill route to the sentinel expert ``E``
 through ``torch.where`` (no boolean-mask indexing), and the prefill's
-``valid_count`` and the capacity it implies stay device tensors.  The
-reference's ``shard_map`` over the batch axes is multi-device work
-(ROADMAP A.12).
+``valid_count`` and the capacity it implies stay device tensors.
+
+Under a sharded step's mesh (``parallel.activation_rules``, installed by
+``launch/steps.py``) the dispatch follows the reference's choice.  When
+the batch axes ("pod", "data") hold more than one shard and each of
+their blocks has at least ``max(top_k, 256)`` tokens, the reference
+dispatches every block on its own, with that block's capacity
+(``_moe_local(..., axes=dp)`` under ``shard_map``), and averages the
+statistics over the blocks: a rank whose rows are whole blocks does the
+same with no communication.  Otherwise the reference dispatches every
+token at once, and a token's capacity and drops depend on every rank's
+tokens: the rank gathers the rows of its batch group (``_gather_rows``,
+an all-gather autograd sees through, whose backward sums the row
+gradients of every rank) and dispatches them all -- or the one block
+that holds its rows, where a block spans several ranks -- and keeps its
+own rows.  The statistics returned are the rank's blocks' (or the
+gathered dispatch's); their mean over the batch group, which the loss
+takes by averaging the ranks' losses, is the reference's.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.distributed as dist
 
 from ..core.balance import moe_capacity
 from ..kernels.common import apply_activation
+from ..parallel.act_sharding import current_rules, mesh_sizes
+from ..parallel.placement import gather_dim, group_size_rank, mesh_group
 
 __all__ = ["moe_mlp"]
 
@@ -35,12 +55,39 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a.float(), b.float())
 
 
+class _GatherRows(torch.autograd.Function):
+    """All-gather of the rows of ``x`` over ``group``, in group order;
+    the backward sums the gathered gradient over the group and returns
+    this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        _, i = group_size_rank(group)
+        ctx.group, ctx.rows = group, (i * x.shape[0], x.shape[0])
+        return gather_dim(x, 0, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad.narrow(0, *ctx.rows), None
+
+
+def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _GatherRows.apply(x, group)
+
+
+def _block_mean(auxs: list) -> dict:
+    return {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+
+
 def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
             capacity_factor: float = 1.25, activation: str = "silu",
             gated: bool = True, valid_count=None):
     """x: (T, D); router_w: (D, E); w_gate / w_up: (E, D, F); w_down:
-    (E, F, D).
+    (E, F, D).  Under a sharded step's mesh x is this rank's rows of the
+    global (T_global, D) (module docstring).
 
     ``valid_count`` (an int or an int tensor of one element on x's
     device) marks x as right-padded: only its first ``valid_count`` rows
@@ -52,6 +99,35 @@ def moe_mlp(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     load-balance loss), ``imbalance_pct`` (the busiest expert's load
     over the mean, in percent) and ``dropped_frac`` (the share of
     (token, choice) pairs past capacity), each a 0-d f32 tensor."""
+    fn = functools.partial(_moe_local, router_w=router_w, w_gate=w_gate,
+                           w_up=w_up, w_down=w_down, top_k=top_k,
+                           capacity_factor=capacity_factor,
+                           activation=activation, gated=gated)
+    rules = current_rules()
+    if rules is None or rules.mesh is None or valid_count is not None:
+        return fn(x, valid_count=valid_count)
+    sizes = mesh_sizes(rules.mesh)
+    S = sizes.get("pod", 1) * sizes.get("data", 1)
+    group = mesh_group(rules.mesh, rules.batch_axes)
+    n, i = group_size_rank(group)
+    rows = x.shape[0]
+    T = rows * n
+    if S > 1 and T % S == 0 and T // S >= max(top_k, 256):
+        bs = T // S
+        if rows % bs == 0:          # whole blocks: each on its own
+            outs, auxs = zip(*(fn(blk) for blk in x.split(bs)))
+            return torch.cat(outs), _block_mean(list(auxs))
+        b, off = divmod(i * rows, bs)   # part of block b, from row off
+        out, aux = fn(_gather_rows(x, group).narrow(0, b * bs, bs))
+        return out.narrow(0, off, rows), aux
+    out, aux = fn(_gather_rows(x, group))
+    return out.narrow(0, i * rows, rows), aux
+
+
+def _moe_local(x, *, router_w, w_gate, w_up, w_down, top_k,
+               capacity_factor, activation, gated, valid_count=None):
+    """Dispatch + expert FFN on one token block (the reference's
+    ``_moe_local``): (out, aux)."""
     T, D = x.shape
     E = router_w.shape[-1]
     dev = x.device

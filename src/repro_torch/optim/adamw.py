@@ -10,6 +10,15 @@ order, then writes the new values into the params' and the state's own
 storage (the moments' ``q`` and ``scale`` tensors when 8-bit): the
 counterpart of the reference's step with donated params and state, and
 what lets a captured CUDA graph replay the update.
+
+Under a mesh (``launch/steps.py``'s sharded step) each rank updates its
+own blocks of the leaves, and ``update`` takes ``shards``, a tree like
+the params of ``LeafShards``: the sums that run over a whole leaf (the
+global gradient norm behind ``grad_clip``, the 8-bit update's rms) are
+all-reduced over the group of the ranks holding the leaf's other
+blocks, and the 8-bit moments' row scale, where the leaf's last axis is
+split, is the all-reduced MAX over the group that splits it, so every
+number equals the reference's for the whole tensor.
 """
 from __future__ import annotations
 
@@ -18,11 +27,12 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.store import tree_leaves
 
-__all__ = ["AdamW", "Q8State", "quantize_state", "dequantize_state",
-           "global_norm", "cosine_schedule"]
+__all__ = ["AdamW", "Q8State", "LeafShards", "quantize_state",
+           "dequantize_state", "global_norm", "cosine_schedule"]
 
 
 def _map(fn, *trees):
@@ -73,11 +83,53 @@ def _parts(*ts):
     return [tuple(cut(f, i) for f in flats) for i in range(0, rows, step)]
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(part.float()))
-                          for leaf in tree_leaves(tree)
-                          for (part,) in _parts(leaf)))
+@dataclass(frozen=True)
+class LeafShards:
+    """How one leaf is split across ranks: ``whole`` is the group of the
+    ranks that hold its other blocks (None: this rank holds all of it),
+    ``last`` the group that splits its last axis, ``numel`` the whole
+    leaf's element count."""
+    whole: object = None
+    last: object = None
+    numel: int = 0
+
+
+def _dict_leaves(tree) -> list:
+    """The leaves of nested dicts in ``tree_leaves`` order (sorted
+    keys); anything else is a leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _dict_leaves(tree[k])]
+    return [tree]
+
+
+def _all_sum(terms: list, group) -> list:
+    """Each of the 0-d ``terms`` summed over ``group`` (one all-reduce)."""
+    if group is None:
+        return terms
+    stacked = torch.stack(terms)
+    dist.all_reduce(stacked, group=group)
+    return list(stacked.unbind())
+
+
+def global_norm(tree, shards=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32; with ``shards``
+    (a tree of ``LeafShards`` like ``tree``) each leaf's sum runs over
+    its blocks on every rank."""
+    leaves = tree_leaves(tree)
+    groups = ([None] * len(leaves) if shards is None
+              else [s.whole for s in _dict_leaves(shards)])
+    terms, owner = [], []
+    for leaf, group in zip(leaves, groups):
+        for (part,) in _parts(leaf):
+            terms.append(torch.sum(torch.square(part.float())))
+            owner.append(group)
+    # One all-reduce per group over its leaves' sums, summed after in
+    # leaf order.
+    for group in {id(g): g for g in owner if g is not None}.values():
+        idx = [i for i, g in enumerate(owner) if g is group]
+        for i, t in zip(idx, _all_sum([terms[i] for i in idx], group)):
+            terms[i] = t
+    return torch.sqrt(sum(terms))
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int
@@ -100,12 +152,16 @@ class Q8State:
     scale: torch.Tensor      # f32, per-row (last axis reduced)
 
 
-def quantize_state(x: torch.Tensor) -> Q8State:
+def quantize_state(x: torch.Tensor, group=None) -> Q8State:
+    """int8 per row with an f32 scale; ``group`` splits the last axis
+    (the row's maximum is taken over its blocks on every rank)."""
     if x.ndim == 0:
         x = x[None]
         amax = torch.max(torch.abs(x))[None]
     else:
         amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = torch.where(amax > 0, amax / 127.0,
                         torch.ones_like(amax)).float()
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
@@ -156,11 +212,13 @@ class AdamW:
                           device=step.device)
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, shards=None):
         """Updates ``params`` and ``state`` in place; returns (params,
-        state, metrics)."""
+        state, metrics).  ``shards``: a tree of ``LeafShards`` like the
+        params when each holds this rank's blocks (module docstring)."""
         step = state["step"] + 1
-        gnorm = global_norm(grads)
+        gnorm = (global_norm(grads) if shards is None
+                 else global_norm(grads, shards))
         clip = None
         if self.grad_clip is not None:
             clip = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
@@ -187,7 +245,7 @@ class AdamW:
             vhat = v_new / c2
             return m_new, v_new, mhat / (torch.sqrt(vhat) + self.eps)
 
-        def upd(g, m, v, p):
+        def upd(g, m, v, p, sh):
             parts = _parts(g, m, v, p)
             rms = whole = None
             if len(parts) == 1:
@@ -196,13 +254,14 @@ class AdamW:
                 # Adafactor-style update clipping, as the reference: the
                 # rms of the whole leaf's update (a first pass over its
                 # blocks when it is cut).
-                if whole is not None:
+                if whole is not None and sh.whole is None:
                     rms = torch.sqrt(torch.mean(torch.square(whole[2]))
                                      + 1e-30)
                 else:
-                    ss = sum(torch.sum(torch.square(moments(*part[:3])[2]))
-                             for part in parts)
-                    rms = torch.sqrt(ss / p.numel() + 1e-30)
+                    ss = sum(torch.sum(torch.square(
+                        (whole or moments(*part[:3]))[2])) for part in parts)
+                    ss, = _all_sum([ss], sh.whole)
+                    rms = torch.sqrt(ss / (sh.numel or p.numel()) + 1e-30)
             for g_, m_, v_, p_ in parts:
                 m_new, v_new, delta = whole or moments(g_, m_, v_)
                 if rms is not None:
@@ -211,8 +270,8 @@ class AdamW:
                     delta = delta + self.weight_decay * p_.float()
                 p_new = (p_.float() - lr * delta).to(p_.dtype)
                 if self.state_bits == 8:
-                    m_new = quantize_state(m_new)
-                    v_new = quantize_state(torch.sqrt(v_new))
+                    m_new = quantize_state(m_new, sh.last)
+                    v_new = quantize_state(torch.sqrt(v_new), sh.last)
                 p_.copy_(p_new)
                 for old, new in ((m_, m_new), (v_, v_new)):
                     if self.state_bits == 8:
@@ -221,6 +280,8 @@ class AdamW:
                     else:
                         old.copy_(new)
 
-        _map(upd, grads, state["m"], state["v"], params)
+        if shards is None:
+            shards = _map(lambda p: LeafShards(), params)
+        _map(upd, grads, state["m"], state["v"], params, shards)
         state["step"].copy_(step)
         return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -34,11 +34,13 @@ def test_importing_every_port_module_loads_no_jax_or_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# The training slice's subpackages, each imported alone in a fresh
-# interpreter: none of them may pull in jax or repro.
+# The training slice's subpackages and the multi-device ones, each
+# imported alone in a fresh interpreter: none of them may pull in jax or
+# repro.
 TRAINING_MODULES = ["repro_torch.optim", "repro_torch.data", "repro_torch.obs",
                     "repro_torch.checkpoint", "repro_torch.runtime.trainer",
-                    "repro_torch.launch.train"]
+                    "repro_torch.launch.train", "repro_torch.parallel",
+                    "repro_torch.launch.mesh"]
 
 
 @pytest.mark.parametrize("module", TRAINING_MODULES)
