@@ -344,14 +344,14 @@ exits non-zero before the last line is printed.  Phases:
       between the plain path and a second plain version that rounds
       otherwise, ``rounded_plain``, and none past FLOOR_CAP; zamba2-7b's
       at full width and 7 layers, STEP0_DEPTH), then 4 graphed steps
-      (eager, captured, replays) and 2 more replays, exactly
+      (eager, captured, replays), exactly
       ``family_launches`` a step (zamba2-7b: 162 mamba2_scan, 28 flash
       forward, 14 backward; rwkv6-7b: 64 wkv6; whisper-base: 18 and 18;
       the vlm: 44 and 24), every flash launch on mma, then 4 steps under
       ``disable_graphs()``: every metric, param and optimizer-state leaf
       bit for bit (``graphed_against_eager_steps``, as 5f and 5k);
-      tokens/s, the step ms graphed and eager, the peak memory and both
-      sides' device-time profiles printed;
+      tokens/s, the step ms graphed and eager, the peak memory and the
+      graphed step's device-time profile printed;
    t. the sharded steps (``sharded_phase``): NCCL initialised as a world
       of one (``init_process_group("nccl", store=HashStore(), ...,
       device_id=)``, never gloo) and a (1, 1) ("data", "model") mesh;
@@ -369,6 +369,19 @@ exits non-zero before the last line is printed.  Phases:
       launches on the sharded paths; the NCCL init time, each step's ms
       beside the eager single-device step's and 5f's, the prefill and
       decode ms; then ``destroy_process_group()``;
+   u. the dry-run tooling (``dryrun_phase``), no kernel, after 5t:
+      5t's own cell counted by ``core/step_analysis.py::analyze_step``
+      on a fake world of one, its FLOPs within FLOP_COUNT_TOL of
+      ``plain_train_flops`` (6ND, the remat forward, the attention) and,
+      at the bf16 peak, at or under 5t's profiled device time; its bound
+      max(FLOPs / the bf16 peak, HBM bytes / the HBM rate) printed beside
+      5t's measured steps; then ``python -m repro_torch.launch.dryrun
+      --arch smollm-360m`` with ``--mesh single`` (train_4k, prefill_32k,
+      decode_32k on 16x16) and ``--shape train_4k --mesh multi``, one
+      run after the other (a fake world of 512 ranks, fake tensors, the
+      CPU), every record error-free with FLOPs, and ``python -m
+      repro_torch.launch.report`` over them rendering a row for each in
+      both tables;
    5b, 5g, 5h and 5l each end with a legacy leg (``legacy_leg``): the
    phase's first 8 prompts, cut to the shortest, through the phase's
    Program pair and 8 greedy ticks, then through the legacy ``forward
@@ -2397,20 +2410,21 @@ def step0_against_plain(label, cfg, device, batch, params=None,
     return loss_k
 
 
-def graphed_against_eager_steps(label, cfg, device, optimizer,
-                                extra: int = 0, data=None) -> dict:
+def graphed_against_eager_steps(label, cfg, device, optimizer, data=None,
+                                profile_eager: bool = True) -> dict:
     """COMPARE_STEPS training steps through the compiled step (step 0
     eager, step 1 captured and replayed, replays after) -- through
     ``runtime.Trainer`` over ``data`` when given (a small checkpoint),
-    else called directly -- then ``extra`` more replays, the launch
-    counters set to 0 just before and read just after; then
+    else called directly -- the launch counters set to 0 just before and
+    read just after; then
     COMPARE_STEPS steps under ``executor.disable_graphs()``.  Each side
     starts from ``family_params`` and takes ``family_batch`` i at step
     i: every metric of every compared step and, after the last, every
     param and optimizer-state leaf bit for bit (the graphed side's
     copied to the host, so a 7B state is not held twice on the card).
     Each step is timed to a device synchronise; one more step a side
-    runs under the profiler (``profile_train``).  Returns the launches,
+    (the graphed side's alone without ``profile_eager``) runs under the
+    profiler (``profile_train``).  Returns the launches,
     the step ms (medians of the replays and of the eager steps past the
     first), the times, the losses, the graphed side's peak memory, the
     capture seconds and the profiles."""
@@ -2421,10 +2435,10 @@ def graphed_against_eager_steps(label, cfg, device, optimizer,
     import torch
     from repro_torch.launch.steps import build_train_step
     from repro_torch.runtime import Trainer, TrainerConfig, executor
-    n = COMPARE_STEPS + extra
     counters = lm_counters()
     out, metrics, host = {}, {}, None
     for side in ("graphed", "eager"):
+        t_side = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2451,10 +2465,7 @@ def graphed_against_eager_steps(label, cfg, device, optimizer,
                           for r in trainer.metrics_history]
                     times = [1e3 * r["dt_s"]
                              for r in trainer.metrics_history]
-                last = n if side == "graphed" else COMPARE_STEPS
-                for i in range(len(ms), last):
-                    if side == "graphed" and i == COMPARE_STEPS:
-                        host = _to_host((params, state))
+                for i in range(len(ms), COMPARE_STEPS):
                     b = family_batch(cfg, i, device)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -2471,8 +2482,7 @@ def graphed_against_eager_steps(label, cfg, device, optimizer,
                     out["flash_paths"] = flash_paths()
                     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
                     out["losses"] = [float(m["loss"]) for m in ms]
-                    if host is None:
-                        host = _to_host((params, state))
+                    host = _to_host((params, state))
                     captured = [g for g in step.graphs.graphs.values()
                                 if g is not None]
                     if len(captured) != 1:
@@ -2489,9 +2499,13 @@ def graphed_against_eager_steps(label, cfg, device, optimizer,
                 med = statistics.median(times[2:] if side == "graphed"
                                         else times[1:])
                 out[f"{side}_ms"], out[f"{side}_times"] = med, times
+                took(f"{label} {side} steps", t_side)
+                t_side = time.perf_counter()
                 out[f"{side}_profile"] = profile_train(
                     f"{label} {side} step", lambda: step(
-                        params, state, family_batch(cfg, n, device)), med)
+                        params, state, family_batch(cfg, COMPARE_STEPS, device)),
+                    med) if side == "graphed" or profile_eager else None
+                took(f"{label} {side} profiled step", t_side)
                 del params, state, step
         finally:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -2978,8 +2992,6 @@ FAMILY_ATTN = {"zamba2-7b": (("zamba2-7b shared", 14, 14),),
                WHISPER: (("whisper encoder", 6, 6), ("whisper self", 6, 6),
                          ("whisper cross", 6, 6)),
                VLM_ARCH: (("vlm self", 20, 20), ("vlm cross", 4, 4))}
-# Replayed steps beyond the COMPARE_STEPS held against eager ones.
-FAMILY_EXTRA_STEPS = 2
 
 
 def family_cfg(arch, depth):
@@ -3098,8 +3110,8 @@ def train_family(label, arch, device, depth=None):
     path on the card (``step0_against_plain``: 5f's gates; for the
     recurrent families a floor from a second plain version, no leaf
     limit past FLOOR_CAP), at STEP0_DEPTH layers where the arch has one;
-    (b) ``graphed_against_eager_steps`` with FAMILY_EXTRA_STEPS more
-    replays, through ``runtime.Trainer`` for the audio family (its
+    (b) ``graphed_against_eager_steps``, the graphed step alone
+    profiled, through ``runtime.Trainer`` for the audio family (its
     checkpoint is small; a 7B state's would be 27 GB): exactly
     ``family_launches`` per graphed step, every flash launch on mma,
     every loss finite, graphed and eager steps bit for bit.  Returns
@@ -3114,7 +3126,7 @@ def train_family(label, arch, device, depth=None):
     torch.cuda.empty_cache()
     cfg = family_cfg(arch, depth)
     remat = cfg.n_layers >= 16
-    n = COMPARE_STEPS + FAMILY_EXTRA_STEPS
+    n = COMPARE_STEPS
     per_step = family_launches(cfg, remat)
     cut = (f"{cfg.n_layers} of {family_cfg(arch, None).n_layers} layers"
            if depth else "full depth")
@@ -3129,14 +3141,17 @@ def train_family(label, arch, device, depth=None):
     if cfg0.n_layers != cfg.n_layers:
         print(f"{label} step 0 at full width and {cfg0.n_layers} of "
               f"{cfg.n_layers} layers, remat {remat} (STEP0_DEPTH)")
+    t0 = time.perf_counter()
     loss0 = step0_against_plain(
         label, cfg0, device, family_batch(cfg0, 0, device),
         params=family_params(cfg0, device), remat=remat,
         floor=cfg.family in ("hybrid", "ssm"))
-    # (b) the compiled step against the eager one
+    took(f"{label} step 0 against the plain path", t0)
+    # (b) the compiled step against the eager one; an eager profile
+    # would read only the device-busy share of a host-bound step
     cmp = graphed_against_eager_steps(label, cfg, device,
                                       AdamW(state_bits=8),
-                                      extra=FAMILY_EXTRA_STEPS,
+                                      profile_eager=False,
                                       data=(FamilyData(cfg, device)
                                             if cfg.family == "audio"
                                             else None))
@@ -3829,7 +3844,9 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
                               if rec.count("prefill") > 1 else ("decode",))
     print(f"{label}: {n_graphs} CUDA graphs captured in "
           f"{eng.capture_seconds:.3f} s")
+    t0 = time.perf_counter()
     worst, n_rows, n_ids, spread, bound = rec.replay_plain(eng, arch)
+    took(f"{label} plain replay", t0)
     n_tok = sum(len(r.out_tokens) for r in done)
     stats = {"tok_s": n_tok / res["seconds"], "seconds": res["seconds"],
              "tokens": n_tok, "prefill_ms": rec.ms("prefill"),
@@ -3851,7 +3868,9 @@ def serve_lm(label: str, run, n_requests: int, max_new: int = 32,
           f"{res['seconds']:.3f} s); {per_call} decode tick "
           f"{stats['tick_ms']:.2f} ms mean", flush=True)
     if label == "5b" or arch != LM_ARCH:
+        t0 = time.perf_counter()
         stats["profile"] = profile_lm(label, eng, rec)
+        took(f"{label} profile", t0)
     if encodes:
         stats["encoder_ms"] = rec.ms("memory")
         stats["encoder_median_ms"] = rec.ms("memory", statistics.median)
@@ -4166,11 +4185,17 @@ def serve_family(label: str, arch: str):
 
     def run():
         return serve.main(["--arch", arch] + FAMILY_ARGS)
+    t0 = time.perf_counter()
     launches, stats, eng, rec = serve_lm(label, run, n, new, arch=arch)
+    took(f"{label} served and replayed", t0)
+    t0 = time.perf_counter()
     check_family_ops(label, eng, rec, arch)
+    took(f"{label} per-op check", t0)
     peak = torch.cuda.max_memory_allocated()   # the served phase's alone
     if arch != MOE_ARCH:
+        t0 = time.perf_counter()
         stats["legacy"] = legacy_leg(label, eng, stats, arch)
+        took(f"{label} legacy leg", t0)
     pair = eng.program
     state_mb = {}
     for r in pair.decode.plan.persistent_regions():
@@ -4191,8 +4216,10 @@ def serve_family(label: str, arch: str):
     # bit for bit (cuBLAS runs its experts' products, and keeps its
     # algorithms on the capture stream, as it does for those
     # projections).
+    t0 = time.perf_counter()
     stats.update(check_eager(label, run, stats, rec, exact=arch == MOE_ARCH,
                              bound=stats["logit_bound"]))
+    took(f"{label} eager serve", t0)
     return launches, stats
 
 
@@ -5873,10 +5900,198 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
     return launches, stats
 
 
+# Phase 5u: the dry-run tooling (``launch/dryrun.py``, ``launch/report.py``,
+# ``core/step_analysis.py``, ``core/roofline.py``): smollm-360m's cells
+# through the CLI, and 5t's own cell counted against the card.
+DRYRUN_RUNS = (("--mesh", "single"), ("--shape", "train_4k", "--mesh", "multi"))
+DRYRUN_CELLS = 4            # train_4k, prefill_32k, decode_32k; train_4k
+DRYRUN_TIMEOUT = 600        # seconds a CLI run may take
+# The counted FLOPs of 5t's cell against ``plain_train_flops``.
+FLOP_COUNT_TOL = 0.05
+
+
+def plain_train_flops(cfg, batch: int, seq: int, remat: bool) -> float:
+    """The FLOPs of one plain-path training step of a dense LM, from its
+    config: ``dryrun.analytic_flops``' 6·N·D less the embedding's share
+    (a gather, no product), plus the forward that remat recomputes in
+    the blocks (2·N_blocks·D; the head is not recomputed), plus the
+    attention's two products over the whole L x L (the plain path masks,
+    it does not skip), once forward, twice backward, once more under
+    remat."""
+    import math
+    from repro_torch.launch.dryrun import analytic_flops
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import param_defs
+    leaves = _named_leaves(param_defs(cfg))
+    n_embed = math.prod(leaves["embed"].shape)
+    n_blocks = sum(math.prod(d.shape) for k, d in leaves.items()
+                   if k.startswith("blocks/"))
+    tokens = batch * seq
+    attn = (4.0 * batch * cfg.n_heads * seq * seq * cfg.head_dim
+            * cfg.n_layers)
+    return (analytic_flops(cfg, ShapeSpec("", seq, batch, "train"))
+            - 6.0 * n_embed * tokens
+            + (2.0 * n_blocks * tokens if remat else 0.0)
+            + (4 if remat else 3) * attn)
+
+
+def dryrun_phase(peaks, sharded) -> dict:
+    """Phase 5u, CPU work beside the card: no kernel, no launch.
+
+    (a) 5t's own cell counted by ``analyze_step`` on a fake world of one:
+    smollm-360m on the (1, 1) mesh, the sharded train step of 8 x 512 in
+    bf16 with f32 moments, ``impl="reference"``, under
+    ``FakeTensorMode``.  Its FLOPs must lie within FLOP_COUNT_TOL of
+    ``plain_train_flops`` (a counter that missed the backward, the
+    remat forward or the attention, or counted twice, falls outside),
+    and FLOPs / the bf16 peak must be at or under 5t's profiled device
+    time of the auto step (a counter that overcounts passes it).  Its
+    bound on this card, max(FLOPs / the bf16 peak, HBM bytes / the HBM
+    rate) (one rank: no collective term), is printed beside 5t's
+    measured sharded steps, gating nothing: the bytes are the plain
+    path's unfused ones, attention scores included, more than the
+    kernels' path moves.
+    (b) The CLI as a user runs it on a host without the card, one run
+    after the other once 5t has ended (nothing is timed meanwhile):
+    ``python -m repro_torch.launch.dryrun --arch smollm-360m`` with
+    ``--mesh single`` (train_4k, prefill_32k, decode_32k on 16x16) and
+    with ``--shape train_4k --mesh multi`` (2x16x16), a fake world of 512
+    ranks over fake tensors: each run exits 0, every record error-free
+    with hlo_flops > 0; then ``python -m repro_torch.launch.report`` over
+    the file, both tables holding a row for each cell.  Returns the
+    cells' records, the count and the bound."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.hw import MeshDescriptor
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_from_descriptor
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import make_plan
+    t_phase = time.perf_counter()
+    # (a) 5t's cell, here.
+    dryrun.fake_world(1)
+    desc = MeshDescriptor((1, 1), ("data", "model"))
+    cfg = get_config(LM_ARCH)
+    shape = ShapeSpec("5t train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    try:
+        _, st = dryrun.count_step(
+            cfg, shape, make_plan(cfg, shape, desc),
+            make_mesh_from_descriptor(desc, "cpu"), optimizer=AdamW())
+    finally:
+        dist.destroy_process_group()
+    count_s = time.perf_counter() - t_phase
+    want = plain_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                             remat=cfg.n_layers >= 16)
+    flop_ratio = st.flops / want
+    flop_ms = 1e3 * st.flops / peaks["bfloat16"]
+    byte_ms = 1e3 * st.hbm_bytes / peaks["hbm"]
+    bound = max(flop_ms, byte_ms)
+    measured = {k: v["ms"] for k, v in sharded["steps"].items()}
+    profile = (sharded.get("profiles") or [None])[0]
+    device_ms = profile["device_ms"] if profile else None
+    print(f"5u 5t's cell counted in {count_s:.1f} s: {st.flops:.4e} FLOPs "
+          f"({flop_ratio:.4f} x the {want:.4e} of plain_train_flops, "
+          f"within {FLOP_COUNT_TOL}), {st.hbm_bytes:.4e} HBM bytes, "
+          f"collectives {st.coll_counts} ({st.coll_link_bytes:.0f} link "
+          f"bytes), memory {st.memory}; on this card FLOPs / bf16 peak "
+          f"{flop_ms:.2f} ms against 5t's profiled auto step "
+          + (f"{device_ms:.2f} ms of device time" if device_ms
+             else "(not measured: the profiler saw no device time)")
+          + f"; bound max(FLOPs, bytes) {bound:.2f} ms (bytes "
+          f"{byte_ms:.2f}, the plain path's unfused), 5t's sharded "
+          "steps, ms / bound: " + "; ".join(
+              f"{k} " + ", ".join(f"{t:.2f} / {t / bound:.2f}" for t in v)
+              for k, v in measured.items()), flush=True)
+    if abs(flop_ratio - 1.0) > FLOP_COUNT_TOL:
+        fail(f"5u: the counted FLOPs of 5t's cell are {flop_ratio:.4f} x "
+             f"plain_train_flops, outside 1 +- {FLOP_COUNT_TOL}")
+    if device_ms is None:
+        fail("5u: 5t's profiled step has no device time to hold the "
+             "counted FLOPs against")
+    if flop_ms > device_ms:
+        fail(f"5u: the counted FLOPs take {flop_ms:.2f} ms at the bf16 "
+             f"peak, more than 5t's profiled {device_ms:.2f} ms")
+    # (b) the CLI, one run after the other, then the report.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5u_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = os.path.join(tmp, "dryrun_results.jsonl")
+    t_cells = time.perf_counter()
+    try:
+        for extra in DRYRUN_RUNS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", LM_ARCH, *extra, "--out", out]
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=DRYRUN_TIMEOUT)
+            print(f"5u dryrun {' '.join(extra)}: rc {run.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s\n"
+                  + (run.stdout + run.stderr).strip(), flush=True)
+            if run.returncode != 0:
+                fail(f"5u: the dry-run {' '.join(extra)} exited "
+                     f"{run.returncode}")
+        cells_s = time.perf_counter() - t_cells
+        with open(out) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        rows = [r for r in records if not r.get("skipped")]
+        skipped = []                # each run writes the arch's skips
+        for r in records:
+            if r.get("skipped") and r not in skipped:
+                skipped.append(r)
+        with open(out, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows + skipped)
+        bad = [r for r in rows if "error" in r or not r.get("hlo_flops", 0) > 0]
+        if len(rows) != DRYRUN_CELLS or bad:
+            fail(f"5u: {len(rows)} records for {DRYRUN_CELLS} cells, "
+                 f"errors or no FLOPs in {bad}")
+        rep = subprocess.run([sys.executable, "-m", "repro_torch.launch.report",
+                              out], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=120)
+        print(f"5u report (rc {rep.returncode}):\n{rep.stdout}{rep.stderr}",
+              flush=True)
+        n_rows = sum(line.startswith(f"| {LM_ARCH} |")
+                     for line in rep.stdout.splitlines())
+        if rep.returncode != 0 or n_rows != 2 * DRYRUN_CELLS:
+            fail(f"5u: the report exited {rep.returncode} with {n_rows} "
+                 f"rows, want {2 * DRYRUN_CELLS}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in rows:
+        m = r["memory_analysis"]
+        print(f"5u {r['arch']} {r['shape']} {r['mesh']} ({r['strategy']}, "
+              f"{r['decisions'].get('layout', '-')}): traced "
+              f"{r['compile_s']} s; per rank {r['hlo_flops'] / r['chips']:.4e}"
+              f" FLOPs ({r['useful_ratio']:.4f} of them the model's), "
+              f"{r['hlo_bytes'] / r['chips']:.4e} HBM bytes, "
+              f"{r['coll_link_bytes_per_chip']:.4e} link bytes "
+              f"{r['coll_counts']}; arguments "
+              f"{m['argument_size_in_bytes'] / 1e9:.3f} GB, temporaries "
+              f"{m['temp_size_in_bytes'] / 1e9:.3f} GB", flush=True)
+    stats = {"rows": rows, "flops": st.flops, "flop_ratio": flop_ratio,
+             "bound_ms": bound, "flop_ms": flop_ms, "byte_ms": byte_ms,
+             "measured_ms": measured, "device_ms": device_ms,
+             "count_s": count_s, "cells_s": cells_s,
+             "seconds": time.perf_counter() - t_phase}
+    print(f"5u: 5t's cell counted in {count_s:.1f} s, {len(rows)} dry-run "
+          f"cells in {cells_s:.1f} s; phase {stats['seconds']:.1f} s",
+          flush=True)
+    return stats
+
+
 def lap(label: str) -> None:
     """Print the seconds since the script started, at the end of the
     phases ``label`` names: the script against its time limit."""
     print(f"[chip_smoke] {label}: {time.perf_counter() - START:.1f} s",
+          flush=True)
+
+
+def took(label: str, t0: float) -> None:
+    """Print the seconds a part of a phase took since ``t0``: where the
+    script's time goes inside a phase."""
+    print(f"[chip_smoke] {label} took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
@@ -5960,9 +6175,11 @@ def main() -> int:
     smoke_launches = train_smoke(device)
     train_launches, train_stats = train_lm(device, bwd_row)
     lap("5f")
-    family = {label: serve_family(label, arch) for label, arch in (
-        ("5g zamba2-7b", "zamba2-7b"), ("5h rwkv6-7b", "rwkv6-7b"))}
-    lap("5g, 5h")
+    family = {}
+    for label, arch in (("5g zamba2-7b", "zamba2-7b"),
+                        ("5h rwkv6-7b", "rwkv6-7b")):
+        family[label] = serve_family(label, arch)
+        lap(label[:2])
     moe_launches, moe_stats = serve_family(f"5j {MOE_ARCH}", MOE_ARCH)
     lap("5j")
     moe_train_launches, moe_train = train_moe(device, g_bwd_row)
@@ -5973,12 +6190,14 @@ def main() -> int:
     lap("5m")
     vlm_launches, vlm_stats = serve_vlm(device)
     lap("5o")
-    fam_train = {label: train_family(label, arch, device, depth)
-                 for label, arch, depth in FAMILY_TRAIN}
-
-    lap("5p-5s")
+    fam_train = {}
+    for label, arch, depth in FAMILY_TRAIN:
+        fam_train[label] = train_family(label, arch, device, depth)
+        lap(label)
     sharded_launches, sharded = sharded_phase(device, train_stats)
     lap("5t")
+    dryrun_phase(peaks, sharded)
+    lap("5u")
     tick = {}
     for kname, label in (("conv2d_virtual", "alexnet-owt"),
                          ("matmul", "alexnet-owt"),

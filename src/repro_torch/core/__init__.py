@@ -10,9 +10,11 @@ so a Program compiled here lists byte for byte like ``repro``'s.
 and the int8 half the paged KV pools use.  ``cost`` (the measured cost
 model) and ``autotune`` (stage 7: trace, calibrate, replay, pin) are
 the reference's, with the device's clock on the card; they are
-imported as submodules (``autotune`` reaches the executor).
-``roofline`` and ``hlo_analysis`` are not carried yet: they are the
-dry-run tooling of ROADMAP A.12 (b).
+imported as submodules (``autotune`` reaches the executor).  So are
+the dry-run's: ``roofline`` (the reference's three-term roofline and
+ring-algorithm link bytes) and ``step_analysis``, which stands where
+the reference's ``hlo_analysis`` does and counts one eager call of a
+step in place of parsing HLO.
 """
 from .hw import (HardwareModel, MeshDescriptor, MULTI_POD, SINGLE_POD,
                  SNOWFLAKE, TPU_V5E)

@@ -24,17 +24,20 @@ def mamba2_scan_ref(x, dt, A, B, C, *, D_skip=None, h0=None,
                     return_state: bool = False):
     """x: (Bt, L, H, P); dt: (Bt, L, H); A: (H,); B, C: (Bt, L, N).
     Returns y (Bt, L, H, P) [and final state (Bt, H, N, P)].  The
-    sequential oracle: every step in f32, y rounded once."""
+    sequential oracle: every step in f32, y rounded once.  Every step's
+    decay and input term (elementwise, no sum) are computed for all steps
+    before the loop, which keeps the state update and the output sum: the
+    same values as a step at a time, in 3 launches a step, at the cost
+    of a (Bt, L, H, N, P) f32 temporary."""
     Bt, L, H, P = x.shape
     N = B.shape[-1]
     xf, dtf, Bf, Cf, Af = x.float(), dt.float(), B.float(), C.float(), A.float()
+    decay = torch.exp(Af[None, None, :] * dtf)[..., None, None]  # (Bt,L,H,1,1)
+    dBx = torch.einsum("bln,blhp->blhnp", Bf, xf * dtf[..., None])
     h = _h_init(h0, Bt, H, N, P, x.device)
     ys = []
     for t in range(L):
-        decay = torch.exp(Af[None, :] * dtf[:, t])                 # (Bt, H)
-        dBx = torch.einsum("bn,bhp->bhnp", Bf[:, t],
-                           xf[:, t] * dtf[:, t, :, None])
-        h = h * decay[..., None, None] + dBx                       # (Bt,H,N,P)
+        h = h * decay[:, t] + dBx[:, t]                            # (Bt,H,N,P)
         ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
     y = torch.stack(ys, 1)
     if D_skip is not None:

@@ -14,8 +14,11 @@ axes (one group per such set, made by every rank in the same order, as
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
@@ -83,8 +86,10 @@ def distribute(full: torch.Tensor, mesh, spec: P) -> DTensor:
     dt = distribute_tensor(full, mesh, placements(spec, mesh),
                            src_data_rank=None)
     local = dt.to_local()
-    if local.untyped_storage().data_ptr() == \
+    if is_fake(local) or local.untyped_storage().data_ptr() == \
             full.untyped_storage().data_ptr():
+        # A fake tensor has no storage to share; its block is a new
+        # tensor, like the copy of a real one.
         dt = from_local(local.clone(), mesh, spec)
     return dt
 
@@ -140,15 +145,34 @@ def mesh_group(mesh, names) -> dist.ProcessGroup | None:
         return mesh.get_group(names[0])
     key = (id(mesh), names)
     if key not in _GROUPS:
-        dims = [mesh.mesh_dim_names.index(n) for n in names]
-        rest = [d for d in range(mesh.ndim) if d not in dims]
-        n = 1
-        for d in dims:
-            n *= mesh.shape[d]
-        sub = mesh.mesh.permute(*rest, *dims).reshape(-1, n)
-        group, _ = dist.new_subgroups_by_enumeration(sub.tolist())
+        group, _ = dist.new_subgroups_by_enumeration(
+            _rank_lists(mesh, names))
         _GROUPS[key] = (mesh, group)
     return _GROUPS[key][1]
+
+
+def _rank_lists(mesh, names: tuple) -> list:
+    """The ranks of every group along the mesh axes ``names``, each in
+    the block order of ``names``, the groups in the order of the other
+    axes' coordinates: plain Python on the mesh's rank list (no tensor
+    op, so a fake tensor mode cannot intercept it)."""
+    dims = [mesh.mesh_dim_names.index(n) for n in names]
+    rest = [d for d in range(mesh.ndim) if d not in dims]
+    ranks = mesh.mesh.tolist()
+    out = []
+    for outer in itertools.product(*(range(mesh.shape[d]) for d in rest)):
+        group = []
+        for inner in itertools.product(*(range(mesh.shape[d])
+                                         for d in dims)):
+            coord = [0] * mesh.ndim
+            for d, i in zip(rest + dims, outer + inner):
+                coord[d] = i
+            r = ranks
+            for i in coord:
+                r = r[i]
+            group.append(r)
+        out.append(group)
+    return out
 
 
 def group_size_rank(group) -> tuple[int, int]:
