@@ -360,15 +360,22 @@ exits non-zero before the last line is printed.  Phases:
       SyntheticLM batches; every leaf a DTensor), each bit for bit
       against ``build_train_step`` run eagerly from the same params
       (loss, grad norm, lr, every param and moment leaf); one sharded
-      prefill (8 x 512) and 8 sharded decode steps bit for bit against
-      the legacy ``forward(return_cache)`` and ``decode_step``; both
-      ring collective matmuls at the group of one at smollm's w_up
-      shape (4096 x 960 x 2560, bf16) through the matmul kernel against
-      the plain matmul at 2^-7; exactly 3 x 2 x 64 + 2 x 32 flash forward,
-      3 x 2 x 32 backward (all on mma), 8 x 32 decode and 2 matmul
-      launches on the sharded paths; the NCCL init time, each step's ms
-      beside the eager single-device step's and 5f's, the prefill and
-      decode ms; then ``destroy_process_group()``;
+      prefill (8 x 512) and 8 sharded decode steps under each of tp,
+      fsdp and auto, bit for bit against the legacy
+      ``forward(return_cache)`` and ``decode_step``: tp and auto go
+      through the split code (``parallel/split.py``) at a group of one,
+      its counters read (tp: whole heads; auto's mixed plan at (1, 1)
+      puts no weight on "model"), fsdp (its rows on "model") through the
+      weight-gathered path, nothing counted; both ring collective
+      matmuls at the group of one at smollm's w_up shape (4096 x 960 x
+      2560, bf16) through the matmul kernel against the plain matmul at
+      2^-7; exactly 3 x 2 x 64 + 3 x 2 x 32 flash forward, 3 x 2 x 32
+      backward (all on mma), 3 x 8 x 32 decode and 2 matmul launches on
+      the sharded paths; the NCCL init time, each step's ms beside the
+      eager single-device step's and 5f's, the prefill and decode ms
+      (the weight-gathered path less the split one, the split one less
+      the legacy one), one fsdp prefill and decode step profiled and
+      their memory; then ``destroy_process_group()``;
    u. the dry-run tooling (``dryrun_phase``), no kernel, after 5t:
       5t's own cell counted by ``core/step_analysis.py::analyze_step``
       on a fake world of one, its FLOPs within FLOP_COUNT_TOL of
@@ -376,12 +383,27 @@ exits non-zero before the last line is printed.  Phases:
       at the bf16 peak, at or under 5t's profiled device time; its bound
       max(FLOPs / the bf16 peak, HBM bytes / the HBM rate) printed beside
       5t's measured steps; then ``python -m repro_torch.launch.dryrun
-      --arch smollm-360m`` with ``--mesh single`` (train_4k, prefill_32k,
-      decode_32k on 16x16) and ``--shape train_4k --mesh multi``, one
-      run after the other (a fake world of 512 ranks, fake tensors, the
-      CPU), every record error-free with FLOPs, and ``python -m
+      --arch smollm-360m`` once a cell, the four processes at once:
+      train_4k, prefill_32k, decode_32k on 16x16 and train_4k on
+      2x16x16 (a fake world of 512 ranks, fake tensors, the CPU), every
+      record error-free with FLOPs, and ``python -m
       repro_torch.launch.report`` over them rendering a row for each in
       both tables;
+   v. the split prefill and decode (``split_phase``), after 5u, in a
+      subprocess (``split_child``): a fake process group of 5 ranks on
+      the card (``launch/dryrun.fake_world``; all_reduce, all_gather and
+      all_to_all_single first tried on CUDA tensors) and a (1, 5)
+      ("data", "model") mesh; rank 0's blocks of seeded full-width
+      smollm-360m (32 layers, bf16; 5 divides its 15 / 5 heads) under tp
+      and auto: one prefill of 8 x 512 and 8 decode steps on its cache,
+      every flash launch at (8, 3/1, 512, 64) and decode launch at (8
+      slots, 3/1 x 64, cache 512) held to its plain version on the same
+      inputs at 2^-7, exactly 32 flash and 256 decode launches and the
+      split's counters a strategy; rank 0's prefill and decode ms,
+      device ms and memory beside 5t's, and one launch of each kernel at
+      the shard shapes timed against its plain version, SDPA and its
+      bound (the collectives move nothing, so outputs are held on gloo
+      ranks by the CPU tests, not here);
    5b, 5g, 5h and 5l each end with a legacy leg (``legacy_leg``): the
    phase's first 8 prompts, cut to the shortest, through the phase's
    Program pair and 8 greedy ticks, then through the legacy ``forward
@@ -5668,6 +5690,9 @@ START = time.perf_counter()
 # Phase 5t: the sharded steps (``launch/steps.py::build_step``) on a
 # world-of-one NCCL mesh, smollm-360m at 5f's width, depth and batch.
 SHARDED_STEPS, SHARDED_DECODE = 2, 8
+# The serving strategies: tp and auto run the split path at a group of
+# one, fsdp (its rows on "model") the weight-gathered one.
+SHARDED_SERVING = ("tp", "fsdp", "auto")
 
 
 def sharded_phase(device, train_stats) -> tuple[dict, dict]:
@@ -5679,10 +5704,12 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
     ``build_train_step`` run eagerly (``executor.disable_graphs()``)
     from the same params: loss, grad norm, lr and every updated param
     and moment leaf, then one more step a side under the profiler
-    (auto); one sharded prefill (8 x 512; a second one timed) and
-    SHARDED_DECODE sharded decode steps under auto, bit for bit against
-    the legacy ``forward(return_cache)`` and ``decode_step`` on the same
-    cache;
+    (auto); under each of SHARDED_SERVING one sharded prefill (8 x 512;
+    a second one timed) and SHARDED_DECODE sharded decode steps, bit for
+    bit against the legacy ``forward(return_cache)`` and
+    ``decode_step`` on the same cache (tp and auto through the split
+    code at a group of one, its counters read; fsdp weight-gathered,
+    one call a side profiled and its peak memory read, for 5v);
     both ring collective matmuls at the group of one at smollm's w_up
     shape (M = 4096, K = 960, N = 2560, bf16), through the matmul
     kernel, against the plain matmul at 2^-7.  The launch and flash
@@ -5795,20 +5822,20 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
         del params, state, eager_state, full, bundle, eager
         torch.cuda.empty_cache()
 
-    # Prefill and decode under auto, against the legacy path.
+    # Prefill and decode under tp and auto (the split path at a group of
+    # one) and fsdp (its rows on "model": the weight-gathered path),
+    # against the legacy path.
+    from repro_torch.parallel.split import COUNTS as split_counts
     pshape = ShapeSpec("5t prefill", TRAIN_SEQ, TRAIN_BATCH, "prefill")
     dshape = ShapeSpec("5t decode", TRAIN_SEQ, TRAIN_BATCH, "decode")
-    pre = steps.build_step(cfg, pshape, make_plan(cfg, pshape, desc),
-                           mesh)
-    dec = steps.build_step(cfg, dshape, make_plan(cfg, dshape, desc), mesh)
     full = init_params(transformer.param_defs(cfg),
                        torch.Generator(device).manual_seed(SEED))
-    params = steps.distribute_tree(full, pre.specs["params"], mesh)
-    dparams = steps.distribute_tree(full, dec.specs["params"], mesh)
+    head = full["embed"].T if cfg.tie_embeddings else full["lm_head"]
     gen = torch.Generator(device).manual_seed(SEED + 5)
     toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
                          generator=gen, device=device)
-    head = full["embed"].T if cfg.tie_embeddings else full["lm_head"]
+    dtoks = [torch.randint(0, cfg.vocab, (TRAIN_BATCH,), generator=gen,
+                           device=device) for _ in range(SHARDED_DECODE)]
 
     def legacy_prefill():
         with torch.no_grad():
@@ -5816,40 +5843,103 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
                                       return_hidden=True,
                                       cache_len=TRAIN_SEQ)
         return out["hidden"][:, -1] @ head, out["cache"]
-    # Each side twice: the first call checked, the second timed (the
-    # first carries one-time costs).
-    (logits, cache), first_ms = synced(
-        lambda: pre.fn(params, {"tokens": toks}), True)
-    (want, wcache), _ = synced(legacy_prefill)
-    pre_ms = synced(lambda: pre.fn(params, {"tokens": toks}), True)[1]
-    legacy_ms = synced(legacy_prefill)[1]
-    ok_prefill = (_tree_equal(gather(logits), want)
-                  and _tree_equal(steps.gather_tree(cache), wcache))
-    dcache = steps.distribute_tree(wcache, dec.specs["cache"], mesh)
-    dec_ms, leg_ms, ok_decode = [], [], True
-    for i in range(SHARDED_DECODE):
-        t = torch.randint(0, cfg.vocab, (TRAIN_BATCH,), generator=gen,
-                          device=device)
-        (logits, dcache), ms_ = synced(
-            lambda: dec.fn(dparams, dcache, {"tokens": t}), True)
-        with torch.no_grad():
-            (want, wcache), lms = synced(lambda: transformer.decode_step(
-                full, wcache, t, cfg))
-        dec_ms.append(ms_)
-        leg_ms.append(lms)
-        ok_decode = ok_decode and _tree_equal(gather(logits), want)
-    ok_decode = ok_decode and _tree_equal(steps.gather_tree(dcache), wcache)
-    stats.update(prefill_ms=pre_ms, legacy_prefill_ms=legacy_ms,
-                 decode_ms=statistics.median(dec_ms[1:]),
-                 legacy_decode_ms=statistics.median(leg_ms[1:]))
-    print(f"5t prefill 8 x {TRAIN_SEQ} (auto): {pre_ms:.2f} ms sharded "
-          f"(the first call {first_ms:.2f}), {legacy_ms:.2f} ms legacy "
-          f"forward; logits and cache bit-equal "
-          f"{ok_prefill}; {SHARDED_DECODE} decode steps: sharded "
-          f"{[round(x, 2) for x in dec_ms]} ms, legacy "
-          f"{[round(x, 2) for x in leg_ms]} ms; logits and cache bit-equal "
-          f"{ok_decode}", flush=True)
-    del params, dparams, cache, dcache, wcache, full
+
+    def peak_gb(call):
+        """(GB allocated before ``call``, its peak GB above that)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        return (before / 1e9,
+                (torch.cuda.max_memory_allocated() - before) / 1e9)
+
+    ok_prefill = ok_decode = True
+    serving = {}
+    for strategy in SHARDED_SERVING:
+        pre = steps.build_step(cfg, pshape,
+                               make_plan(cfg, pshape, desc, strategy), mesh)
+        dec = steps.build_step(cfg, dshape,
+                               make_plan(cfg, dshape, desc, strategy), mesh)
+        params = steps.distribute_tree(full, pre.specs["params"], mesh)
+        dparams = steps.distribute_tree(full, dec.specs["params"], mesh)
+        split_counts.clear()
+        # Each side twice: the first call checked, the second timed (the
+        # first carries one-time costs).
+        (logits, cache), first_ms = synced(
+            lambda: pre.fn(params, {"tokens": toks}), True)
+        (want, wcache), _ = synced(legacy_prefill)
+        pre_ms = synced(lambda: pre.fn(params, {"tokens": toks}), True)[1]
+        legacy_ms = synced(legacy_prefill)[1]
+        ok_p = (_tree_equal(gather(logits), want)
+                and _tree_equal(steps.gather_tree(cache), wcache))
+        dcache = steps.distribute_tree(wcache, dec.specs["cache"], mesh)
+        dec_ms, leg_ms, ok_d = [], [], True
+        for t in dtoks:
+            (logits, dcache), ms_ = synced(
+                lambda: dec.fn(dparams, dcache, {"tokens": t}), True)
+            with torch.no_grad():
+                (want, wcache), lms = synced(lambda: transformer.decode_step(
+                    full, wcache, t, cfg))
+            dec_ms.append(ms_)
+            leg_ms.append(lms)
+            ok_d = ok_d and _tree_equal(gather(logits), want)
+        ok_d = ok_d and _tree_equal(steps.gather_tree(dcache), wcache)
+        ok_prefill, ok_decode = ok_prefill and ok_p, ok_decode and ok_d
+        counts = dict(split_counts)
+        # tp puts every class on "model" (whole heads at a group of one);
+        # auto's mixed plan on a (1, 1) mesh keeps every class on "data"
+        # (nothing forced onto an idle "model" axis): no split weight;
+        # fsdp's rows lie on "model": weight-gathered, nothing counted.
+        case = {"tp": "whole", "auto": "unsplit"}.get(strategy)
+        want_counts = {} if case is None else {
+            f"flash:{case}:15/5": 2 * L,
+            f"decode:{case}:15/5": SHARDED_DECODE * L}
+        if counts != want_counts:
+            fail(f"5t {strategy}: split counters {counts}, want "
+                 f"{want_counts}")
+        st = {"prefill_ms": pre_ms, "first_prefill_ms": first_ms,
+              "legacy_prefill_ms": legacy_ms,
+              "decode_ms": statistics.median(dec_ms[1:]),
+              "legacy_decode_ms": statistics.median(leg_ms[1:])}
+        if strategy == "fsdp":
+            # The weight-gathered path's device time and peak memory, one
+            # call a side, for 5v's rank to stand beside.
+            st["profiles"] = {
+                "prefill": profile_train(
+                    "5t weight-gathered prefill (fsdp)",
+                    lambda: pre.fn(params, {"tokens": toks}), pre_ms),
+                "decode": profile_train(
+                    "5t weight-gathered decode step (fsdp)",
+                    lambda: dec.fn(dparams, dcache, {"tokens": dtoks[0]}),
+                    st["decode_ms"])}
+            st["peak_gb"] = {
+                "prefill": peak_gb(lambda: pre.fn(params,
+                                                  {"tokens": toks})),
+                "decode": peak_gb(lambda: dec.fn(
+                    dparams, dcache, {"tokens": dtoks[0]}))}
+        serving[strategy] = st
+        print(f"5t prefill 8 x {TRAIN_SEQ} ({strategy}, "
+              f"{'split at a group of one' if case else 'weight-gathered'}"
+              f"): {pre_ms:.2f} ms sharded (the first call "
+              f"{first_ms:.2f}), {legacy_ms:.2f} ms legacy forward; logits "
+              f"and cache bit-equal {ok_p}; {SHARDED_DECODE} decode steps: "
+              f"sharded {[round(x, 2) for x in dec_ms]} ms, legacy "
+              f"{[round(x, 2) for x in leg_ms]} ms; logits and cache "
+              f"bit-equal {ok_d}; split counters {counts}", flush=True)
+        del params, dparams, cache, dcache, wcache, pre, dec
+    a, wg, tp = serving["auto"], serving["fsdp"], serving["tp"]
+    print(f"5t serving, the weight-gathered path (fsdp) less the split one "
+          f"(tp; no gather at a group of one), then the split one less the "
+          f"legacy path: prefill {wg['prefill_ms'] - tp['prefill_ms']:.2f} "
+          f"and {tp['prefill_ms'] - tp['legacy_prefill_ms']:.2f} ms, decode "
+          f"step {wg['decode_ms'] - tp['decode_ms']:.2f} and "
+          f"{tp['decode_ms'] - tp['legacy_decode_ms']:.2f} ms", flush=True)
+    stats.update(serving=serving, prefill_ms=a["prefill_ms"],
+                 legacy_prefill_ms=a["legacy_prefill_ms"],
+                 decode_ms=a["decode_ms"],
+                 legacy_decode_ms=a["legacy_decode_ms"])
+    del full
 
     # The ring collective matmuls at the group of one, smollm's w_up.
     group = mesh.get_group("model")
@@ -5879,9 +5969,10 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     dist.destroy_process_group()
     want = {k: 0 for k in counters}
-    want.update(flash_attention=2 * L * SHARDED_STEPS * 3 + 2 * L,
+    n_serving = len(SHARDED_SERVING)
+    want.update(flash_attention=2 * L * SHARDED_STEPS * 3 + 2 * n_serving * L,
                 flash_attention_bwd=L * SHARDED_STEPS * 3,
-                decode_attention=L * SHARDED_DECODE, matmul=2)
+                decode_attention=n_serving * L * SHARDED_DECODE, matmul=2)
     print(f"5t: NCCL init {init_s:.3f} s, destroy "
           f"{time.perf_counter() - t0:.3f} s; launches on the sharded "
           f"paths {launches}, want {want}", flush=True)
@@ -5903,7 +5994,12 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
 # Phase 5u: the dry-run tooling (``launch/dryrun.py``, ``launch/report.py``,
 # ``core/step_analysis.py``, ``core/roofline.py``): smollm-360m's cells
 # through the CLI, and 5t's own cell counted against the card.
-DRYRUN_RUNS = (("--mesh", "single"), ("--shape", "train_4k", "--mesh", "multi"))
+# One CLI process a cell, all four at once (CPU work; nothing is timed
+# meanwhile): train_4k, prefill_32k, decode_32k on 16x16; train_4k on
+# 2x16x16.
+DRYRUN_RUNS = tuple(("--shape", s, "--mesh", "single")
+                    for s in ("train_4k", "prefill_32k", "decode_32k")) + (
+    ("--shape", "train_4k", "--mesh", "multi"),)
 DRYRUN_CELLS = 4            # train_4k, prefill_32k, decode_32k; train_4k
 DRYRUN_TIMEOUT = 600        # seconds a CLI run may take
 # The counted FLOPs of 5t's cell against ``plain_train_flops``.
@@ -5951,14 +6047,15 @@ def dryrun_phase(peaks, sharded) -> dict:
     measured sharded steps, gating nothing: the bytes are the plain
     path's unfused ones, attention scores included, more than the
     kernels' path moves.
-    (b) The CLI as a user runs it on a host without the card, one run
-    after the other once 5t has ended (nothing is timed meanwhile):
-    ``python -m repro_torch.launch.dryrun --arch smollm-360m`` with
-    ``--mesh single`` (train_4k, prefill_32k, decode_32k on 16x16) and
-    with ``--shape train_4k --mesh multi`` (2x16x16), a fake world of 512
-    ranks over fake tensors: each run exits 0, every record error-free
-    with hlo_flops > 0; then ``python -m repro_torch.launch.report`` over
-    the file, both tables holding a row for each cell.  Returns the
+    (b) The CLI as a user runs it on a host without the card, once 5t
+    has ended (nothing is timed meanwhile), one process a cell, all at
+    once: ``python -m repro_torch.launch.dryrun --arch smollm-360m
+    --shape S --mesh single`` for train_4k, prefill_32k and decode_32k
+    (16x16) and ``--shape train_4k --mesh multi`` (2x16x16), a fake world
+    of 512 ranks over fake tensors: each run exits 0, every record
+    error-free with hlo_flops > 0; then ``python -m
+    repro_torch.launch.report`` over their records, both tables holding
+    a row for each cell.  Returns the
     cells' records, the count and the bound."""
     import shutil
     import tempfile
@@ -6014,28 +6111,32 @@ def dryrun_phase(peaks, sharded) -> dict:
     if flop_ms > device_ms:
         fail(f"5u: the counted FLOPs take {flop_ms:.2f} ms at the bf16 "
              f"peak, more than 5t's profiled {device_ms:.2f} ms")
-    # (b) the CLI, one run after the other, then the report.
+    # (b) the CLI, a process a cell, all at once; then the report.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_5u_")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="")
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     out = os.path.join(tmp, "dryrun_results.jsonl")
     t_cells = time.perf_counter()
+    procs = []
     try:
-        for extra in DRYRUN_RUNS:
+        for i, extra in enumerate(DRYRUN_RUNS):
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", LM_ARCH, *extra, "--out", out]
-            t0 = time.perf_counter()
-            run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                                 text=True, timeout=DRYRUN_TIMEOUT)
-            print(f"5u dryrun {' '.join(extra)}: rc {run.returncode} in "
-                  f"{time.perf_counter() - t0:.1f} s\n"
-                  + (run.stdout + run.stderr).strip(), flush=True)
-            if run.returncode != 0:
+                   "--arch", LM_ARCH, *extra, "--out", f"{out}.{i}"]
+            procs.append((extra, subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        records = []
+        for i, (extra, proc) in enumerate(procs):
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            print(f"5u dryrun {' '.join(extra)}: rc {proc.returncode} at "
+                  f"{time.perf_counter() - t_cells:.1f} s\n" + text.strip(),
+                  flush=True)
+            if proc.returncode != 0:
                 fail(f"5u: the dry-run {' '.join(extra)} exited "
-                     f"{run.returncode}")
+                     f"{proc.returncode}")
+            with open(f"{out}.{i}") as f:
+                records += [json.loads(line) for line in f if line.strip()]
         cells_s = time.perf_counter() - t_cells
-        with open(out) as f:
-            records = [json.loads(line) for line in f if line.strip()]
         rows = [r for r in records if not r.get("skipped")]
         skipped = []                # each run writes the arch's skips
         for r in records:
@@ -6058,6 +6159,10 @@ def dryrun_phase(peaks, sharded) -> dict:
             fail(f"5u: the report exited {rep.returncode} with {n_rows} "
                  f"rows, want {2 * DRYRUN_CELLS}")
     finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     for r in rows:
         m = r["memory_analysis"]
@@ -6079,6 +6184,269 @@ def dryrun_phase(peaks, sharded) -> dict:
           f"cells in {cells_s:.1f} s; phase {stats['seconds']:.1f} s",
           flush=True)
     return stats
+
+
+# Phase 5v: the split prefill and decode (``parallel/split.py``) as rank 0
+# of a fake world of SPLIT_WORLD ranks on the card, smollm-360m at full
+# width and depth: 5 divides its 15 query and 5 KV heads.
+SPLIT_WORLD = 5
+SPLIT_DECODE = 8
+SPLIT_TIMEOUT = 300         # seconds the subprocess may take
+SPLIT_HEADS = (15 // SPLIT_WORLD, 5 // SPLIT_WORLD)
+
+
+def split_child() -> int:
+    """5v's body, in a process of its own (one default process group a
+    process): a fake process group of SPLIT_WORLD ranks, this process
+    rank 0, on the card (``launch/dryrun.fake_world``: collectives return
+    at once and move nothing), and a (1, SPLIT_WORLD) ("data", "model")
+    mesh over it.  First the collectives the split uses, on CUDA tensors.
+    Then, under tp and auto, rank 0's blocks of seeded full weights
+    (``distribute_tree``: each rank cuts its own block, no communication)
+    through one prefill of 8 x 512 and SPLIT_DECODE decode steps on its
+    cache: every flash and decode launch held against its plain version
+    on the same inputs at 2^-7, its head counts read, the launches and
+    the split's counters exact; then the prefill and a decode step timed
+    again, profiled, and their peak memory.  Prints one RESULT_5V line;
+    returns 0."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.common import build_kernels
+    build_kernels()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.hw import MeshDescriptor
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_mesh_from_descriptor
+    from repro_torch.models import init_params, transformer
+    from repro_torch.parallel import make_plan
+    from repro_torch.parallel.split import COUNTS as split_counts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    peaks = PEAKS[torch.cuda.get_device_name(0)]
+    t0 = time.perf_counter()
+    dryrun.fake_world(SPLIT_WORLD)
+    n = SPLIT_WORLD
+    x = torch.ones(2 * n, device=device)
+    dist.all_reduce(x)
+    dist.all_gather([torch.empty_like(x) for _ in range(n)], x)
+    dist.all_to_all_single(torch.empty_like(x), x)
+    torch.cuda.synchronize()
+    print(f"5v the fake backend ({dist.get_backend()}, {n} ranks) took "
+          f"all_reduce, all_gather and all_to_all_single on CUDA tensors",
+          flush=True)
+    cfg = get_config(LM_ARCH)
+    L = cfg.n_layers
+    desc = MeshDescriptor((1, n), ("data", "model"))
+    mesh = make_mesh_from_descriptor(desc, "cuda")
+    init_s = time.perf_counter() - t0
+    counters = lm_counters()
+    gen = torch.Generator(device).manual_seed(SEED + 7)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=gen, device=device)
+    dtoks = [torch.randint(0, cfg.vocab, (TRAIN_BATCH,), generator=gen,
+                           device=device) for _ in range(SPLIT_DECODE)]
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
+    seen = {"flash_attention": Counter(), "decode_attention": Counter()}
+    first = {}
+
+    def held(name, orig):
+        """``orig`` (the kernel path on CUDA tensors), each call held
+        against its plain version on the same inputs."""
+        def call(*args, **kw):
+            out = orig(*args, **kw)
+            want = orig(*args, **{**kw, "impl": "reference"})
+            errs[name] = max(errs[name], max_err(out, want, BF16_TOL))
+            seen[name][(tuple(args[0].shape), tuple(args[1].shape))] += 1
+            first.setdefault(name, (args, kw))
+            return out
+        return call
+
+    def synced(call):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    def peak_gb(call):
+        """(GB allocated before ``call``, its peak GB above that)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        return (before / 1e9,
+                (torch.cuda.max_memory_allocated() - before) / 1e9)
+
+    launches = {k: 0 for k in counters}
+    result = {"init_s": init_s, "strategies": {}}
+    pshape = ShapeSpec("5v prefill", TRAIN_SEQ, TRAIN_BATCH, "prefill")
+    dshape = ShapeSpec("5v decode", TRAIN_SEQ, TRAIN_BATCH, "decode")
+    for strategy in ("tp", "auto"):
+        pre = steps.build_step(cfg, pshape,
+                               make_plan(cfg, pshape, desc, strategy), mesh)
+        dec = steps.build_step(cfg, dshape,
+                               make_plan(cfg, dshape, desc, strategy), mesh)
+        full = init_params(transformer.param_defs(cfg),
+                           torch.Generator(device).manual_seed(SEED))
+        params = steps.distribute_tree(full, pre.specs["params"], mesh)
+        dparams = steps.distribute_tree(full, dec.specs["params"], mesh)
+        del full
+        torch.cuda.empty_cache()
+        # The main path: the counts set to 0 (read as a difference) just
+        # before, read just after.
+        split_counts.clear()
+        before = {k: fn.launches for k, fn in counters.items()}
+        saved = transformer.flash_attention, transformer.decode_attention
+        transformer.flash_attention = held("flash_attention", saved[0])
+        transformer.decode_attention = held("decode_attention", saved[1])
+        try:
+            logits, cache = pre.fn(params, {"tokens": toks})
+            for t in dtoks:
+                logits, cache = dec.fn(dparams, cache, {"tokens": t})
+            torch.cuda.synchronize()
+        finally:
+            transformer.flash_attention, transformer.decode_attention = saved
+        got = {k: fn.launches - before[k] for k, fn in counters.items()}
+        counts = dict(split_counts)
+        for k in launches:
+            launches[k] += got[k]
+        local = logits.to_local()
+        if not torch.isfinite(local.float()).all():
+            fail(f"5v {strategy}: rank 0's logits are not finite")
+        want = {k: 0 for k in counters}
+        want.update(flash_attention=L, decode_attention=L * SPLIT_DECODE)
+        want_counts = {f"flash:whole:{SPLIT_HEADS[0]}/{SPLIT_HEADS[1]}": L,
+                       f"decode:whole:{SPLIT_HEADS[0]}/{SPLIT_HEADS[1]}":
+                       L * SPLIT_DECODE}
+        if got != want or counts != want_counts:
+            fail(f"5v {strategy}: launches {got}, split counters {counts}; "
+                 f"want {want}, {want_counts}")
+        _, pre_ms = synced(lambda: pre.fn(params, {"tokens": toks}))
+        dec_ms = statistics.median(
+            synced(lambda: dec.fn(dparams, cache, {"tokens": t}))[1]
+            for t in dtoks)
+        prof = {"prefill": profile_train(
+                    f"5v prefill ({strategy}, rank 0 of {n})",
+                    lambda: pre.fn(params, {"tokens": toks}), pre_ms),
+                "decode": profile_train(
+                    f"5v decode step ({strategy}, rank 0 of {n})",
+                    lambda: dec.fn(dparams, cache, {"tokens": dtoks[0]}),
+                    dec_ms)}
+        result["strategies"][strategy] = {
+            "prefill_ms": pre_ms, "decode_ms": dec_ms,
+            "device_ms": {k: v and v["device_ms"] for k, v in prof.items()},
+            "peak_gb": {
+                "prefill": peak_gb(lambda: pre.fn(params, {"tokens": toks})),
+                "decode": peak_gb(lambda: dec.fn(dparams, cache,
+                                                 {"tokens": dtoks[0]}))},
+            "logits_block": list(local.shape),
+            "cache_block": list(cache["k"].to_local().shape),
+            "launches": got, "counts": counts}
+        print(f"5v {strategy}: launches {got}, split counters {counts}; "
+              f"rank 0's logits block {list(local.shape)}, cache block "
+              f"{list(cache['k'].to_local().shape)}; prefill {pre_ms:.2f} "
+              f"ms, decode step {dec_ms:.2f} ms", flush=True)
+        del params, dparams, cache, logits, pre, dec
+    torch.cuda.empty_cache()
+    for name, shapes in seen.items():
+        print(f"5v {name} launch shapes (q, k) and calls: {dict(shapes)}; "
+              f"max |err| against the plain version {errs[name]:.3e} "
+              f"(tolerance {BF16_TOL})", flush=True)
+    # One launch of each at the rank's shard shapes, timed (the first
+    # call's inputs): kernel, plain version, SDPA, bound.
+    rows = {}
+    by = 2
+    (q, k, v), kw = first["flash_attention"]
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    scale = D ** -0.5
+    flops = 4 * D * H * B * S * (S + 1) // 2
+    nbytes = B * (by * D * (2 * H * S + 2 * KV * S) + 4 * H * S)
+    rows["flash_attention"] = {
+        "ms": time_ms(lambda: transformer.flash_attention(
+            q, k, v, causal=True, impl="cuda")),
+        "plain_ms": time_ms(lambda: transformer.flash_attention(
+            q, k, v, causal=True, impl="reference")),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True)),
+        "flop_ms": flops / peaks["bfloat16"] * 1e3,
+        "byte_ms": nbytes / peaks["hbm"] * 1e3,
+        "shape": [B, H, KV, S, D]}
+    (q, ck, cv), kw = first["decode_attention"]
+    kv_len = kw["kv_len"]
+    B, H, D = q.shape
+    KV, S = ck.shape[1], ck.shape[2]
+    live = int(kv_len.sum())
+    mask = (torch.arange(S, device=device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    rows["decode_attention"] = {
+        "ms": time_ms(lambda: transformer.decode_attention(
+            q, ck, cv, kv_len=kv_len, impl="cuda")),
+        "plain_ms": time_ms(lambda: transformer.decode_attention(
+            q, ck, cv, kv_len=kv_len, impl="reference")),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], ck, cv, attn_mask=mask, scale=scale,
+            enable_gqa=True)[:, :, 0]),
+        "flop_ms": 4 * D * H * live / peaks["bfloat16"] * 1e3,
+        "byte_ms": (by * (2 * q.numel() + 2 * KV * D * live) + 4 * B)
+        / peaks["hbm"] * 1e3,
+        "shape": [B, H, KV, S, D]}
+    for name, r in rows.items():
+        r["bound_ms"] = max(r["flop_ms"], r["byte_ms"])
+        print(f"5v {name} at the shard shape {r['shape']} (B, H, KV, S, D),"
+              f" bf16: ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
+              f"library_ms (SDPA) {r['library_ms']:.4f}, bound_ms "
+              f"{r['bound_ms']:.4f} ("
+              f"{'operations' if r['flop_ms'] >= r['byte_ms'] else 'bytes'})",
+              flush=True)
+    result.update(launches=launches, errs=errs, rows=rows,
+                  shapes={k: [list(map(list, s)) for s in v]
+                          for k, v in seen.items()})
+    print("RESULT_5V:" + json.dumps(result), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def split_phase(sharded) -> tuple[dict, dict]:
+    """Phase 5v: ``split_child`` in a subprocess while nothing else runs;
+    its output printed, rank 0's prefill and decode ms, device ms and
+    peak memory beside 5t's weight-gathered ones (fsdp: the whole model
+    on its world of one).
+    Returns (launches, the child's result)."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.split_child())"],
+        cwd=str(ROOT), capture_output=True, text=True,
+        timeout=SPLIT_TIMEOUT)
+    print(run.stdout + run.stderr[-4000:], flush=True)
+    line = [l for l in run.stdout.splitlines() if l.startswith("RESULT_5V:")]
+    if run.returncode != 0 or not line:
+        fail(f"5v: the split subprocess exited {run.returncode}")
+    res = json.loads(line[0][len("RESULT_5V:"):])
+    a = sharded["serving"]["fsdp"]
+    dev5t = {k: (a["profiles"][k] or {}).get("device_ms")
+             for k in ("prefill", "decode")}
+    fmt = lambda v: "not measured" if v is None else f"{v:.2f}"
+    gb = lambda v: f"{v[0]:.2f} + {v[1]:.3f}"
+    for strategy, st in res["strategies"].items():
+        print(f"5v {strategy} rank 0 of {SPLIT_WORLD} against 5t's world of "
+              f"one (fsdp, weight-gathered): prefill 8 x {TRAIN_SEQ} "
+              f"{st['prefill_ms']:.2f} / {a['prefill_ms']:.2f} ms, device "
+              f"{fmt(st['device_ms']['prefill'])} / {fmt(dev5t['prefill'])}"
+              f" ms, GB before + peak above {gb(st['peak_gb']['prefill'])} "
+              f"/ {gb(a['peak_gb']['prefill'])}; decode step "
+              f"{st['decode_ms']:.2f} / {a['decode_ms']:.2f} ms, device "
+              f"{fmt(st['device_ms']['decode'])} / {fmt(dev5t['decode'])} "
+              f"ms, GB {gb(st['peak_gb']['decode'])} / "
+              f"{gb(a['peak_gb']['decode'])}", flush=True)
+    took("5v", t0)
+    return res["launches"], res
 
 
 def lap(label: str) -> None:
@@ -6198,6 +6566,8 @@ def main() -> int:
     lap("5t")
     dryrun_phase(peaks, sharded)
     lap("5u")
+    split_launches, split = split_phase(sharded)
+    lap("5v")
     tick = {}
     for kname, label in (("conv2d_virtual", "alexnet-owt"),
                          ("matmul", "alexnet-owt"),
@@ -6377,7 +6747,8 @@ def main() -> int:
                 smoke_launches, train_launches, moe_launches,
                 moe_train_launches, w_launches, spec_launches,
                 tune_launches, vlm_launches] + [
-        launch for launch, _ in fam_train.values()] + [sharded_launches] + [
+        launch for launch, _ in fam_train.values()] + [
+        sharded_launches, split_launches] + [
         launch for launch, _ in list(paged.values()) + list(family.values())
     ] + [st["legacy"]["launches"] for st in (
         lm_stats, w_stats, *(st for _, st in family.values()))]
@@ -6390,6 +6761,7 @@ def main() -> int:
                    + ([bwd_row["max_abs_err"], g_bwd_row["max_abs_err"],
                        attn_bwd_err] if k == "flash_attention_bwd" else [])
                    + ([attn_fwd_err] if k == "flash_attention" else [])
+                   + ([split["errs"][k]] if k in split["errs"] else [])
                    + ([scan_train_err] if k in ("mamba2_scan", "wkv6")
                       else [])
                    + [r["max_abs_err"] for r in g_rows.values()

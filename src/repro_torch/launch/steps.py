@@ -34,17 +34,34 @@ every parameter and moment leaf is a ``DTensor`` under its spec
 (``parallel/placement.py``), and each rank runs the rows
 ``batch_pspecs`` fits for each input (all rows where the batch is left
 unsharded; the ranks along an axis that carries no batch run the same
-rows).  Execution in this slice is weight-gathered for every class: each
-leaf is gathered whole before the forward and freed after, the rank
-runs the single-device forward and backward on its rows (the card's
-kernels unchanged, on plain tensors), the gradients are averaged over
-the batch group, each rank keeps its block and AdamW updates the blocks
-(``AdamW.update(..., shards=)``).  So the ``mixed`` and ``tp`` layouts'
-activation-gathered classes (split over "model") and the
-``sequence_parallel`` prefill's sequence split run duplicated along
-"model": the results are the reference's, the compute is not split
-(ROADMAP A.12 c).  The steps run eagerly: no collective is captured in
-a CUDA graph.
+rows).
+
+The dense family's prefill and decode run split over "model" wherever
+the rank's rows do not lie on it (``tp``, and ``auto``'s ``mixed`` and
+``sequence_parallel`` layouts; not ``fsdp``, whose rows do): each leaf
+is gathered over the mesh axes of its spec other than "model" (the FSDP
+side: ``"embed": "data"``, the weight-gathered classes) and keeps its
+"model" block as stored; the forward runs the
+rank's columns, rows, heads and vocab rows through the ``Split`` it
+finds in the ``activation_rules`` context (``parallel/split.py``:
+column- and row-parallel projections, attention on the rank's heads
+through the kernels, the cache kept in its blocks, a vocab-parallel
+embedding and head); logits and caches come back as the rank's blocks
+under the reference's specs, with no gather.  A class the plan keeps
+off "model" (every class of the ``sequence_parallel`` prefill) runs as
+on one device.
+
+Everything else -- training, and every other family's prefill and
+decode -- is weight-gathered: each leaf is gathered whole before the
+forward and freed after, the rank runs the single-device forward (and
+backward) on its rows (the card's kernels unchanged, on plain tensors),
+the gradients are averaged over the batch group, each rank keeps its
+block and AdamW updates the blocks (``AdamW.update(..., shards=)``).
+There the ``mixed`` and ``tp`` layouts' activation-gathered classes,
+MoE's experts and the ``sequence_parallel`` prefill run duplicated
+along "model": the results are the reference's, the compute is not
+split (ROADMAP A.12 c).  The steps run eagerly: no collective is
+captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -63,8 +80,10 @@ from ..parallel.act_sharding import (ActivationRules, P, activation_rules,
                                      mesh_sizes)
 from ..parallel.placement import (axes_of, distribute, from_local, gather,
                                   gather_dim, group_size_rank, local_part,
-                                  mesh_group)
+                                  mesh_group, spec_of)
 from ..parallel.rules import ShardingPlan
+from ..parallel.split import COUNTS as SPLIT_COUNTS
+from ..parallel.split import Split
 from ..runtime import executor
 
 __all__ = ["AUX_LOSS_WEIGHT", "loss_and_grads", "build_train_step",
@@ -347,16 +366,42 @@ def _local(t):
     return t.to_local()
 
 
-def _to_spec(t, dim: int, have: tuple, spec: P, mesh):
+def _to_spec(t, dim: int, have: tuple, spec: P, mesh, local=()):
     """This rank's block under ``spec`` of a tensor of which ``t`` holds
     this rank's rows along ``dim``, rows split over the mesh axes
-    ``have``: a slice where ``spec`` splits the rows the same way, else
-    the rows of the batch group gathered first.  Returns a DTensor."""
+    ``have``, and already this rank's block along the dims ``local``: a
+    slice where ``spec`` splits the rows the same way, else the rows of
+    the batch group gathered first.  Returns a DTensor."""
+    done = set(local)
     if axes_of(spec[dim]) == have:
-        rest = P(*(None if d == dim else e for d, e in enumerate(spec)))
+        done.add(dim)
     else:
-        t, rest = gather_dim(t, dim, mesh_group(mesh, have)), spec
+        t = gather_dim(t, dim, mesh_group(mesh, have))
+    rest = P(*(None if d in done else e for d, e in enumerate(spec)))
     return from_local(local_part(t, mesh, rest).contiguous(), mesh, spec)
+
+
+def _split_block(t, mesh, rows: tuple, row_dim: int | None = None,
+                 count: str | None = None):
+    """A split step's operand from a DTensor: its "model" block as
+    stored (an entry that is "model" alone), the rank's rows along
+    ``row_dim`` (rows split over the mesh axes ``rows``), every other
+    dim gathered over the mesh axes its entry names (a group of one
+    moves nothing; ``count`` names the ``SPLIT_COUNTS`` entry a gather
+    adds to)."""
+    spec = spec_of(t)
+    out = t.to_local()
+    for d, e in enumerate(spec):
+        if e == "model" or (d == row_dim and axes_of(e) == rows):
+            continue
+        group = mesh_group(mesh, e)
+        if group_size_rank(group)[0] > 1:
+            out = gather_dim(out, d, group)
+            if count:
+                SPLIT_COUNTS[count] += 1
+    if row_dim is not None and axes_of(spec[row_dim]) != rows:
+        out = local_part(out, mesh, P(*[None] * row_dim, rows))
+    return out
 
 
 def _batch_average(leaves: list, group, n: int) -> list:
@@ -474,16 +519,38 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan,
     cache_abs = abstract_cache(cfg, shape.global_batch, shape.seq_len)
     c_specs = cache_pspecs(cache_abs, plan, sizes)
     specs.update(cache=c_specs, logits=logits_spec)
+    split = None
+    if cfg.family == "dense" and "model" in sizes and "model" not in rows:
+        split = Split(cfg, mesh, p_specs, c_specs["k"])
+        act_rules = ActivationRules(plan.act_specs, mesh, batch_axes=rows,
+                                    split=split)
+    # The dims on which a split step's outputs are already the rank's
+    # block: the vocab of a vocab-parallel head, the cache's KV heads or
+    # head_dim.
+    head_spec, vocab_dim = ((p_specs["embed"], 0) if cfg.tie_embeddings
+                            else (p_specs["lm_head"], 1))
+    local = {"logits": (1,) if split and head_spec[vocab_dim] == "model"
+             else (),
+             "kv": () if split is None else
+             tuple(d for d in (2, 4) if c_specs["k"][d] == "model")}
+    assert not local["logits"] or logits_spec[1] == "model", logits_spec
+
+    def params_of(params):
+        if split is None:
+            return gather_tree(params)
+        return _leafmap(lambda t: _split_block(t, mesh, rows), params)
 
     def outputs(logits, cache):
-        return (_to_spec(logits, 0, rows, logits_spec, mesh),
+        return (_to_spec(logits, 0, rows, logits_spec, mesh,
+                         local["logits"]),
                 {k: _to_spec(v, 0 if k == "pos" else 1, rows, c_specs[k],
-                             mesh) for k, v in cache.items()})
+                             mesh, () if k == "pos" else local["kv"])
+                 for k, v in cache.items()})
 
     if shape.kind == "prefill":
         @torch.no_grad()
         def prefill_step(params, batch):
-            full = gather_tree(params)
+            full = params_of(params)
             b = my_rows(batch)
             kw = {extra: b[extra]} if extra else {}
             with activation_rules(act_rules):
@@ -500,13 +567,20 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan,
         return StepBundle(prefill_step, (params_abs, batch_abs),
                           specs=specs, mesh=mesh)
 
+    def cache_of(cache):
+        if split is None:
+            return {k: local_part(gather(v), mesh,
+                                  P(*[None] * (k != "pos"), rows))
+                    for k, v in cache.items()}
+        return {k: _split_block(v, mesh, rows, 0 if k == "pos" else 1,
+                                None if k == "pos" else "cache_leaf_gather")
+                for k, v in cache.items()}
+
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        full = gather_tree(params)
+        full = params_of(params)
         b = my_rows(batch)
-        mine = {k: local_part(gather(v), mesh,
-                              P(*[None] * (k != "pos"), rows))
-                for k, v in cache.items()}
+        mine = cache_of(cache)
         with activation_rules(act_rules):
             logits, new = api.decode_step(full, mine, b["tokens"], cfg,
                                           impl=impl)

@@ -68,6 +68,7 @@ from ..kernels.common import apply_activation
 from ..kernels.decode_attention import (decode_attention, ring_kv_len,
                                         ring_positions)
 from ..kernels.flash_attention import flash_attention
+from ..parallel import split
 from ..runtime.executor import graphed_runner
 from .common import ParamDef, Rotary, apply_rope, layer_norm, rms_norm
 from .moe import moe_mlp
@@ -192,6 +193,14 @@ def _mm(a, b):
     return a @ b
 
 
+def _proj(x, p, name):
+    """``x @ p[name]`` (promoted as ``_mm``); under a sharded serving
+    step's split, the rank's columns or its reduced rows
+    (``parallel/split.py``)."""
+    sp = split.active()
+    return _mm(x, p[name]) if sp is None else sp.proj(x, p[name], name)
+
+
 def _attention(h, p, cfg, cos, sin, *, impl, causal=True, window=None,
                kv_override=None, return_kv=False):
     """Self- (or, with ``kv_override`` (B, Skv, D), cross-) attention on
@@ -199,17 +208,18 @@ def _attention(h, p, cfg, cos, sin, *, impl, causal=True, window=None,
     attention).  ``return_kv`` also returns the (B, KV, S, hd) K and V
     the attention read."""
     B, S, _ = h.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _heads(h @ p["wq"], H, hd)
+    H, KV = split.local_heads(cfg.n_heads, cfg.n_kv_heads, "flash")
+    hd = cfg.hd
+    q = _heads(_proj(h, p, "wq"), H, hd)
     src = h if kv_override is None else kv_override
-    k = _heads(_mm(src, p["wk"]), KV, hd)
-    v = _heads(_mm(src, p["wv"]), KV, hd)
+    k = _heads(_proj(src, p, "wk"), KV, hd)
+    v = _heads(_proj(src, p, "wv"), KV, hd)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         if kv_override is None:
             k = apply_rope(k, cos, sin)
     out = flash_attention(q, k, v, causal=causal, window=window, impl=impl)
-    out = out.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+    out = _proj(out.transpose(1, 2).reshape(B, S, H * hd), p, "wo")
     return (out, (k, v)) if return_kv else out
 
 
@@ -224,10 +234,10 @@ def _mlp(h, p, cfg):
                            capacity_factor=cfg.capacity_factor,
                            activation=cfg.activation, gated=cfg.gated_mlp)
         return out.reshape(B, S, D), aux
-    g = apply_activation(h @ p["w_gate"], cfg.activation)
+    g = apply_activation(_proj(h, p, "w_gate"), cfg.activation)
     if cfg.gated_mlp:
-        g = g * (h @ p["w_up"])
-    return g @ p["w_down"], {}
+        g = g * _proj(h, p, "w_up")
+    return _proj(g, p, "w_down"), {}
 
 
 def _block(h, p, cos, sin, *, cfg, impl, window, return_kv=False):
@@ -270,7 +280,7 @@ def forward(params, tokens, cfg: ArchConfig, *, vision_embeds=None,
     if per and vision_embeds is None:
         raise ValueError("vlm arch requires vision_embeds")
     B, S = tokens.shape
-    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    h = split.embed_rows(params["embed"], tokens).to(cfg.tdtype)
     cos, sin = Rotary(cfg.hd, cfg.rope_theta).freqs(
         torch.arange(S, device=tokens.device))
     block = functools.partial(_block, cfg=cfg, impl=impl,
@@ -295,8 +305,8 @@ def forward(params, tokens, cfg: ArchConfig, *, vision_embeds=None,
             out = block(h, p_i, cos, sin)
         h, aux = out[:2]
         if return_cache:
-            ks.append(out[2][0])
-            vs.append(out[2][1])
+            ks.append(split.kv_block(out[2][0]))
+            vs.append(split.kv_block(out[2][1]))
         if is_moe:
             auxs.append(aux)
     h = _norm(h, params, cfg, "final_norm")
@@ -805,17 +815,22 @@ def _attention_decode(h1, p, cfg, ck, cv, pos, cos, sin, *, impl):
     ``pos % S`` (the rolling window cache), then one decode-attention
     launch over the ring's live rows."""
     B, _ = h1.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, KV = split.local_heads(cfg.n_heads, cfg.n_kv_heads, "decode")
+    hd = cfg.hd
     S = ck.shape[2]
-    q = (h1 @ p["wq"]).reshape(B, H, hd)
-    k = (h1 @ p["wk"]).reshape(B, KV, hd)
-    v = (h1 @ p["wv"]).reshape(B, KV, hd)
+    q = _proj(h1, p, "wq").reshape(B, H, hd)
+    k = _proj(h1, p, "wk").reshape(B, KV, hd)
+    v = _proj(h1, p, "wv").reshape(B, KV, hd)
     if cos is not None:
         q = apply_rope(q, cos[:, None], sin[:, None])
         k = apply_rope(k, cos[:, None], sin[:, None])
-    ck, cv = _write_cache(ck, cv, k.to(ck.dtype), v.to(cv.dtype), pos % S)
-    out = decode_attention(q, ck, cv, kv_len=ring_kv_len(pos, S), impl=impl)
-    return out.reshape(B, H * hd) @ p["wo"], ck, cv
+    k, v = k.to(ck.dtype), v.to(cv.dtype)
+    vk, vv = _write_cache(split.kv_view(ck), split.kv_view(cv), k, v,
+                          pos % S)
+    out = decode_attention(q, vk, vv, kv_len=ring_kv_len(pos, S), impl=impl)
+    return (_proj(out.reshape(B, H * hd), p, "wo"),
+            split.kv_store(ck, vk, k, pos % S),
+            split.kv_store(cv, vv, v, pos % S))
 
 
 def decode_step(params, cache, tokens, cfg: ArchConfig, *,
@@ -827,7 +842,7 @@ def decode_step(params, cache, tokens, cfg: ArchConfig, *,
     it was (the reference's functional step)."""
     B = tokens.shape[0]
     pos = cache["pos"]
-    h = params["embed"][tokens.long()].to(cfg.tdtype)
+    h = split.embed_rows(params["embed"], tokens).to(cfg.tdtype)
     cos, sin = Rotary(cfg.hd, cfg.rope_theta).freqs(pos)   # (B, hd/2)
     groups = {g: {k: v.unbind(0) for k, v in params[g].items()}
               for g in ("blocks", "moe_blocks", "cross_blocks")

@@ -8,21 +8,22 @@ minor), normalised as JAX normalises its specs (an empty tuple is
 with the reference's.
 
 ``ActivationRules`` keeps the reference's spec-fixing arithmetic (trim
-to the array's rank, drop the entries the mesh does not divide).  Under
-the port's sharded steps (``launch/steps.py``) every rank holds the rows
-of its batch block, which is what every ``"hidden"`` spec says, so
-``shard_act`` returns its input unchanged: the models do not call it
-yet, and the split execution of the activation-gathered classes that
-would read these specs is ROADMAP A.12 (c).  The context
-``activation_rules`` installs is also how the MoE dispatch finds the
-mesh and the batch axes of the rank's rows (``models/moe.py``).
+to the array's rank, drop the entries the mesh does not divide).  The
+reference's ``shard_act`` constrains an activation to its spec for
+GSPMD; the port has no such hook: each rank runs its own body on its
+own blocks.  The context ``activation_rules`` installs is how the
+models find the sharded step they run in: the MoE dispatch reads the
+mesh and the batch axes of the rank's rows (``models/moe.py``), and the
+dense family's serving steps read the ``Split`` of their projections,
+heads and cache (``parallel/split.py``; None elsewhere, and training
+and the other families run weight-gathered, ROADMAP A.12 c).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 
-__all__ = ["P", "shard_act", "activation_rules", "ActivationRules",
+__all__ = ["P", "activation_rules", "ActivationRules",
            "data_shards", "mesh_sizes", "current_rules"]
 
 
@@ -65,11 +66,14 @@ class ActivationRules:
     """name -> P; unknown names pass through unsharded.  ``batch_axes``
     names the mesh axes the rank's rows are split over (the fitted batch
     spec's entry, ``()`` when every rank runs every row); None reads it
-    from the ``"hidden"`` spec."""
+    from the ``"hidden"`` spec.  ``split`` is the dense serving step's
+    ``parallel.split.Split``, or None."""
 
-    def __init__(self, specs: dict, mesh=None, batch_axes=None):
+    def __init__(self, specs: dict, mesh=None, batch_axes=None,
+                 split=None):
         self.specs = specs
         self.mesh = mesh
+        self.split = split
         if batch_axes is None:
             hidden = specs.get("hidden")
             batch_axes = hidden[0] if hidden else None
@@ -95,11 +99,6 @@ class ActivationRules:
             fixed.append(e if (total and dim % total == 0) else None)
         return P(*fixed)
 
-    def constrain(self, x, name: str):
-        """``x`` as it is: each rank already holds its block (see the
-        module docstring)."""
-        return x
-
 
 @contextlib.contextmanager
 def activation_rules(rules: ActivationRules | None):
@@ -112,13 +111,6 @@ def activation_rules(rules: ActivationRules | None):
 
 def current_rules() -> ActivationRules | None:
     return _CTX.get()
-
-
-def shard_act(x, name: str):
-    rules = _CTX.get()
-    if rules is None:
-        return x
-    return rules.constrain(x, name)
 
 
 def data_shards() -> int:

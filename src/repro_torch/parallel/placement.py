@@ -25,7 +25,8 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
 from .act_sharding import P
 
 __all__ = ["axes_of", "placements", "local_part", "distribute", "gather",
-           "gather_dim", "spec_of", "from_local", "mesh_group", "group_size_rank", "block_index"]
+           "gather_dim", "spec_of", "from_local", "mesh_group",
+           "mesh_subgroup", "group_size_rank", "block_index"]
 
 _GROUPS: dict = {}
 
@@ -147,6 +148,21 @@ def mesh_group(mesh, names) -> dist.ProcessGroup | None:
     if key not in _GROUPS:
         group, _ = dist.new_subgroups_by_enumeration(
             _rank_lists(mesh, names))
+        _GROUPS[key] = (mesh, group)
+    return _GROUPS[key][1]
+
+
+def mesh_subgroup(mesh, name: str, parts: int) -> dist.ProcessGroup:
+    """The group of the ranks in this rank's part when the ranks along
+    the mesh axis ``name`` are cut into ``parts`` runs of consecutive
+    coordinates (every rank makes every such group, in one order)."""
+    key = (id(mesh), name, parts)
+    if key not in _GROUPS:
+        lists = []
+        for ranks in _rank_lists(mesh, (name,)):
+            n = len(ranks) // parts
+            lists += [ranks[i * n:(i + 1) * n] for i in range(parts)]
+        group, _ = dist.new_subgroups_by_enumeration(lists)
         _GROUPS[key] = (mesh, group)
     return _GROUPS[key][1]
 

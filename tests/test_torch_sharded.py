@@ -1,7 +1,8 @@
 """The port's sharded train / prefill / decode steps
 (``launch/steps.py::build_step``) across 4 gloo ranks, on a (2, 2)
-("data", "model") and a (2, 1, 2) ("pod", "data", "model") mesh, held
-to ``repro``'s single-device functions (f32, within 1e-5).
+("data", "model"), a (2, 1, 2) ("pod", "data", "model") and a (1, 4)
+("data", "model") mesh, held to ``repro``'s single-device functions
+(f32, within 1e-5).
 
 The oracle: with equal batch blocks, the global mean cross-entropy plus
 ``AUX_LOSS_WEIGHT`` times the layer mean of the block-mean load-balance
@@ -15,14 +16,30 @@ every row), and the parameters and moments after the update must equal
 step of the grid or the next).
 Prefill and decode logits and caches must equal ``repro``'s legacy
 forward and decode step on the same rows.  Every parameter and moment
-leaf must be a DTensor under its spec's placements.
+leaf must be a DTensor under its spec's placements.  The dense family's
+prefill and decode under tp and auto run split over "model"
+(``parallel/split.py``): every rank writes the split's counters of each
+such case (``split.COUNTS``: the head case and head counts of its flash
+and decode launches, the weights gathered over "model", the cache
+exchanges), and they must be the case's expected ones, with no whole
+cache leaf gathered but where the cache spec spreads the KV heads over
+("data", "model") (one sequence on (2, 2): every rank runs it); every
+other family and fsdp run weight-gathered, with no split counted.
 
 Cases: smollm-360m smoke under tp, fsdp and auto on both meshes, with
 8-bit moments under tp (the row scale over a sharded last axis);
 granite-moe-1b-a400m smoke at 8 x 64 (256 tokens a data shard: the
 manual path; also under fsdp, where a block spans two ranks) and at
 2 x 64 (the global path); one train step each of zamba2-7b, rwkv6-7b
-and whisper-base smoke on (2, 2).  One world of ranks runs them all."""
+and whisper-base smoke on (2, 2); on (1, 4), a prefill and 2 decode steps
+on its cache of smollm-360m smoke (4 / 2 heads: each KV head shared by
+2 ranks, the cache split over head_dim, a vocab-parallel head) and of
+olmo-1b smoke (4 / 4: whole heads and cache blocks) under tp and auto,
+of smollm-360m smoke with 6 / 2 heads under tp (a block would cut a
+head: the attention weights gathered over "model", a whole cache layer
+gathered in decode), and of olmo-1b smoke with one sequence on (2, 2)
+under tp.  One world of ranks runs them all."""
+import dataclasses
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -48,12 +65,25 @@ from _torch_ranks import run_ranks  # noqa: E402
 TOL = 1e-5
 WORLD = 4
 MESHES = {"2x2": ((2, 2), ("data", "model")),
-          "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
+          "2x1x2": ((2, 1, 2), ("pod", "data", "model")),
+          "1x4": ((1, 4), ("data", "model"))}
 SEQ = 16          # smollm's rows (train and prefill); decode's cache
 PROMPT = 12       # decode: each sequence at a position below PROMPT
 DECODE_STEPS = 2
 CLI_ARGS = ["--arch", "smollm-360m", "--smoke", "--batch", "8", "--seq",
             str(SEQ), "--device", "cpu", "--lr", "3e-3"]
+
+# An arch name of a case that is an arch's smoke() config with fields
+# replaced, in both packages alike.
+VARIANTS = {"smollm-360m-6h": ("smollm-360m", {"n_heads": 6,
+                                               "n_kv_heads": 2})}
+
+
+def _jcfg(arch):
+    """The reference's smoke() config of a case's arch (``VARIANTS``)."""
+    name, fields = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(JREGISTRY[name].smoke(), **fields)
+
 
 # (id, kind, arch, mesh, strategy, state bits, global batch, seq)
 CASES = []
@@ -81,16 +111,60 @@ CASES += [
      "2x2", "auto", 32, 8, 64),
     ("granite-decode-global-auto-2x2", "decode", "granite-moe-1b-a400m",
      "2x2", "auto", 32, 8, 64),
-    # 2 x 16 a block: the shape at which tests/test_torch_train_recurrent.py
-    # holds the single-device port to repro at 1e-5 (at 2 x 32 zamba2's
-    # conv_w gradient differs from repro's by 2.2e-5 of its largest on
-    # one device already).
+    # zamba2 at 2 x 16 a block: at 2 x 32, with these inputs, the f32
+    # gradient of its first block is ill-conditioned (conv_w: repro's lies
+    # 3.4e-5 of its largest from a float64 run of the same computation,
+    # the port's 1.3e-5; tests/test_torch_f32_conditioning.py), so two f32
+    # computations differ by 2.2e-5 there, over the 1e-5 bar (ROADMAP C.4).
     ("zamba2-auto-2x2", "train", "zamba2-7b", "2x2", "auto", 32, 4, 16),
-    ("rwkv6-auto-2x2", "train", "rwkv6-7b", "2x2", "auto", 32, 4, 16),
-    ("whisper-auto-2x2", "train", "whisper-base", "2x2", "auto", 32, 4, 16),
+    ("rwkv6-auto-2x2", "train", "rwkv6-7b", "2x2", "auto", 32, 4, 32),
+    ("whisper-auto-2x2", "train", "whisper-base", "2x2", "auto", 32, 4, 32),
 ]
+for _a in ("smollm-360m", "olmo-1b"):
+    for _s in ("tp", "auto"):
+        CASES.append((f"{_a.split('-')[0]}-serve-{_s}-1x4", "serve", _a,
+                      "1x4", _s, 32, 8, SEQ))
+# smollm-360m smoke with 6 / 2 heads of 16 on (1, 4): 4 does not divide
+# 6, but it divides the 96 columns, so a block would cut a head (the
+# "cut" case of smollm-360m's 15 heads on 4 or 16): wq / wk / wv are
+# gathered over "model", attention runs every head on each rank, wo takes
+# the rank's slice of every head's output, and the decode gathers each
+# layer of the head_dim-split cache whole.
+CASES.append(("smollm6h-serve-tp-1x4", "serve", "smollm-360m-6h", "1x4",
+              "tp", 32, 8, SEQ))
+# One sequence on (2, 2): every rank runs it, and the cache spec spreads
+# the KV heads over ("data", "model"), so the decode gathers each cache
+# leaf before the step (the one named exception).
+CASES.append(("olmo-serve-tp-2x2-b1", "serve", "olmo-1b", "2x2", "tp", 32,
+              1, SEQ))
+
+# The split's counters a (1, 4) serving case must give on every rank:
+# a prefill's (4 layers), then 2 decode steps' (smoke configs: 4 layers).
+_SHARED = {"model_gather:wk": 4, "model_gather:wv": 4, "kv_exchange": 8}
+_CUT = {"model_gather:wq": 4, "model_gather:wk": 4, "model_gather:wv": 4}
+_SHARED_DECODE = {"decode:shared_kv:1/1": 8, **{k: 2 * v for k, v in
+                                               _SHARED.items()}}
+SPLIT_EXPECT = {
+    "smollm-serve-tp-1x4": ({"flash:shared_kv:1/1": 4, **_SHARED},
+                            _SHARED_DECODE),
+    # auto's prefill here is the sequence_parallel layout: no weight on
+    # "model", so attention runs every head; its decode is mixed.
+    "smollm-serve-auto-1x4": ({"flash:unsplit:4/2": 4}, _SHARED_DECODE),
+    "olmo-serve-tp-1x4": ({"flash:whole:1/1": 4}, {"decode:whole:1/1": 8}),
+    "olmo-serve-auto-1x4": ({"flash:whole:1/1": 4},
+                            {"decode:whole:1/1": 8}),
+    # the cut case: wq / wk / wv gathered a layer, every head on each
+    # rank, the cache's head_dim blocks of a layer gathered for K and V
+    "smollm6h-serve-tp-1x4": (
+        {"flash:cut:6/2": 4, **_CUT},
+        {"decode:cut:6/2": 8, **{k: 2 * v for k, v in _CUT.items()},
+         "kv_layer_gather": 16}),
+    "olmo-serve-tp-2x2-b1": ({"flash:whole:2/2": 4},
+                             {"decode:whole:2/2": 8, "cache_leaf_gather": 4}),
+}
 
 RANK_SCRIPT = r"""
+import dataclasses
 import json
 import numpy as np
 from torch.distributed.tensor import DTensor
@@ -105,6 +179,7 @@ from repro_torch.parallel import make_plan
 from repro_torch.parallel.placement import from_local, gather, placements
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.launch import train
+from repro_torch.parallel.split import COUNTS
 
 cases = json.load(open(os.path.join(WORK, "cases.json")))
 meshes = {}
@@ -148,8 +223,9 @@ for case in cases:
         meshes[mname] = make_mesh_from_descriptor(
             MeshDescriptor(tuple(shape_m), tuple(axes)), "cpu")
     mesh = meshes[mname]
-    cfg = get_config(arch).smoke()
-    shape = ShapeSpec(cid, S, GB, kind)
+    name, fields = VARIANTS.get(arch, (arch, {}))
+    cfg = dataclasses.replace(get_config(name).smoke(), **fields)
+    shape = ShapeSpec(cid, S, GB, "prefill" if kind == "serve" else kind)
     plan = make_plan(cfg, shape, MeshDescriptor(tuple(shape_m),
                                                 tuple(axes)), strategy)
     arrs = dict(np.load(os.path.join(WORK, f"{cid}.in.npz")))
@@ -162,6 +238,8 @@ for case in cases:
     batch = {k[2:]: torch.from_numpy(v) for k, v in arrs.items()
              if k.startswith("b/")}
     out = {}
+    counts = []
+    COUNTS.clear()
     if kind == "train":
         state = steps.distribute_tree(opt.init(full), b.specs["opt_state"],
                                       mesh)
@@ -191,11 +269,30 @@ for case in cases:
                     **flat(steps.gather_tree(s2), "s")}
             out["ckpt_equal"] = torch.tensor(at == 1 and all(
                 torch.equal(back[k], out[k]) for k in back))
-    elif kind == "prefill":
+    elif kind in ("prefill", "serve"):
         logits, cache = b.fn(params, batch)
+        counts.append(dict(COUNTS))
         check_placed(cache, b.specs["cache"], mesh)
         out["logits"] = gather(logits)
-        out.update(flat(steps.gather_tree(cache), "c"))
+        out.update(flat(steps.gather_tree(cache), "c" if kind == "prefill"
+                        else "pc"))
+        if kind == "serve":
+            # 2 decode steps on the prefill's cache (its specs are the
+            # decode plan's: the same batch and "model" fits).
+            dshape = ShapeSpec(cid, S, GB, "decode")
+            db = steps.build_step(cfg, dshape, make_plan(
+                cfg, dshape, MeshDescriptor(tuple(shape_m), tuple(axes)),
+                strategy), mesh, impl="reference")
+            dparams = steps.distribute_tree(full, db.specs["params"], mesh)
+            check_placed(cache, db.specs["cache"], mesh)
+            COUNTS.clear()
+            for t in range(DECODE_STEPS):
+                logits, cache = db.fn(dparams, cache, {
+                    "tokens": torch.from_numpy(arrs[f"t{t}"])})
+                check_placed(cache, db.specs["cache"], mesh)
+                out[f"logits{t}"] = gather(logits)
+            counts.append(dict(COUNTS))
+            out.update(flat(steps.gather_tree(cache), "c"))
     else:
         cache = steps.distribute_tree(
             {k: torch.from_numpy(v) for k, v in unflat(arrs, "c/").items()},
@@ -205,7 +302,11 @@ for case in cases:
                                  {"tokens": torch.from_numpy(arrs[f"t{t}"])})
             check_placed(cache, b.specs["cache"], mesh)
             out[f"logits{t}"] = gather(logits)
+        counts.append(dict(COUNTS))
         out.update(flat(steps.gather_tree(cache), "c"))
+    if kind != "train":
+        with open(os.path.join(WORK, f"{cid}.counts{RANK}.json"), "w") as f:
+            json.dump(counts, f)
     if RANK == 0:
         np.savez(os.path.join(WORK, f"{cid}.out.npz"),
                  **{k: v.detach().float().numpy() if v.dtype == torch.bfloat16
@@ -274,7 +375,7 @@ def _numpy_init(defs, rng):
 def _params(arch):
     """Smoke params of ``arch`` drawn with numpy (one draw an arch)."""
     if arch not in _PARAMS:
-        jcfg = JREGISTRY[arch].smoke()
+        jcfg = _jcfg(arch)
         _PARAMS[arch] = _numpy_init(jget_model(jcfg).param_defs(jcfg),
                                     np.random.default_rng(0))
     return _PARAMS[arch]
@@ -285,7 +386,7 @@ def _inputs(case):
     a cache of random rows (every sequence at its own position) and the
     tokens of each step."""
     cid, kind, arch, _, _, _, GB, S = case
-    jcfg = JREGISTRY[arch].smoke()
+    jcfg = _jcfg(arch)
     api = jget_model(jcfg)
     rng = np.random.default_rng(sum(map(ord, cid)))
     arrs = {"p/" + k: v for k, v in _flat(_params(arch)).items()}
@@ -300,6 +401,10 @@ def _inputs(case):
                 np.int32)
         return arrs
     arrs["b/tokens"] = rng.integers(0, jcfg.vocab, (GB, S)).astype(np.int32)
+    if kind == "serve":
+        for t in range(DECODE_STEPS):
+            arrs[f"t{t}"] = rng.integers(0, jcfg.vocab, (GB,)).astype(
+                np.int32)
     if kind == "train":
         arrs["b/labels"] = rng.integers(0, jcfg.vocab, (GB, S)).astype(
             np.int32)
@@ -320,13 +425,14 @@ def world(tmp_path_factory):
     with open(os.path.join(work, "cases.json"), "w") as f:
         json.dump(CASES, f)
     script = (f"MESHES = {MESHES!r}\nDECODE_STEPS = {DECODE_STEPS}\n"
+              f"VARIANTS = {VARIANTS!r}\n"
               f"CLI_ARGS = {CLI_ARGS!r}\n" + RANK_SCRIPT)
     _, oracles = run_ranks(script, work, WORLD, timeout=400,
                            meanwhile=lambda: _all_oracles(inputs))
     outs = {c[0]: dict(np.load(os.path.join(work, f"{c[0]}.out.npz")))
             for c in CASES}
     outs["cli"] = json.load(open(os.path.join(work, "cli.json")))
-    return inputs, oracles, outs
+    return inputs, oracles, outs, work
 
 
 def _n_blocks(jcfg, case):
@@ -377,7 +483,7 @@ def _train_oracle(case, arrs):
     """The block oracle: (mean loss, mean imbalance or None, averaged
     gradients as a flat dict)."""
     cid, _, arch, _, _, _, GB, _ = case
-    jcfg = JREGISTRY[arch].smoke()
+    jcfg = _jcfg(arch)
     fn = _jit(("loss", arch), lambda: _jloss(jcfg))
     params = _params_of(arrs)
     batch = {k[2:]: v for k, v in arrs.items() if k.startswith("b/")}
@@ -410,7 +516,7 @@ def _prefill_oracle(case, arrs):
     """The legacy forward's last-position logits and cache, per MoE
     block where the manual path splits the rows."""
     cid, _, arch, _, _, _, GB, S = case
-    jcfg = JREGISTRY[arch].smoke()
+    jcfg = _jcfg(arch)
     api = jget_model(jcfg)
 
     def legacy(params, tokens):
@@ -436,7 +542,7 @@ def _prefill_oracle(case, arrs):
 def _decode_oracle(case, arrs):
     """DECODE_STEPS legacy decode steps on every row."""
     cid, _, arch, _, _, _, _, _ = case
-    jcfg = JREGISTRY[arch].smoke()
+    jcfg = _jcfg(arch)
     api = jget_model(jcfg)
     fn = _jit(("decode", arch), lambda: jax.jit(
         lambda p, c, t: api.decode_step(p, c, t, jcfg, impl="reference")))
@@ -450,8 +556,29 @@ def _decode_oracle(case, arrs):
     return out
 
 
+def _serve_oracle(case, arrs):
+    """The legacy forward's last-position logits and cache, then
+    DECODE_STEPS legacy decode steps on that cache."""
+    cid, _, arch, _, _, _, _, _ = case
+    out = _prefill_oracle(case, arrs)
+    cache = {k[2:]: jnp.asarray(v) for k, v in out.items()
+             if k.startswith("c/")}
+    out = {("p" + k if k.startswith("c/") else k): v
+           for k, v in out.items()}
+    jcfg = _jcfg(arch)
+    api = jget_model(jcfg)
+    fn = _jit(("decode", arch), lambda: jax.jit(
+        lambda p, c, t: api.decode_step(p, c, t, jcfg, impl="reference")))
+    params = _params_of(arrs)
+    for t in range(DECODE_STEPS):
+        logits, cache = fn(params, cache, jnp.asarray(arrs[f"t{t}"]))
+        out[f"logits{t}"] = np.asarray(logits)
+    out.update({"c/" + k: np.asarray(v) for k, v in cache.items()})
+    return out
+
+
 ORACLES = {"train": _train_oracle, "prefill": _prefill_oracle,
-           "decode": _decode_oracle}
+           "decode": _decode_oracle, "serve": _serve_oracle}
 
 
 def _all_oracles(inputs) -> dict:
@@ -485,7 +612,7 @@ def _get(tree, path):
 
 @pytest.mark.parametrize("case", _cases("train"))
 def test_sharded_train_step_matches_block_oracle(world, case):
-    inputs, oracles, outs = world
+    inputs, oracles, outs, _ = world
     cid, _, arch, _, _, bits, _, _ = case
     out = outs[cid]
     loss, imb, want_g = oracles[cid]
@@ -523,16 +650,55 @@ def test_sharded_train_step_matches_block_oracle(world, case):
 
 @pytest.mark.parametrize("case", _cases("prefill"))
 def test_sharded_prefill_matches_legacy_forward(world, case):
-    _, oracles, outs = world
+    _, oracles, outs, _ = world
     for k, w in oracles[case[0]].items():
         _close(outs[case[0]][k], w, (case[0], k))
 
 
 @pytest.mark.parametrize("case", _cases("decode"))
 def test_sharded_decode_matches_decode_step(world, case):
-    _, oracles, outs = world
+    _, oracles, outs, _ = world
     for k, w in oracles[case[0]].items():
         _close(outs[case[0]][k], w, (case[0], k))
+
+
+@pytest.mark.parametrize("case", _cases("serve"))
+def test_sharded_prefill_then_decode_matches_legacy(world, case):
+    """A split prefill on (1, 4), then 2 split decode steps on the
+    cache it returned, against the legacy forward and decode step."""
+    _, oracles, outs, _ = world
+    for k, w in oracles[case[0]].items():
+        _close(outs[case[0]][k], w, (case[0], k))
+
+
+@pytest.mark.parametrize("case", [pytest.param(c, id=c[0]) for c in CASES
+                                  if c[1] != "train"])
+def test_split_counters_on_every_rank(world, case):
+    """Each rank's split counters: a dense case under tp or auto ran
+    split (its head case and head counts a layer, exactly as
+    ``SPLIT_EXPECT`` says where it names the case) and gathered no whole
+    cache leaf but where ``SPLIT_EXPECT`` says so; fsdp and the other
+    families ran weight-gathered, with nothing counted."""
+    cid, kind, arch, mname, strategy = case[:5]
+    work = world[3]
+    jcfg = _jcfg(arch)
+    L = jcfg.n_layers
+    for rank in range(WORLD):
+        counts = json.load(open(os.path.join(work,
+                                             f"{cid}.counts{rank}.json")))
+        if jcfg.family != "dense" or strategy == "fsdp":
+            assert counts == [{}] * len(counts), (cid, rank, counts)
+            continue
+        if cid in SPLIT_EXPECT:
+            assert counts == list(SPLIT_EXPECT[cid]), (cid, rank, counts)
+        # a prefill's flash launches, then the decode steps'
+        want = {"prefill": [L], "decode": [L * DECODE_STEPS],
+                "serve": [L, L * DECODE_STEPS]}[kind]
+        for c, n in zip(counts, want, strict=True):
+            assert "cache_leaf_gather" not in c or cid in SPLIT_EXPECT, \
+                (cid, rank, c)
+            assert sum(v for k, v in c.items() if k.split(":")[0] in (
+                "flash", "decode")) == n, (cid, rank, c)
 
 
 @pytest.mark.parametrize("case", [c for c in _cases("train")
@@ -540,7 +706,7 @@ def test_sharded_decode_matches_decode_step(world, case):
 def test_sharded_checkpoint_round_trip(world, case):
     """Rank 0 writes the gathered DTensor state; a restore into DTensors
     of the same placements gives back every leaf bit for bit."""
-    _, _, outs = world
+    _, _, outs, _ = world
     assert bool(outs[case[0]]["ckpt_equal"]), case[0]
 
 
@@ -549,7 +715,7 @@ def test_cli_strategy_trains_resumes_and_matches_one_device(world, tmp_path):
     steps and a resume from their checkpoint to 3, gives the losses of
     the single-device CLI's 3 steps (within 1e-5)."""
     from repro_torch.launch import train
-    _, _, outs = world
+    _, _, outs, _ = world
     cli = outs["cli"]
     assert cli["mesh"] == [2, 2] and cli["layout"] is not None
     one = train.main(CLI_ARGS + ["--steps", "3", "--ckpt-dir",
