@@ -400,10 +400,14 @@ exits non-zero before the last line is printed.  Phases:
       slots, 3/1 x 64, cache 512) held to its plain version on the same
       inputs at 2^-7, exactly 32 flash and 256 decode launches and the
       split's counters a strategy; rank 0's prefill and decode ms,
-      device ms and memory beside 5t's, and one launch of each kernel at
-      the shard shapes timed against its plain version, SDPA and its
-      bound (the collectives move nothing, so outputs are held on gloo
-      ranks by the CPU tests, not here);
+      device ms and memory beside 5t's; then the split train step under
+      tp and auto (4 steps of 8 x 512), every flash forward launch held
+      at 2^-7 and every backward launch at one bf16 ulp plus the f32
+      bound of its sums, exactly 64 forward and 32 backward launches and
+      only all-reduces a step, timed, profiled and its memory read; and
+      one launch of each kernel at the shard shapes timed against its
+      plain version, SDPA and its bound (the collectives move nothing,
+      so outputs are held on gloo ranks by the CPU tests, not here);
    5b, 5g, 5h and 5l each end with a legacy leg (``legacy_leg``): the
    phase's first 8 prompts, cut to the shortest, through the phase's
    Program pair and 8 greedy ticks, then through the legacy ``forward
@@ -456,6 +460,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -5703,10 +5708,12 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
     x 512, SyntheticLM batches), each held bit for bit against
     ``build_train_step`` run eagerly (``executor.disable_graphs()``)
     from the same params: loss, grad norm, lr and every updated param
-    and moment leaf, then one more step a side under the profiler
-    (auto); under each of SHARDED_SERVING one sharded prefill (8 x 512;
-    a second one timed) and SHARDED_DECODE sharded decode steps, bit for
-    bit against the legacy ``forward(return_cache)`` and
+    and moment leaf (tp and auto through the split code at a group of
+    one, its counters read; fsdp weight-gathered), then one more step a
+    side under the profiler and one sharded step's resident and peak
+    memory (auto, for 5v); under each of SHARDED_SERVING one sharded
+    prefill (8 x 512; a second one timed) and SHARDED_DECODE sharded
+    decode steps, bit for bit against the legacy ``forward(return_cache)`` and
     ``decode_step`` on the same cache (tp and auto through the split
     code at a group of one, its counters read; fsdp weight-gathered,
     one call a side profiled and its peak memory read, for 5v);
@@ -5730,6 +5737,7 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
     from repro_torch.parallel import (all_gather_matmul, make_plan,
                                       matmul_reduce_scatter)
     from repro_torch.parallel.placement import gather
+    from repro_torch.parallel.split import COUNTS as split_counts
     from repro_torch.runtime import executor
     counters = lm_counters()
     cfg = get_config(LM_ARCH)
@@ -5764,6 +5772,16 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
                     got[k] += b[k] - a[k]
         return out, ms
 
+    def peak_gb(call):
+        """(GB allocated before ``call``, its peak GB above that)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        return (before / 1e9,
+                (torch.cuda.max_memory_allocated() - before) / 1e9)
+
     data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                        global_batch=TRAIN_BATCH, seed=0)
     batches = [{k: torch.from_numpy(v).to(device)
@@ -5783,13 +5801,25 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
         eager_state = opt.init(full)
         eager = steps.build_train_step(cfg, opt)
         ms, ems, metrics = [], [], []
+        split_counts.clear()
         for b in batches:
-            (_, _, m), t = synced(lambda: bundle.fn(params, state, b), True)
+            # The metrics alone are kept: a name left bound to the
+            # returned state would keep it alive past its ``del``.
+            m, t = synced(lambda: bundle.fn(params, state, b)[2], True)
             ms.append(t)
             with executor.disable_graphs():
-                (_, _, em), t = synced(lambda: eager(full, eager_state, b))
+                em, t = synced(lambda: eager(full, eager_state, b)[2])
             ems.append(t)
             metrics.append((m, em))
+        # tp and auto train through the split code at a group of one (no
+        # collective; the recompute under remat launches flash again),
+        # fsdp weight-gathered.
+        case = {"tp": "whole", "auto": "unsplit"}.get(strategy)
+        want_counts = {} if case is None else {
+            f"flash:{case}:15/5": 2 * L * SHARDED_STEPS}
+        if dict(split_counts) != want_counts:
+            fail(f"5t train {strategy}: split counters {dict(split_counts)}"
+                 f", want {want_counts}")
         ok_metrics = all(_tree_equal([m[k] for k in ("loss", "grad_norm",
                                                      "lr")],
                                      [em[k] for k in ("loss", "grad_norm",
@@ -5809,6 +5839,13 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
                     params, state, batches[0]), ms[-1]),
                 profile_train("5t eager single-device step", eager_step,
                               ems[-1]))
+            # Its resident and peak memory, for 5v's split train step,
+            # with the single-device params and state freed first.
+            del eager_state, eager, full
+            torch.cuda.empty_cache()
+            stats["train_gb"] = peak_gb(lambda: bundle.fn(
+                params, state, batches[0]))
+            full = eager_state = eager = None
         stats["steps"][strategy] = {
             "ms": ms, "eager_ms": ems,
             "layout": plan.decisions.get("layout", strategy),
@@ -5825,7 +5862,6 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
     # Prefill and decode under tp and auto (the split path at a group of
     # one) and fsdp (its rows on "model": the weight-gathered path),
     # against the legacy path.
-    from repro_torch.parallel.split import COUNTS as split_counts
     pshape = ShapeSpec("5t prefill", TRAIN_SEQ, TRAIN_BATCH, "prefill")
     dshape = ShapeSpec("5t decode", TRAIN_SEQ, TRAIN_BATCH, "decode")
     full = init_params(transformer.param_defs(cfg),
@@ -5843,16 +5879,6 @@ def sharded_phase(device, train_stats) -> tuple[dict, dict]:
                                       return_hidden=True,
                                       cache_len=TRAIN_SEQ)
         return out["hidden"][:, -1] @ head, out["cache"]
-
-    def peak_gb(call):
-        """(GB allocated before ``call``, its peak GB above that)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        call()
-        torch.cuda.synchronize()
-        return (before / 1e9,
-                (torch.cuda.max_memory_allocated() - before) / 1e9)
 
     ok_prefill = ok_decode = True
     serving = {}
@@ -6186,11 +6212,12 @@ def dryrun_phase(peaks, sharded) -> dict:
     return stats
 
 
-# Phase 5v: the split prefill and decode (``parallel/split.py``) as rank 0
-# of a fake world of SPLIT_WORLD ranks on the card, smollm-360m at full
-# width and depth: 5 divides its 15 query and 5 KV heads.
+# Phase 5v: the split prefill, decode and train step (``parallel/split.py``)
+# as rank 0 of a fake world of SPLIT_WORLD ranks on the card, smollm-360m
+# at full width and depth: 5 divides its 15 query and 5 KV heads.
 SPLIT_WORLD = 5
 SPLIT_DECODE = 8
+SPLIT_TRAIN_STEPS = 4       # 1 eager step, then 3 more, every launch held
 SPLIT_TIMEOUT = 300         # seconds the subprocess may take
 SPLIT_HEADS = (15 // SPLIT_WORLD, 5 // SPLIT_WORLD)
 
@@ -6207,20 +6234,34 @@ def split_child() -> int:
     cache: every flash and decode launch held against its plain version
     on the same inputs at 2^-7, its head counts read, the launches and
     the split's counters exact; then the prefill and a decode step timed
-    again, profiled, and their peak memory.  Prints one RESULT_5V line;
-    returns 0."""
+    again, profiled, and their peak memory.  The train leg, under tp and
+    auto: rank 0's blocks and f32 moments (5t's auto optimizer) through
+    SPLIT_TRAIN_STEPS train steps of 8 x 512 (SyntheticLM, 5t's
+    batches), every flash forward launch held against its plain version
+    at 2^-7 and every backward launch at one bf16 ulp plus the f32
+    bound (``max_err_ulp``, as phase 4's backward checks), the launches
+    and the split's counters exact (all-reduces only: a gather or
+    reduce-scatter on the fake group would leave its output unset), the
+    loss and every updated block finite; then 3 steps timed, one
+    profiled, its resident and peak memory.  Prints one RESULT_5V line; returns 0."""
     import torch
     import torch.distributed as dist
     import torch.nn.functional as F
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.common import build_kernels
     build_kernels()
+    from repro_torch.checkpoint.store import tree_leaves
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.core.hw import MeshDescriptor
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.bwd_kernel import (
+        flash_attention_bwd_plain)
     from repro_torch.launch import dryrun, steps
     from repro_torch.launch.mesh import make_mesh_from_descriptor
     from repro_torch.models import init_params, transformer
+    from repro_torch.optim import AdamW
     from repro_torch.parallel import make_plan
     from repro_torch.parallel.split import COUNTS as split_counts
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6249,8 +6290,10 @@ def split_child() -> int:
                          generator=gen, device=device)
     dtoks = [torch.randint(0, cfg.vocab, (TRAIN_BATCH,), generator=gen,
                            device=device) for _ in range(SPLIT_DECODE)]
-    errs = {"flash_attention": 0.0, "decode_attention": 0.0}
-    seen = {"flash_attention": Counter(), "decode_attention": Counter()}
+    names = ("flash_attention", "decode_attention", "flash_attention_bwd")
+    errs = {k: 0.0 for k in names}
+    seen = {k: Counter() for k in names}
+    bwd_seen = {"worst": 0.0, "want": 0.0}
     first = {}
 
     def held(name, orig):
@@ -6258,11 +6301,38 @@ def split_child() -> int:
         against its plain version on the same inputs."""
         def call(*args, **kw):
             out = orig(*args, **kw)
-            want = orig(*args, **{**kw, "impl": "reference"})
-            errs[name] = max(errs[name], max_err(out, want, BF16_TOL))
+            with torch.no_grad():
+                want = orig(*args, **{**kw, "impl": "reference"})
+                errs[name] = max(errs[name], max_err(out, want, BF16_TOL))
             seen[name][(tuple(args[0].shape), tuple(args[1].shape))] += 1
             first.setdefault(name, (args, kw))
             return out
+        return call
+
+    def held_bwd(orig):
+        """The backward kernel's wrapper, each call's (dq, dk, dv) held
+        against its plain version on the same inputs at one bf16 ulp plus
+        the f32 rounding bound of its sums, as ``check_flash_bwd``: the
+        gradients at this shape are near 1e-3, so an absolute 2^-7 would
+        pass zeros.  Keeps the largest |want| and the largest error over
+        its tolerance beside the largest error."""
+        name = "flash_attention_bwd"
+
+        def call(*args, **kw):
+            got = orig(*args, **kw)
+            with torch.no_grad():
+                want = flash_attention_bwd_plain(*args, **kw)
+                mags = bwd_magnitudes(*args, **kw)
+            slack = bwd_slack(args[1].shape[2], args[0].shape[-1])
+            for g, w, m in zip(got, want, mags):
+                err, worst = max_err_ulp(g, w, slack * m)
+                errs[name] = max(errs[name], err)
+                bwd_seen["worst"] = max(bwd_seen["worst"], worst)
+                bwd_seen["want"] = max(bwd_seen["want"],
+                                       w.float().abs().max().item())
+            seen[name][(tuple(args[0].shape), tuple(args[1].shape))] += 1
+            first.setdefault(name, (args, kw))
+            return got
         return call
 
     def synced(call):
@@ -6353,10 +6423,96 @@ def split_child() -> int:
               f"ms, decode step {dec_ms:.2f} ms", flush=True)
         del params, dparams, cache, logits, pre, dec
     torch.cuda.empty_cache()
+
+    # The train leg: 5t's batches, rank 0's blocks and f32 moments.
+    tshape = ShapeSpec("5v train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in data.batch_at(i).items()}
+               for i in range(SPLIT_TRAIN_STEPS)]
+    heads = f"{SPLIT_HEADS[0]}/{SPLIT_HEADS[1]}"
+    result["train"] = {}
+    for strategy in ("tp", "auto"):
+        plan = make_plan(cfg, tshape, desc, strategy)
+        opt = AdamW()
+        bundle = steps.build_step(cfg, tshape, plan, mesh, optimizer=opt)
+        full = init_params(transformer.param_defs(cfg),
+                           torch.Generator(device).manual_seed(SEED))
+        params = steps.distribute_tree(full, bundle.specs["params"], mesh)
+        state = steps.distribute_tree(opt.init(full),
+                                      bundle.specs["opt_state"], mesh)
+        del full
+        torch.cuda.empty_cache()
+        # The main path: the counts set to 0 (read as a difference) just
+        # before, read just after.
+        split_counts.clear()
+        before = {k: fn.launches for k, fn in counters.items()}
+        saved = transformer.flash_attention, flash_ops.flash_attention_bwd_cuda
+        transformer.flash_attention = held("flash_attention", saved[0])
+        flash_ops.flash_attention_bwd_cuda = held_bwd(saved[1])
+        try:
+            losses = [float(bundle.fn(params, state, b)[2]["loss"])
+                      for b in batches]
+            torch.cuda.synchronize()
+        finally:
+            transformer.flash_attention = saved[0]
+            flash_ops.flash_attention_bwd_cuda = saved[1]
+        got = {k: fn.launches - before[k] for k, fn in counters.items()}
+        counts = dict(split_counts)
+        for k in launches:
+            launches[k] += got[k]
+        # Per step, under remat: each layer's flash forward and its
+        # recompute, one backward; wo's and w_down's all-reduces and wo's
+        # again in the recompute (it stops before w_down's); the attention
+        # and MLP inputs' "to model" all-reduces.  49152 is no multiple
+        # of 5: the embedding and head stay whole, with no collective.
+        n_t = SPLIT_TRAIN_STEPS
+        want = {k: 0 for k in counters}
+        want.update(flash_attention=2 * L * n_t,
+                    flash_attention_bwd=L * n_t)
+        want_counts = {f"flash:whole:{heads}": 2 * L * n_t,
+                       "model_all_reduce:fwd": 3 * L * n_t,
+                       "model_all_reduce:bwd": 2 * L * n_t}
+        if got != want or counts != want_counts:
+            fail(f"5v train {strategy}: launches {got}, split counters "
+                 f"{counts}; want {want}, {want_counts}")
+        finite = all(math.isfinite(x) for x in losses) and all(
+            bool(torch.isfinite(getattr(t, "to_local", lambda: t)()
+                                .float()).all())
+            for t in tree_leaves((params, state)))
+        if not finite:
+            fail(f"5v train {strategy}: a loss or an updated block is not "
+                 f"finite: losses {losses}")
+        step_ms = [synced(lambda: bundle.fn(params, state, batches[0]))[1]
+                   for _ in range(3)]
+        ms = statistics.median(step_ms)
+        prof = profile_train(f"5v train step ({strategy}, rank 0 of {n})",
+                             lambda: bundle.fn(params, state, batches[0]),
+                             ms)
+        result["train"][strategy] = {
+            "ms": step_ms, "losses": losses, "launches": got,
+            "counts": counts, "device_ms": prof and prof["device_ms"],
+            "busy": prof and prof["busy"],
+            "groups": prof and prof["groups"],
+            "gb": peak_gb(lambda: bundle.fn(params, state, batches[0])),
+            "layout": plan.decisions.get("layout", strategy)}
+        print(f"5v train {strategy} "
+              f"({result['train'][strategy]['layout']}): losses "
+              f"{[round(x, 4) for x in losses]}; launches {got}, split "
+              f"counters {counts}; step ms {[round(t, 2) for t in step_ms]}"
+              f"; GB before + peak above "
+              f"{result['train'][strategy]['gb']}", flush=True)
+        del params, state, bundle
+        torch.cuda.empty_cache()
     for name, shapes in seen.items():
+        tol = (f"max |want| {bwd_seen['want']:.3e}; at most "
+               f"{bwd_seen['worst']:.3f} of its tolerance, one bf16 ulp + "
+               f"the f32 bound" if name == "flash_attention_bwd"
+               else f"tolerance {BF16_TOL}")
         print(f"5v {name} launch shapes (q, k) and calls: {dict(shapes)}; "
               f"max |err| against the plain version {errs[name]:.3e} "
-              f"(tolerance {BF16_TOL})", flush=True)
+              f"({tol})", flush=True)
     # One launch of each at the rank's shard shapes, timed (the first
     # call's inputs): kernel, plain version, SDPA, bound.
     rows = {}
@@ -6377,6 +6533,31 @@ def split_child() -> int:
         "flop_ms": flops / peaks["bfloat16"] * 1e3,
         "byte_ms": nbytes / peaks["hbm"] * 1e3,
         "shape": [B, H, KV, S, D]}
+    # The backward at the train leg's shard shape (its first call's
+    # inputs), bound as in ``check_flash_bwd``: q, k, v, out, dO and lse
+    # read once, dq, dk, dv written once; 5 products of 2 D FLOP per
+    # unmasked pair.  library_ms: SDPA's forward + backward less its
+    # forward.
+    (q, k, v, out, lse, do), kw = first["flash_attention_bwd"]
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    pairs = S * (S + 1) // 2
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa = lambda: F.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=kw["scale"], enable_gqa=True)
+    sdpa_ms = time_ms(sdpa)
+    rows["flash_attention_bwd"] = {
+        "ms": time_ms(lambda: flash_ops.flash_attention_bwd_cuda(
+            q, k, v, out, lse, do, **kw)),
+        "plain_ms": time_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, do, **kw)),
+        "library_ms": time_ms(
+            lambda: torch.autograd.grad(sdpa(), leaves, do)) - sdpa_ms,
+        "flop_ms": 5 * 2 * D * pairs * B * H / peaks["bfloat16"] * 1e3,
+        "byte_ms": (by * (4 * B * H * S * D + 4 * B * KV * S * D)
+                    + 4 * B * H * S) / peaks["hbm"] * 1e3,
+        "shape": [B, H, KV, S, D]}
+    del leaves
     (q, ck, cv), kw = first["decode_attention"]
     kv_len = kw["kv_len"]
     B, H, D = q.shape
@@ -6404,7 +6585,8 @@ def split_child() -> int:
               f"{r['bound_ms']:.4f} ("
               f"{'operations' if r['flop_ms'] >= r['byte_ms'] else 'bytes'})",
               flush=True)
-    result.update(launches=launches, errs=errs, rows=rows,
+    result.update(launches=launches, errs=errs, bwd_held=bwd_seen,
+                  rows=rows,
                   shapes={k: [list(map(list, s)) for s in v]
                           for k, v in seen.items()})
     print("RESULT_5V:" + json.dumps(result), flush=True)
@@ -6416,7 +6598,8 @@ def split_phase(sharded) -> tuple[dict, dict]:
     """Phase 5v: ``split_child`` in a subprocess while nothing else runs;
     its output printed, rank 0's prefill and decode ms, device ms and
     peak memory beside 5t's weight-gathered ones (fsdp: the whole model
-    on its world of one).
+    on its world of one), and its train step's beside 5t's auto train
+    step (the whole model at a group of one).
     Returns (launches, the child's result)."""
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -6445,6 +6628,22 @@ def split_phase(sharded) -> tuple[dict, dict]:
               f"{fmt(st['device_ms']['decode'])} / {fmt(dev5t['decode'])} "
               f"ms, GB {gb(st['peak_gb']['decode'])} / "
               f"{gb(a['peak_gb']['decode'])}", flush=True)
+    t_ms = sharded["steps"]["auto"]["ms"][-1]
+    t_prof = sharded["profiles"][0] or {}
+    for strategy, st in res["train"].items():
+        ms = statistics.median(st["ms"])
+        dev = st["device_ms"]
+        ratio = (f"{dev / t_prof['device_ms']:.3f}" if dev and
+                 t_prof.get("device_ms") else "not measured")
+        print(f"5v train {strategy} rank 0 of {SPLIT_WORLD} against 5t's "
+              f"auto train step (world of one): step {ms:.2f} / "
+              f"{t_ms:.2f} ms, device {fmt(dev)} / "
+              f"{fmt(t_prof.get('device_ms'))} ms (ratio {ratio}; busy "
+              f"{fmt(st['busy'] and 100 * st['busy'])}% / "
+              f"{fmt(t_prof.get('busy') and 100 * t_prof['busy'])}%), GB "
+              f"before + peak above {gb(st['gb'])} / "
+              f"{gb(sharded['train_gb'])} (resident ratio "
+              f"{st['gb'][0] / sharded['train_gb'][0]:.3f})", flush=True)
     took("5v", t0)
     return res["launches"], res
 

@@ -27,14 +27,15 @@ does not default to the card: like the reference's, which compiles for
      ``coll_link_bytes_per_chip`` the counted step's numbers.
 
 What differs from the reference's counts: the step runs eagerly (every
-op's bytes, no fusion).  The dense family's prefill and decode run split
-over "model" as the reference's do (``parallel/split.py``), but for the
-K / V projections of a KV head shared by several "model" ranks and the
-attention of a head count "model" does not divide, which each such rank
-computes; every other step is weight-gathered, so each rank holds every
-gathered leaf (``temp_size_in_bytes``) and its ``tp`` / ``mixed``
-classes, MoE's experts and the sequence-parallel prefill count their
-compute once per "model" rank (ROADMAP A.12 c).  Importing this module
+op's bytes, no fusion).  The dense family's train, prefill and decode
+steps run split over "model" as the reference's do
+(``parallel/split.py``), but for the K / V projections of a KV head
+shared by several "model" ranks and the attention of a head count
+"model" does not divide, which each such rank computes (forward and
+backward); every other step is weight-gathered, so each rank holds
+every gathered leaf (``temp_size_in_bytes``) and its ``tp`` / ``mixed``
+classes and MoE's experts count their compute once per "model" rank,
+as the sequence-parallel prefill's classes do (ROADMAP A.12 c).  Importing this module
 touches no process group; ``run_cell`` and ``main`` do.
 """
 from __future__ import annotations

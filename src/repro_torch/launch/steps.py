@@ -36,32 +36,41 @@ every parameter and moment leaf is a ``DTensor`` under its spec
 unsharded; the ranks along an axis that carries no batch run the same
 rows).
 
-The dense family's prefill and decode run split over "model" wherever
-the rank's rows do not lie on it (``tp``, and ``auto``'s ``mixed`` and
-``sequence_parallel`` layouts; not ``fsdp``, whose rows do): each leaf
-is gathered over the mesh axes of its spec other than "model" (the FSDP
-side: ``"embed": "data"``, the weight-gathered classes) and keeps its
-"model" block as stored; the forward runs the
-rank's columns, rows, heads and vocab rows through the ``Split`` it
-finds in the ``activation_rules`` context (``parallel/split.py``:
-column- and row-parallel projections, attention on the rank's heads
-through the kernels, the cache kept in its blocks, a vocab-parallel
-embedding and head); logits and caches come back as the rank's blocks
-under the reference's specs, with no gather.  A class the plan keeps
-off "model" (every class of the ``sequence_parallel`` prefill) runs as
-on one device.
+The dense family's train, prefill and decode steps run split over
+"model" wherever the rank's rows do not lie on it (``tp``, and
+``auto``'s ``mixed`` and ``sequence_parallel`` layouts; not ``fsdp``,
+whose rows do, nor ``auto``'s ``flat_dp``): each leaf is gathered over
+the mesh axes of its spec other than "model" (the FSDP side: ``"embed":
+"data"``, the weight-gathered classes) and keeps its "model" block as
+stored; the forward runs the rank's columns, rows, heads and vocab rows
+through the ``Split`` it finds in the ``activation_rules`` context
+(``parallel/split.py``: column- and row-parallel projections, attention
+on the rank's heads through the kernels, the cache kept in its blocks,
+a vocab-parallel embedding and head); logits and caches come back as
+the rank's blocks under the reference's specs, with no gather.  A class
+the plan keeps off "model" (every class of the ``sequence_parallel``
+prefill) runs as on one device.  A split train step runs the backward
+on the same blocks through the split's autograd collectives and the
+vocab-parallel cross-entropy (``models/losses.py``), so each gradient
+comes out as the rank's "model" block: one stored on "model" is whole
+for its block; one of a leaf kept whole along "model" that a split
+sublayer cuts locally (``Split.cut_locally``) holds only the rank's
+part and is summed over "model" with the batch average, in one
+all-reduce per dtype; every other (the norms, an unsplit embedding or
+head) is equal on every "model" rank and only averaged.  Each is then
+cut over its other axes and AdamW updates the blocks in place
+(``AdamW.update(..., shards=)``).
 
-Everything else -- training, and every other family's prefill and
-decode -- is weight-gathered: each leaf is gathered whole before the
-forward and freed after, the rank runs the single-device forward (and
-backward) on its rows (the card's kernels unchanged, on plain tensors),
-the gradients are averaged over the batch group, each rank keeps its
-block and AdamW updates the blocks (``AdamW.update(..., shards=)``).
-There the ``mixed`` and ``tp`` layouts' activation-gathered classes,
-MoE's experts and the ``sequence_parallel`` prefill run duplicated
-along "model": the results are the reference's, the compute is not
-split (ROADMAP A.12 c).  The steps run eagerly: no collective is
-captured in a CUDA graph.
+Everything else -- every other family's steps, ``fsdp`` and
+``flat_dp`` -- is weight-gathered: each leaf is gathered whole before
+the forward and freed after, the rank runs the single-device forward
+(and backward) on its rows (the card's kernels unchanged, on plain
+tensors), the gradients are averaged over the batch group, each rank
+keeps its block and AdamW updates the blocks.  There MoE's experts and
+the other families' activation-gathered classes run duplicated along
+"model": the results are the reference's, the compute is not split
+(ROADMAP A.12 c).  The steps run eagerly: no collective is captured in
+a CUDA graph.
 """
 from __future__ import annotations
 
@@ -84,6 +93,7 @@ from ..parallel.placement import (axes_of, distribute, from_local, gather,
 from ..parallel.rules import ShardingPlan
 from ..parallel.split import COUNTS as SPLIT_COUNTS
 from ..parallel.split import Split
+from ..parallel.split import active as split_active
 from ..runtime import executor
 
 __all__ = ["AUX_LOSS_WEIGHT", "loss_and_grads", "build_train_step",
@@ -103,11 +113,14 @@ def _loss_aux_grads(cfg: ArchConfig, params, batch, *, impl: str,
     kw = {extra: batch[extra]} if extra in batch else {}
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
     p = tree_unflatten(params, leaves)
+    sp = split_active()
     with torch.enable_grad():
         out = api.forward(p, batch["tokens"], cfg, impl=impl, remat=remat,
                           return_hidden=True, **kw)
         head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
-        loss = chunked_cross_entropy(out["hidden"], head, batch["labels"])
+        loss = chunked_cross_entropy(
+            out["hidden"], head, batch["labels"],
+            group=None if sp is None else sp.head_group)
         aux = out["aux"]
         if "lb_loss" in aux:
             loss = loss + AUX_LOSS_WEIGHT * aux["lb_loss"]
@@ -453,6 +466,8 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan,
     assert len(rows) == 1, b_specs
     rows = rows.pop()
     act_rules = ActivationRules(plan.act_specs, mesh, batch_axes=rows)
+    splits = (cfg.family == "dense" and "model" in sizes
+              and "model" not in rows)
     b_group = mesh_group(mesh, rows)
     n_rows, _ = group_size_rank(b_group)
     if remat is None:
@@ -486,21 +501,51 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan,
         shards = _walk(lambda p, spec: _leaf_shards(mesh, spec, p.numel()),
                        params_abs, p_specs)
 
+        split = Split(cfg, mesh, p_specs) if splits else None
+        # Per leaf (tree order): whether its gradient is summed over
+        # "model" with the batch average (a weight kept whole there but
+        # cut by a split sublayer); every other leaf's is already whole
+        # on its block, equal on every "model" rank, and only averaged.
+        summed = tree_leaves({
+            k: ({n: split.cut_locally(n) for n in v}
+                if split and k == "blocks" else _leafmap(lambda _: False, v))
+            for k, v in params_abs.items()})
+        groups = ((False, b_group),)
+        if split:
+            act_rules = ActivationRules(plan.act_specs, mesh,
+                                        batch_axes=rows, split=split)
+            groups += ((True, mesh_group(mesh, rows + ("model",))),)
+
         def grads_of(params, batch):
             """(loss, aux, grads) of the rank's rows, the gradients
-            averaged over the batch group and cut to this rank's blocks."""
-            full = gather_tree(params)
+            averaged over the batch group and cut to this rank's blocks:
+            weight-gathered (every leaf gathered, the single-device
+            forward and backward), or split over "model" (each leaf's
+            "model" block as stored, gathered over its other axes)."""
+            if split is None:
+                full = gather_tree(params)
+            else:
+                full = _leafmap(lambda t: _split_block(t, mesh, rows),
+                                params)
             with activation_rules(act_rules):
                 loss, aux, grads = _loss_aux_grads(
                     cfg, full, my_rows(batch), impl=impl, remat=remat)
             del full
 
-            if b_group is not None:
-                grads = tree_unflatten(grads, _batch_average(
-                    tree_leaves(grads), b_group, n_rows))
-            return loss, aux, _walk(
-                lambda g, spec: local_part(g, mesh, spec).contiguous(),
-                grads, p_specs)
+            leaves = tree_leaves(grads)
+            for flag, group in groups:
+                idx = [i for i, f in enumerate(summed) if f == flag]
+                if group is not None and idx:
+                    for i, g in zip(idx, _batch_average(
+                            [leaves[i] for i in idx], group, n_rows)):
+                        leaves[i] = g
+
+            def block(g, spec):
+                if split is not None:   # the dims on "model": its block
+                    spec = P(*(None if e == "model" else e for e in spec))
+                return local_part(g, mesh, spec).contiguous()
+            return loss, aux, _walk(block, tree_unflatten(grads, leaves),
+                                    p_specs)
 
         def train_step(params, opt_state, batch):
             loss, aux, grads = grads_of(params, batch)
@@ -520,7 +565,7 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan,
     c_specs = cache_pspecs(cache_abs, plan, sizes)
     specs.update(cache=c_specs, logits=logits_spec)
     split = None
-    if cfg.family == "dense" and "model" in sizes and "model" not in rows:
+    if splits:
         split = Split(cfg, mesh, p_specs, c_specs["k"])
         act_rules = ActivationRules(plan.act_specs, mesh, batch_axes=rows,
                                     split=split)

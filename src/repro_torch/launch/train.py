@@ -24,7 +24,11 @@ tokens per second.
 ``--strategy {tp,fsdp,auto}`` trains through the sharded step
 (``steps.build_step``) on a ``("data", "model")`` mesh of every rank,
 shaped as the reference shapes it: ``(n // 2, 2)`` from 4 ranks up, else
-``(n, 1)``; ``parallel.make_plan`` picks the layout.  On the card it
+``(n, 1)``; ``parallel.make_plan`` picks the layout.  A dense config
+under ``tp`` or ``auto``'s ``mixed`` layout trains split over "model"
+(each rank its blocks' columns, rows, heads and vocab, forward and
+backward); ``fsdp``, ``flat_dp`` and the other families gather each
+weight whole.  On the card it
 initialises NCCL, from torchrun's environment when ``WORLD_SIZE`` is set
 (one process per card: ``torchrun --nproc-per-node 4 -m
 repro_torch.launch.train --strategy auto ...``), else as a world of one;
@@ -104,7 +108,9 @@ def main(argv=None) -> dict:
                     help="default: the CUDA card; 'cpu' for the plain path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--strategy", default=None, choices=STRATEGIES,
-                    help="train the sharded step on a mesh of every rank; "
+                    help="train the sharded step on a mesh of every rank "
+                         "(a dense config split over 'model' under tp and "
+                         "auto's mixed layout, else weight-gathered); "
                          "default: the graphed single-device step")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO,

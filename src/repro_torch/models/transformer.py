@@ -47,6 +47,7 @@ models/whisper.py, dispatched by ``compile_program_pair``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -69,6 +70,7 @@ from ..kernels.decode_attention import (decode_attention, ring_kv_len,
                                         ring_positions)
 from ..kernels.flash_attention import flash_attention
 from ..parallel import split
+from ..parallel.act_sharding import activation_rules, current_rules
 from ..runtime.executor import graphed_runner
 from .common import ParamDef, Rotary, apply_rope, layer_norm, rms_norm
 from .moe import moe_mlp
@@ -194,8 +196,8 @@ def _mm(a, b):
 
 
 def _proj(x, p, name):
-    """``x @ p[name]`` (promoted as ``_mm``); under a sharded serving
-    step's split, the rank's columns or its reduced rows
+    """``x @ p[name]`` (promoted as ``_mm``); under a sharded step's
+    split, the rank's columns or its reduced rows
     (``parallel/split.py``)."""
     sp = split.active()
     return _mm(x, p[name]) if sp is None else sp.proj(x, p[name], name)
@@ -206,7 +208,9 @@ def _attention(h, p, cfg, cos, sin, *, impl, causal=True, window=None,
     """Self- (or, with ``kv_override`` (B, Skv, D), cross-) attention on
     (B, S, D); RoPE only where ``cos`` is given (on q alone for cross
     attention).  ``return_kv`` also returns the (B, KV, S, hd) K and V
-    the attention read."""
+    the attention read.  Under a split, ``h`` enters through
+    ``split.enter``."""
+    h = split.enter(h, "attn")
     B, S, _ = h.shape
     H, KV = split.local_heads(cfg.n_heads, cfg.n_kv_heads, "flash")
     hd = cfg.hd
@@ -225,7 +229,9 @@ def _attention(h, p, cfg, cos, sin, *, impl, causal=True, window=None,
 
 def _mlp(h, p, cfg):
     """The block's MLP: (output, aux) -- the MoE dispatch's statistics
-    for an MoE layer, {} for a dense one."""
+    for an MoE layer, {} for a dense one.  Under a split, ``h`` enters
+    through ``split.enter``."""
+    h = split.enter(h, "mlp")
     if "router" in p:
         B, S, D = h.shape
         out, aux = moe_mlp(h.reshape(B * S, D), p["router"], p["w_gate"],
@@ -269,7 +275,11 @@ def forward(params, tokens, cfg: ArchConfig, *, vision_embeds=None,
     averaged over the MoE layers ({} for a dense config).  ``remat``
     recomputes each block in the backward pass instead of keeping its
     activations, so the flash forward runs twice per layer per training
-    step.  A vlm config needs ``vision_embeds`` (B, Tv, D).
+    step.  A vlm config needs ``vision_embeds`` (B, Tv, D).  Under a
+    sharded step's split (``parallel/split.py``) the blocks' collectives
+    run in layer order on every rank, and under ``remat`` each block's
+    recompute in the backward pass re-issues its own in the same order on
+    every rank (the backward visits the blocks in one order everywhere).
 
     ``return_cache`` adds the legacy decode cache: K/V (L, B, KV,
     cache_len, hd) in the KV dtype, zero-padded past S, or for a window
@@ -280,6 +290,10 @@ def forward(params, tokens, cfg: ArchConfig, *, vision_embeds=None,
     if per and vision_embeds is None:
         raise ValueError("vlm arch requires vision_embeds")
     B, S = tokens.shape
+    rules = current_rules()
+
+    def keep_rules():
+        return contextlib.nullcontext(), activation_rules(rules)
     h = split.embed_rows(params["embed"], tokens).to(cfg.tdtype)
     cos, sin = Rotary(cfg.hd, cfg.rope_theta).freqs(
         torch.arange(S, device=tokens.device))
@@ -298,9 +312,12 @@ def forward(params, tokens, cfg: ArchConfig, *, vision_embeds=None,
         p_i = {k: v[gi] for k, v in groups[grp].items()}
         if remat:
             # No forward draws random numbers, and jax.checkpoint keeps
-            # no RNG state: not saving it keeps the step capturable.
+            # no RNG state: not saving it keeps the step capturable.  The
+            # recompute runs under this step's activation rules (autograd
+            # may run it on a thread of its own, outside this context).
             out = checkpoint(block, h, p_i, cos, sin, use_reentrant=False,
-                             preserve_rng_state=False)
+                             preserve_rng_state=False,
+                             context_fn=keep_rules)
         else:
             out = block(h, p_i, cos, sin)
         h, aux = out[:2]

@@ -14,9 +14,9 @@ GSPMD; the port has no such hook: each rank runs its own body on its
 own blocks.  The context ``activation_rules`` installs is how the
 models find the sharded step they run in: the MoE dispatch reads the
 mesh and the batch axes of the rank's rows (``models/moe.py``), and the
-dense family's serving steps read the ``Split`` of their projections,
-heads and cache (``parallel/split.py``; None elsewhere, and training
-and the other families run weight-gathered, ROADMAP A.12 c).
+dense family's sharded steps read the ``Split`` of their projections,
+heads and cache (``parallel/split.py``; None elsewhere, and the other
+families run weight-gathered, ROADMAP A.12 c).
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ class ActivationRules:
     """name -> P; unknown names pass through unsharded.  ``batch_axes``
     names the mesh axes the rank's rows are split over (the fitted batch
     spec's entry, ``()`` when every rank runs every row); None reads it
-    from the ``"hidden"`` spec.  ``split`` is the dense serving step's
+    from the ``"hidden"`` spec.  ``split`` is the dense sharded step's
     ``parallel.split.Split``, or None."""
 
     def __init__(self, specs: dict, mesh=None, batch_axes=None,

@@ -24,11 +24,11 @@ Counterpart of ``repro/parallel/rules.py``, decision for decision.
 The cost model defaults to ``hw=TPU_V5E``, so a plan here equals the
 reference's; a plan costed for NVLink waits for an H100 hardware model
 (ROADMAP A.11 b).  The port's sharded steps (``launch/steps.py``) store
-every leaf under the plan's specs.  The dense family's prefill and
-decode split the activation-gathered classes over "model"
-(``parallel/split.py``); training, the other families and the
-sequence-parallel prefill run each weight class weight-gathered,
-duplicated along "model" (ROADMAP A.12 c).
+every leaf under the plan's specs.  The dense family's train, prefill
+and decode steps split the activation-gathered classes over "model"
+(``parallel/split.py``); the other families run each weight class
+weight-gathered, duplicated along "model", and the sequence-parallel
+prefill runs its classes as on one device (ROADMAP A.12 c).
 """
 from __future__ import annotations
 

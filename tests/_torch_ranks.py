@@ -5,6 +5,8 @@ under the test's temporary directory: no TCP port, so parallel test
 workers never race for one) and ``WORK`` (the directory the test and
 the ranks exchange arrays through) in its globals, ``src`` on its path
 and one torch thread.  The ranks import torch and ``repro_torch`` only.
+Also ``split_train_counts``, the split train step's expected counters,
+which the sharded and split tests both hold the ranks to.
 """
 import os
 import subprocess
@@ -67,3 +69,23 @@ def run_ranks(script: str, work: str, world: int = 4,
             raise RuntimeError(f"rank {r} exited {p.returncode}:\n"
                                f"{out[-4000:]}")
     return outs if meanwhile is None else (outs, extra)
+
+
+def split_train_counts(L, flash, *, remat=False, vocab=True, gathered=()):
+    """A split train step's ``split.COUNTS`` with one cross-entropy chunk
+    and L layers: each layer's flash launch, its 2 forward all-reduces
+    (wo, w_down) and each gathered weight's gather; under remat the
+    recompute again, up to the last tensor the backward needs
+    (``torch.utils.checkpoint`` stops there): the flash launch, the
+    gathers and wo's all-reduce, not w_down's; 2 backward all-reduces a
+    layer (the attention and MLP inputs) and a reduce-scatter per
+    gathered weight; with the vocab split, 1 forward all-reduce for the
+    embedding, 3 for the chunk's cross-entropy (max, sum, gold logit)
+    and 3 for its recompute, and 1 backward one for the head's input."""
+    r = 2 if remat else 1
+    out = {flash: r * L, "model_all_reduce:fwd": (1 + r) * L + 7 * vocab,
+           "model_all_reduce:bwd": 2 * L + vocab}
+    for n in gathered:
+        out.update({f"model_gather:{n}": r * L,
+                    f"model_reduce_scatter:{n}": L})
+    return out

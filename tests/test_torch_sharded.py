@@ -17,14 +17,16 @@ step of the grid or the next).
 Prefill and decode logits and caches must equal ``repro``'s legacy
 forward and decode step on the same rows.  Every parameter and moment
 leaf must be a DTensor under its spec's placements.  The dense family's
-prefill and decode under tp and auto run split over "model"
+train, prefill and decode steps under tp and auto run split over "model"
 (``parallel/split.py``): every rank writes the split's counters of each
 such case (``split.COUNTS``: the head case and head counts of its flash
 and decode launches, the weights gathered over "model", the cache
-exchanges), and they must be the case's expected ones, with no whole
-cache leaf gathered but where the cache spec spreads the KV heads over
-("data", "model") (one sequence on (2, 2): every rank runs it); every
-other family and fsdp run weight-gathered, with no split counted.
+exchanges; in training the forward and backward all-reduces and the
+gathers' reduce-scatters), and they must be the case's expected ones,
+with no whole cache leaf gathered but where the cache spec spreads the
+KV heads over ("data", "model") (one sequence on (2, 2): every rank runs
+it); every other family and fsdp run weight-gathered, with no split
+counted.
 
 Cases: smollm-360m smoke under tp, fsdp and auto on both meshes, with
 8-bit moments under tp (the row scale over a sharded last axis);
@@ -38,7 +40,13 @@ olmo-1b smoke (4 / 4: whole heads and cache blocks) under tp and auto,
 of smollm-360m smoke with 6 / 2 heads under tp (a block would cut a
 head: the attention weights gathered over "model", a whole cache layer
 gathered in decode), and of olmo-1b smoke with one sequence on (2, 2)
-under tp.  One world of ranks runs them all."""
+under tp; on (1, 4), a train step of each of those three head cases
+under tp, and on (2, 2) one of smollm-360m smoke under auto at batch 2
+(wk / wv kept whole along "model" and cut locally); and on (1, 4) the
+6 / 2 heads under tp with wo kept whole along "model" (``KEEP_WHOLE``),
+a train step and a prefill with 2 decode steps (wo cut locally in the
+cut case, its gradient summed over "model").  One world of ranks
+runs them all."""
 import dataclasses
 import json
 import os
@@ -60,7 +68,7 @@ from repro.models.losses import chunked_cross_entropy as jchunked  # noqa
 from repro.optim import AdamW as JAdamW  # noqa: E402
 from repro.optim.adamw import Q8State as JQ8  # noqa: E402
 
-from _torch_ranks import run_ranks  # noqa: E402
+from _torch_ranks import run_ranks, split_train_counts  # noqa: E402
 
 TOL = 1e-5
 WORLD = 4
@@ -77,6 +85,14 @@ CLI_ARGS = ["--arch", "smollm-360m", "--smoke", "--batch", "8", "--seq",
 # replaced, in both packages alike.
 VARIANTS = {"smollm-360m-6h": ("smollm-360m", {"n_heads": 6,
                                                "n_kv_heads": 2})}
+
+
+# The weight classes a case's plan keeps whole along "model" (under
+# auto's rules for a weight-gathered class), in place of its strategy's.
+WHOLE_RULES = {k: "data" for k in ("vocab", "embed", "heads", "kv_heads",
+                                   "ff", "experts")} | {"layers": None}
+KEEP_WHOLE = {"smollm6h-wo-train-tp-1x4": ("wo",),
+              "smollm6h-wo-serve-tp-1x4": ("wo",)}
 
 
 def _jcfg(arch):
@@ -137,6 +153,29 @@ CASES.append(("smollm6h-serve-tp-1x4", "serve", "smollm-360m-6h", "1x4",
 # leaf before the step (the one named exception).
 CASES.append(("olmo-serve-tp-2x2-b1", "serve", "olmo-1b", "2x2", "tp", 32,
               1, SEQ))
+# Train steps split over "model" on (1, 4): smollm's shared KV heads (the
+# gathers' backward a reduce-scatter over the 2 ranks of a head) and its
+# vocab-parallel head, olmo's whole heads, the 6 / 2 heads' cut case (wq
+# / wk / wv gathered, reduce-scattered back); and auto at global batch 2
+# on (2, 2): flat_dp is infeasible and the mixed plan keeps wk / wv
+# weight-gathered while wq / wo / the MLP lie on "model", so attention
+# cuts wk / wv locally and their gradients must be summed over "model".
+CASES += [
+    ("smollm-train-tp-1x4", "train", "smollm-360m", "1x4", "tp", 32, 8, SEQ),
+    # the cut case with wo kept whole along "model" (KEEP_WHOLE): wo is
+    # cut locally to the rank's rows against its slice of the duplicated
+    # attention output and all-reduced, so its gradient is summed over
+    # "model"; served, the same partial sums
+    ("smollm6h-wo-train-tp-1x4", "train", "smollm-360m-6h", "1x4", "tp",
+     32, 8, SEQ),
+    ("smollm6h-wo-serve-tp-1x4", "serve", "smollm-360m-6h", "1x4", "tp",
+     32, 8, SEQ),
+    ("olmo-train-tp-1x4", "train", "olmo-1b", "1x4", "tp", 32, 8, SEQ),
+    ("smollm6h-train-tp-1x4", "train", "smollm-360m-6h", "1x4", "tp", 32, 8,
+     SEQ),
+    ("smollm-train-auto-2x2-b2", "train", "smollm-360m", "2x2", "auto", 32,
+     2, SEQ),
+]
 
 # The split's counters a (1, 4) serving case must give on every rank:
 # a prefill's (4 layers), then 2 decode steps' (smoke configs: 4 layers).
@@ -144,6 +183,15 @@ _SHARED = {"model_gather:wk": 4, "model_gather:wv": 4, "kv_exchange": 8}
 _CUT = {"model_gather:wq": 4, "model_gather:wk": 4, "model_gather:wv": 4}
 _SHARED_DECODE = {"decode:shared_kv:1/1": 8, **{k: 2 * v for k, v in
                                                _SHARED.items()}}
+
+
+def _train(flash: str, gathered=()) -> dict:
+    """A split train step's counters at the smoke configs' 4 layers (no
+    remat, one cross-entropy chunk, the embedding and head split over
+    the vocab)."""
+    return split_train_counts(4, flash, gathered=gathered)
+
+
 SPLIT_EXPECT = {
     "smollm-serve-tp-1x4": ({"flash:shared_kv:1/1": 4, **_SHARED},
                             _SHARED_DECODE),
@@ -162,6 +210,20 @@ SPLIT_EXPECT = {
     "olmo-serve-tp-2x2-b1": ({"flash:whole:2/2": 4},
                              {"decode:whole:2/2": 8, "cache_leaf_gather": 4}),
 }
+SPLIT_EXPECT["smollm6h-wo-serve-tp-1x4"] = SPLIT_EXPECT[
+    "smollm6h-serve-tp-1x4"]
+# Each split train case: the counters of ``grads`` and of the step.
+for _cid, _want in {
+        "smollm-train-tp-1x4": _train("flash:shared_kv:1/1", ("wk", "wv")),
+        "olmo-train-tp-1x4": _train("flash:whole:1/1"),
+        "smollm6h-train-tp-1x4": _train("flash:cut:6/2", ("wq", "wk", "wv")),
+        "smollm6h-wo-train-tp-1x4": _train("flash:cut:6/2",
+                                           ("wq", "wk", "wv")),
+        "smollm-train-auto-2x2-b2": _train("flash:whole:2/1"),
+        **{f"smollm-{s}-{m}": _train("flash:whole:2/1")
+           for s in ("tp", "auto", "tp-8bit") for m in ("2x2", "2x1x2")},
+        }.items():
+    SPLIT_EXPECT[_cid] = (_want, _want)
 
 RANK_SCRIPT = r"""
 import dataclasses
@@ -209,6 +271,14 @@ def flat(tree, prefix):
     return {prefix: tree}
 
 
+def plan_of(cid, cfg, shape, shape_m, axes, strategy):
+    plan = make_plan(cfg, shape, MeshDescriptor(tuple(shape_m), tuple(axes)),
+                     strategy)
+    for w in KEEP_WHOLE.get(cid, ()):
+        plan.overrides[w] = WHOLE_RULES
+    return plan
+
+
 def check_placed(tree, specs, mesh):
     got, want = flat(tree, ""), flat(specs, "")
     for k, t in got.items():
@@ -226,8 +296,7 @@ for case in cases:
     name, fields = VARIANTS.get(arch, (arch, {}))
     cfg = dataclasses.replace(get_config(name).smoke(), **fields)
     shape = ShapeSpec(cid, S, GB, "prefill" if kind == "serve" else kind)
-    plan = make_plan(cfg, shape, MeshDescriptor(tuple(shape_m),
-                                                tuple(axes)), strategy)
+    plan = plan_of(cid, cfg, shape, shape_m, axes, strategy)
     arrs = dict(np.load(os.path.join(WORK, f"{cid}.in.npz")))
     opt = AdamW(state_bits=bits)
     b = steps.build_step(cfg, shape, plan, mesh, optimizer=opt,
@@ -245,10 +314,13 @@ for case in cases:
                                       mesh)
         check_placed(state, b.specs["opt_state"], mesh)
         loss, aux, grads = b.fn.grads(params, batch)
+        counts.append(dict(COUNTS))
         grads = steps._walk(lambda g, s: gather(from_local(g, mesh, s)),
                             grads, b.specs["params"])
         out.update(flat(grads, "g"))
+        COUNTS.clear()
         _, _, m = b.fn(params, state, batch)
+        counts.append(dict(COUNTS))
         check_placed(params, b.specs["params"], mesh)
         out.update({"m/" + k: v for k, v in m.items()})
         out.update(flat(steps.gather_tree(params), "p"))
@@ -280,9 +352,9 @@ for case in cases:
             # 2 decode steps on the prefill's cache (its specs are the
             # decode plan's: the same batch and "model" fits).
             dshape = ShapeSpec(cid, S, GB, "decode")
-            db = steps.build_step(cfg, dshape, make_plan(
-                cfg, dshape, MeshDescriptor(tuple(shape_m), tuple(axes)),
-                strategy), mesh, impl="reference")
+            db = steps.build_step(cfg, dshape, plan_of(
+                cid, cfg, dshape, shape_m, axes, strategy), mesh,
+                impl="reference")
             dparams = steps.distribute_tree(full, db.specs["params"], mesh)
             check_placed(cache, db.specs["cache"], mesh)
             COUNTS.clear()
@@ -304,9 +376,8 @@ for case in cases:
             out[f"logits{t}"] = gather(logits)
         counts.append(dict(COUNTS))
         out.update(flat(steps.gather_tree(cache), "c"))
-    if kind != "train":
-        with open(os.path.join(WORK, f"{cid}.counts{RANK}.json"), "w") as f:
-            json.dump(counts, f)
+    with open(os.path.join(WORK, f"{cid}.counts{RANK}.json"), "w") as f:
+        json.dump(counts, f)
     if RANK == 0:
         np.savez(os.path.join(WORK, f"{cid}.out.npz"),
                  **{k: v.detach().float().numpy() if v.dtype == torch.bfloat16
@@ -425,7 +496,8 @@ def world(tmp_path_factory):
     with open(os.path.join(work, "cases.json"), "w") as f:
         json.dump(CASES, f)
     script = (f"MESHES = {MESHES!r}\nDECODE_STEPS = {DECODE_STEPS}\n"
-              f"VARIANTS = {VARIANTS!r}\n"
+              f"VARIANTS = {VARIANTS!r}\nKEEP_WHOLE = {KEEP_WHOLE!r}\n"
+              f"WHOLE_RULES = {WHOLE_RULES!r}\n"
               f"CLI_ARGS = {CLI_ARGS!r}\n" + RANK_SCRIPT)
     _, oracles = run_ranks(script, work, WORLD, timeout=400,
                            meanwhile=lambda: _all_oracles(inputs))
@@ -671,14 +743,15 @@ def test_sharded_prefill_then_decode_matches_legacy(world, case):
         _close(outs[case[0]][k], w, (case[0], k))
 
 
-@pytest.mark.parametrize("case", [pytest.param(c, id=c[0]) for c in CASES
-                                  if c[1] != "train"])
+@pytest.mark.parametrize("case", [pytest.param(c, id=c[0]) for c in CASES])
 def test_split_counters_on_every_rank(world, case):
     """Each rank's split counters: a dense case under tp or auto ran
     split (its head case and head counts a layer, exactly as
-    ``SPLIT_EXPECT`` says where it names the case) and gathered no whole
-    cache leaf but where ``SPLIT_EXPECT`` says so; fsdp and the other
-    families ran weight-gathered, with nothing counted."""
+    ``SPLIT_EXPECT`` says where it names the case: every split train
+    case, with its forward and backward all-reduces, gathers and
+    reduce-scatters) and gathered no whole cache leaf but where
+    ``SPLIT_EXPECT`` says so; fsdp and the other families ran
+    weight-gathered, with nothing counted."""
     cid, kind, arch, mname, strategy = case[:5]
     work = world[3]
     jcfg = _jcfg(arch)
@@ -693,7 +766,7 @@ def test_split_counters_on_every_rank(world, case):
             assert counts == list(SPLIT_EXPECT[cid]), (cid, rank, counts)
         # a prefill's flash launches, then the decode steps'
         want = {"prefill": [L], "decode": [L * DECODE_STEPS],
-                "serve": [L, L * DECODE_STEPS]}[kind]
+                "serve": [L, L * DECODE_STEPS], "train": [L, L]}[kind]
         for c, n in zip(counts, want, strict=True):
             assert "cache_leaf_gather" not in c or cid in SPLIT_EXPECT, \
                 (cid, rank, c)
